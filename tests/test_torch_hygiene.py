@@ -1,0 +1,113 @@
+"""The port stands alone: znicz_tpu_torch and chip_smoke.py import neither
+JAX nor the JAX package, and never fall back to the CPU unasked."""
+
+import ast
+import json
+import os
+import pkgutil
+import subprocess
+import sys
+
+import pytest
+import torch
+
+import znicz_tpu_torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG_DIR = os.path.join(REPO, "znicz_tpu_torch")
+
+
+def _forbidden(name: str) -> bool:
+    # exact matches: "znicz_tpu_torch" itself starts with "znicz_tpu"
+    return name in ("jax", "znicz_tpu") or name.startswith(("jax.", "znicz_tpu."))
+
+
+def _modules():
+    return sorted(
+        m.name
+        for m in pkgutil.walk_packages(znicz_tpu_torch.__path__, "znicz_tpu_torch.")
+    )
+
+
+def test_package_has_the_slice_modules():
+    mods = set(_modules())
+    for name in (
+        "core.prng", "core.config", "core.device", "ops.filling", "ops.activation",
+        "ops.all2all", "ops.conv", "ops.pooling", "ops.dropout", "ops.normalization",
+        "ops.kernels.lrn", "nn.optimizer", "nn.evaluator", "nn.decision",
+        "nn.lr_adjust", "nn.train_state", "loader.base", "loader.fullbatch",
+        "loader.datasets", "workflow.model", "workflow.workflow",
+        "workflow.standard", "models.alexnet",
+    ):
+        assert f"znicz_tpu_torch.{name}" in mods
+
+
+def test_importing_every_module_loads_no_jax():
+    code = (
+        "import importlib, json, sys, runpy\n"
+        f"for m in {_modules()!r}:\n"
+        "    importlib.import_module(m)\n"
+        "runpy.run_path('chip_smoke.py', run_name='chip_smoke_import')\n"
+        "print(json.dumps(sorted(sys.modules)))\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = REPO
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=300, check=True,
+    )
+    loaded = json.loads(out.stdout.strip().splitlines()[-1])
+    assert "znicz_tpu_torch.ops.kernels.lrn" in loaded
+    assert [m for m in loaded if _forbidden(m)] == []
+    assert "triton" not in loaded  # imported only at a kernel's first launch
+
+
+def _imports(path):
+    tree = ast.parse(open(path).read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+def test_ast_scan_finds_no_jax_import():
+    files = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _, names in os.walk(PKG_DIR):
+        files += [os.path.join(root, n) for n in names if n.endswith(".py")]
+    assert len(files) > 20
+    bad = [(f, m) for f in files for m in _imports(f) if _forbidden(m)]
+    assert bad == []
+
+
+def test_no_card_means_an_error_not_the_cpu():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device is valid here")
+    from znicz_tpu_torch.core import device
+    from znicz_tpu_torch.models import alexnet
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        alexnet.build_workflow()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        device.resolve("cuda")
+    assert device.resolve("cpu") == torch.device("cpu")
+    with pytest.raises(ValueError, match="unsupported device"):
+        device.resolve("meta")
+
+
+def test_param_builders_default_to_the_card():
+    """The public builders put params on the card unless told otherwise."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device is valid here")
+    from znicz_tpu_torch.ops import all2all, conv
+    from znicz_tpu_torch.workflow import model
+
+    layers = [{"type": "softmax", "->": {"output_sample_shape": 3}}]
+    for build in (
+        lambda **kw: model.build(layers, (4,), **kw),
+        lambda **kw: conv.init_params(2, 3, 3, 3, **kw),
+        lambda **kw: all2all.init_params(4, 3, **kw),
+    ):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            build()
+        assert build(device="cpu") is not None

@@ -1,0 +1,115 @@
+"""Loader protocol: split bookkeeping, shuffling, fixed-shape minibatches
+(port of ``znicz_tpu/loader/base.py``).
+
+Three splits (train/valid/test); train is reshuffled every epoch from the
+named "loader" stream, which is bit-identical to the JAX package's, so both
+frameworks see the same sample order.  Every minibatch has the same shape:
+the last one is padded by repeating its first index and a float mask marks
+the valid rows.
+
+Not ported yet: the fetch retry/skip ladder and its counters, class-balanced
+shuffling, multi-host sample shards, the device-resident pool and snapshot
+state.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Iterator, NamedTuple, Optional
+
+import numpy as np
+
+from znicz_tpu_torch.core import prng
+
+TRAIN, VALID, TEST = "train", "valid", "test"
+SPLITS = (TRAIN, VALID, TEST)
+
+
+class Minibatch(NamedTuple):
+    data: np.ndarray  # [max_minibatch_size, ...]  padded
+    labels: Optional[np.ndarray]  # [max_minibatch_size] int32, or None
+    targets: Optional[np.ndarray]  # regression/AE targets, or None
+    mask: Optional[np.ndarray]  # [max_minibatch_size] float32, 1.0 = valid row
+    indices: np.ndarray  # dataset indices backing each row (padding repeats)
+
+
+class Loader:
+    """Abstract loader. Subclasses implement ``fill(indices, split)``."""
+
+    def __init__(
+        self,
+        *,
+        minibatch_size: int = 100,
+        shuffle: bool = True,
+        rand_name: str = "loader",
+    ):
+        self.max_minibatch_size = int(minibatch_size)
+        self.shuffle = shuffle
+        self.rand_name = rand_name
+        self._order: Dict[str, np.ndarray] = {}
+
+    # -- subclass interface ------------------------------------------------
+    @property
+    def class_lengths(self) -> Dict[str, int]:
+        raise NotImplementedError
+
+    @property
+    def sample_shape(self) -> tuple:
+        """Per-sample data shape (no batch dim): drives shape inference."""
+        raise NotImplementedError
+
+    def fill(self, indices: np.ndarray, split: str) -> Minibatch:
+        """Materialize the samples at ``indices`` of ``split``."""
+        raise NotImplementedError
+
+    def device_preproc(self):
+        """Optional callable ``pre(x)`` the workflow applies to each batch
+        on the device (e.g. u8 -> f32 affine); None = batches arrive ready."""
+        return None
+
+    # -- serving -----------------------------------------------------------
+    def n_minibatches(self, split: str) -> int:
+        n = self.class_lengths.get(split, 0)
+        return -(-n // self.max_minibatch_size) if n else 0
+
+    def _split_order(self, split: str) -> np.ndarray:
+        n = self.class_lengths[split]
+        order = self._order.get(split)
+        if order is None or len(order) != n:
+            order = np.arange(n)
+            self._order[split] = order
+        return order
+
+    def reshuffle(self, split: str = TRAIN) -> None:
+        n = self.class_lengths.get(split, 0)
+        if n:
+            self._order[split] = prng.get(self.rand_name).permutation(n)
+
+    def batches(
+        self, split: str, *, shuffle: Optional[bool] = None
+    ) -> Iterator[Minibatch]:
+        """Yield padded fixed-shape minibatches covering the split once.
+        ``shuffle=False`` serves the current order without drawing from the
+        shuffle stream."""
+        n = self.class_lengths.get(split, 0)
+        if not n:
+            return
+        if shuffle is None:
+            shuffle = split == TRAIN and self.shuffle
+        if shuffle:
+            self.reshuffle(split)
+        order = self._split_order(split)
+        bs = self.max_minibatch_size
+        for start in range(0, n, bs):
+            idx = order[start : start + bs]
+            n_valid = len(idx)
+            if n_valid < bs:  # pad by repeating the first index; mask it out
+                idx = np.concatenate([idx, np.full(bs - n_valid, idx[0])])
+            mask = np.zeros(bs, np.float32)
+            mask[:n_valid] = 1.0
+            yield self.fill(idx, split)._replace(mask=mask, indices=idx)
+
+    def epoch(self) -> Iterator[tuple]:
+        """One full epoch: train batches then valid then test, tagged."""
+        for split in SPLITS:
+            for mb in self.batches(split):
+                yield split, mb

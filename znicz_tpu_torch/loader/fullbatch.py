@@ -1,0 +1,103 @@
+"""In-memory full-batch loader (port of ``znicz_tpu/loader/fullbatch.py``).
+
+The whole dataset lives in host arrays; minibatches are gathered by index.
+Normalization: ``"none"`` and ``"range"`` (``x / scale + shift``, from
+``znicz_tpu/loader/normalizers.py``).  With ``device_convert``, uint8 data
+under "range" stays uint8 and crosses to the device as uint8 (a quarter of
+the bytes), where ``x * (1/scale) + shift`` runs, as in the JAX package;
+otherwise each split is normalized once on the host.  The fitted normalizers (linear, mean_disp,
+external_mean) and the device-resident pool come in a later slice.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from znicz_tpu_torch.loader.base import SPLITS, Loader, Minibatch
+
+NORMALIZATIONS = ("none", "range")
+
+
+class FullBatchLoader(Loader):
+    """Serve minibatches from per-split in-memory arrays.
+
+    ``data[split]``: [n, ...] array; ``labels[split]``: [n] ints or None;
+    ``targets[split]``: regression/AE targets or None.
+    """
+
+    def __init__(
+        self,
+        data: Dict[str, np.ndarray],
+        labels: Optional[Dict[str, np.ndarray]] = None,
+        targets: Optional[Dict[str, np.ndarray]] = None,
+        *,
+        normalization: str = "none",
+        normalization_kwargs: Optional[dict] = None,
+        device_convert: bool = False,
+        **kwargs,
+    ):
+        super().__init__(**kwargs)
+        # zero-length splits are simply absent
+        self.data = {
+            k: np.asarray(v) for k, v in data.items() if v is not None and len(v)
+        }
+        if not self.data:
+            raise ValueError("FullBatchLoader needs at least one non-empty split")
+        self.labels = {
+            k: np.asarray(v, np.int32) for k, v in (labels or {}).items() if v is not None
+        }
+        self.targets = {
+            k: np.asarray(v) for k, v in (targets or {}).items() if v is not None
+        }
+        for split in self.data:
+            if split not in SPLITS:
+                raise ValueError(f"unknown split {split!r}")
+        if normalization not in NORMALIZATIONS:
+            raise NotImplementedError(
+                f"normalization={normalization!r} comes in a later slice of "
+                f"the port; this one has {NORMALIZATIONS}"
+            )
+        kw = normalization_kwargs or {}
+        self.normalization = normalization
+        self.scale = float(kw.get("scale", 255.0))
+        self.shift = float(kw.get("shift", 0.0))
+        # uint8 data under "range" may stay uint8 up to the device
+        self._device_convert = (
+            device_convert
+            and normalization == "range"
+            and all(raw.dtype == np.uint8 for raw in self.data.values())
+        )
+        if normalization == "range" and not self._device_convert:
+            self.data = {
+                k: raw.astype(np.float32) / self.scale + self.shift
+                for k, raw in self.data.items()
+            }
+
+    def device_preproc(self):
+        if not self._device_convert:
+            return None
+        scale, shift = self.scale, self.shift
+
+        def pre(x: torch.Tensor) -> torch.Tensor:
+            return x.float() * (1.0 / scale) + shift
+
+        return pre
+
+    @property
+    def class_lengths(self) -> Dict[str, int]:
+        return {k: len(v) for k, v in self.data.items()}
+
+    @property
+    def sample_shape(self) -> tuple:
+        return next(iter(self.data.values())).shape[1:]
+
+    def fill(self, indices: np.ndarray, split: str) -> Minibatch:
+        data = self.data[split][indices]
+        labels = self.labels[split][indices] if split in self.labels else None
+        targets = self.targets[split][indices] if split in self.targets else None
+        return Minibatch(
+            data=data, labels=labels, targets=targets, mask=None, indices=indices
+        )
