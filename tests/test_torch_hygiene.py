@@ -37,7 +37,9 @@ def test_package_has_the_slice_modules():
         "ops.kernels.lrn", "nn.optimizer", "nn.evaluator", "nn.decision",
         "nn.lr_adjust", "nn.train_state", "loader.base", "loader.fullbatch",
         "loader.datasets", "workflow.model", "workflow.workflow",
-        "workflow.standard", "models.alexnet",
+        "workflow.standard", "models.alexnet", "ops.attention",
+        "ops.kernels.attention", "ops.kernels.cuda_build",
+        "workflow.transformer", "models.transformer_lm",
     ):
         assert f"znicz_tpu_torch.{name}" in mods
 
@@ -84,10 +86,12 @@ def test_no_card_means_an_error_not_the_cpu():
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the default device is valid here")
     from znicz_tpu_torch.core import device
-    from znicz_tpu_torch.models import alexnet
+    from znicz_tpu_torch.models import alexnet, transformer_lm
 
     with pytest.raises(RuntimeError, match="no CUDA device"):
         alexnet.build_workflow()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        transformer_lm.build_workflow()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         device.resolve("cuda")
     assert device.resolve("cpu") == torch.device("cpu")
@@ -99,14 +103,16 @@ def test_param_builders_default_to_the_card():
     """The public builders put params on the card unless told otherwise."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the default device is valid here")
-    from znicz_tpu_torch.ops import all2all, conv
-    from znicz_tpu_torch.workflow import model
+    from znicz_tpu_torch.ops import all2all, attention, conv
+    from znicz_tpu_torch.workflow import model, transformer
 
     layers = [{"type": "softmax", "->": {"output_sample_shape": 3}}]
     for build in (
         lambda **kw: model.build(layers, (4,), **kw),
         lambda **kw: conv.init_params(2, 3, 3, 3, **kw),
         lambda **kw: all2all.init_params(4, 3, **kw),
+        lambda **kw: attention.init_mha_params(8, 2, **kw),
+        lambda **kw: transformer.init_lm_params(8, 8, 1, 2, 4, **kw),
     ):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             build()

@@ -1,15 +1,17 @@
 #!/usr/bin/env python3
-"""Where a train step of the PyTorch port's AlexNet spends its device time.
+"""Where a train step of one of the PyTorch port's models spends its device time.
 
-    python3 tools/profile_torch_alexnet.py [--steps 5]
+    python3 tools/profile_torch_step.py [--model alexnet|lm] [--steps 5]
+                                        [--attention-dtype f32|bf16]
 
-Runs on one CUDA card (run from the repository root): builds
-``znicz_tpu_torch.models.alexnet`` at its published geometry (batch 128,
-bf16), warms up, then profiles ``--steps`` train steps with
-``torch.profiler``.  Prints the card's ``nvidia-smi`` name and power limit,
-the step's wall time under the profiler, the device-busy time (the sum of
-the kernels' device time, one stream), kernel time by family, and the top
-kernels.
+Runs on one CUDA card (run from the repository root): builds the model at
+the size ``chip_smoke.py`` trains it (``alexnet``: the published geometry,
+batch 128, bf16; ``lm``: the mid LM, vocab 8192, d_model 512, 12 layers, 8
+heads, T 2048, batch 16, flash attention with ``--attention-dtype``), warms
+up, then profiles ``--steps`` train steps with ``torch.profiler``.  Prints
+the card's ``nvidia-smi`` name and power limit, the step's wall time under
+the profiler, the device-busy time (the sum of the kernels' device time, one
+stream), kernel time by family, and the top kernels.
 """
 
 from __future__ import annotations
@@ -22,10 +24,14 @@ from collections import defaultdict
 
 FAMILIES = (  # first match wins; matched against the lower-cased kernel name
     ("lrn (hand-written)", ("lrn_fwd_kernel", "lrn_bwd_kernel")),
+    # csrc/flash_attention.cu's kernels, mangled or demangled
+    ("flash (hand-written)", ("flash_attention_cu", "namespace)::fwd_kernel",
+                              "namespace)::dq_kernel", "namespace)::dkv_kernel")),
     ("pooling", ("pool",)),
     ("conv (cuDNN)", ("cudnn", "conv", "implicit", "wgrad", "dgrad", "fprop", "nhwc")),
     ("matmul (cuBLAS)", ("gemm", "gemv", "cutlass", "nvjet")),
-    ("reduce / softmax", ("reduce", "softmax", "norm_kernel")),
+    ("reduce / softmax", ("reduce", "softmax", "norm_kernel", "logsumexp")),
+    ("gather / index", ("index", "gather", "scatter", "embedding")),
     ("elementwise", ("elementwise", "vectorized", "unrolled", "where", "copy", "fill")),
 )
 
@@ -38,9 +44,39 @@ def family(name: str) -> str:
     return "other"
 
 
+def _alexnet(torch):
+    from znicz_tpu_torch.models import alexnet
+
+    wf = alexnet.build_workflow(device="cuda")
+    wf.initialize()
+    torch.backends.cudnn.benchmark = True
+    mb = next(iter(wf.loader.batches("train", shuffle=False)))
+    y = torch.as_tensor(mb.labels, device="cuda")
+    return wf, mb, y
+
+
+def _lm(torch, attention_dtype):
+    from znicz_tpu_torch.core.config import root
+    from znicz_tpu_torch.models import transformer_lm
+
+    root.transformer_lm.update({
+        "vocab": 8192, "d_model": 512, "n_layers": 12, "n_heads": 8,
+        "loader": {"seq_len": 2048, "n_train": 16, "n_test": 0, "minibatch_size": 16},
+    })
+    wf = transformer_lm.build_workflow(
+        device="cuda", attention="flash", attention_dtype=attention_dtype
+    )
+    wf.initialize()
+    mb = next(iter(wf.loader.batches("train", shuffle=False)))
+    y = torch.zeros((len(mb.mask),), dtype=torch.int32, device="cuda")
+    return wf, mb, y
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--model", choices=("alexnet", "lm"), default="alexnet")
     ap.add_argument("--steps", type=int, default=5)
+    ap.add_argument("--attention-dtype", choices=("f32", "bf16"), default="f32")
     args = ap.parse_args()
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -50,19 +86,14 @@ def main() -> int:
         return 1
     sys.path.insert(0, ".")
     from znicz_tpu_torch.core import prng
-    from znicz_tpu_torch.models import alexnet
 
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0])
     prng.seed_all(1234)
-    wf = alexnet.build_workflow(device="cuda")
-    wf.initialize()
-    torch.backends.cudnn.benchmark = True
-    mb = next(iter(wf.loader.batches("train", shuffle=False)))
+    wf, mb, y = _alexnet(torch) if args.model == "alexnet" else _lm(torch, args.attention_dtype)
     x = torch.as_tensor(mb.data, device="cuda")
-    y = torch.as_tensor(mb.labels, device="cuda")
     mask = torch.as_tensor(mb.mask, device="cuda")
     for _ in range(5):
         wf.train_step(x, y, mask)
@@ -82,7 +113,8 @@ def main() -> int:
         print("torch.profiler recorded no device time on this machine", file=sys.stderr)
         return 1
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / n
-    print(f"steps {n}, batch {x.shape[0]}: wall {wall_ms:.3f} ms/step under the profiler; "
+    print(f"model {args.model}, steps {n}, batch {x.shape[0]}: "
+          f"wall {wall_ms:.3f} ms/step under the profiler; "
           f"device busy {busy_ms:.3f} ms/step ({100 * busy_ms / wall_ms:.1f}% of wall); "
           f"{sum(e.count for e in kernels) // n} kernel launches/step")
     fams = defaultdict(float)

@@ -9,6 +9,7 @@ the two can be held against each other on the same numpy inputs.
 It imports ``torch`` and numpy, never ``jax`` nor anything of
 ``znicz_tpu``.  Entry points run on the card unless the caller passes
 ``device="cpu"``; without a card they raise instead of falling back.  The
-TPU kernels on the ported path are hand-written for Hopper under
-``ops/kernels/`` (Triton), each beside its plain PyTorch version.
+TPU kernels on the ported paths are hand-written for Hopper: wrappers under
+``ops/kernels/`` (Triton, or CUDA C++ from ``csrc/`` built with nvcc at
+first use), each beside its plain PyTorch version.
 """

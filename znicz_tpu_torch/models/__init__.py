@@ -27,3 +27,26 @@ def merge_workflow_kwargs(base: dict, overrides: dict) -> dict:
         else:
             out[key] = value
     return out
+
+
+def translate_unsupervised_overrides(kwargs: dict, epochs_key: str) -> dict:
+    """Map launcher-style ``decision_config`` overrides onto workflows that
+    take a direct epochs kwarg and a Decision instance.  ``snapshot_dir``
+    raises: the snapshotter is not ported yet (ROADMAP.md A4)."""
+    kwargs = dict(kwargs)
+    if kwargs.pop("snapshot_dir", None):
+        raise NotImplementedError(
+            "snapshot_dir: the snapshotter is not ported to znicz_tpu_torch "
+            "yet (ROADMAP.md A4, workflow/snapshotter.py)"
+        )
+    dc = kwargs.pop("decision_config", None)
+    if dc:
+        if "max_epochs" in dc:
+            kwargs[epochs_key] = dc["max_epochs"]
+        from znicz_tpu_torch.nn.decision import Decision
+
+        # an epoch cap must always exist: the workflow's own budget unless
+        # the caller set one
+        dc_full = {"max_epochs": kwargs.get(epochs_key), **dc}
+        kwargs.setdefault("decision", Decision(metric="loss", **dc_full))
+    return kwargs

@@ -1,5 +1,5 @@
-"""Local response normalization across channels (port of
-``znicz_tpu/ops/normalization.py``)::
+"""Local response normalization across channels, and layer normalization
+(port of ``znicz_tpu/ops/normalization.py``).  LRN::
 
     y_c = x_c / (k + alpha * sum_{c' in window(c)} x_{c'}^2) ** beta
 
@@ -41,3 +41,18 @@ def lrn(
     if impl not in IMPLS:
         raise ValueError(f"unknown lrn impl {impl!r}; known: {IMPLS}")
     return lrn_kernel.lrn(x.contiguous(), alpha, beta, k, n)
+
+
+def layer_norm(
+    x: torch.Tensor,
+    scale: torch.Tensor,
+    bias: torch.Tensor,
+    *,
+    eps: float = 1e-5,
+) -> torch.Tensor:
+    """Layer normalization over the trailing feature axis, with the
+    population variance (``jnp.var``, ddof 0), then ``y * scale + bias``."""
+    mean = x.mean(dim=-1, keepdim=True)
+    var = x.var(dim=-1, keepdim=True, unbiased=False)
+    y = (x - mean) * torch.rsqrt(var + eps)
+    return y * scale + bias

@@ -257,8 +257,10 @@ def params_from_jax(params_np, device) -> List[Dict[str, torch.Tensor]]:
 
 
 def params_to_numpy(params) -> List[Dict[str, np.ndarray]]:
-    """The port's params -> a list of per-layer dicts of numpy arrays."""
+    """The port's params -> a list of per-layer dicts of numpy arrays: a
+    snapshot, never a view of a CPU tensor that the in-place update will
+    change later."""
     return [
-        {k: w.detach().cpu().numpy() for k, w in layer.items()}
+        {k: w.detach().to("cpu", copy=True).numpy() for k, w in layer.items()}
         for layer in params
     ]

@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import logging
 import time
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Callable, Dict, Optional, Sequence
 
 import numpy as np
 import torch
@@ -55,6 +55,9 @@ class Workflow:
     ``loss_function``: "softmax" (cross-entropy on integer labels) or "mse"
     (against ``target`` = "targets" from the loader, or "input" for
     autoencoders).  ``device``: None means the card (raises without one).
+    ``metric_names``: the keys a subclass's steps report (default: the
+    loss function's); ``max_*`` combine by maximum, ``n_samples`` and
+    ``n_err`` add, the rest are sample-weighted means.
     """
 
     def __init__(
@@ -67,6 +70,7 @@ class Workflow:
         decision: Optional[Decision] = None,
         lr_policy: Optional[Callable[[float, int], float]] = None,
         device=None,
+        metric_names: Optional[Sequence[str]] = None,
         name: str = "workflow",
     ):
         self.loader = loader
@@ -80,12 +84,13 @@ class Workflow:
         self.device = device_lib.resolve(device)
         self.name = name
         self.state: Optional[TrainState] = None
-        names = (
-            ["loss", "max_err_y_sum", "n_err", "n_samples"]
-            if loss_function == "softmax"
-            else ["loss", "max_diff", "n_samples"]
-        )
-        self._metric_names = sorted(names)
+        if metric_names is None:
+            metric_names = (
+                ["loss", "max_err_y_sum", "n_err", "n_samples"]
+                if loss_function == "softmax"
+                else ["loss", "max_diff", "n_samples"]
+            )
+        self._metric_names = sorted(metric_names)
         self._additive = np.array([_is_additive(k) for k in self._metric_names])
         self._pre = loader.device_preproc()
 
@@ -99,6 +104,12 @@ class Workflow:
             prng.seed_all(seed)
         if device is not None:
             self.device = device_lib.resolve(device)
+        self.state = self._create_initial_state()
+        self._add_mask = torch.as_tensor(self._additive, device=self.device)
+
+    def _create_initial_state(self) -> TrainState:
+        """A fresh train state on the workflow's device (subclasses that
+        draw their params at initialize time override this)."""
         params = [
             {
                 k: w.detach().to(self.device, copy=True).requires_grad_(True)
@@ -106,10 +117,7 @@ class Workflow:
             }
             for layer in self.model.params
         ]
-        self.state = TrainState.create(
-            params, prng.get("workflow").generator(self.device)
-        )
-        self._add_mask = torch.as_tensor(self._additive, device=self.device)
+        return TrainState.create(params, prng.get("workflow").generator(self.device))
 
     def _metrics(self, out, y, mask):
         if self.loss_function == "softmax":
@@ -152,6 +160,17 @@ class Workflow:
             return mb.data
         raise ValueError(f"unknown target {self.target!r}")
 
+    def _forward_metrics(self, params, x, y, mask, *, train: bool) -> Dict[str, Any]:
+        """The step's forward: the metrics dict, whose ``"loss"`` the train
+        step differentiates (subclasses with their own loss override this)."""
+        gen = self.state.generator if train else None
+        out = self.model.apply(params, x, train=train, generator=gen)
+        return self._metrics(out, y, mask)
+
+    def _hyper(self):
+        """The update rule's knobs, one HyperParams per layer of params."""
+        return self.model.hyper
+
     # ------------------------------------------------------------------
     def train_step(self, x, y, mask, lr_scale: float = 1.0, acc=None) -> torch.Tensor:
         """One train step on device tensors (the loader's raw payload:
@@ -162,8 +181,7 @@ class Workflow:
         x, y = self._prep(x, y)
         leaves = [w for layer in st.params for w in layer.values()]
         with torch.enable_grad():
-            out = self.model.apply(st.params, x, train=True, generator=st.generator)
-            m = self._metrics(out, y, mask)
+            m = self._forward_metrics(st.params, x, y, mask, train=True)
             flat = torch.autograd.grad(m["loss"], leaves)
         it = iter(flat)
         grads = [{k: next(it) for k in layer} for layer in st.params]
@@ -178,7 +196,7 @@ class Workflow:
                     else float(np.float32(h.learning_rate_bias) * scale)
                 ),
             )
-            for h in self.model.hyper
+            for h in self._hyper()
         ]
         optimizer.update(st.params, grads, st.velocity, hyper)
         st.step += 1
@@ -188,8 +206,7 @@ class Workflow:
     def eval_step(self, x, y, mask, acc=None) -> torch.Tensor:
         """One evaluation step; returns the updated accumulator."""
         x, y = self._prep(x, y)
-        out = self.model.apply(self.state.params, x, train=False)
-        m = self._metrics(out, y, mask)
+        m = self._forward_metrics(self.state.params, x, y, mask, train=False)
         return self._combine(self._acc_init() if acc is None else acc, m)
 
     def _run_epoch_stepwise(self) -> Dict[str, torch.Tensor]:
