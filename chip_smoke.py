@@ -4,8 +4,9 @@
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 It needs one CUDA card, builds every Hopper kernel of the ported paths from
 the sources here (the LRN pair in Triton, compiled at first launch; the
-flash-attention kernels in CUDA C++, built with nvcc up front), and fails
-(non-zero exit, no result line) when any phase fails:
+flash-attention, Kohonen and RBM kernels in CUDA C++, built with nvcc up
+front, one process a source, in parallel), and fails (non-zero exit, no
+result line) when any phase fails:
 
 1. the card's ``nvidia-smi`` name and power limit, and the versions;
 2. each LRN kernel against its plain PyTorch version on the same CUDA
@@ -19,7 +20,7 @@ flash-attention kernels in CUDA C++, built with nvcc up front), and fails
    just before and read just after, then timed train steps; and a 4-image
    f32 forward (TF32 off) on the card against the CPU from identical
    weights;
-5. the flash-attention build: nvcc's seconds, and ptxas' registers and
+5. the flash-attention build (made before phase 2): nvcc's seconds, and ptxas' registers and
    spills with the dynamic shared memory of each kernel;
 6. each flash kernel (forward, dQ, dK/dV) against its plain version on the
    same CUDA tensors, with O(1) ``dout`` and ``dlse``: the LM slice's shape
@@ -35,7 +36,34 @@ flash-attention kernels in CUDA C++, built with nvcc up front), and fails
    and read just after, then timed train steps with f32 and bf16 attention
    (tokens/sec), and a 512-token f32 forward on the card against the CPU
    from identical weights;
-9. the ``kernels`` JSON line, then the result line.
+9. the Kohonen and RBM builds (made with the flash build): nvcc's seconds, ptxas' registers, spills and
+   static shared memory of each kernel, and the RBM chain's rows a block
+   and dynamic shared memory at each check shape;
+10. the Kohonen kernel against its plain version (num, den and the updated
+    weights within 1e-5 of the largest magnitude, on the synthetic MNIST
+    blobs): the model's shape (B 100, 8x8, F 784, masked tail), B 600 with
+    500 valid (6x6, F 256), B 300 (6x6, F 64) and B 4096 (32x32, F 784); a
+    repeat launch must be bitwise equal; samples whose winner differs are
+    counted (the plain version then takes the kernel's winners);
+11. the RBM kernel against its plain version: the saturated regime exact;
+    with injected uniforms and with the kernel's own draws against the
+    plain version fed the generator twin's uniforms, at (B 100, 784x128,
+    k 1), (B 1024, 784x1024, k 1) and (B 256, 784x1024, k 3) with a masked
+    tail, within 1e-4 when no sampled unit flipped and at most 1e-5 of the
+    draws flipped; the same seed bitwise equal, another seed different; the
+    kernel's generator bitwise equal to its twin; Bernoulli frequencies at
+    p 0.1, 0.5, 0.9 within 5 sigma;
+12. both kernels' times at the model's shape and the large check shape
+    beside their bound and their plain version's (no PyTorch call computes
+    either: library none);
+13. the Kohonen model (``kohonen.build_workflow(device="cuda")``: 8x8 map,
+    784 features, batch 100) and 14. the MNIST RBM (``mnist_rbm``: 784 x
+    128, CD-1, batch 100), each on the synthetic MNIST stand-in at MNIST's
+    split sizes (60000 / 10000): one epoch with the kernel's counter set to 0
+    just before and read just after (one launch a train step, 600), timed
+    train steps (images/sec), and one step on the card against the CPU from
+    identical weights (the RBM with the same seed: the same chain);
+15. the ``kernels`` JSON line, then the result line.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``.
 """
@@ -301,9 +329,20 @@ def phase_slice(torch, lrn_kernel, alexnet, model_lib, prng):
 _PTXAS_ENTRY = re.compile(r"Compiling entry function '\S*?(fwd|dq|dkv)_kernelI(f|13__nv_bfloat16)Li(\d+)E")
 
 
-def phase_flash_build(cuda_build, fa):
-    """Phase 5: build the CUDA library from the sources here."""
-    built = cuda_build.build("flash_attention")
+def build_all(cuda_build):
+    """Every CUDA C++ source of the port built from the sources here, one
+    nvcc each, all started together; returns {name: Built}."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(CUDA_SOURCES)) as pool:
+        built = dict(zip(CUDA_SOURCES, pool.map(cuda_build.build, CUDA_SOURCES)))
+    print(f"build: {len(built)} CUDA sources in parallel, {time.perf_counter() - t0:.1f} s wall")
+    return built
+
+
+def phase_flash_build(built, fa):
+    """Phase 5: the flash-attention library's build."""
     print(f"build: {built.path.name}: nvcc {built.seconds:.1f} s"
           + ("" if built.seconds else " (the library was there already)"))
     rows, cur = [], None
@@ -555,6 +594,385 @@ def phase_lm(torch, fa, transformer_lm, transformer, model_lib, troot, prng):
     return launches, steps
 
 
+# -- the unsupervised slice: Kohonen SOM and RBM -------------------------------
+
+CUDA_SOURCES = ("flash_attention", "kohonen", "rbm")
+UNSUP_SOURCE = {"kohonen_accumulate": "znicz_tpu_torch/csrc/kohonen.cu",
+                "rbm_cd": "znicz_tpu_torch/csrc/rbm.cu"}
+REPLACES.update({
+    "kohonen_accumulate": "znicz_tpu/ops/pallas/kohonen.py:93",
+    "rbm_cd": "znicz_tpu/ops/pallas/rbm.py:161",
+})
+# of the reference's largest magnitude: f32 sums run in another order
+KOHONEN_TOL, RBM_TOL = 1e-5, 1e-4
+KOHONEN_CASES = [  # (tag, B, map side, F, valid rows)
+    ("model", 100, 8, 784, 93),
+    ("multi_tile", 600, 6, 256, 500),
+    ("ragged", 300, 6, 64, 300),
+    ("large", 4096, 32, 784, 4096),
+]
+RBM_CASES = [  # (tag, B, V, H, cd_k, valid rows)
+    ("model", 100, 784, 128, 1, 93),
+    ("large", 1024, 784, 1024, 1, 1000),
+    ("k3", 256, 784, 1024, 3, 250),
+]
+MNIST_SPLITS = {"train": 60000, "test": 10000}  # MNIST's own split sizes
+
+
+def _ptxas_rows(log):
+    """(kernel name, registers, (spill stores, loads), static smem bytes) of
+    each entry nvcc's ptxas reported."""
+    rows, cur = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = re.search(r"\d+([a-z]+_kernel)(ILi(\d+)EE)?", m.group(1))
+            cur = [name.group(1) + (f"<{name.group(3)}>" if name.group(3) else ""), None, None, 0]
+            rows.append(cur)
+        elif cur is not None:
+            regs = re.search(r"Used (\d+) registers", line)
+            spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            smem = re.search(r"(\d+) bytes smem", line)
+            if regs:
+                cur[1] = int(regs.group(1))
+            if spill:
+                cur[2] = (int(spill.group(1)), int(spill.group(2)))
+            if smem:
+                cur[3] = int(smem.group(1))
+    return rows
+
+
+def phase_unsup_build(built, rbk):
+    """Phase 9: the Kohonen and RBM libraries' builds."""
+    want = {"kohonen": {"winners_kernel", "accum_kernel"},
+            "rbm": {"chain_kernel<4>", "chain_kernel<8>", "chain_kernel<16>", "stats_kernel",
+                    "uniforms_kernel"}}
+    for name in ("kohonen", "rbm"):
+        b = built[name]
+        print(f"build: {b.path.name}: nvcc {b.seconds:.1f} s"
+              + ("" if b.seconds else " (the library was there already)"))
+        rows = _ptxas_rows(b.log)
+        if {r[0] for r in rows} != want[name]:
+            fail(f"ptxas reported {sorted(r[0] for r in rows)} for {name}.cu, want {sorted(want[name])}")
+        for kname, regs, spill, smem in sorted(rows):
+            print(f"ptxas {name} {kname}: {regs} registers, spill stores/loads {spill} bytes, "
+                  f"{smem} bytes static shared memory a block")
+    for tag, b, v, h, _, _ in RBM_CASES:
+        rows, smem = rbk.chain_rows(b, v, h)
+        print(f"rbm chain_kernel at {tag} (B {b}, {v} x {h}): {rows} rows a block, "
+              f"{smem} bytes dynamic shared memory, {-(-b // rows)} blocks")
+
+
+def _mnist_rows(datasets, n, normalization):
+    """n rows of the synthetic MNIST stand-in (its well-separated blobs),
+    normalized as the models normalize them, as float32 [n, 784]."""
+    loader = datasets.mnist(n_train=n, n_test=0, normalization=normalization)
+    return loader.data["train"]
+
+
+def _rel_err(name, got, ref, tol, *, strict=True):
+    """Max abs error, checked against ``tol`` of max |ref| when ``strict``."""
+    scale = float(ref.abs().max())
+    err = float((got - ref).abs().max())
+    ok = math.isfinite(err) and err <= tol * max(scale, 1e-12)
+    print(f"check {name}: max_abs_err={err:.3e} of max |ref| {scale:.3e} "
+          f"(limit {tol} of it) {'ok' if ok else 'FAILED' if strict else 'not held: units flipped'}")
+    if strict and not ok:
+        fail(f"{name} disagrees with its plain version")
+    return err
+
+
+def phase_kohonen_checks(torch, khk, kh, datasets, prng):
+    """Phase 10: the Kohonen kernel against its plain version."""
+    prng.seed_all(11)
+    xs = torch.as_tensor(_mnist_rows(datasets, 4096, "mean_disp"), device="cuda")
+    err = 0.0
+    for tag, b, side, f, n_valid in KOHONEN_CASES:
+        m = side * side
+        x = xs[:b, :f].contiguous()
+        w = kh.init_params(side, side, f, device="cuda")["weights"]
+        # a map that has started to learn: units near some samples
+        w = (w + xs[torch.arange(m, device="cuda") * 7 % 4096, :f]).contiguous()
+        mask = (torch.arange(b, device="cuda") < n_valid).float()
+        d2m = khk.pairwise_d2(kh.grid_coords(side, side, device="cuda"))
+        sigma, lr = 2.5, 0.3
+        win = torch.empty((b,), dtype=torch.int32, device="cuda")
+        num, den = khk.accumulate(w, x, mask, d2m, sigma, winners_out=win)
+        num2, den2 = khk.accumulate(w, x, mask, d2m, sigma)
+        torch.cuda.synchronize()
+        same = torch.equal(num, num2) and torch.equal(den, den2)
+        differ = int((kh.winners({"weights": w}, x) != win).sum())
+        label = f"kohonen {tag} (B {b}, {side}x{side}, F {f}, {b - n_valid} masked)"
+        print(f"check {label}: repeat launch bitwise equal: {same}; samples whose winner "
+              f"differs from the plain version's: {differ}"
+              + (" (plain version run with the kernel's winners)" if differ else ""))
+        if not same:
+            fail(f"{label}: two launches on the same inputs differ")
+        if differ > max(1, b // 1000):
+            fail(f"{label}: {differ} winners differ, more than near-ties explain")
+        ref_num, ref_den = khk.accumulate_reference(w, x, mask, d2m, sigma,
+                                                    win=win if differ else None)
+        e = max(_rel_err(f"{label} num", num, ref_num, KOHONEN_TOL),
+                _rel_err(f"{label} den", den, ref_den, KOHONEN_TOL))
+        _rel_err(f"{label} updated weights", khk._apply_update(w, num, den, lr),
+                 khk._apply_update(w, ref_num, ref_den, lr), KOHONEN_TOL)
+        if tag == "model":
+            err = e
+    return err
+
+
+def _flip_count(chain, ref_chain, uh, uv, cd_k):
+    """Sampled units whose draw differs between the kernel's chain and the
+    plain version's: the first hidden draws and the last visible draws."""
+    return int(((uh[0] < chain["h0p"]) != (uh[0] < ref_chain["h0p"])).sum()
+               + ((uv[cd_k - 1] < chain["vp"]) != (uv[cd_k - 1] < ref_chain["vp"])).sum())
+
+
+def _rbm_inputs(torch, xs, b, v, h, n_valid, seed):
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    params = {
+        "weights": torch.randn((v, h), generator=gen, device="cuda") * (1.0 / math.sqrt(v)),
+        "vbias": torch.randn((v,), generator=gen, device="cuda") * 0.1,
+        "hbias": torch.randn((h,), generator=gen, device="cuda") * 0.1,
+    }
+    v0 = xs[:b, :v].contiguous()
+    mask = (torch.arange(b, device="cuda") < n_valid).float()
+    return params, v0, mask
+
+
+def phase_rbm_checks(torch, rbk, datasets, prng):
+    """Phase 11: the RBM kernel against its plain version."""
+    prng.seed_all(12)
+    xs = torch.as_tensor((_mnist_rows(datasets, 1024, "linear") + 1.0) / 2.0, device="cuda")
+    err = 0.0
+    # the saturated regime: sampling cannot depend on the draws
+    v, h = 128, 64
+    params = {"weights": torch.zeros((v, h), device="cuda"),
+              "vbias": torch.full((v,), -20.0, device="cuda"),
+              "hbias": torch.full((h,), 20.0, device="cuda")}
+    v0 = (xs[:32, :v] > 0.5).float().contiguous()
+    mask = (torch.arange(32, device="cuda") < 30).float()
+    for cd_k in (1, 2):
+        got = rbk.statistics(params, v0, mask, 5, cd_k=cd_k)
+        uh, uv = rbk.chain_uniforms(5, 32, v, h, cd_k, "cuda")
+        ref = rbk.statistics_reference(params, v0, mask, uh, uv, cd_k=cd_k)
+        exact = all(torch.equal(g, r) for g, r in zip(got, ref))
+        print(f"check rbm saturated (biases +-20, B 32, {v} x {h}, k {cd_k}): exact {exact}")
+        if not exact:
+            fail("rbm saturated regime is not exact")
+    for seed, (tag, b, v, h, cd_k, n_valid) in enumerate(RBM_CASES):
+        params, v0, mask = _rbm_inputs(torch, xs, b, v, h, n_valid, seed)
+        uh, uv = rbk.chain_uniforms(seed, b, v, h, cd_k, "cuda")
+        draws = b * h * cd_k + b * v * cd_k
+        ref_chain = {}
+        ref = rbk.statistics_reference(params, v0, mask, uh, uv, cd_k=cd_k, chain=ref_chain)
+        label = f"rbm {tag} (B {b}, {v} x {h}, k {cd_k}, {b - n_valid} masked)"
+        for how, uniforms in (("injected uniforms", (uh, uv)), ("in-kernel draws", None)):
+            chain = {}
+            got = rbk.statistics(params, v0, mask, seed, cd_k=cd_k, uniforms=uniforms, chain=chain)
+            torch.cuda.synchronize()
+            flips = _flip_count(chain, ref_chain, uh, uv, cd_k)
+            print(f"check {label}, {how}: {flips} of {draws} sampled units flipped "
+                  f"(limit {1e-5 * draws:.1f})")
+            if flips > 1e-5 * draws:
+                fail(f"{label}, {how}: {flips} flips")
+            # the statistics are held to the tolerance when no unit flipped
+            e = max(_rel_err(f"{label}, {how}, {name}", g, r, RBM_TOL, strict=flips == 0)
+                    for name, g, r in zip(("dW", "dvb", "dhb", "stats"), got, ref))
+            if tag == "model":
+                err = max(err, e)
+        again = rbk.statistics(params, v0, mask, seed, cd_k=cd_k)
+        other = rbk.statistics(params, v0, mask, seed + 1000, cd_k=cd_k)
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, c) for a, c in zip(got, again))
+        changed = not torch.equal(got[0], other[0])
+        print(f"check {label}: same seed bitwise equal {same}; another seed changes dW {changed}")
+        if not (same and changed):
+            fail(f"{label}: the seed does not key the chain")
+    for stream, shape in ((rbk.HIDDEN, (2, 1024, 1024)), (rbk.VISIBLE, (1, 1024, 784))):
+        same = torch.equal(rbk.uniforms_cuda(77, stream, shape), rbk.philox_uniforms(77, stream, shape, "cuda"))
+        print(f"check rbm generator stream {stream} {list(shape)}: kernel draws bitwise equal "
+              f"to the PyTorch twin: {same}")
+        if not same:
+            fail("the kernel's generator and its twin differ")
+    b = 1 << 20
+    for p in (0.1, 0.5, 0.9):
+        # one visible and one hidden unit: vp is 1 where the hidden unit was
+        # drawn and 2e-9 where not, so -dvb / B is the draws' frequency
+        params = {"weights": torch.full((1, 1), 40.0, device="cuda"),
+                  "vbias": torch.full((1,), -20.0, device="cuda"),
+                  "hbias": torch.full((1,), math.log(p / (1 - p)), device="cuda")}
+        chain = {}
+        _, dvb, _, _ = rbk.statistics(params, torch.zeros((b, 1), device="cuda"),
+                                      torch.ones((b,), device="cuda"), 99, cd_k=1, chain=chain)
+        p_exact = float(chain["h0p"][0, 0])
+        freq = -float(dvb[0]) / b
+        sd = math.sqrt(p_exact * (1 - p_exact) / b)
+        print(f"check rbm Bernoulli frequency at p {p_exact:.7f} over {b} draws: {freq:.7f} "
+              f"({(freq - p_exact) / sd:+.2f} sigma, limit 5)")
+        if abs(freq - p_exact) > 5 * sd:
+            fail("rbm Bernoulli frequency off")
+    return err
+
+
+def _unsup_bound(flops, nbytes):
+    t_ops, t_bytes = flops / F32_FLOPS, nbytes / HBM_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+
+
+def phase_unsup_times(torch, khk, kh, rbk):
+    """Phase 12: each kernel's time at the model's shape and at the large
+    check shape, beside its bound and its plain version's."""
+    rows = {}
+    for tag, b, side, f, _ in (KOHONEN_CASES[0], KOHONEN_CASES[3]):
+        m = side * side
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(5)
+        x = torch.randn((b, f), generator=gen, device="cuda")
+        w = torch.randn((m, f), generator=gen, device="cuda") * 0.1
+        mask = torch.ones((b,), device="cuda")
+        d2m = khk.pairwise_d2(kh.grid_coords(side, side, device="cuda"))
+        ms = cuda_ms(lambda: khk.accumulate(w, x, mask, d2m, 2.0))
+        plain = cuda_ms(lambda: khk.accumulate_reference(w, x, mask, d2m, 2.0))
+        # x, w, mask and d2m read once; num and den written once
+        bound, by = _unsup_bound(4 * b * m * f, 4 * (b * f + m * f + b + m * m + m * f + m))
+        rows[("kohonen_accumulate", tag)] = dict(ms=ms, plain_ms=plain, bound_ms=bound,
+                                                 bound_by=by, library_ms=None)
+        print(f"time kohonen_accumulate {tag} (B {b}, {side}x{side}, F {f}): kernel {ms:.4f} ms, "
+              f"bound {bound:.4f} ms ({by}), plain {plain:.4f} ms, library: none (no single "
+              f"PyTorch call computes it)")
+    for tag, b, v, h, cd_k, _ in RBM_CASES[:2]:
+        params, v0, mask = _rbm_inputs(torch, torch.rand((b, v), device="cuda"), b, v, h, b, 3)
+        uh, uv = rbk.chain_uniforms(3, b, v, h, cd_k, "cuda")
+        ms = cuda_ms(lambda: rbk.statistics(params, v0, mask, 3, cd_k=cd_k))
+        plain = cuda_ms(lambda: rbk.statistics_reference(params, v0, mask, uh, uv, cd_k=cd_k))
+        # v0, mask, W and the biases read once; dW, dvb, dhb, stats written once
+        nbytes = 4 * (b * v + b + 2 * v * h + 2 * (v + h) + 2)
+        bound, by = _unsup_bound((2 * cd_k + 3) * 2 * b * v * h, nbytes)
+        rows[("rbm_cd", tag)] = dict(ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by,
+                                     library_ms=None)
+        print(f"time rbm_cd {tag} (B {b}, {v} x {h}, k {cd_k}): kernel {ms:.4f} ms, bound "
+              f"{bound:.4f} ms ({by}), plain {plain:.4f} ms (uniforms given), library: none "
+              f"(no single PyTorch call computes it)")
+    return rows
+
+
+def _unsup_epoch(torch, wf, counter, label):
+    """One epoch of ``wf`` with ``counter`` (the kernel wrapper) set to 0 just
+    before and read just after; checks the samples and the finite loss."""
+    n_train = wf.loader.n_minibatches("train")
+    counter.launches = 0
+    t0 = time.perf_counter()
+    verdict = wf.run_epoch()
+    torch.cuda.synchronize()
+    epoch_s = time.perf_counter() - t0
+    launches = counter.launches
+    summary = verdict["summary"]
+    print(f"{label}: epoch 1 {epoch_s:.2f} s: " + json.dumps(summary))
+    for split, n in MNIST_SPLITS.items():
+        m = summary.get(split)
+        if m is None or m["n_samples"] != n:
+            fail(f"{label}: {split} split saw {m and m['n_samples']} samples, want {n}")
+        if not math.isfinite(m["loss"]):
+            fail(f"{label}: non-finite {split} loss {m['loss']}")
+    print(f"{label}: launches {launches}, want {n_train} (one a train step; eval steps "
+          f"launch nothing)")
+    if launches != n_train:
+        fail(f"{label}: {launches} kernel launches in the epoch, want {n_train}")
+    return launches
+
+
+def _unsup_steps(torch, wf, label):
+    """Median of 10 synchronised train steps after 2 warm-up, images/sec."""
+    mb = next(iter(wf.loader.batches("train", shuffle=False)))
+    x = torch.as_tensor(mb.data, device="cuda")
+    y = torch.zeros((x.shape[0],), dtype=torch.int32, device="cuda")
+    mask = torch.as_tensor(mb.mask, device="cuda")
+    step_s = []
+    for _ in range(12):
+        t0 = time.perf_counter()
+        acc = wf.train_step(x, y, mask)
+        float(acc[0])  # the step's metrics on the host: a full sync
+        step_s.append(time.perf_counter() - t0)
+    med = statistics.median(step_s[2:])
+    print(f"{label}: train step (batch {x.shape[0]}) median {med * 1e3:.3f} ms over "
+          f"{len(step_s) - 2} steps after 2 warm-up; {x.shape[0] / med:.1f} images/sec; "
+          f"all steps ms {[round(v * 1e3, 3) for v in step_s]}")
+    return med * 1e3, x.shape[0] / med, mb
+
+
+def phase_kohonen_model(torch, kohonen, khk, kh, troot, prng):
+    """Phase 13: the Kohonen SOM model at its published widths."""
+    troot.kohonen.update({"loader": {"n_train": MNIST_SPLITS["train"],
+                                     "n_test": MNIST_SPLITS["test"]}})
+    prng.seed_all(1234)
+    t0 = time.perf_counter()
+    wf = kohonen.build_workflow(device="cuda")
+    wf.initialize()
+    torch.cuda.synchronize()
+    print(f"kohonen: built the workflow (8x8 map, 784 features, batch 100, synthetic MNIST "
+          f"stand-in {MNIST_SPLITS}) in {time.perf_counter() - t0:.1f} s")
+    launches = _unsup_epoch(torch, wf, khk.accumulate, "kohonen")
+    step_ms, ips, mb = _unsup_steps(torch, wf, "kohonen")
+    # card vs CPU: one step from identical weights
+    w = wf.state.params["weights"]
+    x = torch.as_tensor(mb.data)
+    mask = torch.as_tensor(mb.mask)
+    lr, sigma = kh.decay_schedule(wf.state.step, wf._total_steps, lr0=wf.lr0, lr1=wf.lr1,
+                                  sigma1=wf.sigma1, sx=wf.sx, sy=wf.sy)
+    kw = dict(learning_rate=lr, sigma=sigma)
+    coords = kh.grid_coords(wf.sx, wf.sy, device="cpu")
+    card = khk.train_step({"weights": w}, x.cuda(), coords.cuda(), mask=mask.cuda(), **kw)
+    cpu = khk.train_step({"weights": w.cpu()}, x, coords, mask=mask, **kw)
+    differ = int((kh.winners({"weights": w}, x.cuda()).cpu() != kh.winners({"weights": w.cpu()}, x)).sum())
+    print(f"kohonen: one train step card vs CPU from identical weights (lr {lr}, sigma "
+          f"{sigma}): winners that differ {differ}")
+    if differ:
+        fail("kohonen: card and CPU pick other winners on the model's data")
+    _rel_err("kohonen card vs CPU updated weights", card["weights"].cpu(), cpu["weights"],
+             KOHONEN_TOL)
+    return launches, step_ms, ips
+
+
+def phase_rbm_model(torch, mnist_rbm, rbk, troot, prng):
+    """Phase 14: the MNIST RBM at its published widths."""
+    troot.mnist_rbm.update({"loader": {"n_train": MNIST_SPLITS["train"],
+                                       "n_test": MNIST_SPLITS["test"]}})
+    prng.seed_all(1234)
+    t0 = time.perf_counter()
+    wf = mnist_rbm.build_workflow(device="cuda")
+    wf.initialize()
+    torch.cuda.synchronize()
+    print(f"rbm: built the workflow (784 x 128, CD-1, batch 100, synthetic MNIST stand-in "
+          f"{MNIST_SPLITS}) in {time.perf_counter() - t0:.1f} s")
+    launches = _unsup_epoch(torch, wf, rbk.statistics, "rbm")
+    step_ms, ips, mb = _unsup_steps(torch, wf, "rbm")
+    # card vs CPU: one CD-1 step from identical weights and the same seed,
+    # which is the same chain through the generator's twin
+    params = wf.state.params
+    cpu_params = {k: t.cpu() for k, t in params.items()}
+    v0, mask = torch.as_tensor(mb.data), torch.as_tensor(mb.mask)
+    seed, b, v, h = wf.state.step, v0.shape[0], v0.shape[1], wf.n_hidden
+    chain, ref_chain = {}, {}
+    stats_card = rbk.statistics(params, v0.cuda(), mask.cuda(), seed, cd_k=1, chain=chain)
+    stats_cpu = rbk.statistics(cpu_params, v0, mask, seed, cd_k=1, chain=ref_chain)
+    uh, uv = rbk.chain_uniforms(seed, b, v, h, 1)
+    flips = _flip_count({k: t.cpu() for k, t in chain.items()}, ref_chain, uh, uv, 1)
+    draws = b * (v + h)
+    print(f"rbm: one CD-1 step card vs CPU from identical weights, seed {seed}: {flips} of "
+          f"{draws} sampled units flipped")
+    if flips > 1e-5 * draws:
+        fail("rbm: card and CPU chains diverge")
+    if flips == 0:
+        new_card, err_card = rbk._apply_update(params, *stats_card, wf.learning_rate)
+        new_cpu, err_cpu = rbk._apply_update(cpu_params, *stats_cpu, wf.learning_rate)
+        for k in new_cpu:
+            _rel_err(f"rbm card vs CPU updated {k}", new_card[k].cpu(), new_cpu[k], RBM_TOL)
+        _rel_err("rbm card vs CPU reconstruction error", err_card.cpu(), err_cpu, RBM_TOL)
+    return launches, step_ms, ips
+
+
 def main() -> int:
     import torch
 
@@ -563,8 +981,11 @@ def main() -> int:
         return 1
     from znicz_tpu_torch.core import prng
     from znicz_tpu_torch.core.config import root as troot
-    from znicz_tpu_torch.models import alexnet, transformer_lm
+    from znicz_tpu_torch.loader import datasets
+    from znicz_tpu_torch.models import alexnet, kohonen, mnist_rbm, transformer_lm
+    from znicz_tpu_torch.ops import kohonen as kh_op
     from znicz_tpu_torch.ops.kernels import attention as fa, cuda_build, lrn as lrn_kernel
+    from znicz_tpu_torch.ops.kernels import kohonen as khk, rbm as rbk
     from znicz_tpu_torch.workflow import model as model_lib, transformer
 
     smi = subprocess.run(
@@ -578,16 +999,29 @@ def main() -> int:
           f"CUDA {torch.version.cuda}, triton {triton.__version__}; "
           f"device {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
 
+    built = build_all(cuda_build)
     err, rows = phase_kernels(torch, lrn_kernel)
     launches, _ = phase_slice(torch, lrn_kernel, alexnet, model_lib, prng)
     t0 = time.perf_counter()
-    phase_flash_build(cuda_build, fa)
+    phase_flash_build(built["flash_attention"], fa)
     flash_err = phase_flash_checks(torch, fa)
     flash_rows = phase_flash_times(torch, fa)
     flash_launches, _ = phase_lm(
         torch, fa, transformer_lm, transformer, model_lib, troot, prng
     )
     print(f"flash phases: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    phase_unsup_build(built, rbk)
+    unsup_err = {
+        "kohonen_accumulate": phase_kohonen_checks(torch, khk, kh_op, datasets, prng),
+        "rbm_cd": phase_rbm_checks(torch, rbk, datasets, prng),
+    }
+    unsup_rows = phase_unsup_times(torch, khk, kh_op, rbk)
+    unsup_launches = {
+        "kohonen_accumulate": phase_kohonen_model(torch, kohonen, khk, kh_op, troot, prng)[0],
+        "rbm_cd": phase_rbm_model(torch, mnist_rbm, rbk, troot, prng)[0],
+    }
+    print(f"unsupervised phases: {time.perf_counter() - t0:.1f} s")
 
     kernels = []
     for kname in ("lrn_fwd", "lrn_bwd"):
@@ -615,6 +1049,16 @@ def main() -> int:
             "launches": flash_launches[kname],
             "max_abs_err": flash_err[kname],
             **row,
+        })
+    for kname in UNSUP_SOURCE:
+        kernels.append({
+            "name": kname,
+            "route": "cuda",
+            "source": UNSUP_SOURCE[kname],
+            "replaces": REPLACES[kname],
+            "launches": unsup_launches[kname],
+            "max_abs_err": unsup_err[kname],
+            **unsup_rows[(kname, "model")],  # the main path's shape
         })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({

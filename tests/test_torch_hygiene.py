@@ -39,7 +39,9 @@ def test_package_has_the_slice_modules():
         "loader.datasets", "workflow.model", "workflow.workflow",
         "workflow.standard", "models.alexnet", "ops.attention",
         "ops.kernels.attention", "ops.kernels.cuda_build",
-        "workflow.transformer", "models.transformer_lm",
+        "workflow.transformer", "models.transformer_lm", "loader.normalizers",
+        "ops.kohonen", "ops.rbm", "ops.kernels.kohonen", "ops.kernels.rbm",
+        "workflow.unsupervised", "models.kohonen", "models.mnist_rbm",
     ):
         assert f"znicz_tpu_torch.{name}" in mods
 
@@ -86,8 +88,11 @@ def test_no_card_means_an_error_not_the_cpu():
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the default device is valid here")
     from znicz_tpu_torch.core import device
-    from znicz_tpu_torch.models import alexnet, transformer_lm
+    from znicz_tpu_torch.models import alexnet, kohonen, mnist_rbm, transformer_lm
 
+    for model in (kohonen, mnist_rbm):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            model.build_workflow()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         alexnet.build_workflow()
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -103,7 +108,7 @@ def test_param_builders_default_to_the_card():
     """The public builders put params on the card unless told otherwise."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the default device is valid here")
-    from znicz_tpu_torch.ops import all2all, attention, conv
+    from znicz_tpu_torch.ops import all2all, attention, conv, kohonen, rbm
     from znicz_tpu_torch.workflow import model, transformer
 
     layers = [{"type": "softmax", "->": {"output_sample_shape": 3}}]
@@ -113,6 +118,9 @@ def test_param_builders_default_to_the_card():
         lambda **kw: all2all.init_params(4, 3, **kw),
         lambda **kw: attention.init_mha_params(8, 2, **kw),
         lambda **kw: transformer.init_lm_params(8, 8, 1, 2, 4, **kw),
+        lambda **kw: kohonen.init_params(2, 2, 5, **kw),
+        lambda **kw: kohonen.grid_coords(2, 2, **kw),
+        lambda **kw: rbm.init_params(5, 3, **kw),
     ):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             build()

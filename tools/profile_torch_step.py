@@ -1,14 +1,15 @@
 #!/usr/bin/env python3
 """Where a train step of one of the PyTorch port's models spends its device time.
 
-    python3 tools/profile_torch_step.py [--model alexnet|lm] [--steps 5]
-                                        [--attention-dtype f32|bf16]
+    python3 tools/profile_torch_step.py [--model alexnet|lm|kohonen|rbm]
+                                        [--steps 5] [--attention-dtype f32|bf16]
 
 Runs on one CUDA card (run from the repository root): builds the model at
 the size ``chip_smoke.py`` trains it (``alexnet``: the published geometry,
 batch 128, bf16; ``lm``: the mid LM, vocab 8192, d_model 512, 12 layers, 8
-heads, T 2048, batch 16, flash attention with ``--attention-dtype``), warms
-up, then profiles ``--steps`` train steps with ``torch.profiler``.  Prints
+heads, T 2048, batch 16, flash attention with ``--attention-dtype``;
+``kohonen``: the 8x8 SOM over 784 features, batch 100; ``rbm``: the MNIST
+RBM, 784 x 128, CD-1, batch 100), warms up, then profiles ``--steps`` train steps with ``torch.profiler``.  Prints
 the card's ``nvidia-smi`` name and power limit, the step's wall time under
 the profiler, the device-busy time (the sum of the kernels' device time, one
 stream), kernel time by family, and the top kernels.
@@ -27,6 +28,10 @@ FAMILIES = (  # first match wins; matched against the lower-cased kernel name
     # csrc/flash_attention.cu's kernels, mangled or demangled
     ("flash (hand-written)", ("flash_attention_cu", "namespace)::fwd_kernel",
                               "namespace)::dq_kernel", "namespace)::dkv_kernel")),
+    # csrc/kohonen.cu's and csrc/rbm.cu's kernels
+    ("kohonen (hand-written)", ("kohonen_cu", "namespace)::winners_kernel",
+                                "namespace)::accum_kernel")),
+    ("rbm (hand-written)", ("rbm_cu", "namespace)::chain_kernel", "namespace)::stats_kernel")),
     ("pooling", ("pool",)),
     ("conv (cuDNN)", ("cudnn", "conv", "implicit", "wgrad", "dgrad", "fprop", "nhwc")),
     ("matmul (cuBLAS)", ("gemm", "gemv", "cutlass", "nvjet")),
@@ -72,9 +77,22 @@ def _lm(torch, attention_dtype):
     return wf, mb, y
 
 
+def _unsupervised(torch, name):
+    from znicz_tpu_torch.core.config import root
+    from znicz_tpu_torch.models import kohonen, mnist_rbm
+
+    model, node = {"kohonen": (kohonen, root.kohonen), "rbm": (mnist_rbm, root.mnist_rbm)}[name]
+    node.update({"loader": {"n_train": 1000, "n_test": 0}})  # one step's data is a batch
+    wf = model.build_workflow(device="cuda")
+    wf.initialize()
+    mb = next(iter(wf.loader.batches("train", shuffle=False)))
+    y = torch.zeros((len(mb.mask),), dtype=torch.int32, device="cuda")
+    return wf, mb, y
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--model", choices=("alexnet", "lm"), default="alexnet")
+    ap.add_argument("--model", choices=("alexnet", "lm", "kohonen", "rbm"), default="alexnet")
     ap.add_argument("--steps", type=int, default=5)
     ap.add_argument("--attention-dtype", choices=("f32", "bf16"), default="f32")
     args = ap.parse_args()
@@ -92,7 +110,12 @@ def main() -> int:
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0])
     prng.seed_all(1234)
-    wf, mb, y = _alexnet(torch) if args.model == "alexnet" else _lm(torch, args.attention_dtype)
+    if args.model == "alexnet":
+        wf, mb, y = _alexnet(torch)
+    elif args.model == "lm":
+        wf, mb, y = _lm(torch, args.attention_dtype)
+    else:
+        wf, mb, y = _unsupervised(torch, args.model)
     x = torch.as_tensor(mb.data, device="cuda")
     mask = torch.as_tensor(mb.mask, device="cuda")
     for _ in range(5):

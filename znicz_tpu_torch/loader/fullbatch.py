@@ -1,12 +1,14 @@
 """In-memory full-batch loader (port of ``znicz_tpu/loader/fullbatch.py``).
 
 The whole dataset lives in host arrays; minibatches are gathered by index.
-Normalization: ``"none"`` and ``"range"`` (``x / scale + shift``, from
-``znicz_tpu/loader/normalizers.py``).  With ``device_convert``, uint8 data
-under "range" stays uint8 and crosses to the device as uint8 (a quarter of
-the bytes), where ``x * (1/scale) + shift`` runs, as in the JAX package;
-otherwise each split is normalized once on the host.  The fitted normalizers (linear, mean_disp,
-external_mean) and the device-resident pool come in a later slice.
+Normalization (``znicz_tpu_torch/loader/normalizers.py``): ``"none"``,
+``"linear"``, ``"mean_disp"``, ``"range"`` and ``"external_mean"``; the
+fitted kinds are fitted on the ``train`` split, flattened, as in the JAX
+package, and each split is normalized once on the host.  With
+``device_convert``, uint8 data under "range" stays uint8 and crosses to the
+device as uint8 (a quarter of the bytes), where ``x * (1/scale) + shift``
+runs, as in the JAX package.  The device-resident pool comes in a later
+slice.
 """
 
 from __future__ import annotations
@@ -16,9 +18,8 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from znicz_tpu_torch.loader import normalizers
 from znicz_tpu_torch.loader.base import SPLITS, Loader, Minibatch
-
-NORMALIZATIONS = ("none", "range")
 
 
 class FullBatchLoader(Loader):
@@ -55,31 +56,37 @@ class FullBatchLoader(Loader):
         for split in self.data:
             if split not in SPLITS:
                 raise ValueError(f"unknown split {split!r}")
-        if normalization not in NORMALIZATIONS:
-            raise NotImplementedError(
-                f"normalization={normalization!r} comes in a later slice of "
-                f"the port; this one has {NORMALIZATIONS}"
+        train = self.data.get("train")
+        if train is None and normalization in ("linear", "mean_disp"):
+            raise ValueError(
+                f"normalization={normalization!r} must be fitted on a "
+                "'train' split, but this loader has none"
             )
-        kw = normalization_kwargs or {}
+        fit_src = train if train is not None else np.zeros((1, 1))
+        self.normalizer = normalizers.fit(
+            normalization,
+            fit_src.reshape(len(fit_src), -1),
+            **(normalization_kwargs or {}),
+        )
         self.normalization = normalization
-        self.scale = float(kw.get("scale", 255.0))
-        self.shift = float(kw.get("shift", 0.0))
         # uint8 data under "range" may stay uint8 up to the device
         self._device_convert = (
             device_convert
             and normalization == "range"
             and all(raw.dtype == np.uint8 for raw in self.data.values())
         )
-        if normalization == "range" and not self._device_convert:
+        if normalization != "none" and not self._device_convert:
             self.data = {
-                k: raw.astype(np.float32) / self.scale + self.shift
-                for k, raw in self.data.items()
+                split: normalizers.apply(
+                    self.normalizer, raw.reshape(len(raw), -1).astype(np.float32)
+                ).reshape(raw.shape)
+                for split, raw in self.data.items()
             }
 
     def device_preproc(self):
         if not self._device_convert:
             return None
-        scale, shift = self.scale, self.shift
+        scale, shift = self.normalizer["scale"], self.normalizer["shift"]
 
         def pre(x: torch.Tensor) -> torch.Tensor:
             return x.float() * (1.0 / scale) + shift

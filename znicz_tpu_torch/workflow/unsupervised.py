@@ -1,0 +1,255 @@
+"""Non-backprop workflows: Kohonen SOM and RBM (port of
+``znicz_tpu/workflow/unsupervised.py``).
+
+The learning rule is the trainer: each workflow's ``train_step`` runs its
+update function (the batch-SOM rule, CD-k) in place of autograd and SGD,
+and reuses the base loop's preprocessing, on-device metric accumulators and
+Decision.  A CUDA tensor always takes the hand kernel
+(``ops/kernels/kohonen.py``, ``ops/kernels/rbm.py``) and a CPU tensor its
+plain version; ``impl`` is accepted so JAX call sites load unchanged.
+Per-step host values (Kohonen's lr and sigma, RBM's chain seed) come from
+the host step counter, so a step fetches nothing from the card.
+
+Not ported here, and refused with ``NotImplementedError`` naming their
+``ROADMAP.md`` item: the snapshotter, ``parallel=``, the prefetch thread
+(``prefetch_batches`` other than 2) and deferred epoch sync.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from znicz_tpu_torch.core import device as device_lib, prng
+from znicz_tpu_torch.loader.base import TRAIN, Loader
+from znicz_tpu_torch.nn.decision import Decision
+from znicz_tpu_torch.nn.train_state import TrainState
+from znicz_tpu_torch.ops import kohonen as kh, rbm as rbm_op
+from znicz_tpu_torch.ops.kernels import kohonen as kh_kernel, rbm as rbm_kernel
+from znicz_tpu_torch.workflow.workflow import Workflow
+
+METRICS = ["loss", "n_samples", "n_err"]
+IMPLS = ("auto", "pallas", "xla")
+
+
+class _NoModel:
+    """Placeholder for Workflow's model attribute: these workflows have no
+    layer list, their params are one dict."""
+
+    params: list = []
+    hyper: list = []
+
+
+def params_from_jax(params_np: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
+    """The JAX package's dict-shaped unsupervised params (as numpy) as the
+    port's tensors on ``device``, copied."""
+    dev = device_lib.resolve(device)
+    return {k: torch.tensor(np.asarray(v), device=dev) for k, v in params_np.items()}
+
+
+def params_to_numpy(params: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
+    """The params as host numpy copies."""
+    return {k: v.detach().cpu().numpy().copy() for k, v in params.items()}
+
+
+def _refuse(snapshotter, parallel, prefetch_batches, epoch_sync, impl) -> None:
+    refused = (
+        (snapshotter is not None, "the snapshotter", "A4, workflow/snapshotter.py"),
+        (parallel is not None, "a parallel= placement policy", "A6, parallel/data_parallel.py"),
+        (prefetch_batches != 2, "the prefetch thread (prefetch_batches != 2)",
+         "A4, loader/prefetch.py"),
+        (epoch_sync != "sync", "deferred epoch sync (epoch_sync != 'sync')",
+         "A4, workflow/workflow.py"),
+    )
+    for on, what, item in refused:
+        if on:
+            raise NotImplementedError(
+                f"{what} is not ported to znicz_tpu_torch yet (ROADMAP.md {item})"
+            )
+    if impl not in IMPLS:
+        raise ValueError(f"impl={impl!r}: want one of {IMPLS}")
+
+
+class _Unsupervised(Workflow):
+    """The shared part: dict params, a custom train step, no autograd."""
+
+    def __init__(self, loader: Loader, *, decision, device, name):
+        super().__init__(
+            loader,
+            _NoModel(),
+            loss_function="mse",
+            target="labels",
+            decision=decision,
+            device=device,
+            metric_names=METRICS,
+            name=name,
+        )
+
+    def _batch_target(self, mb):
+        return np.zeros(len(mb.mask), np.int32)  # unused host-side dummy
+
+    def _state(self, params) -> TrainState:
+        return TrainState(params=params, velocity=[], step=0,
+                          generator=prng.get("workflow").generator(self.device))
+
+    def _update(self, params, x, mask, lr_scale):
+        """One learning-rule step on the flattened batch; returns (new
+        params, the step's metrics)."""
+        raise NotImplementedError
+
+    @torch.no_grad()
+    def train_step(self, x, y, mask, lr_scale: float = 1.0, acc=None) -> torch.Tensor:
+        """One train step on device tensors (the loader's raw payload):
+        the learning rule replaces the autograd update.  Returns ``acc``
+        with this step's metrics folded in."""
+        st = self.state
+        x, _ = self._prep(x, y)
+        st.params, m = self._update(st.params, x.reshape(x.shape[0], -1), mask, lr_scale)
+        st.step += 1
+        return self._combine(self._acc_init() if acc is None else acc, m)
+
+
+class KohonenWorkflow(_Unsupervised):
+    """Batch-SOM training (BASELINE configs[4]).  Metric: the quantization
+    error (mean squared distance to the winning unit) as ``loss``."""
+
+    def __init__(
+        self,
+        loader: Loader,
+        *,
+        sx: int = 8,
+        sy: int = 8,
+        total_epochs: int = 20,
+        lr0: float = 0.1,
+        lr1: float = 0.01,
+        sigma1: float = 1.0,
+        decision: Optional[Decision] = None,
+        snapshotter=None,
+        parallel=None,
+        prefetch_batches: int = 2,
+        epoch_sync: str = "sync",
+        rand_name: str = "default",
+        impl: str = "auto",
+        device=None,
+        name: str = "KohonenWorkflow",
+    ):
+        _refuse(snapshotter, parallel, prefetch_batches, epoch_sync, impl)
+        super().__init__(
+            loader,
+            decision=decision or Decision(metric="loss", max_epochs=total_epochs),
+            device=device,
+            name=name,
+        )
+        self.sx, self.sy = sx, sy
+        self.total_epochs = total_epochs
+        self.lr0, self.lr1, self.sigma1 = lr0, lr1, sigma1
+        self.rand_name = rand_name
+        self.impl = impl
+        self._n_input = int(np.prod(loader.sample_shape))
+        self._total_steps = total_epochs * max(loader.n_minibatches(TRAIN), 1)
+
+    def _create_initial_state(self) -> TrainState:
+        params = kh.init_params(self.sx, self.sy, self._n_input, rand_name=self.rand_name,
+                                device=self.device)
+        self._coords = kh.grid_coords(self.sx, self.sy, device=self.device)
+        self._d2m = kh_kernel.pairwise_d2(self._coords)  # fixed for the map
+        return self._state(params)
+
+    def _update(self, params, x, mask, lr_scale):
+        lr, sigma = kh.decay_schedule(
+            self.state.step, self._total_steps, lr0=self.lr0, lr1=self.lr1,
+            sigma1=self.sigma1, sx=self.sx, sy=self.sy,
+        )
+        # the metric pairs the updated params with the pre-update winners,
+        # as the JAX step does
+        win = kh.winners(params, x)
+        new = kh_kernel.train_step(
+            params, x, self._coords, learning_rate=lr * np.float32(lr_scale), sigma=sigma,
+            mask=mask, d2m=self._d2m,
+        )
+        return new, self._qe(new, x, win, mask)
+
+    def _forward_metrics(self, params, x, y, mask, *, train: bool):
+        x = x.reshape(x.shape[0], -1)
+        return self._qe(params, x, kh.winners(params, x), mask)
+
+    @staticmethod
+    def _qe(params, x, win, mask):
+        d2 = torch.sum(torch.square(x - params["weights"][win.long()]), dim=1)
+        n = torch.clamp_min(torch.sum(mask), 1.0)
+        return {
+            "loss": torch.sum(d2 * mask) / n,
+            "n_samples": n,
+            "n_err": torch.zeros((), dtype=torch.int32, device=x.device),
+        }
+
+    def weights_map(self) -> np.ndarray:
+        """``[sy, sx, features]`` view of the trained map (for plotting)."""
+        w = self.state.params["weights"].detach().cpu().numpy()
+        return w.reshape(self.sy, self.sx, -1)
+
+
+class RBMWorkflow(_Unsupervised):
+    """Bernoulli RBM with CD-k (BASELINE configs[2]).  Metric: the masked
+    reconstruction error as ``loss``.  The chain of step ``s`` draws from
+    seed ``s`` (the train state's step), as the JAX kernel path does."""
+
+    def __init__(
+        self,
+        loader: Loader,
+        *,
+        n_hidden: int = 64,
+        learning_rate: float = 0.1,
+        cd_k: int = 1,
+        max_epochs: int = 20,
+        decision: Optional[Decision] = None,
+        snapshotter=None,
+        parallel=None,
+        prefetch_batches: int = 2,
+        epoch_sync: str = "sync",
+        rand_name: str = "default",
+        impl: str = "auto",
+        device=None,
+        name: str = "RBMWorkflow",
+    ):
+        _refuse(snapshotter, parallel, prefetch_batches, epoch_sync, impl)
+        super().__init__(
+            loader,
+            decision=decision or Decision(metric="loss", max_epochs=max_epochs),
+            device=device,
+            name=name,
+        )
+        self.n_hidden = n_hidden
+        self.learning_rate = learning_rate
+        self.cd_k = cd_k
+        self.rand_name = rand_name
+        self.impl = impl
+        self._n_visible = int(np.prod(loader.sample_shape))
+
+    def _create_initial_state(self) -> TrainState:
+        params = rbm_op.init_params(self._n_visible, self.n_hidden, rand_name=self.rand_name,
+                                    device=self.device)
+        return self._state(params)
+
+    def _update(self, params, x, mask, lr_scale):
+        lr = np.float32(self.learning_rate) * np.float32(lr_scale)
+        new, err = rbm_kernel.cd_step(params, x, self.state.step, learning_rate=lr,
+                                      cd_k=self.cd_k, mask=mask)
+        return new, {
+            "loss": err,
+            "n_samples": torch.clamp_min(torch.sum(mask), 1.0),
+            "n_err": torch.zeros((), dtype=torch.int32, device=x.device),
+        }
+
+    def _forward_metrics(self, params, x, y, mask, *, train: bool):
+        v0 = x.reshape(x.shape[0], -1)
+        v_probs = rbm_op.visible_probs(params, rbm_op.hidden_probs(params, v0))
+        per = torch.mean(torch.square(v0 - v_probs), dim=1)
+        n = torch.clamp_min(torch.sum(mask), 1.0)
+        return {
+            "loss": torch.sum(per * mask) / n,
+            "n_samples": n,
+            "n_err": torch.zeros((), dtype=torch.int32, device=x.device),
+        }
