@@ -21,21 +21,28 @@ result line) when any phase fails:
    f32 forward (TF32 off) on the card against the CPU from identical
    weights;
 5. the flash-attention build (made before phase 2): nvcc's seconds, and ptxas' registers and
-   spills with the dynamic shared memory of each kernel;
+   spills with the dynamic shared memory of each kernel; then the tensor-core
+   instructions (SASS ``HMMA``, and ``HGMMA`` for ``wgmma``) of each kernel,
+   counted in ``cuobjdump -sass`` of the built library: it fails if a bf16
+   dQ or dK/dV kernel has none;
 6. each flash kernel (forward, dQ, dK/dV) against its plain version on the
    same CUDA tensors, with O(1) ``dout`` and ``dlse``: the LM slice's shape
    (B 16, T 2048, H 8, D 64, causal), D 32 and 128, a non-causal and a
-   ragged (T 2000) case, each in f32 and bf16;
+   ragged (T 2000) case, each in f32 and bf16; at the slice shape in bf16 a
+   second launch of dQ and dK/dV must be bitwise equal to the first;
 7. the flash kernels' times at the slice shape beside their bound, the
    plain versions' and ``F.scaled_dot_product_attention``'s forward and
-   autograd backward (timed here only; the port never calls it);
+   autograd backward (timed here only; the port never calls it), in f32 and
+   bf16;
 8. the LM slice: ``transformer_lm.build_workflow(device="cuda",
    attention="flash")`` at the repo's mid LM's width and depth (vocab 8192,
    d_model 512, 12 layers, 8 heads, T 2048, batch 16) runs one epoch (4
    train steps, 1 eval step) with the flash counters set to 0 just before
    and read just after, then timed train steps with f32 and bf16 attention
-   (tokens/sec), and a 512-token f32 forward on the card against the CPU
-   from identical weights;
+   (tokens/sec), each with the flash counters read around them (12 of each
+   kernel a train step: the bf16 steps run the tensor-core dQ and dK/dV),
+   and a 512-token f32 forward on the card against the CPU from identical
+   weights;
 9. the Kohonen and RBM builds (made with the flash build): nvcc's seconds, ptxas' registers, spills and
    static shared memory of each kernel, and the RBM chain's rows a block
    and dynamic shared memory at each check shape;
@@ -63,7 +70,9 @@ result line) when any phase fails:
     just before and read just after (one launch a train step, 600), timed
     train steps (images/sec), and one step on the card against the CPU from
     identical weights (the RBM with the same seed: the same chain);
-15. the ``kernels`` JSON line, then the result line.
+15. the whole script's seconds, the ``kernels`` JSON line (each flash row
+    with its bf16 times, bound, launches and error beside the f32 ones under
+    ``"bf16"``), then the result line.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``.
 """
@@ -326,7 +335,10 @@ def phase_slice(torch, lrn_kernel, alexnet, model_lib, prng):
     return launches, {"step_ms": med * 1e3, "images_per_s": batch / med}
 
 
-_PTXAS_ENTRY = re.compile(r"Compiling entry function '\S*?(fwd|dq|dkv)_kernelI(f|13__nv_bfloat16)Li(\d+)E")
+# a flash kernel's mangled name: (fwd|dq|dkv)_kernel<float or bf16, D> on the
+# FMA path, (dq|dkv)_mma_kernel<D> (bf16 on the tensor cores)
+_FLASH_KERNEL = re.compile(r"(fwd|dq|dkv)(_mma)?_kernelI(f|13__nv_bfloat16)?Li(\d+)E")
+_PTXAS_ENTRY = re.compile(r"Compiling entry function '\S*?" + _FLASH_KERNEL.pattern)
 
 
 def build_all(cuda_build):
@@ -341,16 +353,44 @@ def build_all(cuda_build):
     return built
 
 
-def phase_flash_build(built, fa):
-    """Phase 5: the flash-attention library's build."""
+def _flash_key(m):
+    """(kernel, dtype, D) of a _FLASH_KERNEL match."""
+    return m.group(1), "f32" if m.group(3) == "f" else "bf16", int(m.group(4))
+
+
+def _sass_mma_counts(cuda_build, lib_path):
+    """{(kernel, dtype, D): (HMMA, HGMMA)} of each flash kernel: the
+    tensor-core instructions in ``cuobjdump -sass`` of the built library."""
+    from pathlib import Path
+
+    cuobjdump = Path(cuda_build.nvcc_path()).with_name("cuobjdump")
+    sass = subprocess.run([str(cuobjdump), "-sass", str(lib_path)], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    counts, cur = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            m = _FLASH_KERNEL.search(line)
+            cur = _flash_key(m) if m else None
+            if cur is not None:
+                counts[cur] = [0, 0]
+        elif cur is not None:
+            op = re.search(r"\b(HMMA|HGMMA)\.", line)
+            if op:
+                counts[cur][op.group(1) == "HGMMA"] += 1
+    return {key: tuple(c) for key, c in counts.items()}
+
+
+def phase_flash_build(built, fa, cuda_build, torch):
+    """Phase 5: the flash-attention library's build and its tensor-core
+    instructions."""
     print(f"build: {built.path.name}: nvcc {built.seconds:.1f} s"
           + ("" if built.seconds else " (the library was there already)"))
     rows, cur = [], None
     for line in built.log.splitlines():
         m = _PTXAS_ENTRY.search(line)
         if m:
-            cur = {"kernel": m.group(1), "dtype": "f32" if m.group(2) == "f" else "bf16",
-                   "d": int(m.group(3)), "regs": None, "spill": None}
+            kernel, dtype, d = _flash_key(m)
+            cur = {"kernel": kernel, "dtype": dtype, "d": d, "regs": None, "spill": None}
             rows.append(cur)
         elif cur is not None:
             regs = re.search(r"Used (\d+) registers", line)
@@ -361,10 +401,17 @@ def phase_flash_build(built, fa):
                 cur["spill"] = (int(spill.group(1)), int(spill.group(2)))
     if len(rows) != 24:
         fail(f"ptxas reported {len(rows)} flash kernels, want 24 (3 kernels x 2 dtypes x 4 D)")
+    sass = _sass_mma_counts(cuda_build, built.path)
+    dtypes = {"f32": torch.float32, "bf16": torch.bfloat16}
     for r in sorted(rows, key=lambda r: (r["kernel"], r["dtype"], r["d"])):
+        key = (r["kernel"], r["dtype"], r["d"])
+        hmma, hgmma = sass.get(key, (0, 0))
         print(f"ptxas flash_{r['kernel']} {r['dtype']} D={r['d']}: {r['regs']} registers, "
               f"spill stores/loads {r['spill']} bytes, "
-              f"{fa.smem_bytes(r['kernel'], r['d'])} bytes dynamic shared memory a block")
+              f"{fa.smem_bytes(r['kernel'], r['d'], dtypes[r['dtype']])} bytes dynamic shared "
+              f"memory a block; SASS tensor-core instructions: {hmma} HMMA, {hgmma} HGMMA")
+        if r["dtype"] == "bf16" and r["kernel"] in ("dq", "dkv") and hmma + hgmma == 0:
+            fail(f"flash_{r['kernel']} bf16 D={r['d']} has no tensor-core instruction")
 
 
 def _flash_inputs(torch, b, t, h, d, dtype, seed):
@@ -392,8 +439,10 @@ def _near(name, got, ref, tol):
 
 
 def phase_flash_checks(torch, fa):
-    """Phase 6: each flash kernel against its plain version."""
-    err = {}
+    """Phase 6: each flash kernel against its plain version; the bf16 dQ and
+    dK/dV launched twice at the slice shape.  Returns the slice shape's max
+    errors in f32 and bf16."""
+    err, bf16_err = {}, {}
     for seed, (tag, b, t, h, d, causal) in enumerate(FLASH_CASES):
         for dtype in (torch.float32, torch.bfloat16):
             dname = str(dtype).split(".")[-1]
@@ -421,9 +470,21 @@ def phase_flash_checks(torch, fa):
                                  _near(f"flash_dkv dv {label}", dv, dv_r, tol))
             if tag == "slice" and dtype is torch.float32:  # the counted epoch's
                 err = e
+            if tag == "slice" and dtype is torch.bfloat16:
+                bf16_err = e
+                # one owner per output tile, no atomics: the same bits again
+                dq2 = fa.flash_dq(q, k, v, dout, lse_r, delta, **kw)
+                dk2, dv2 = fa.flash_dkv(q, k, v, dout, lse_r, delta, **kw)
+                torch.cuda.synchronize()
+                same = {"flash_dq": torch.equal(dq, dq2),
+                        "flash_dkv": torch.equal(dk, dk2) and torch.equal(dv, dv2)}
+                print(f"check {label}: a second launch bitwise equal to the first: {same}")
+                if not all(same.values()):
+                    fail(f"bf16 backward launches at {label} are not bitwise repeatable")
+                del dq2, dk2, dv2
             del q, k, v, dout, dlse, out, lse, lse_r, delta, dq, dk, dv, dk_r, dv_r
             torch.cuda.empty_cache()
-    return err
+    return err, bf16_err
 
 
 def _flash_bounds(b, t, h, d, causal, esize, dname):
@@ -494,20 +555,25 @@ def phase_flash_times(torch, fa):
     return rows
 
 
-def _timed_steps(torch, wf, label):
+def _timed_steps(torch, fa, wf, label):
     """Median of 10 synchronised train steps after 2 warm-up, on the first
-    train minibatch; returns (step ms, tokens/sec)."""
+    train minibatch, with the flash counters set to 0 just before and read
+    just after (one launch of each kernel a layer and step); returns (step
+    ms, tokens/sec, launches)."""
     mb = next(iter(wf.loader.batches("train", shuffle=False)))
     x = torch.as_tensor(mb.data, device="cuda")
     y = torch.zeros((x.shape[0],), dtype=torch.int32, device="cuda")
     mask = torch.as_tensor(mb.mask, device="cuda")
     torch.cuda.reset_peak_memory_stats()
+    for name in FLASH:
+        getattr(fa, name).launches = 0
     step_s = []
     for _ in range(12):
         t0 = time.perf_counter()
         acc = wf.train_step(x, y, mask)
         float(acc[0])  # the step's metrics on the host: a full sync
         step_s.append(time.perf_counter() - t0)
+    launches = {name: getattr(fa, name).launches for name in FLASH}
     med = statistics.median(step_s[2:])
     tokens = x.shape[0] * x.shape[1]
     print(f"lm: train step ({label}, batch {x.shape[0]} x T {x.shape[1]}) median "
@@ -515,7 +581,11 @@ def _timed_steps(torch, wf, label):
           f"{tokens / med:.1f} tokens/sec; peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
           f"all steps ms {[round(v * 1e3, 2) for v in step_s]}")
-    return med * 1e3, tokens / med
+    want = LM_MID["n_layers"] * len(step_s)
+    print(f"lm: launches over the {len(step_s)} {label} steps {launches}, want {want} of each")
+    if launches != dict.fromkeys(FLASH, want):
+        fail(f"flash launch counts over the {label} steps {launches} != {want} of each")
+    return med * 1e3, tokens / med, launches
 
 
 def phase_lm(torch, fa, transformer_lm, transformer, model_lib, troot, prng):
@@ -564,7 +634,7 @@ def phase_lm(torch, fa, transformer_lm, transformer, model_lib, troot, prng):
     if launches != want:
         fail(f"flash launch counts {launches} != {want}")
 
-    steps = {"f32": _timed_steps(torch, wf, "f32 attention")}
+    steps = {"f32": _timed_steps(torch, fa, wf, "f32 attention")}
 
     # card vs CPU: one 512-token sequence, f32, TF32 off, identical weights
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -590,7 +660,7 @@ def phase_lm(torch, fa, transformer_lm, transformer, model_lib, troot, prng):
         loader, **LM_MID, attention="flash", attention_dtype="bf16", device="cuda"
     )
     wf16.initialize()
-    steps["bf16"] = _timed_steps(torch, wf16, "bf16 attention")
+    steps["bf16"] = _timed_steps(torch, fa, wf16, "bf16 attention")
     return launches, steps
 
 
@@ -974,6 +1044,7 @@ def phase_rbm_model(torch, mnist_rbm, rbk, troot, prng):
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     import torch
 
     if not torch.cuda.is_available():
@@ -1003,10 +1074,10 @@ def main() -> int:
     err, rows = phase_kernels(torch, lrn_kernel)
     launches, _ = phase_slice(torch, lrn_kernel, alexnet, model_lib, prng)
     t0 = time.perf_counter()
-    phase_flash_build(built["flash_attention"], fa)
-    flash_err = phase_flash_checks(torch, fa)
+    phase_flash_build(built["flash_attention"], fa, cuda_build, torch)
+    flash_err, flash_bf16_err = phase_flash_checks(torch, fa)
     flash_rows = phase_flash_times(torch, fa)
-    flash_launches, _ = phase_lm(
+    flash_launches, lm_steps = phase_lm(
         torch, fa, transformer_lm, transformer, model_lib, troot, prng
     )
     print(f"flash phases: {time.perf_counter() - t0:.1f} s")
@@ -1049,6 +1120,12 @@ def main() -> int:
             "launches": flash_launches[kname],
             "max_abs_err": flash_err[kname],
             **row,
+            # bf16 attention: its timed steps' launches, the slice shape's check
+            "bf16": {
+                "launches": lm_steps["bf16"][2][kname],
+                "max_abs_err": flash_bf16_err[kname],
+                **flash_rows[(kname, "bfloat16")],
+            },
         })
     for kname in UNSUP_SOURCE:
         kernels.append({
@@ -1060,6 +1137,7 @@ def main() -> int:
             "max_abs_err": unsup_err[kname],
             **unsup_rows[(kname, "model")],  # the main path's shape
         })
+    print(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({
         "ok": True,

@@ -3,9 +3,13 @@
 The plain flash version (the port's CPU path, and the oracle of its CUDA
 kernels) against JAX's ``flash_attention_lse``, whose Pallas kernels run in
 interpret mode here as ``tests/test_pallas.py`` runs them (blocks of 16, so
-T = 48 spans 3 blocks and T = 37 pads a ragged one): ``out`` and ``lse``
-within rtol/atol 1e-5, and the gradients of ``sum(sin(out)) + sum(w * lse)``
-(the lse cotangent included) within 1e-4.  Also ``dot_product_attention``,
+T = 48 spans 3 blocks and T = 37 pads a ragged one): in f32, ``out`` and
+``lse`` within rtol/atol 1e-5, and the gradients of ``sum(sin(out)) +
+sum(w * lse)`` (the lse cotangent included) within 1e-4; in bf16 (the same
+numpy inputs cast to bf16 on both sides), ``out`` and the gradients within
+1e-2 of the reference's largest magnitude (about one bf16 ulp of headroom
+over the roundings of ``p`` and ``ds`` that the two place differently) and
+``lse`` within 1e-5 of it.  Also ``dot_product_attention``,
 ``mha`` (params drawn equal exactly from one seed) and ``layer_norm``.
 Inputs are made with numpy from a seed and handed to both.
 """
@@ -35,37 +39,60 @@ def _qkv(t, seed, b=2, h=2, d=16):
     return [_np((b, t, h, d), seed + i) for i in range(3)]
 
 
-@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
-@pytest.mark.parametrize("t", [48, 37])
-def test_flash_forward_matches_jax(causal, t):
+# (T, causal, dtype); the f32 cases keep their ids from before bf16 joined
+FLASH_CASES = [
+    pytest.param(t, causal, dtype, id=f"{t}-{'causal' if causal else 'full'}"
+                 + ("" if dtype == "float32" else "-bf16"))
+    for dtype in ("float32", "bfloat16") for causal in (False, True) for t in (48, 37)
+]
+
+
+def _near_max(got, want, tol):
+    """Within ``tol`` of the reference's largest magnitude, compared in f32."""
+    got, want = np.asarray(got, np.float32), np.asarray(want, np.float32)
+    err = float(np.abs(got - want).max())
+    assert err <= tol * float(np.abs(want).max()), (err, float(np.abs(want).max()))
+
+
+@pytest.mark.parametrize("t,causal,dtype", FLASH_CASES)
+def test_flash_forward_matches_jax(t, causal, dtype):
     q, k, v = _qkv(t, 10 * t)
     jo, jl = jflash.flash_attention_lse(
-        *(jnp.asarray(x) for x in (q, k, v)), causal=causal, block_q=16, block_k=16
+        *(jnp.asarray(x, dtype) for x in (q, k, v)), causal=causal, block_q=16, block_k=16
     )
     to, tl = tflash.flash_attention_lse(
-        *(torch.from_numpy(x) for x in (q, k, v)), causal=causal, block_q=16, block_k=16
+        *(torch.from_numpy(x).to(getattr(torch, dtype)) for x in (q, k, v)),
+        causal=causal, block_q=16, block_k=16,
     )
     assert to.shape == (2, t, 2, 16) and tl.shape == (2, t, 2)
-    np.testing.assert_allclose(to.numpy(), np.asarray(jo), rtol=1e-5, atol=1e-5)
-    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=1e-5, atol=1e-5)
+    assert str(to.dtype).endswith(dtype) and tl.dtype == torch.float32
+    if dtype == "float32":
+        np.testing.assert_allclose(to.numpy(), np.asarray(jo), rtol=1e-5, atol=1e-5)
+        np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=1e-5, atol=1e-5)
+    else:
+        _near_max(to.float().numpy(), jo, 1e-2)
+        _near_max(tl.numpy(), jl, 1e-5)
 
 
-@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
-@pytest.mark.parametrize("t", [48, 37])
-def test_flash_gradients_match_jax(causal, t):
+@pytest.mark.parametrize("t,causal,dtype", FLASH_CASES)
+def test_flash_gradients_match_jax(t, causal, dtype):
     q, k, v = _qkv(t, 10 * t + 1)
     w = _np((2, t, 2), 7)
 
     def jloss(q, k, v):
         out, lse = jflash.flash_attention_lse(q, k, v, causal=causal, block_q=16, block_k=16)
-        return jnp.sum(jnp.sin(out)) + jnp.sum(jnp.asarray(w) * lse)
+        return jnp.sum(jnp.sin(out.astype(jnp.float32))) + jnp.sum(jnp.asarray(w) * lse)
 
-    want = jax.grad(jloss, argnums=(0, 1, 2))(*(jnp.asarray(x) for x in (q, k, v)))
-    xs = [torch.from_numpy(x).requires_grad_(True) for x in (q, k, v)]
+    want = jax.grad(jloss, argnums=(0, 1, 2))(*(jnp.asarray(x, dtype) for x in (q, k, v)))
+    xs = [torch.from_numpy(x).to(getattr(torch, dtype)).requires_grad_(True) for x in (q, k, v)]
     out, lse = tflash.flash_attention_lse(*xs, causal=causal, block_q=16, block_k=16)
-    got = torch.autograd.grad(torch.sin(out).sum() + (torch.from_numpy(w) * lse).sum(), xs)
+    got = torch.autograd.grad(torch.sin(out.float()).sum() + (torch.from_numpy(w) * lse).sum(), xs)
     for g, r in zip(got, want):
-        np.testing.assert_allclose(g.numpy(), np.asarray(r), rtol=1e-4, atol=1e-4)
+        assert str(g.dtype).endswith(dtype) and str(r.dtype) == dtype
+        if dtype == "float32":
+            np.testing.assert_allclose(g.numpy(), np.asarray(r), rtol=1e-4, atol=1e-4)
+        else:
+            _near_max(g.float().numpy(), r, 1e-2)
 
 
 @pytest.mark.parametrize("dtype,tol", [("float32", 1e-5), ("bfloat16", 1e-2)], ids=["f32", "bf16"])

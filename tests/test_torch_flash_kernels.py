@@ -12,7 +12,10 @@ The ``cuda``-marked tests compare each kernel with its plain version on the
 same CUDA tensors, with ``dout`` and ``dlse`` drawn at O(1) so that a zero
 or misplaced gradient fails: f32 within 1e-4 of the reference's largest
 magnitude (the sums run in another order), bf16 within 2e-2 of it (about
-one bf16 rounding of ``p`` and ``ds`` before their products).
+one bf16 rounding of ``p`` and ``ds`` before their products).  They also
+hold the bf16 dQ and dK/dV (the tensor-core kernels) to bitwise-equal
+repeat launches, a causal ragged length at the register-heavy head dim
+128, and the refusal of a view whose data is not 16-byte aligned.
 """
 
 import math
@@ -165,6 +168,49 @@ def test_kernels_match_plain_versions(card, d, causal, dtype):
 @pytest.mark.parametrize("t", [1, 37, 200], ids=["T1", "T37", "T200"])
 def test_kernels_mask_a_ragged_length(card, t, dtype):
     _check_all(card, 1, t, 2, 64, True, dtype, seed=t)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t", [77, 200], ids=["T77", "T200"])
+def test_kernels_mask_a_ragged_length_at_head_dim_128(card, t):
+    _check_all(card, 1, t, 2, 128, True, torch.bfloat16, seed=t + 128)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+def test_bf16_backward_launches_are_bitwise_repeatable(card, causal):
+    """One owner per output tile and no atomics: two launches on the same
+    inputs give the same bits."""
+    q, k, v = _qkv(2, 200, 3, 64, seed=5, device=card, dtype=torch.bfloat16)
+    dout = torch.randn((2, 200, 3, 64), device=card).to(torch.bfloat16)
+    lse = torch.randn((2, 200, 3), device=card) + 5.0
+    delta = torch.randn((2, 200, 3), device=card)
+    kw = dict(causal=causal, scale=0.125)
+    dq = [fa.flash_dq(q, k, v, dout, lse, delta, **kw) for _ in range(2)]
+    dkv = [fa.flash_dkv(q, k, v, dout, lse, delta, **kw) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert torch.equal(dq[0], dq[1])
+    assert torch.equal(dkv[0][0], dkv[1][0]) and torch.equal(dkv[0][1], dkv[1][1])
+    assert float(dq[0].float().abs().max()) > 0 and float(dkv[0][0].float().abs().max()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["dq", "dkv"])
+def test_a_misaligned_view_is_refused(card, kernel):
+    """A contiguous view 2 bytes into its storage cannot feed 16-byte copies."""
+    b, t, h, d = 1, 32, 2, 64
+    n = b * t * h * d
+    q, k, v = _qkv(b, t, h, d, seed=9, device=card, dtype=torch.bfloat16)
+    storage = torch.zeros((n + 1,), device=card, dtype=torch.bfloat16)
+    shifted = storage[1:].view(b, t, h, d)
+    shifted.copy_(q)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16
+    lse = torch.zeros((b, t, h), device=card)
+    fn = fa.flash_dq if kernel == "dq" else fa.flash_dkv
+    with pytest.raises(ValueError, match="16-byte"):
+        fn(shifted, k, v, q, lse, lse, causal=True, scale=0.125)
+    with pytest.raises(ValueError, match="16-byte"):
+        fn(q, k, v, shifted, lse, lse, causal=True, scale=0.125)
 
 
 @pytest.mark.cuda

@@ -2,8 +2,8 @@
 //
 // Replaces the three pl.pallas_call's of znicz_tpu/ops/pallas/attention.py:
 //   _flash_fwd_impl / _fwd_kernel (:212)  ->  fwd_kernel
-//   _flash_bwd / _dq_kernel        (:265)  ->  dq_kernel
-//   _flash_bwd / _dkv_kernel       (:277)  ->  dkv_kernel
+//   _flash_bwd / _dq_kernel        (:265)  ->  dq_kernel (f32), dq_mma_kernel (bf16)
+//   _flash_bwd / _dkv_kernel       (:277)  ->  dkv_kernel (f32), dkv_mma_kernel (bf16)
 //
 // Layout: q, k, v, out, dout and the gradients are [B, T, H, D] contiguous,
 // read in place through their strides (no [B*H, T, D] transposes); lse and
@@ -12,29 +12,67 @@
 //
 // What bounds these on an H100: operations.  At the LM slice (B*H = 128,
 // T = 2048, D = 64, causal) the forward does 2 products over the T(T+1)/2
-// live (q, k) pairs a head, ~69 GFLOP, against ~0.13 GB of q, k, v, out.
-// Design for that, kept simple: one block of 256 threads owns a 64-row
-// tile and loops over the other side's 64-row tiles in shared memory (the
-// TPU grid's sequential k axis becomes this loop); each thread computes a
-// 4 x 4 register tile of every 64 x 64 product with f32 FMAs, feeding them
-// from shared memory with one 16-byte load per 16 FMAs (the row tiles are
-// kept transposed, [D][64 + 4], so a thread's 4 rows are one vector).
-// Inputs of either type are widened to f32 in shared memory: f32 runs in
-// full f32 (no TF32) and bf16 takes the same FMA path, with p and ds
-// rounded to bf16 before their products as the TPU kernels cast them.
-// wgmma, TMA and warp specialisation are left for later work.
+// live (q, k) pairs a head, ~69 GFLOP, dQ 3 and dK/dV 4, against ~0.13 GB
+// of q, k, v, out: far above the card's ops-per-byte line in either type.
+// In every kernel one block owns a 64-row tile and loops over the other
+// side's 64-row tiles (the TPU grid's sequential axis becomes this loop).
+//
+// The bf16 backward (dq_mma_kernel, dkv_mma_kernel) runs on the tensor
+// cores, the contract of the TPU kernels (each input's dtype on the matrix
+// unit, f32 accumulation) being exactly mma.sync m16n8k16 bf16 x bf16 -> f32:
+// - 4 warps (128 threads) a 64-row tile, each warp owning 16 rows.  dQ holds
+//   its Q and dO A-fragments in registers for the whole k loop and computes
+//   S = Q.K^T and dP = dO.V^T; dK/dV works key-major, S^T = K.Q^T and
+//   dP^T = V.dO^T, with the K and V A-fragments in registers at D <= 64 and
+//   re-read from shared memory at D 128 (two 16 x 128 f32 accumulators
+//   already take 128 registers a thread there).
+// - p and ds never touch shared memory: two neighbouring m16n8 f32
+//   accumulators packed to bf16x2 (cvt.rn, round to nearest even, the
+//   TPU kernels' casts) are the A fragment of the next m16n8k16 product,
+//   ds.K (dQ), P^T.dO and dS^T.Q (dK/dV).  Nothing else is rounded.
+// - No product needs a row reduction, so the other side's tile is taken 16
+//   rows at a time: two n8 score tiles, then one k16 step of the output
+//   product, which keeps the live registers small.
+// - The elementwise work between the products is kept short, as it
+//   competes with them for the warp schedulers: p is exp2 of one FMA
+//   (scale and lse pre-scaled by log2 e), and the index mask is applied only
+//   to the 16 x 16 pieces that cross the causal diagonal or the end of the
+//   sequence.
+// - One bf16 copy of each tile in shared memory, rows padded to D + 8
+//   elements so the 8 rows an ldmatrix reads fall in 8 distinct 16-byte
+//   bank groups: ldmatrix.x4 gives the B fragments of the A.B^T products,
+//   ldmatrix.x4.trans those of the A.B products from the same copy.
+// - cp.async 16-byte copies, double buffered: the next K/V tile (dQ) or
+//   Q/dO/lse/delta tile (dK/dV) is in flight while this one is computed;
+//   rows at or past T are zero-filled by the copy's source size, so the
+//   tensors' data must start on a 16-byte boundary (the wrapper checks).
+// - ~55 KB of shared memory a block at D 64 (~105 KB at D 128), so several
+//   blocks share an SM.
+// The forward and the f32 instantiations of dQ and dK/dV take the simple
+// FMA path: a block of 256 threads, each computing a 4 x 4 register tile of
+// every 64 x 64 product with f32 FMAs fed from shared memory (row tiles
+// kept transposed, [D][64 + 4], so a thread's 4 rows are one vector); f32
+// runs in full f32 (no TF32), a bf16 forward is widened to f32 in shared
+// memory, with p rounded to bf16 before p.V.  wgmma, TMA and warp
+// specialisation are left for later work.
 //
 // Causal: the k loop of a q tile stops at the diagonal tile, and the q loop
-// of a k tile (dK/dV) starts there (the TPU kernels' _live skip).  Masked
-// probabilities are exactly 0 (selected, never computed from the NEG_INF
-// sentinel).  dK/dV has one owner per k tile and dQ one per q tile: no
-// atomics, deterministic results.
+// of a k tile (dK/dV) starts there (the TPU kernels' _live skip); the
+// tensor-core kernels also skip, warp by warp, the 16-row pieces of the
+// diagonal tile that are wholly masked.  Masked probabilities are exactly 0
+// (selected by index, never computed from the NEG_INF sentinel).  dK/dV has
+// one owner per k tile and dQ one per q tile: no atomics, a launch is
+// bitwise repeatable.  dq, dk and dv are scaled and rounded once, at the
+// store.
 //
 // Each C entry returns cudaGetLastError() (or the error of its set-up
 // call); the Python wrapper raises on a non-zero code.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -450,6 +488,409 @@ __global__ void __launch_bounds__(NT) dkv_kernel(const T* __restrict__ q, const 
 }
 
 // ---------------------------------------------------------------------------
+// bf16 dQ and dK/dV on the tensor cores
+//
+// m16n8k16 fragments (lane = threadIdx.x % 32): an A tile (16 x 16) holds
+// rows lane/4 and lane/4 + 8 at columns 2(lane%4) + {0, 1} and the same + 8;
+// a B tile (16 x 8) columns lane/4 at rows 2(lane%4) + {0, 1} and + 8; an f32
+// accumulator (16 x 8) c[0..1] at row lane/4 and c[2..3] at row lane/4 + 8,
+// columns 2(lane%4) + {0, 1}.
+
+using bf16 = __nv_bfloat16;
+constexpr int MMA_NT = 128;  // 4 warps, 16 rows of the 64-row tile each
+constexpr float LOG2E = 1.4426950408889634f;  // exp(x) = exp2(x * LOG2E)
+
+// row stride, in elements, of a bf16 tile in shared memory
+template <int D>
+__host__ __device__ constexpr int ldb() { return D + 8; }
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, zero-filled when !full
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool full) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(full ? 16 : 0)
+               : "memory");
+}
+
+// 4 bytes global -> shared, zero-filled when !full
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool full) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(full ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// every copy of this thread has landed; a __syncthreads() then makes all
+// threads' copies visible
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// four 8 x 8 bf16 matrices; lanes 8i..8i+7 give the row addresses of matrix i
+__device__ __forceinline__ void ldsm_x4(uint32_t r[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p))
+               : "memory");
+}
+
+// the same, each matrix transposed
+__device__ __forceinline__ void ldsm_x4_t(uint32_t r[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p))
+               : "memory");
+}
+
+// c += a.b for one m16n8k16 tile, bf16 in, f32 accumulate
+__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// (lo, hi) rounded to nearest even bf16 and packed, lo in the low half
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// rows [r0, r0 + 64) of one head into dst[r * ldb + c], one 16-byte copy
+// each; rows at or past the end of the sequence are zero-filled
+template <int D>
+__device__ __forceinline__ void load_tile_async(bf16* dst, const bf16* src, int r0,
+                                                const Geom& g) {
+  constexpr int CH = D / 8;  // 16-byte chunks a row
+  static_assert(TILE * CH % MMA_NT == 0, "a tile is a whole number of copies a thread");
+#pragma unroll
+  for (int it = 0; it < TILE * CH / MMA_NT; ++it) {
+    const int i = threadIdx.x + it * MMA_NT;
+    const int r = i / CH, c = i % CH;
+    const bool in = r0 + r < g.t;
+    cp_async16(dst + r * ldb<D>() + c * 8, in ? src + (long long)(r0 + r) * g.st + c * 8 : src,
+               in);
+  }
+}
+
+// the x4 loads' per-lane row and column offsets: A fragments and the
+// transposed B fragments of an A.B product (row lane % 16, column block
+// lane / 16), and the B fragments of an A.B^T product (two n8 tiles of one
+// k16 step: row lane % 8 + 8 (lane / 16), column block (lane / 8) % 2)
+struct Lanes {
+  int a_row, a_col, b_row, b_col;
+  __device__ __forceinline__ explicit Lanes(int lane)
+      : a_row(lane & 15),
+        a_col((lane >> 4) * 8),
+        b_row((lane & 7) + ((lane >> 4) << 3)),
+        b_col(((lane >> 3) & 1) * 8) {}
+};
+
+// s[j] += X[16 rows] . Y[y0 + 8j .. + 8)^T over D, for j 0, 1: X's A
+// fragments from registers, Y's rows (the other side's tile, [64][ldb]) from
+// shared memory
+template <int D>
+__device__ __forceinline__ void scores16(float s[2][4], uint32_t (*xf)[4], const bf16* Y,
+                                         int y0, const Lanes& ln) {
+#pragma unroll
+  for (int ks = 0; ks < D / 16; ++ks) {
+    uint32_t yf[4];
+    ldsm_x4(yf, Y + (y0 + ln.b_row) * ldb<D>() + ks * 16 + ln.b_col);
+    mma_bf16(s[0], xf[ks], yf[0], yf[1]);
+    mma_bf16(s[1], xf[ks], yf[2], yf[3]);
+  }
+}
+
+// the A fragments of rows [x0, x0 + 16) of a [64][ldb] tile, over D
+template <int D>
+__device__ __forceinline__ void load_afrags(uint32_t (*xf)[4], const bf16* X, int x0,
+                                            const Lanes& ln) {
+#pragma unroll
+  for (int ks = 0; ks < D / 16; ++ks)
+    ldsm_x4(xf[ks], X + (x0 + ln.a_row) * ldb<D>() + ks * 16 + ln.a_col);
+}
+
+// acc[n] += a . Z[z0 .. z0 + 16)[8n .. 8n + 8) for every n8 tile of D: a is
+// the packed A fragment of one k16 step, Z's rows its k axis
+template <int D>
+__device__ __forceinline__ void accumulate16(float (*acc)[4], const uint32_t a[4], const bf16* Z,
+                                             int z0, const Lanes& ln) {
+#pragma unroll
+  for (int n2 = 0; n2 < D / 16; ++n2) {
+    uint32_t zf[4];
+    ldsm_x4_t(zf, Z + (z0 + ln.a_row) * ldb<D>() + n2 * 16 + ln.a_col);
+    mma_bf16(acc[2 * n2], a, zf[0], zf[1]);
+    mma_bf16(acc[2 * n2 + 1], a, zf[2], zf[3]);
+  }
+}
+
+// the A fragment of a 16 x 16 tile held as two n8 accumulators
+__device__ __forceinline__ void pack_afrag(uint32_t a[4], float x[2][4]) {
+  a[0] = pack_bf16(x[0][0], x[0][1]);
+  a[1] = pack_bf16(x[0][2], x[0][3]);
+  a[2] = pack_bf16(x[1][0], x[1][1]);
+  a[3] = pack_bf16(x[1][2], x[1][3]);
+}
+
+// 16 rows x D of f32 accumulators, times mul, rounded once to bf16 and
+// stored at rows r0 + lane/4 {, + 8} of one head; rows at or past T skipped
+template <int D>
+__device__ __forceinline__ void store_rows(bf16* dst, float (*acc)[4], float mul, int r0,
+                                           const Geom& g, int lane) {
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int r = r0 + lane / 4 + 8 * half;
+    if (r >= g.t) continue;
+    bf16* row = dst + (long long)r * g.st + 2 * (lane % 4);
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n)
+      *reinterpret_cast<uint32_t*>(row + 8 * n) =
+          pack_bf16(mul * acc[n][2 * half], mul * acc[n][2 * half + 1]);
+  }
+}
+
+// dQ: one block per (q tile, batch-head), looping over the live k tiles:
+//   p = exp(s - lse), ds = p (dp - delta), dq = scale * sum_k ds.K
+template <int D>
+__global__ void __launch_bounds__(MMA_NT)
+    dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                  const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                  const float* __restrict__ lse, const float* __restrict__ delta,
+                  bf16* __restrict__ dq, Geom g, float scale, int causal) {
+  constexpr int LT = TILE * ldb<D>();  // elements of one tile
+  extern __shared__ float4 smem4[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem4);  // [64][ldb]
+  bf16* dOs = Qs + LT;                        // [64][ldb]
+  bf16* Ks = dOs + LT;                        // [2 stages][64][ldb]
+  bf16* Vs = Ks + 2 * LT;                     // [2 stages][64][ldb]
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const Lanes ln(lane);
+  const int nt = (g.t + TILE - 1) / TILE;
+  const int qb = nt - 1 - blockIdx.x;  // the longest causal rows start first
+  const int b = blockIdx.y / g.h, h = blockIdx.y % g.h;
+  const long long base = b * g.sb + (long long)h * D;
+  const int q0 = qb * TILE;
+  const int k_end = causal ? qb + 1 : nt;
+
+  load_tile_async<D>(Qs, q + base, q0, g);
+  load_tile_async<D>(dOs, dout + base, q0, g);
+  load_tile_async<D>(Ks, k + base, 0, g);
+  load_tile_async<D>(Vs, v + base, 0, g);
+  cp_async_commit();
+
+  const int w0 = q0 + warp * 16;  // this warp's first row
+  const float scale2 = scale * LOG2E;
+  float lse2[2], delta_r[2];  // rows w0 + lane/4 and + 8; lse2 = lse * LOG2E
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int qi = w0 + lane / 4 + 8 * half;
+    const long long si = ((long long)b * g.t + qi) * g.h + h;
+    lse2[half] = qi < g.t ? lse[si] * LOG2E : 0.f;
+    delta_r[half] = qi < g.t ? delta[si] : 0.f;
+  }
+  float acc[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+
+  cp_async_wait_all();
+  __syncthreads();
+  uint32_t qf[D / 16][4], dof[D / 16][4];
+  load_afrags<D>(qf, Qs, warp * 16, ln);
+  load_afrags<D>(dof, dOs, warp * 16, ln);
+
+  for (int kb = 0; kb < k_end; ++kb) {
+    if (kb + 1 < k_end) {  // the next tile's copies, in flight during this one
+      const int st = (kb + 1) & 1;
+      load_tile_async<D>(Ks + st * LT, k + base, (kb + 1) * TILE, g);
+      load_tile_async<D>(Vs + st * LT, v + base, (kb + 1) * TILE, g);
+      cp_async_commit();
+    }
+    const bf16* Kc = Ks + (kb & 1) * LT;
+    const bf16* Vc = Vs + (kb & 1) * LT;
+    const int k0 = kb * TILE;
+#pragma unroll
+    for (int c = 0; c < TILE / 16; ++c) {
+      const int kc = k0 + 16 * c;  // this piece's first key
+      // wholly masked for this warp: past the diagonal, past T
+      if ((causal && kc > w0 + 15) || kc >= g.t || w0 >= g.t) continue;
+      float s[2][4] = {}, dp[2][4] = {};
+      scores16<D>(s, qf, Kc, 16 * c, ln);
+      scores16<D>(dp, dof, Vc, 16 * c, ln);
+      // s -> ds = p (dp - delta); the index mask only where the piece
+      // crosses the diagonal or the end of the sequence
+      auto to_ds = [&](auto masked) {
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            float p = exp2f(fmaf(s[j][e], scale2, -lse2[e >> 1]));
+            if constexpr (decltype(masked)::value) {
+              const int qi = w0 + lane / 4 + 8 * (e >> 1);
+              const int ki = kc + 8 * j + 2 * (lane % 4) + (e & 1);
+              p = valid(qi, ki, g.t, causal) ? p : 0.f;
+            }
+            s[j][e] = p * (dp[j][e] - delta_r[e >> 1]);
+          }
+      };
+      if ((causal && kc + 15 > w0) || kc + 16 > g.t || w0 + 16 > g.t)
+        to_ds(std::true_type{});
+      else
+        to_ds(std::false_type{});
+      uint32_t a[4];
+      pack_afrag(a, s);  // ds cast to k's type before ds.K
+      accumulate16<D>(acc, a, Kc, 16 * c, ln);
+    }
+    cp_async_wait_all();
+    __syncthreads();  // the next tile has landed; this one is consumed
+  }
+  store_rows<D>(dq + base, acc, scale, w0, g, lane);
+}
+
+// dK/dV: one block per (k tile, batch-head), looping over the live q tiles,
+// key-major: s^T = K.Q^T, dp^T = V.dO^T; dv = sum_q p^T.dout,
+// dk = scale sum_q ds^T.q
+template <int D>
+__global__ void __launch_bounds__(MMA_NT)
+    dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                   const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                   const float* __restrict__ lse, const float* __restrict__ delta,
+                   bf16* __restrict__ dk, bf16* __restrict__ dv, Geom g, float scale,
+                   int causal) {
+  constexpr int LT = TILE * ldb<D>();
+  constexpr bool HOLD = D <= 64;  // K, V A-fragments in registers, else re-read
+  extern __shared__ float4 smem4[];
+  bf16* Ks = reinterpret_cast<bf16*>(smem4);  // [64][ldb] (this block's keys)
+  bf16* Vs = Ks + LT;                         // [64][ldb]
+  bf16* Qs = Vs + LT;                         // [2 stages][64][ldb]
+  bf16* dOs = Qs + 2 * LT;                    // [2 stages][64][ldb]
+  float* stat = reinterpret_cast<float*>(dOs + 2 * LT);  // [2 stages][lse 64, delta 64]
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const Lanes ln(lane);
+  const int nt = (g.t + TILE - 1) / TILE;
+  const int kb = blockIdx.x;  // the longest causal columns start first
+  const int b = blockIdx.y / g.h, h = blockIdx.y % g.h;
+  const long long base = b * g.sb + (long long)h * D;
+  const int k0 = kb * TILE;
+  const int q_begin = causal ? kb : 0;
+
+  // one q tile's Q, dO, lse and delta into stage st
+  auto load_q_tile = [&](int qb, int st) {
+    const int q0 = qb * TILE;
+    load_tile_async<D>(Qs + st * LT, q + base, q0, g);
+    load_tile_async<D>(dOs + st * LT, dout + base, q0, g);
+    const int r = threadIdx.x % TILE, qi = q0 + r;
+    const float* src = threadIdx.x < TILE ? lse : delta;
+    const long long si = ((long long)b * g.t + qi) * g.h + h;
+    cp_async4(stat + st * 2 * TILE + threadIdx.x, qi < g.t ? src + si : src, qi < g.t);
+  };
+
+  load_tile_async<D>(Ks, k + base, k0, g);
+  load_tile_async<D>(Vs, v + base, k0, g);
+  load_q_tile(q_begin, 0);
+  cp_async_commit();
+
+  const int w0 = k0 + warp * 16;  // this warp's first key
+  const float scale2 = scale * LOG2E;
+  float dk_acc[D / 8][4], dv_acc[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk_acc[n][e] = dv_acc[n][e] = 0.f;
+
+  cp_async_wait_all();
+  __syncthreads();
+  uint32_t kf[HOLD ? D / 16 : 1][4], vf[HOLD ? D / 16 : 1][4];
+  if constexpr (HOLD) {
+    load_afrags<D>(kf, Ks, warp * 16, ln);
+    load_afrags<D>(vf, Vs, warp * 16, ln);
+  }
+
+  for (int qb = q_begin; qb < nt; ++qb) {
+    const int it = qb - q_begin;
+    if (qb + 1 < nt) {  // the next q tile's copies, in flight during this one
+      load_q_tile(qb + 1, (it + 1) & 1);
+      cp_async_commit();
+    }
+    const bf16* Qc = Qs + (it & 1) * LT;
+    const bf16* dOc = dOs + (it & 1) * LT;
+    const float* lse_c = stat + (it & 1) * 2 * TILE;
+    const float* delta_c = lse_c + TILE;
+    const int q0 = qb * TILE;
+#pragma unroll
+    for (int c = 0; c < TILE / 16; ++c) {
+      const int qc = q0 + 16 * c;  // this piece's first query
+      // wholly masked for this warp: before the diagonal, past T
+      if ((causal && qc + 15 < w0) || qc >= g.t || w0 >= g.t) continue;
+      float st[2][4] = {}, dpt[2][4] = {};  // [key][query]
+      if constexpr (HOLD) {
+        scores16<D>(st, kf, Qc, 16 * c, ln);
+        scores16<D>(dpt, vf, dOc, 16 * c, ln);
+      } else {
+#pragma unroll
+        for (int ks = 0; ks < D / 16; ++ks) {
+          uint32_t xf[4], yf[4];
+          ldsm_x4(xf, Ks + (warp * 16 + ln.a_row) * ldb<D>() + ks * 16 + ln.a_col);
+          ldsm_x4(yf, Qc + (16 * c + ln.b_row) * ldb<D>() + ks * 16 + ln.b_col);
+          mma_bf16(st[0], xf, yf[0], yf[1]);
+          mma_bf16(st[1], xf, yf[2], yf[3]);
+          ldsm_x4(xf, Vs + (warp * 16 + ln.a_row) * ldb<D>() + ks * 16 + ln.a_col);
+          ldsm_x4(yf, dOc + (16 * c + ln.b_row) * ldb<D>() + ks * 16 + ln.b_col);
+          mma_bf16(dpt[0], xf, yf[0], yf[1]);
+          mma_bf16(dpt[1], xf, yf[2], yf[3]);
+        }
+      }
+      // s^T -> p^T, dp^T -> ds^T; the index mask only where the piece
+      // crosses the diagonal or the end of the sequence
+      auto to_p_ds = [&](auto masked) {
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const int col = 16 * c + 8 * j + 2 * (lane % 4);  // this thread's queries: col, col + 1
+          const float2 l2 = *reinterpret_cast<const float2*>(lse_c + col);
+          const float2 d2 = *reinterpret_cast<const float2*>(delta_c + col);
+          const float lse2[2] = {l2.x * LOG2E, l2.y * LOG2E}, dlt[2] = {d2.x, d2.y};
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            float p = exp2f(fmaf(st[j][e], scale2, -lse2[e & 1]));
+            if constexpr (decltype(masked)::value) {
+              const int ki = w0 + lane / 4 + 8 * (e >> 1);
+              const int qi = q0 + col + (e & 1);
+              p = valid(qi, ki, g.t, causal) ? p : 0.f;
+            }
+            dpt[j][e] = p * (dpt[j][e] - dlt[e & 1]);
+            st[j][e] = p;
+          }
+        }
+      };
+      if ((causal && qc < w0 + 15) || qc + 16 > g.t || w0 + 16 > g.t)
+        to_p_ds(std::true_type{});
+      else
+        to_p_ds(std::false_type{});
+      uint32_t pa[4], da[4];
+      pack_afrag(pa, st);   // p^T cast to dout's type before p^T.dout
+      pack_afrag(da, dpt);  // ds^T cast to q's type before ds^T.q
+      accumulate16<D>(dv_acc, pa, dOc, 16 * c, ln);
+      accumulate16<D>(dk_acc, da, Qc, 16 * c, ln);
+    }
+    cp_async_wait_all();
+    __syncthreads();  // the next tile has landed; this one is consumed
+  }
+  store_rows<D>(dk + base, dk_acc, scale, w0, g, lane);
+  store_rows<D>(dv + base, dv_acc, 1.f, w0, g, lane);
+}
+
+// ---------------------------------------------------------------------------
 // launchers
 
 template <int D>
@@ -461,6 +902,11 @@ constexpr size_t dkv_smem() {
   return (4 * D * LD + 2 * TILE * D + TILE * LD + 2 * TILE) * sizeof(float);
 }
 static_assert(dkv_smem<128>() <= 232448, "dK/dV tile exceeds a block's shared memory");
+template <int D>
+constexpr size_t dq_mma_smem() { return 6 * TILE * ldb<D>() * sizeof(bf16); }
+template <int D>
+constexpr size_t dkv_mma_smem() { return 6 * TILE * ldb<D>() * sizeof(bf16) + 4 * TILE * sizeof(float); }
+static_assert(dkv_mma_smem<128>() <= 232448, "dK/dV tile exceeds a block's shared memory");
 
 Geom make_geom(int t, int h, int d) {
   Geom g;
@@ -493,31 +939,55 @@ template <typename T, int D>
 cudaError_t run_dq(const void* q, const void* k, const void* v, const void* dout, const void* lse,
                    const void* delta, void* dq, int b, int t, int h, int causal, float scale,
                    cudaStream_t stream) {
-  const size_t smem = dq_smem<D>();
-  cudaError_t e = prepare(dq_kernel<T, D>, smem);
-  if (e != cudaSuccess) return e;
   const dim3 grid((t + TILE - 1) / TILE, b * h);
-  dq_kernel<T, D><<<grid, NT, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const T*>(dout), static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<T*>(dq), make_geom(t, h, D), scale, causal);
-  return cudaGetLastError();
+  if constexpr (std::is_same_v<T, bf16>) {
+    const size_t smem = dq_mma_smem<D>();
+    cudaError_t e = prepare(dq_mma_kernel<D>, smem);
+    if (e != cudaSuccess) return e;
+    dq_mma_kernel<D><<<grid, MMA_NT, smem, stream>>>(
+        static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+        static_cast<const bf16*>(dout), static_cast<const float*>(lse),
+        static_cast<const float*>(delta), static_cast<bf16*>(dq), make_geom(t, h, D), scale,
+        causal);
+    return cudaGetLastError();
+  } else {
+    const size_t smem = dq_smem<D>();
+    cudaError_t e = prepare(dq_kernel<T, D>, smem);
+    if (e != cudaSuccess) return e;
+    dq_kernel<T, D><<<grid, NT, smem, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+        static_cast<const T*>(dout), static_cast<const float*>(lse),
+        static_cast<const float*>(delta), static_cast<T*>(dq), make_geom(t, h, D), scale, causal);
+    return cudaGetLastError();
+  }
 }
 
 template <typename T, int D>
 cudaError_t run_dkv(const void* q, const void* k, const void* v, const void* dout,
                     const void* lse, const void* delta, void* dk, void* dv, int b, int t, int h,
                     int causal, float scale, cudaStream_t stream) {
-  const size_t smem = dkv_smem<D>();
-  cudaError_t e = prepare(dkv_kernel<T, D>, smem);
-  if (e != cudaSuccess) return e;
   const dim3 grid((t + TILE - 1) / TILE, b * h);
-  dkv_kernel<T, D><<<grid, NT, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const T*>(dout), static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<T*>(dk), static_cast<T*>(dv),
-      make_geom(t, h, D), scale, causal);
-  return cudaGetLastError();
+  if constexpr (std::is_same_v<T, bf16>) {
+    const size_t smem = dkv_mma_smem<D>();
+    cudaError_t e = prepare(dkv_mma_kernel<D>, smem);
+    if (e != cudaSuccess) return e;
+    dkv_mma_kernel<D><<<grid, MMA_NT, smem, stream>>>(
+        static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+        static_cast<const bf16*>(dout), static_cast<const float*>(lse),
+        static_cast<const float*>(delta), static_cast<bf16*>(dk), static_cast<bf16*>(dv),
+        make_geom(t, h, D), scale, causal);
+    return cudaGetLastError();
+  } else {
+    const size_t smem = dkv_smem<D>();
+    cudaError_t e = prepare(dkv_kernel<T, D>, smem);
+    if (e != cudaSuccess) return e;
+    dkv_kernel<T, D><<<grid, NT, smem, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+        static_cast<const T*>(dout), static_cast<const float*>(lse),
+        static_cast<const float*>(delta), static_cast<T*>(dk), static_cast<T*>(dv),
+        make_geom(t, h, D), scale, causal);
+    return cudaGetLastError();
+  }
 }
 
 // dtype: 0 float32, 1 bfloat16; d: 16, 32, 64 or 128
@@ -571,10 +1041,13 @@ int znicz_flash_dkv(const void* q, const void* k, const void* v, const void* dou
 }
 
 // dynamic shared memory a block of kernel `which` (0 fwd, 1 dq, 2 dkv)
-// asks for at head dim d; -1 for a head dim without a kernel
-int znicz_flash_smem_bytes(int which, int d) {
-#define ZNICZ_SMEM(D) \
-  return (int)(which == 0 ? fwd_smem<D>() : which == 1 ? dq_smem<D>() : dkv_smem<D>())
+// asks for at head dim d and dtype (0 float32, 1 bfloat16); -1 for a head
+// dim without a kernel
+int znicz_flash_smem_bytes(int which, int d, int dtype) {
+#define ZNICZ_SMEM(D)                                                          \
+  return (int)(which == 0   ? fwd_smem<D>()                                    \
+               : which == 1 ? (dtype == 1 ? dq_mma_smem<D>() : dq_smem<D>())   \
+                            : (dtype == 1 ? dkv_mma_smem<D>() : dkv_smem<D>()))
   switch (d) {
     case 16: ZNICZ_SMEM(16);
     case 32: ZNICZ_SMEM(32);

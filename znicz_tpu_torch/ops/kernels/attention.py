@@ -16,15 +16,28 @@ interface, built with ``nvcc`` for ``sm_90a`` at first use by
 operations.  At the LM slice (``B*H = 128``, ``T = 2048``, ``D = 64``,
 causal, so ``T(T+1)/2`` live (q, k) pairs a head) the forward does 2
 products of ``2 D`` flops a pair (~69 GFLOP), dQ 3 and dK/dV 4, against
-~0.13 GB of q, k, v and out: far above the card's ops-per-byte line.  The
-design for that, simple first: a block of 256 threads owns one 64-row tile
-and loops over the other side's 64-row tiles in shared memory (the TPU
-grid's sequential axis becomes that loop), each thread computing a 4 x 4
-register tile of every product with f32 FMAs; f32 inputs run in full f32
-(no TF32), bf16 inputs are widened in shared memory and take the same path.
-Tiles are the kernel's own: ``block_q``/``block_k`` are accepted so JAX call
-sites load unchanged, and are ignored (the TPU's 512 x 512 blocks were a
-VMEM choice).  Tensor-core products (``mma``/``wgmma``) come later.
+~0.13 GB of q, k, v and out: far above the card's ops-per-byte line.  In
+each kernel a block owns one 64-row tile and loops over the other side's
+64-row tiles (the TPU grid's sequential axis becomes that loop).
+
+- The bf16 dQ and dK/dV run on the tensor cores (``mma.sync`` m16n8k16,
+  bf16 operands, f32 accumulation: the TPU kernels' contract).  Four warps
+  own 16 rows each; ``p`` and ``ds`` go from the score products' f32
+  accumulators, rounded to bf16 where the TPU kernels cast them, straight
+  into the next product's operand, never through shared memory; one bf16
+  copy of each tile sits in shared memory, read by ``ldmatrix`` in both
+  orientations; the next tile's ``cp.async`` copies are in flight while
+  this one is computed.  These copies need q, k, v and dout to start on a
+  16-byte boundary, which the wrappers check for every kernel.
+- The forward and the f32 dQ and dK/dV take a simple FMA path: 256 threads,
+  each a 4 x 4 register tile of every product in f32 FMAs (f32 in full
+  f32, no TF32; a bf16 forward widened to f32 in shared memory), at most
+  the card's 67 TFLOP/s f32 rate.  Tensor cores for those and ``wgmma``
+  with TMA come later.
+
+Tiles are the kernels' own: ``block_q``/``block_k`` are accepted so JAX
+call sites load unchanged, and are ignored (the TPU's 512 x 512 blocks were
+a VMEM choice).
 
 The layout stays BTHD ``[B, T, H, D]`` (``lse``: ``[B, T, H]``); the
 kernels read it through strides, so the JAX package's ``[B*H, T, D]``
@@ -118,17 +131,17 @@ def _lib() -> ctypes.CDLL:
     lib.znicz_flash_dkv.argtypes = [ptr] * 8 + [i32] * 6 + [f32, ptr]
     for fn in (lib.znicz_flash_fwd, lib.znicz_flash_dq, lib.znicz_flash_dkv):
         fn.restype = i32
-    lib.znicz_flash_smem_bytes.argtypes = [i32, i32]
+    lib.znicz_flash_smem_bytes.argtypes = [i32, i32, i32]
     lib.znicz_flash_smem_bytes.restype = i32
     lib.znicz_cuda_error_string.argtypes = [i32]
     lib.znicz_cuda_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def smem_bytes(kernel: str, d: int) -> int:
+def smem_bytes(kernel: str, d: int, dtype: torch.dtype) -> int:
     """Dynamic shared memory a block of ``kernel`` ("fwd", "dq" or "dkv")
-    asks for at head dim ``d``, as the C launcher computes it."""
-    return _lib().znicz_flash_smem_bytes(("fwd", "dq", "dkv").index(kernel), d)
+    asks for at head dim ``d`` and ``dtype``, as the C launcher computes it."""
+    return _lib().znicz_flash_smem_bytes(("fwd", "dq", "dkv").index(kernel), d, DTYPES[dtype])
 
 
 def _check(name: str, qkv, stats=()) -> None:
@@ -146,6 +159,11 @@ def _check(name: str, qkv, stats=()) -> None:
             raise ValueError(f"{name}: dtype {t.dtype} not in {tuple(DTYPES)}")
         if t.dtype != x.dtype or t.shape != x.shape:
             raise ValueError(f"{name}: q, k, v (and dout) differ in dtype or shape")
+        if t.data_ptr() % 16:
+            raise ValueError(
+                f"{name}: kernel copies 16-byte pieces; a tensor's data starts at "
+                f"{t.data_ptr() % 16} bytes past a 16-byte boundary (a view at an offset)"
+            )
     b, _, h, d = x.shape
     if d not in HEAD_DIMS:
         raise ValueError(f"{name}: head dim {d} not in {HEAD_DIMS}")
