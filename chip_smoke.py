@@ -24,12 +24,13 @@ result line) when any phase fails:
    spills with the dynamic shared memory of each kernel; then the tensor-core
    instructions (SASS ``HMMA``, and ``HGMMA`` for ``wgmma``) of each kernel,
    counted in ``cuobjdump -sass`` of the built library: it fails if a bf16
-   dQ or dK/dV kernel has none;
+   forward, dQ or dK/dV kernel has none, or an f32 one has any;
 6. each flash kernel (forward, dQ, dK/dV) against its plain version on the
    same CUDA tensors, with O(1) ``dout`` and ``dlse``: the LM slice's shape
    (B 16, T 2048, H 8, D 64, causal), D 32 and 128, a non-causal and a
    ragged (T 2000) case, each in f32 and bf16; at the slice shape in bf16 a
-   second launch of dQ and dK/dV must be bitwise equal to the first;
+   second launch of the forward, dQ and dK/dV must be bitwise equal to the
+   first;
 7. the flash kernels' times at the slice shape beside their bound, the
    plain versions' and ``F.scaled_dot_product_attention``'s forward and
    autograd backward (timed here only; the port never calls it), in f32 and
@@ -40,7 +41,7 @@ result line) when any phase fails:
    train steps, 1 eval step) with the flash counters set to 0 just before
    and read just after, then timed train steps with f32 and bf16 attention
    (tokens/sec), each with the flash counters read around them (12 of each
-   kernel a train step: the bf16 steps run the tensor-core dQ and dK/dV),
+   kernel a train step: the bf16 steps run all three on the tensor cores),
    and a 512-token f32 forward on the card against the CPU from identical
    weights;
 9. the Kohonen and RBM builds (made with the flash build): nvcc's seconds, ptxas' registers, spills and
@@ -335,8 +336,8 @@ def phase_slice(torch, lrn_kernel, alexnet, model_lib, prng):
     return launches, {"step_ms": med * 1e3, "images_per_s": batch / med}
 
 
-# a flash kernel's mangled name: (fwd|dq|dkv)_kernel<float or bf16, D> on the
-# FMA path, (dq|dkv)_mma_kernel<D> (bf16 on the tensor cores)
+# a flash kernel's mangled name: (fwd|dq|dkv)_kernel<float, D> on the FMA
+# path, (fwd|dq|dkv)_mma_kernel<D> (bf16 on the tensor cores)
 _FLASH_KERNEL = re.compile(r"(fwd|dq|dkv)(_mma)?_kernelI(f|13__nv_bfloat16)?Li(\d+)E")
 _PTXAS_ENTRY = re.compile(r"Compiling entry function '\S*?" + _FLASH_KERNEL.pattern)
 
@@ -410,8 +411,10 @@ def phase_flash_build(built, fa, cuda_build, torch):
               f"spill stores/loads {r['spill']} bytes, "
               f"{fa.smem_bytes(r['kernel'], r['d'], dtypes[r['dtype']])} bytes dynamic shared "
               f"memory a block; SASS tensor-core instructions: {hmma} HMMA, {hgmma} HGMMA")
-        if r["dtype"] == "bf16" and r["kernel"] in ("dq", "dkv") and hmma + hgmma == 0:
-            fail(f"flash_{r['kernel']} bf16 D={r['d']} has no tensor-core instruction")
+        # bf16 runs on the tensor cores; f32 in full f32 (no TF32)
+        if (hmma + hgmma > 0) != (r["dtype"] == "bf16"):
+            fail(f"flash_{r['kernel']} {r['dtype']} D={r['d']} has {hmma + hgmma} tensor-core "
+                 f"instructions")
 
 
 def _flash_inputs(torch, b, t, h, d, dtype, seed):
@@ -439,9 +442,9 @@ def _near(name, got, ref, tol):
 
 
 def phase_flash_checks(torch, fa):
-    """Phase 6: each flash kernel against its plain version; the bf16 dQ and
-    dK/dV launched twice at the slice shape.  Returns the slice shape's max
-    errors in f32 and bf16."""
+    """Phase 6: each flash kernel against its plain version; the bf16
+    kernels launched twice at the slice shape.  Returns the slice shape's
+    max errors in f32 and bf16."""
     err, bf16_err = {}, {}
     for seed, (tag, b, t, h, d, causal) in enumerate(FLASH_CASES):
         for dtype in (torch.float32, torch.bfloat16):
@@ -473,15 +476,17 @@ def phase_flash_checks(torch, fa):
             if tag == "slice" and dtype is torch.bfloat16:
                 bf16_err = e
                 # one owner per output tile, no atomics: the same bits again
+                out2, lse2 = fa.flash_fwd(q, k, v, **kw)
                 dq2 = fa.flash_dq(q, k, v, dout, lse_r, delta, **kw)
                 dk2, dv2 = fa.flash_dkv(q, k, v, dout, lse_r, delta, **kw)
                 torch.cuda.synchronize()
-                same = {"flash_dq": torch.equal(dq, dq2),
+                same = {"flash_fwd": torch.equal(out, out2) and torch.equal(lse, lse2),
+                        "flash_dq": torch.equal(dq, dq2),
                         "flash_dkv": torch.equal(dk, dk2) and torch.equal(dv, dv2)}
                 print(f"check {label}: a second launch bitwise equal to the first: {same}")
                 if not all(same.values()):
-                    fail(f"bf16 backward launches at {label} are not bitwise repeatable")
-                del dq2, dk2, dv2
+                    fail(f"bf16 launches at {label} are not bitwise repeatable")
+                del out2, lse2, dq2, dk2, dv2
             del q, k, v, dout, dlse, out, lse, lse_r, delta, dq, dk, dv, dk_r, dv_r
             torch.cuda.empty_cache()
     return err, bf16_err

@@ -3,7 +3,9 @@
 The plain flash version (the port's CPU path, and the oracle of its CUDA
 kernels) against JAX's ``flash_attention_lse``, whose Pallas kernels run in
 interpret mode here as ``tests/test_pallas.py`` runs them (blocks of 16, so
-T = 48 spans 3 blocks and T = 37 pads a ragged one): in f32, ``out`` and
+T = 48 spans 3 blocks and T = 37 pads a ragged one; head dim 16, and in
+bf16 also head dim 64 at T = 130, the LM's head dim over more than two of
+the CUDA kernels' 64-row tiles and 9 of JAX's blocks): in f32, ``out`` and
 ``lse`` within rtol/atol 1e-5, and the gradients of ``sum(sin(out)) +
 sum(w * lse)`` (the lse cotangent included) within 1e-4; in bf16 (the same
 numpy inputs cast to bf16 on both sides), ``out`` and the gradients within
@@ -39,11 +41,15 @@ def _qkv(t, seed, b=2, h=2, d=16):
     return [_np((b, t, h, d), seed + i) for i in range(3)]
 
 
-# (T, causal, dtype); the f32 cases keep their ids from before bf16 joined
+# (T, causal, dtype, head dim); the f32 cases keep their ids from before
+# bf16 joined, the head-dim-16 cases theirs from before head dim 64
 FLASH_CASES = [
-    pytest.param(t, causal, dtype, id=f"{t}-{'causal' if causal else 'full'}"
+    pytest.param(t, causal, dtype, 16, id=f"{t}-{'causal' if causal else 'full'}"
                  + ("" if dtype == "float32" else "-bf16"))
     for dtype in ("float32", "bfloat16") for causal in (False, True) for t in (48, 37)
+] + [
+    pytest.param(130, causal, "bfloat16", 64, id=f"130-{'causal' if causal else 'full'}-bf16-d64")
+    for causal in (False, True)
 ]
 
 
@@ -54,9 +60,9 @@ def _near_max(got, want, tol):
     assert err <= tol * float(np.abs(want).max()), (err, float(np.abs(want).max()))
 
 
-@pytest.mark.parametrize("t,causal,dtype", FLASH_CASES)
-def test_flash_forward_matches_jax(t, causal, dtype):
-    q, k, v = _qkv(t, 10 * t)
+@pytest.mark.parametrize("t,causal,dtype,d", FLASH_CASES)
+def test_flash_forward_matches_jax(t, causal, dtype, d):
+    q, k, v = _qkv(t, 10 * t, d=d)
     jo, jl = jflash.flash_attention_lse(
         *(jnp.asarray(x, dtype) for x in (q, k, v)), causal=causal, block_q=16, block_k=16
     )
@@ -64,7 +70,7 @@ def test_flash_forward_matches_jax(t, causal, dtype):
         *(torch.from_numpy(x).to(getattr(torch, dtype)) for x in (q, k, v)),
         causal=causal, block_q=16, block_k=16,
     )
-    assert to.shape == (2, t, 2, 16) and tl.shape == (2, t, 2)
+    assert to.shape == (2, t, 2, d) and tl.shape == (2, t, 2)
     assert str(to.dtype).endswith(dtype) and tl.dtype == torch.float32
     if dtype == "float32":
         np.testing.assert_allclose(to.numpy(), np.asarray(jo), rtol=1e-5, atol=1e-5)
@@ -74,9 +80,9 @@ def test_flash_forward_matches_jax(t, causal, dtype):
         _near_max(tl.numpy(), jl, 1e-5)
 
 
-@pytest.mark.parametrize("t,causal,dtype", FLASH_CASES)
-def test_flash_gradients_match_jax(t, causal, dtype):
-    q, k, v = _qkv(t, 10 * t + 1)
+@pytest.mark.parametrize("t,causal,dtype,d", FLASH_CASES)
+def test_flash_gradients_match_jax(t, causal, dtype, d):
+    q, k, v = _qkv(t, 10 * t + 1, d=d)
     w = _np((2, t, 2), 7)
 
     def jloss(q, k, v):

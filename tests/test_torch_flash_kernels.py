@@ -13,9 +13,10 @@ same CUDA tensors, with ``dout`` and ``dlse`` drawn at O(1) so that a zero
 or misplaced gradient fails: f32 within 1e-4 of the reference's largest
 magnitude (the sums run in another order), bf16 within 2e-2 of it (about
 one bf16 rounding of ``p`` and ``ds`` before their products).  They also
-hold the bf16 dQ and dK/dV (the tensor-core kernels) to bitwise-equal
-repeat launches, a causal ragged length at the register-heavy head dim
-128, and the refusal of a view whose data is not 16-byte aligned.
+hold the bf16 kernels (forward, dQ and dK/dV, all on the tensor cores) to
+bitwise-equal repeat launches, ragged lengths at the narrowest and the
+register-heavy head dims (16, 128), the forward to a negative scale,
+and the refusal of a view whose data is not 16-byte aligned.
 """
 
 import math
@@ -178,6 +179,48 @@ def test_kernels_mask_a_ragged_length_at_head_dim_128(card, t):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+@pytest.mark.parametrize("t", [77, 200], ids=["T77", "T200"])
+@pytest.mark.parametrize("d", [16, 128])
+def test_bf16_forward_masks_a_ragged_length(card, d, t, causal):
+    """The tensor-core forward at a ragged T: ``out`` within the bf16
+    tolerance, ``lse`` within the f32 one of the reference's largest magnitude."""
+    q, k, v = _qkv(2, t, 3, d, seed=t + d, device=card, dtype=torch.bfloat16)
+    kw = dict(causal=causal, scale=1.0 / math.sqrt(d))
+    out, lse = fa.flash_fwd(q, k, v, **kw)
+    out_r, lse_r = fa.flash_fwd_reference(q, k, v, **kw)
+    torch.cuda.synchronize()
+    _assert_near("out", out, out_r, TOL[torch.bfloat16])
+    _assert_near("lse", lse, lse_r, TOL[torch.float32])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+def test_bf16_forward_takes_a_negative_scale(card, causal):
+    """The kernel's row max is taken on q.k with q's signs flipped when the
+    scale is negative: the softmax must still be the reference's."""
+    q, k, v = _qkv(1, 130, 2, 64, seed=8, device=card, dtype=torch.bfloat16)
+    kw = dict(causal=causal, scale=-0.125)
+    out, lse = fa.flash_fwd(q, k, v, **kw)
+    out_r, lse_r = fa.flash_fwd_reference(q, k, v, **kw)
+    torch.cuda.synchronize()
+    _assert_near("out", out, out_r, TOL[torch.bfloat16])
+    _assert_near("lse", lse, lse_r, TOL[torch.float32])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+def test_bf16_forward_launches_are_bitwise_repeatable(card, causal):
+    """One owner per q tile and no atomics: two launches on the same inputs
+    give the same bits."""
+    q, k, v = _qkv(2, 200, 3, 64, seed=6, device=card, dtype=torch.bfloat16)
+    runs = [fa.flash_fwd(q, k, v, causal=causal, scale=0.125) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert torch.equal(runs[0][0], runs[1][0]) and torch.equal(runs[0][1], runs[1][1])
+    assert float(runs[0][0].float().abs().max()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
 def test_bf16_backward_launches_are_bitwise_repeatable(card, causal):
     """One owner per output tile and no atomics: two launches on the same
     inputs give the same bits."""
@@ -195,7 +238,7 @@ def test_bf16_backward_launches_are_bitwise_repeatable(card, causal):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kernel", ["dq", "dkv"])
+@pytest.mark.parametrize("kernel", ["fwd", "dq", "dkv"])
 def test_a_misaligned_view_is_refused(card, kernel):
     """A contiguous view 2 bytes into its storage cannot feed 16-byte copies."""
     b, t, h, d = 1, 32, 2, 64
@@ -206,11 +249,15 @@ def test_a_misaligned_view_is_refused(card, kernel):
     shifted.copy_(q)
     assert shifted.is_contiguous() and shifted.data_ptr() % 16
     lse = torch.zeros((b, t, h), device=card)
-    fn = fa.flash_dq if kernel == "dq" else fa.flash_dkv
-    with pytest.raises(ValueError, match="16-byte"):
-        fn(shifted, k, v, q, lse, lse, causal=True, scale=0.125)
-    with pytest.raises(ValueError, match="16-byte"):
-        fn(q, k, v, shifted, lse, lse, causal=True, scale=0.125)
+    kw = dict(causal=True, scale=0.125)
+    call = {  # the view as the first and as the last of the kernel's tensors
+        "fwd": lambda first, last: fa.flash_fwd(first, k, last, **kw),
+        "dq": lambda first, last: fa.flash_dq(first, k, v, last, lse, lse, **kw),
+        "dkv": lambda first, last: fa.flash_dkv(first, k, v, last, lse, lse, **kw),
+    }[kernel]
+    for args in ((shifted, q), (q, shifted)):
+        with pytest.raises(ValueError, match="16-byte"):
+            call(*args)
 
 
 @pytest.mark.cuda

@@ -28,7 +28,8 @@ FAMILIES = (  # first match wins; matched against the lower-cased kernel name
     # csrc/flash_attention.cu's kernels, mangled or demangled
     ("flash (hand-written)", ("flash_attention_cu", "namespace)::fwd_kernel",
                               "namespace)::dq_kernel", "namespace)::dkv_kernel",
-                              "namespace)::dq_mma_kernel", "namespace)::dkv_mma_kernel")),
+                              "namespace)::fwd_mma_kernel", "namespace)::dq_mma_kernel",
+                              "namespace)::dkv_mma_kernel")),
     # csrc/kohonen.cu's and csrc/rbm.cu's kernels
     ("kohonen (hand-written)", ("kohonen_cu", "namespace)::winners_kernel",
                                 "namespace)::accum_kernel")),

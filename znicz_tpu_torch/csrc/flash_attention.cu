@@ -1,7 +1,7 @@
 // Flash attention for Hopper (sm_90a): forward, dQ and dK/dV kernels.
 //
 // Replaces the three pl.pallas_call's of znicz_tpu/ops/pallas/attention.py:
-//   _flash_fwd_impl / _fwd_kernel (:212)  ->  fwd_kernel
+//   _flash_fwd_impl / _fwd_kernel (:212)  ->  fwd_kernel (f32), fwd_mma_kernel (bf16)
 //   _flash_bwd / _dq_kernel        (:265)  ->  dq_kernel (f32), dq_mma_kernel (bf16)
 //   _flash_bwd / _dkv_kernel       (:277)  ->  dkv_kernel (f32), dkv_mma_kernel (bf16)
 //
@@ -17,53 +17,58 @@
 // In every kernel one block owns a 64-row tile and loops over the other
 // side's 64-row tiles (the TPU grid's sequential axis becomes this loop).
 //
-// The bf16 backward (dq_mma_kernel, dkv_mma_kernel) runs on the tensor
-// cores, the contract of the TPU kernels (each input's dtype on the matrix
-// unit, f32 accumulation) being exactly mma.sync m16n8k16 bf16 x bf16 -> f32:
-// - 4 warps (128 threads) a 64-row tile, each warp owning 16 rows.  dQ holds
-//   its Q and dO A-fragments in registers for the whole k loop and computes
-//   S = Q.K^T and dP = dO.V^T; dK/dV works key-major, S^T = K.Q^T and
-//   dP^T = V.dO^T, with the K and V A-fragments in registers at D <= 64 and
-//   re-read from shared memory at D 128 (two 16 x 128 f32 accumulators
-//   already take 128 registers a thread there).
+// The bf16 kernels (fwd_mma_kernel, dq_mma_kernel, dkv_mma_kernel) run on
+// the tensor cores, the contract of the TPU kernels (each input's dtype on
+// the matrix unit, f32 accumulation) being exactly mma.sync m16n8k16 bf16 x
+// bf16 -> f32:
+// - 4 warps (128 threads) a 64-row tile, each warp owning 16 rows.  The
+//   forward and dQ hold their Q (and dO) A-fragments in registers for the
+//   whole k loop: S = Q.K^T (and dP = dO.V^T); dK/dV works key-major,
+//   S^T = K.Q^T and dP^T = V.dO^T, with the K and V A-fragments in
+//   registers at D <= 64 and re-read from shared memory at D 128 (two
+//   16 x 128 f32 accumulators already take 128 registers a thread there).
 // - p and ds never touch shared memory: two neighbouring m16n8 f32
 //   accumulators packed to bf16x2 (cvt.rn, round to nearest even, the
 //   TPU kernels' casts) are the A fragment of the next m16n8k16 product,
-//   ds.K (dQ), P^T.dO and dS^T.Q (dK/dV).  Nothing else is rounded.
-// - No product needs a row reduction, so the other side's tile is taken 16
+//   p.V (forward), ds.K (dQ), P^T.dO and dS^T.Q (dK/dV).  Nothing else is
+//   rounded; the forward's row sums l take the unrounded f32 p.
+// - The forward's online softmax runs on the score accumulators: a row's
+//   64 scores of a k tile lie in the 4 lanes that share lane/4, so its max
+//   is the thread's 16 values and two xor-shuffles; acc and l are rescaled
+//   once a tile, and l is summed across the 4 lanes only at the end.  The
+//   backward needs no row reduction, so it takes the other side's tile 16
 //   rows at a time: two n8 score tiles, then one k16 step of the output
 //   product, which keeps the live registers small.
 // - The elementwise work between the products is kept short, as it
 //   competes with them for the warp schedulers: p is exp2 of one FMA
-//   (scale and lse pre-scaled by log2 e), and the index mask is applied only
-//   to the 16 x 16 pieces that cross the causal diagonal or the end of the
-//   sequence.
+//   (scale, and the forward's running max or the backward's lse, in log2
+//   units), and the index mask is applied only to the 16 x 16 pieces that
+//   cross the causal diagonal or the end of the sequence.
 // - One bf16 copy of each tile in shared memory, rows padded to D + 8
 //   elements so the 8 rows an ldmatrix reads fall in 8 distinct 16-byte
 //   bank groups: ldmatrix.x4 gives the B fragments of the A.B^T products,
 //   ldmatrix.x4.trans those of the A.B products from the same copy.
-// - cp.async 16-byte copies, double buffered: the next K/V tile (dQ) or
-//   Q/dO/lse/delta tile (dK/dV) is in flight while this one is computed;
-//   rows at or past T are zero-filled by the copy's source size, so the
-//   tensors' data must start on a 16-byte boundary (the wrapper checks).
-// - ~55 KB of shared memory a block at D 64 (~105 KB at D 128), so several
-//   blocks share an SM.
-// The forward and the f32 instantiations of dQ and dK/dV take the simple
-// FMA path: a block of 256 threads, each computing a 4 x 4 register tile of
-// every 64 x 64 product with f32 FMAs fed from shared memory (row tiles
-// kept transposed, [D][64 + 4], so a thread's 4 rows are one vector); f32
-// runs in full f32 (no TF32), a bf16 forward is widened to f32 in shared
-// memory, with p rounded to bf16 before p.V.  wgmma, TMA and warp
-// specialisation are left for later work.
+// - cp.async 16-byte copies, double buffered: the next K/V tile (forward,
+//   dQ) or Q/dO/lse/delta tile (dK/dV) is in flight while this one is
+//   computed; rows at or past T are zero-filled by the copy's source size,
+//   so the tensors' data must start on a 16-byte boundary (the wrapper
+//   checks).
+// - ~46 KB (forward) to ~55 KB of shared memory a block at D 64 (~87 to
+//   ~105 KB at D 128), so several blocks share an SM.
+// The f32 kernels take the simple FMA path: a block of 256 threads, each
+// computing a 4 x 4 register tile of every 64 x 64 product with f32 FMAs
+// fed from shared memory (row tiles kept transposed, [D][64 + 4], so a
+// thread's 4 rows are one vector), in full f32 (no TF32).  wgmma, TMA and
+// warp specialisation are left for later work.
 //
 // Causal: the k loop of a q tile stops at the diagonal tile, and the q loop
 // of a k tile (dK/dV) starts there (the TPU kernels' _live skip); the
 // tensor-core kernels also skip, warp by warp, the 16-row pieces of the
-// diagonal tile that are wholly masked.  Masked probabilities are exactly 0
-// (selected by index, never computed from the NEG_INF sentinel).  dK/dV has
-// one owner per k tile and dQ one per q tile: no atomics, a launch is
-// bitwise repeatable.  dq, dk and dv are scaled and rounded once, at the
-// store.
+// diagonal tile that are wholly masked (no score and no output product).
+// Masked probabilities are exactly 0 (selected by index, never computed
+// from the NEG_INF sentinel).  dK/dV has one owner per k tile, the forward
+// and dQ one per q tile: no atomics, a launch is bitwise repeatable.  out,
+// dq, dk and dv are scaled and rounded once, at the store.
 //
 // Each C entry returns cudaGetLastError() (or the error of its set-up
 // call); the Python wrapper raises on a non-zero code.
@@ -82,23 +87,17 @@ constexpr int LD = TILE + 4;      // row of a transposed tile; 16-byte aligned
 constexpr float NEG_INF = -1e30f;  // the TPU kernels' sentinel
 constexpr float L_FLOOR = 1e-30f;
 
+// the FMA kernels' element type: only float is instantiated (bf16 takes the
+// tensor-core kernels)
 template <typename T>
 __device__ __forceinline__ float to_f(T x);
 template <>
 __device__ __forceinline__ float to_f<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 
 template <typename T>
 __device__ __forceinline__ T from_f(float x);
 template <>
 __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);  // round to nearest even, as XLA's convert
-}
 
 // x rounded to T's precision (the casts before a product), kept in f32
 template <typename T>
@@ -232,7 +231,7 @@ __device__ __forceinline__ bool valid(int qi, int ki, int t, int causal) {
 }
 
 // ---------------------------------------------------------------------------
-// forward: one block per (q tile, batch-head); online softmax over k tiles
+// f32 forward: one block per (q tile, batch-head); online softmax over k tiles
 
 template <typename T, int D>
 __global__ void __launch_bounds__(NT) fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
@@ -488,7 +487,7 @@ __global__ void __launch_bounds__(NT) dkv_kernel(const T* __restrict__ q, const 
 }
 
 // ---------------------------------------------------------------------------
-// bf16 dQ and dK/dV on the tensor cores
+// bf16 forward, dQ and dK/dV on the tensor cores
 //
 // m16n8k16 fragments (lane = threadIdx.x % 32): an A tile (16 x 16) holds
 // rows lane/4 and lane/4 + 8 at columns 2(lane%4) + {0, 1} and the same + 8;
@@ -640,15 +639,17 @@ __device__ __forceinline__ void pack_afrag(uint32_t a[4], float x[2][4]) {
   a[3] = pack_bf16(x[1][2], x[1][3]);
 }
 
-// 16 rows x D of f32 accumulators, times mul, rounded once to bf16 and
-// stored at rows r0 + lane/4 {, + 8} of one head; rows at or past T skipped
+// 16 rows x D of f32 accumulators, row lane/4 times mul0 and row lane/4 + 8
+// times mul1, rounded once to bf16 and stored at rows r0 + lane/4 {, + 8} of
+// one head; rows at or past T skipped
 template <int D>
-__device__ __forceinline__ void store_rows(bf16* dst, float (*acc)[4], float mul, int r0,
-                                           const Geom& g, int lane) {
+__device__ __forceinline__ void store_rows(bf16* dst, float (*acc)[4], float mul0, float mul1,
+                                           int r0, const Geom& g, int lane) {
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
     const int r = r0 + lane / 4 + 8 * half;
     if (r >= g.t) continue;
+    const float mul = half ? mul1 : mul0;
     bf16* row = dst + (long long)r * g.st + 2 * (lane % 4);
 #pragma unroll
     for (int n = 0; n < D / 8; ++n)
@@ -754,7 +755,7 @@ __global__ void __launch_bounds__(MMA_NT)
     cp_async_wait_all();
     __syncthreads();  // the next tile has landed; this one is consumed
   }
-  store_rows<D>(dq + base, acc, scale, w0, g, lane);
+  store_rows<D>(dq + base, acc, scale, scale, w0, g, lane);
 }
 
 // dK/dV: one block per (k tile, batch-head), looping over the live q tiles,
@@ -886,8 +887,176 @@ __global__ void __launch_bounds__(MMA_NT)
     cp_async_wait_all();
     __syncthreads();  // the next tile has landed; this one is consumed
   }
-  store_rows<D>(dk + base, dk_acc, scale, w0, g, lane);
-  store_rows<D>(dv + base, dv_acc, 1.f, w0, g, lane);
+  store_rows<D>(dk + base, dk_acc, scale, scale, w0, g, lane);
+  store_rows<D>(dv + base, dv_acc, 1.f, 1.f, w0, g, lane);
+}
+
+// exp2(x) in one special-function instruction, subnormal results flushed to 0
+// (exp2f adds a rescaling around it for subnormals)
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// bf16 forward: one block per (q tile, batch-head), each warp 16 query rows, an
+// online softmax over the live k tiles kept on the score accumulators:
+//   s = Q.K^T, m = running row max of s.scale, p = exp(s.scale - m),
+//   l = running row sum of p, acc = alpha acc + p.V with alpha = exp(m_old - m),
+//   out = acc / max(l, 1e-30), lse = m + log(max(l, 1e-30))
+// m is kept in log2 units (m2 = m log2 e), so that p is exp2 of one FMA.
+template <int D>
+__global__ void __launch_bounds__(MMA_NT)
+    fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                   const bf16* __restrict__ v, bf16* __restrict__ o, float* __restrict__ lse,
+                   Geom g, float scale, int causal) {
+  constexpr int LT = TILE * ldb<D>();
+  constexpr float LN2 = 0.6931471805599453f;
+  extern __shared__ float4 smem4[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem4);  // [64][ldb]
+  bf16* Ks = Qs + LT;                         // [2 stages][64][ldb]
+  bf16* Vs = Ks + 2 * LT;                     // [2 stages][64][ldb]
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const Lanes ln(lane);
+  const int nt = (g.t + TILE - 1) / TILE;
+  const int qb = nt - 1 - blockIdx.x;  // the longest causal rows start first
+  const int b = blockIdx.y / g.h, h = blockIdx.y % g.h;
+  const long long base = b * g.sb + (long long)h * D;
+  const int q0 = qb * TILE;
+  const int k_end = causal ? qb + 1 : nt;
+
+  load_tile_async<D>(Qs, q + base, q0, g);
+  load_tile_async<D>(Ks, k + base, 0, g);
+  load_tile_async<D>(Vs, v + base, 0, g);
+  cp_async_commit();
+
+  const int w0 = q0 + warp * 16;  // this warp's first row
+  // s.scale = (-s).(-scale): a negative scale flips q's signs (below), so
+  // the row max of s.scale is |scale| times the row max of the products
+  const float scale2 = fabsf(scale) * LOG2E;
+  float m2[2] = {NEG_INF, NEG_INF};  // rows w0 + lane/4 and + 8, log2 units
+  float l[2] = {0.f, 0.f};  // this thread's columns' share of the row sums
+  float acc[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+
+  cp_async_wait_all();
+  __syncthreads();
+  uint32_t qf[D / 16][4];
+  load_afrags<D>(qf, Qs, warp * 16, ln);
+  if (scale < 0.f) {
+#pragma unroll
+    for (int ks = 0; ks < D / 16; ++ks)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) qf[ks][r] ^= 0x80008000u;  // both bf16 sign bits
+  }
+
+  for (int kb = 0; kb < k_end; ++kb) {
+    if (kb + 1 < k_end) {  // the next tile's copies, in flight during this one
+      const int st = (kb + 1) & 1;
+      load_tile_async<D>(Ks + st * LT, k + base, (kb + 1) * TILE, g);
+      load_tile_async<D>(Vs + st * LT, v + base, (kb + 1) * TILE, g);
+      cp_async_commit();
+    }
+    const bf16* Kc = Ks + (kb & 1) * LT;
+    const bf16* Vc = Vs + (kb & 1) * LT;
+    const int k0 = kb * TILE;
+    // a 16-key piece wholly masked for this warp (past the diagonal, past
+    // T) is skipped: no score product, no P.V product; the index mask is
+    // applied only to the pieces that cross the diagonal or the end of the
+    // sequence (`masked` a compile-time true there, false elsewhere)
+    auto dead = [&](int c) {
+      const int kc = k0 + 16 * c;
+      return (causal && kc > w0 + 15) || kc >= g.t || w0 >= g.t;
+    };
+    auto each_live_piece = [&](auto&& fn) {
+#pragma unroll
+      for (int c = 0; c < TILE / 16; ++c) {
+        if (dead(c)) continue;
+        const int kc = k0 + 16 * c;
+        if ((causal && kc + 15 > w0) || kc + 16 > g.t || w0 + 16 > g.t)
+          fn(c, std::true_type{});
+        else
+          fn(c, std::false_type{});
+      }
+    };
+    auto ok = [&](auto masked, int c, int j, int e) {
+      if constexpr (decltype(masked)::value)
+        return valid(w0 + lane / 4 + 8 * (e >> 1), k0 + 16 * c + 8 * j + 2 * (lane % 4) + (e & 1),
+                     g.t, causal);
+      else
+        return true;
+    };
+
+    float s[TILE / 8][4] = {};  // 16 rows x 64 keys: n8 tile 2c + j is keys 16c + 8j ..
+#pragma unroll
+    for (int c = 0; c < TILE / 16; ++c)
+      if (!dead(c)) scores16<D>(&s[2 * c], qf, Kc, 16 * c, ln);
+
+    // the rows' maxima over this tile: the thread's 16 values a row, then
+    // the 4 lanes that share the row (lane/4)
+    float mx[2] = {NEG_INF, NEG_INF};
+    each_live_piece([&](int c, auto masked) {
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (ok(masked, c, j, e)) mx[e >> 1] = fmaxf(mx[e >> 1], s[2 * c + j][e]);
+    });
+    float neg_m2[2];
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      float x = mx[half];
+      x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+      x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+      const float m_new = fmaxf(m2[half], x * scale2);
+      const float alpha = exp2_ftz(m2[half] - m_new);
+      m2[half] = m_new;
+      neg_m2[half] = -m_new;
+      l[half] *= alpha;
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n) {
+        acc[n][2 * half] *= alpha;
+        acc[n][2 * half + 1] *= alpha;
+      }
+    }
+
+    // p, summed unrounded into l; masked entries exactly 0 (selected by
+    // index); then p rounded to bf16 (v's type) as the A fragment of P.V
+    each_live_piece([&](int c, auto masked) {
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float p = exp2_ftz(fmaf(s[2 * c + j][e], scale2, neg_m2[e >> 1]));
+          p = ok(masked, c, j, e) ? p : 0.f;
+          s[2 * c + j][e] = p;
+          l[e >> 1] += p;
+        }
+      uint32_t a[4];
+      pack_afrag(a, &s[2 * c]);
+      accumulate16<D>(acc, a, Vc, 16 * c, ln);
+    });
+    cp_async_wait_all();
+    __syncthreads();  // the next tile has landed; this one is consumed
+  }
+
+  float inv[2];
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    float lt = l[half];
+    lt += __shfl_xor_sync(0xffffffffu, lt, 1);
+    lt += __shfl_xor_sync(0xffffffffu, lt, 2);
+    lt = fmaxf(lt, L_FLOOR);  // padded rows have zero mass
+    inv[half] = 1.f / lt;
+    const int qi = w0 + lane / 4 + 8 * half;
+    if (qi < g.t && lane % 4 == 0)
+      lse[((long long)b * g.t + qi) * g.h + h] = m2[half] * LN2 + logf(lt);
+  }
+  store_rows<D>(o + base, acc, inv[0], inv[1], w0, g, lane);
 }
 
 // ---------------------------------------------------------------------------
@@ -902,6 +1071,9 @@ constexpr size_t dkv_smem() {
   return (4 * D * LD + 2 * TILE * D + TILE * LD + 2 * TILE) * sizeof(float);
 }
 static_assert(dkv_smem<128>() <= 232448, "dK/dV tile exceeds a block's shared memory");
+template <int D>
+constexpr size_t fwd_mma_smem() { return 5 * TILE * ldb<D>() * sizeof(bf16); }
+static_assert(fwd_mma_smem<128>() <= 232448, "forward tile exceeds a block's shared memory");
 template <int D>
 constexpr size_t dq_mma_smem() { return 6 * TILE * ldb<D>() * sizeof(bf16); }
 template <int D>
@@ -925,14 +1097,24 @@ cudaError_t prepare(K kernel, size_t smem) {
 template <typename T, int D>
 cudaError_t run_fwd(const void* q, const void* k, const void* v, void* o, void* lse, int b, int t,
                     int h, int causal, float scale, cudaStream_t stream) {
-  const size_t smem = fwd_smem<D>();
-  cudaError_t e = prepare(fwd_kernel<T, D>, smem);
-  if (e != cudaSuccess) return e;
   const dim3 grid((t + TILE - 1) / TILE, b * h);
-  fwd_kernel<T, D><<<grid, NT, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), static_cast<float*>(lse), make_geom(t, h, D), scale, causal);
-  return cudaGetLastError();
+  if constexpr (std::is_same_v<T, bf16>) {
+    const size_t smem = fwd_mma_smem<D>();
+    cudaError_t e = prepare(fwd_mma_kernel<D>, smem);
+    if (e != cudaSuccess) return e;
+    fwd_mma_kernel<D><<<grid, MMA_NT, smem, stream>>>(
+        static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+        static_cast<bf16*>(o), static_cast<float*>(lse), make_geom(t, h, D), scale, causal);
+    return cudaGetLastError();
+  } else {
+    const size_t smem = fwd_smem<D>();
+    cudaError_t e = prepare(fwd_kernel<T, D>, smem);
+    if (e != cudaSuccess) return e;
+    fwd_kernel<T, D><<<grid, NT, smem, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+        static_cast<T*>(o), static_cast<float*>(lse), make_geom(t, h, D), scale, causal);
+    return cudaGetLastError();
+  }
 }
 
 template <typename T, int D>
@@ -1045,7 +1227,7 @@ int znicz_flash_dkv(const void* q, const void* k, const void* v, const void* dou
 // dim without a kernel
 int znicz_flash_smem_bytes(int which, int d, int dtype) {
 #define ZNICZ_SMEM(D)                                                          \
-  return (int)(which == 0   ? fwd_smem<D>()                                    \
+  return (int)(which == 0   ? (dtype == 1 ? fwd_mma_smem<D>() : fwd_smem<D>()) \
                : which == 1 ? (dtype == 1 ? dq_mma_smem<D>() : dq_smem<D>())   \
                             : (dtype == 1 ? dkv_mma_smem<D>() : dkv_smem<D>()))
   switch (d) {

@@ -20,20 +20,21 @@ products of ``2 D`` flops a pair (~69 GFLOP), dQ 3 and dK/dV 4, against
 each kernel a block owns one 64-row tile and loops over the other side's
 64-row tiles (the TPU grid's sequential axis becomes that loop).
 
-- The bf16 dQ and dK/dV run on the tensor cores (``mma.sync`` m16n8k16,
-  bf16 operands, f32 accumulation: the TPU kernels' contract).  Four warps
-  own 16 rows each; ``p`` and ``ds`` go from the score products' f32
-  accumulators, rounded to bf16 where the TPU kernels cast them, straight
-  into the next product's operand, never through shared memory; one bf16
+- The bf16 forward, dQ and dK/dV run on the tensor cores (``mma.sync``
+  m16n8k16, bf16 operands, f32 accumulation: the TPU kernels' contract).
+  Four warps own 16 rows each; ``p`` and ``ds`` go from the score products'
+  f32 accumulators, rounded to bf16 where the TPU kernels cast them,
+  straight into the next product's operand, never through shared memory;
+  the forward's online softmax (row max, rescale, row sum of the unrounded
+  ``p``) runs on those accumulators, ``p`` as ``exp2`` of one FMA; one bf16
   copy of each tile sits in shared memory, read by ``ldmatrix`` in both
   orientations; the next tile's ``cp.async`` copies are in flight while
   this one is computed.  These copies need q, k, v and dout to start on a
   16-byte boundary, which the wrappers check for every kernel.
-- The forward and the f32 dQ and dK/dV take a simple FMA path: 256 threads,
-  each a 4 x 4 register tile of every product in f32 FMAs (f32 in full
-  f32, no TF32; a bf16 forward widened to f32 in shared memory), at most
-  the card's 67 TFLOP/s f32 rate.  Tensor cores for those and ``wgmma``
-  with TMA come later.
+- The f32 forward, dQ and dK/dV take a simple FMA path: 256 threads, each
+  a 4 x 4 register tile of every product in f32 FMAs (f32 in full f32, no
+  TF32), at most the card's 67 TFLOP/s f32 rate.  Tensor cores for those
+  (3xTF32) and ``wgmma`` with TMA come later.
 
 Tiles are the kernels' own: ``block_q``/``block_k`` are accepted so JAX
 call sites load unchanged, and are ignored (the TPU's 512 x 512 blocks were
