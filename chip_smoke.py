@@ -23,15 +23,22 @@ result line) when any phase fails:
 5. the flash-attention build (made before phase 2): nvcc's seconds, and ptxas' registers and
    spills with the dynamic shared memory of each kernel; then the tensor-core
    instructions (SASS ``HMMA``, and ``HGMMA`` for ``wgmma``) of each kernel,
-   counted in ``cuobjdump -sass`` of the built library: it fails if a bf16
-   forward, dQ or dK/dV kernel has none, or an f32 one has any;
+   counted in ``cuobjdump -sass`` of the built library: it fails if one of
+   the 20 tensor-core kernels (the bf16 forward, dQ and dK/dV, the f32 dQ
+   and dK/dV in 3xTF32) has none, or an f32 forward kernel has any;
 6. each flash kernel (forward, dQ, dK/dV) against its plain version on the
    same CUDA tensors, with O(1) ``dout`` and ``dlse``: the LM slice's shape
    (B 16, T 2048, H 8, D 64, causal), D 32 and 128, a non-causal and a
-   ragged (T 2000) case, each in f32 and bf16; at the slice shape in bf16 a
-   second launch of the forward, dQ and dK/dV must be bitwise equal to the
-   first;
-7. the flash kernels' times at the slice shape beside their bound, the
+   ragged (T 2000) case, each in f32 and bf16; at the slice shape a second
+   launch of the forward, dQ and dK/dV must be bitwise equal to the first,
+   in both dtypes, and the f32 dQ and dK/dV's errors against a float64
+   plain version within 10 times the f32 plain version's;
+   6b. ``flash_attention_lse`` at a head dim the kernels take zero-padded
+   (96, on non-contiguous views), forward and gradients against autograd
+   through the plain forward, in f32 and bf16; and the three wrappers at a
+   B*H of 65600, launched as two batch slices, against their plain versions;
+7. the flash kernels' times at the slice shape beside their bound (the f32
+   dQ and dK/dV at the 3xTF32 rate, their f32-FMA bound beside it), the
    plain versions' and ``F.scaled_dot_product_attention``'s forward and
    autograd backward (timed here only; the port never calls it), in f32 and
    bf16;
@@ -73,7 +80,8 @@ result line) when any phase fails:
     identical weights (the RBM with the same seed: the same chain);
 15. the whole script's seconds, the ``kernels`` JSON line (each flash row
     with its bf16 times, bound, launches and error beside the f32 ones under
-    ``"bf16"``), then the result line.
+    ``"bf16"``; the f32 dQ and dK/dV rows also with their f32-FMA bound and
+    their float64 errors beside the plain version's), then the result line.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``.
 """
@@ -121,7 +129,11 @@ FLASH_CASES = [  # (tag, B, T, H, D, causal)
 # of the reference's largest magnitude: f32 sums run in another order; bf16
 # rounds p and ds before their products at other places (running maxima)
 FLASH_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+# the 3xTF32 f32 dQ and dK/dV against float64: within this factor of the
+# f32 plain version's error (one TF32 product would be ~1000 times it)
+FLOAT64_FACTOR = 10
 PEAK_FLOPS = {"float32": F32_FLOPS, "bfloat16": 989e12}  # H100 SXM, dense
+TF32_FLOPS = 495e12  # H100 SXM, dense; 3xTF32 takes three products for one
 # products of 2*D flops for each live (q, k) pair
 FLASH_PRODUCTS = {"flash_fwd": 2, "flash_dq": 3, "flash_dkv": 4}
 FLASH_SOURCE = "znicz_tpu_torch/csrc/flash_attention.cu"
@@ -336,9 +348,10 @@ def phase_slice(torch, lrn_kernel, alexnet, model_lib, prng):
     return launches, {"step_ms": med * 1e3, "images_per_s": batch / med}
 
 
-# a flash kernel's mangled name: (fwd|dq|dkv)_kernel<float, D> on the FMA
-# path, (fwd|dq|dkv)_mma_kernel<D> (bf16 on the tensor cores)
-_FLASH_KERNEL = re.compile(r"(fwd|dq|dkv)(_mma)?_kernelI(f|13__nv_bfloat16)?Li(\d+)E")
+# a flash kernel's mangled name: fwd_kernel<float, D> (the f32 forward, FMA
+# path), (fwd|dq|dkv)_mma_kernel<D> (bf16 on the tensor cores),
+# (dq|dkv)_tf32_kernel<D> (the f32 backward on the tensor cores, 3xTF32)
+_FLASH_KERNEL = re.compile(r"(fwd|dq|dkv)(_mma|_tf32)?_kernelI(f|13__nv_bfloat16)?Li(\d+)E")
 _PTXAS_ENTRY = re.compile(r"Compiling entry function '\S*?" + _FLASH_KERNEL.pattern)
 
 
@@ -356,7 +369,7 @@ def build_all(cuda_build):
 
 def _flash_key(m):
     """(kernel, dtype, D) of a _FLASH_KERNEL match."""
-    return m.group(1), "f32" if m.group(3) == "f" else "bf16", int(m.group(4))
+    return m.group(1), "bf16" if m.group(2) == "_mma" else "f32", int(m.group(4))
 
 
 def _sass_mma_counts(cuda_build, lib_path):
@@ -411,8 +424,9 @@ def phase_flash_build(built, fa, cuda_build, torch):
               f"spill stores/loads {r['spill']} bytes, "
               f"{fa.smem_bytes(r['kernel'], r['d'], dtypes[r['dtype']])} bytes dynamic shared "
               f"memory a block; SASS tensor-core instructions: {hmma} HMMA, {hgmma} HGMMA")
-        # bf16 runs on the tensor cores; f32 in full f32 (no TF32)
-        if (hmma + hgmma > 0) != (r["dtype"] == "bf16"):
+        # all on the tensor cores (the f32 backward in 3xTF32) but the f32
+        # forward, which is still f32 FMAs
+        if (hmma + hgmma > 0) != (r["dtype"] == "bf16" or r["kernel"] != "fwd"):
             fail(f"flash_{r['kernel']} {r['dtype']} D={r['d']} has {hmma + hgmma} tensor-core "
                  f"instructions")
 
@@ -441,11 +455,45 @@ def _near(name, got, ref, tol):
     return err
 
 
+def _flash_bwd_float64(torch, q, k, v, dout, lse, delta, causal, scale):
+    """dq, dk, dv in float64 from the same inputs: the answer that the f32
+    kernels and the f32 plain versions both approximate."""
+    q, k, v, dout, lse, delta = (x.double() for x in (q, k, v, dout, lse, delta))
+    s = torch.einsum("bqhd,bkhd->bhqk", q, k) * scale
+    p = torch.exp(s - lse.permute(0, 2, 1)[..., None])
+    del s
+    if causal:
+        p = p.tril()
+    ds = p * (torch.einsum("bqhd,bkhd->bhqk", dout, v) - delta.permute(0, 2, 1)[..., None])
+    return (scale * torch.einsum("bhqk,bkhd->bqhd", ds, k),
+            scale * torch.einsum("bhqk,bqhd->bkhd", ds, q),
+            torch.einsum("bhqk,bqhd->bkhd", p, dout))
+
+
+def _float64_check(torch, label, got, plain, exact):
+    """Each f32 gradient's max error against float64, the kernel's within
+    FLOAT64_FACTOR of the plain version's; returns the kernel's and the
+    plain version's max errors."""
+    out = {}
+    for name, g, p, e in zip(("dq", "dk", "dv"), got, plain, exact):
+        ek = float((g.double() - e).abs().max())
+        ep = float((p.double() - e).abs().max())
+        ok = math.isfinite(ek) and ek <= FLOAT64_FACTOR * ep
+        print(f"check {label} {name} against float64: kernel (3xTF32) max_abs_err={ek:.3e}, "
+              f"f32 plain version {ep:.3e}, ratio {ek / max(ep, 1e-30):.2f} (limit "
+              f"{FLOAT64_FACTOR}) {'ok' if ok else 'FAILED'}")
+        if not ok:
+            fail(f"{label} {name}: the f32 kernel is not f32-accurate against float64")
+        out[name] = (ek, ep)
+    return out
+
+
 def phase_flash_checks(torch, fa):
-    """Phase 6: each flash kernel against its plain version; the bf16
-    kernels launched twice at the slice shape.  Returns the slice shape's
-    max errors in f32 and bf16."""
-    err, bf16_err = {}, {}
+    """Phase 6: each flash kernel against its plain version; at the slice
+    shape every kernel launched twice, and the f32 dQ and dK/dV against
+    float64.  Returns the slice shape's max errors in f32 and bf16, and the
+    f32 backward's float64 errors."""
+    err, bf16_err, f64_err = {}, {}, {}
     for seed, (tag, b, t, h, d, causal) in enumerate(FLASH_CASES):
         for dtype in (torch.float32, torch.bfloat16):
             dname = str(dtype).split(".")[-1]
@@ -464,17 +512,21 @@ def phase_flash_checks(torch, fa):
             e = {"flash_fwd": _near(f"flash_fwd out {label}", out, out_r, tol)}
             _near(f"flash_fwd lse {label}", lse, lse_r, FLASH_TOL["float32"])
             del out_r
-            e["flash_dq"] = _near(
-                f"flash_dq {label}", dq,
-                fa.flash_dq_reference(q, k, v, dout, lse_r, delta, **kw), tol,
-            )
+            dq_r = fa.flash_dq_reference(q, k, v, dout, lse_r, delta, **kw)
+            e["flash_dq"] = _near(f"flash_dq {label}", dq, dq_r, tol)
             dk_r, dv_r = fa.flash_dkv_reference(q, k, v, dout, lse_r, delta, **kw)
             e["flash_dkv"] = max(_near(f"flash_dkv dk {label}", dk, dk_r, tol),
                                  _near(f"flash_dkv dv {label}", dv, dv_r, tol))
-            if tag == "slice" and dtype is torch.float32:  # the counted epoch's
-                err = e
-            if tag == "slice" and dtype is torch.bfloat16:
-                bf16_err = e
+            if tag == "slice":
+                if dtype is torch.float32:  # the counted epoch's
+                    err = e
+                    exact = _flash_bwd_float64(torch, q, k, v, dout, lse_r, delta, causal,
+                                               kw["scale"])
+                    f64_err = _float64_check(torch, f"{label}", (dq, dk, dv),
+                                             (dq_r, dk_r, dv_r), exact)
+                    del exact
+                else:
+                    bf16_err = e
                 # one owner per output tile, no atomics: the same bits again
                 out2, lse2 = fa.flash_fwd(q, k, v, **kw)
                 dq2 = fa.flash_dq(q, k, v, dout, lse_r, delta, **kw)
@@ -485,17 +537,87 @@ def phase_flash_checks(torch, fa):
                         "flash_dkv": torch.equal(dk, dk2) and torch.equal(dv, dv2)}
                 print(f"check {label}: a second launch bitwise equal to the first: {same}")
                 if not all(same.values()):
-                    fail(f"bf16 launches at {label} are not bitwise repeatable")
+                    fail(f"{dname} launches at {label} are not bitwise repeatable")
                 del out2, lse2, dq2, dk2, dv2
-            del q, k, v, dout, dlse, out, lse, lse_r, delta, dq, dk, dv, dk_r, dv_r
+            del q, k, v, dout, dlse, out, lse, lse_r, delta, dq, dk, dv, dq_r, dk_r, dv_r
             torch.cuda.empty_cache()
-    return err, bf16_err
+    return err, bf16_err, f64_err
 
 
-def _flash_bounds(b, t, h, d, causal, esize, dname):
+def phase_flash_inputs(torch, fa):
+    """Phase 6b: what JAX's kernel takes and the kernels' grid does not hold
+    as it is.  A head dim between the kernels' (96: zero-padded to 128 in
+    the autograd layer) and non-contiguous views through
+    ``flash_attention_lse``, forward and gradients against autograd through
+    the plain forward on the same tensors, each kernel launched once; and a
+    B*H above the grid's 65535, launched a batch slice at a time."""
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split(".")[-1]
+        b, t, h, d = 2, 1024, 8, 96
+        q, k, v, dout, dlse = _flash_inputs(torch, b, t, h, d, dtype, 7)
+        label = f"padded head dim [{b},{t},{h},{d}] causal {dname}"
+
+        def grads(fn):
+            xs = [x.transpose(1, 2).contiguous().transpose(1, 2).requires_grad_(True)
+                  for x in (q, k, v)]  # non-contiguous views
+            out, lse = fn(*xs)
+            g = torch.autograd.grad((out, lse), xs, (dout, dlse))
+            return (out.detach(), lse.detach(), *g)
+
+        before = {name: getattr(fa, name).launches for name in FLASH}
+        got = grads(lambda *xs: fa.flash_attention_lse(*xs, causal=True))
+        torch.cuda.synchronize()
+        launched = {name: getattr(fa, name).launches - before[name] for name in FLASH}
+        want = grads(lambda *xs: fa.flash_fwd_reference(*xs, causal=True, scale=d ** -0.5))
+        print(f"check {label}: launches {launched}")
+        if launched != dict.fromkeys(FLASH, 1):
+            fail(f"{label}: launches {launched}, want one of each kernel")
+        for name, g, r in zip(("out", "lse", "dq", "dk", "dv"), got, want):
+            if g.shape != r.shape:
+                fail(f"{label}: {name} shape {tuple(g.shape)} != {tuple(r.shape)}")
+            _near(f"{label} {name}", g, r,
+                  FLASH_TOL["float32"] if name == "lse" else FLASH_TOL[dname])
+        del q, k, v, dout, dlse, got, want
+    b, t, h, d = 4100, 64, 16, 16  # B*H = 65600
+    q, k, v, dout, dlse = _flash_inputs(torch, b, t, h, d, torch.float32, 8)
+    kw = dict(causal=True, scale=0.25)
+    label = f"B*H {b * h} [{b},{t},{h},{d}] causal float32"
+    before = {name: getattr(fa, name).launches for name in FLASH}
+    out, lse = fa.flash_fwd(q, k, v, **kw)
+    delta = ((dout * out).sum(-1) - dlse).contiguous()
+    dq = fa.flash_dq(q, k, v, dout, lse, delta, **kw)
+    dk, dv = fa.flash_dkv(q, k, v, dout, lse, delta, **kw)
+    torch.cuda.synchronize()
+    launched = {name: getattr(fa, name).launches - before[name] for name in FLASH}
+    print(f"check {label}: launches {launched} (a batch slice each)")
+    if launched != dict.fromkeys(FLASH, 2):
+        fail(f"{label}: launches {launched}, want two of each kernel")
+    out_r, lse_r = fa.flash_fwd_reference(q, k, v, **kw)
+    _near(f"flash_fwd out {label}", out, out_r, FLASH_TOL["float32"])
+    _near(f"flash_fwd lse {label}", lse, lse_r, FLASH_TOL["float32"])
+    del out_r, lse_r
+    _near(f"flash_dq {label}", dq, fa.flash_dq_reference(q, k, v, dout, lse, delta, **kw),
+          FLASH_TOL["float32"])
+    for name, g, r in zip(("dk", "dv"), (dk, dv),
+                          fa.flash_dkv_reference(q, k, v, dout, lse, delta, **kw)):
+        _near(f"flash_dkv {name} {label}", g, r, FLASH_TOL["float32"])
+    del q, k, v, dout, dlse, out, lse, delta, dq, dk, dv
+    torch.cuda.empty_cache()
+
+
+def _flash_rate(name, dname):
+    """The card's peak rate for the products a kernel takes: f32 FMAs for
+    the f32 forward, 3xTF32 (three TF32 products for one) for the f32 dQ
+    and dK/dV, bf16 for the bf16 kernels."""
+    if dname == "float32" and name != "flash_fwd":
+        return TF32_FLOPS / 3
+    return PEAK_FLOPS[dname]
+
+
+def _flash_bounds(b, t, h, d, causal, esize, dname, rate=_flash_rate):
     """Per kernel: (bound ms, "bytes" or "operations") for these inputs:
     the live (q, k) pairs they need, each input read once, each output
-    written once."""
+    written once; the operations at ``rate(kernel, dtype)``."""
     pairs = b * h * (t * (t + 1) // 2 if causal else t * t)
     tensor, stat = b * t * h * d * esize, b * t * h * 4
     nbytes = {
@@ -505,7 +627,7 @@ def _flash_bounds(b, t, h, d, causal, esize, dname):
     }
     out = {}
     for name, n_products in FLASH_PRODUCTS.items():
-        t_ops = n_products * 2 * d * pairs / PEAK_FLOPS[dname]
+        t_ops = n_products * 2 * d * pairs / rate(name, dname)
         t_bytes = nbytes[name] / HBM_BYTES_PER_S
         out[name] = (max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes")
     return out
@@ -542,6 +664,9 @@ def phase_flash_times(torch, fa):
             lambda: torch.autograd.grad(o_lib, xr, g_lib, retain_graph=True), iters=5, repeats=3
         )
         bounds = _flash_bounds(b, t, h, d, causal, q.element_size(), dname)
+        # the f32 backward's bound on f32 FMAs too, beside its 3xTF32 one
+        fma = _flash_bounds(b, t, h, d, causal, q.element_size(), dname,
+                            rate=lambda name, dname: PEAK_FLOPS[dname])
         for name in FLASH:
             kernel_ms, plain_ms = ms[name]
             bound_ms, bound_by = bounds[name]
@@ -550,8 +675,12 @@ def phase_flash_times(torch, fa):
                 "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                 "bound_by": bound_by, "library_ms": lib,
             }
+            extra = ""
+            if dname == "float32" and name != "flash_fwd":
+                rows[(name, dname)]["f32_fma_bound_ms"] = fma[name][0]
+                extra = f" (3xTF32; {fma[name][0]:.4f} ms on f32 FMAs)"
             print(f"time {name} [{b},{t},{h},{d}] causal {dname}: kernel {kernel_ms:.4f} ms, "
-                  f"bound {bound_ms:.4f} ms ({bound_by}), plain {plain_ms:.4f} ms, "
+                  f"bound {bound_ms:.4f} ms ({bound_by}){extra}, plain {plain_ms:.4f} ms, "
                   f"F.scaled_dot_product_attention "
                   f"{'fwd' if name == 'flash_fwd' else 'autograd bwd (dq, dk, dv together)'} "
                   f"{lib:.4f} ms")
@@ -1080,7 +1209,8 @@ def main() -> int:
     launches, _ = phase_slice(torch, lrn_kernel, alexnet, model_lib, prng)
     t0 = time.perf_counter()
     phase_flash_build(built["flash_attention"], fa, cuda_build, torch)
-    flash_err, flash_bf16_err = phase_flash_checks(torch, fa)
+    flash_err, flash_bf16_err, flash_f64_err = phase_flash_checks(torch, fa)
+    phase_flash_inputs(torch, fa)
     flash_rows = phase_flash_times(torch, fa)
     flash_launches, lm_steps = phase_lm(
         torch, fa, transformer_lm, transformer, model_lib, troot, prng
@@ -1125,6 +1255,11 @@ def main() -> int:
             "launches": flash_launches[kname],
             "max_abs_err": flash_err[kname],
             **row,
+            # the f32 backward against float64, beside the f32 plain version
+            **({"float64_err": {g: dict(zip(("kernel", "plain"), e))
+                                for g, e in flash_f64_err.items()
+                                if (g == "dq") == (kname == "flash_dq")}}
+               if kname != "flash_fwd" else {}),
             # bf16 attention: its timed steps' launches, the slice shape's check
             "bf16": {
                 "launches": lm_steps["bf16"][2][kname],

@@ -5,7 +5,11 @@ kernels) against JAX's ``flash_attention_lse``, whose Pallas kernels run in
 interpret mode here as ``tests/test_pallas.py`` runs them (blocks of 16, so
 T = 48 spans 3 blocks and T = 37 pads a ragged one; head dim 16, and in
 bf16 also head dim 64 at T = 130, the LM's head dim over more than two of
-the CUDA kernels' 64-row tiles and 9 of JAX's blocks): in f32, ``out`` and
+the CUDA kernels' 64-row tiles and 9 of JAX's blocks; and head dims 48 and
+96 at T = 130 in both dtypes, which the port zero-pads to the kernels' 64
+and 128 in its autograd layer while JAX's blocks span the true head dim,
+so the padding's output and gradient slicing and its scale are checked
+too): in f32, ``out`` and
 ``lse`` within rtol/atol 1e-5, and the gradients of ``sum(sin(out)) +
 sum(w * lse)`` (the lse cotangent included) within 1e-4; in bf16 (the same
 numpy inputs cast to bf16 on both sides), ``out`` and the gradients within
@@ -50,6 +54,10 @@ FLASH_CASES = [
 ] + [
     pytest.param(130, causal, "bfloat16", 64, id=f"130-{'causal' if causal else 'full'}-bf16-d64")
     for causal in (False, True)
+] + [  # head dims between the kernels': zero-padded to 64 and 128 in the autograd layer
+    pytest.param(130, causal, dtype, d, id=f"130-{'causal' if causal else 'full'}"
+                 + ("" if dtype == "float32" else "-bf16") + f"-d{d}")
+    for d in (48, 96) for dtype in ("float32", "bfloat16") for causal in (False, True)
 ]
 
 

@@ -13,10 +13,15 @@ same CUDA tensors, with ``dout`` and ``dlse`` drawn at O(1) so that a zero
 or misplaced gradient fails: f32 within 1e-4 of the reference's largest
 magnitude (the sums run in another order), bf16 within 2e-2 of it (about
 one bf16 rounding of ``p`` and ``ds`` before their products).  They also
-hold the bf16 kernels (forward, dQ and dK/dV, all on the tensor cores) to
-bitwise-equal repeat launches, ragged lengths at the narrowest and the
-register-heavy head dims (16, 128), the forward to a negative scale,
-and the refusal of a view whose data is not 16-byte aligned.
+hold the bf16 kernels (forward, dQ and dK/dV, all on the tensor cores) and
+the f32 dQ and dK/dV (3xTF32) to bitwise-equal repeat launches, ragged
+lengths at the narrowest and the register-heavy head dims (16, 128), the
+forward to a negative scale, and the refusal of a view whose data is not
+16-byte aligned.  The f32 dQ and dK/dV are also held against float64: their
+error within 10 times the f32 plain version's.  The autograd layer's
+zero-padding of a head dim between the kernels' is checked on the CPU and
+on the card, as are the batch slices of a B*H above the grid's 65535 and
+the dense path that ``attention="auto"`` takes above head dim 128.
 """
 
 import math
@@ -113,6 +118,53 @@ def test_missing_nvcc_raises(tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="nvcc not found"):
         cuda_build.build("flash_attention", build_dir=tmp_path / "kernels")
     assert not (tmp_path / "kernels").exists()
+
+
+def test_autograd_layer_pads_the_head_dim_and_slices_back(monkeypatch):
+    """A head dim between the kernels' reaches the wrappers zero-padded to
+    the next one, contiguous; the caller gets its own head dim back, with
+    the scale of the true head dim, equal to the unpadded plain version."""
+    seen = []
+    for name in ("flash_fwd", "flash_dq", "flash_dkv"):
+        real = getattr(fa, name)
+
+        def spy(*args, _real=real, _name=name, **kw):
+            seen.append((_name, tuple(args[0].shape), all(a.is_contiguous() for a in args)))
+            return _real(*args, **kw)
+
+        monkeypatch.setattr(fa, name, spy)
+    q, k, v = _qkv(2, 24, 3, 48, seed=4)
+    xs = [x.transpose(1, 2).contiguous().transpose(1, 2).requires_grad_(True) for x in (q, k, v)]
+    assert not xs[0].is_contiguous()
+    out, lse = fa.flash_attention_lse(*xs, causal=True)
+    w = torch.randn((2, 24, 3), generator=torch.Generator().manual_seed(5))
+    got = torch.autograd.grad(torch.sin(out).sum() + (w * lse).sum(), xs)
+    assert [s[0] for s in seen] == ["flash_fwd", "flash_dq", "flash_dkv"]
+    assert all(shape == (2, 24, 3, 64) and contiguous for _, shape, contiguous in seen)
+    assert out.shape == (2, 24, 3, 48) and all(g.shape == (2, 24, 3, 48) for g in got)
+    xd = [x.detach().double().requires_grad_(True) for x in (q, k, v)]
+    want_out, want_lse = _naive(*xd, True, 1.0 / math.sqrt(48))
+    want = torch.autograd.grad(torch.sin(want_out).sum() + (w.double() * want_lse).sum(), xd)
+    torch.testing.assert_close(out, want_out.float(), rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(lse, want_lse.float(), rtol=1e-5, atol=1e-5)
+    for g, r in zip(got, want):
+        torch.testing.assert_close(g, r.float(), rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("d,want", [(8, 16), (16, 16), (48, 64), (96, 128), (128, 128), (256, None)])
+def test_kernel_head_dim(d, want):
+    assert fa.kernel_head_dim(d) == want
+
+
+@pytest.mark.parametrize("b,h", [(1, 8), (8192, 8), (8193, 8), (3, 30000), (70000, 1)])
+def test_batch_slices_keep_each_launch_inside_the_grid(b, h):
+    """A launch holds at most 65535 (batch, head) pairs; the slices cover the
+    batch once, in order."""
+    slices = fa._batch_slices(torch.empty((b, 1, h, 16), device="meta"))
+    assert slices[0].start == 0 and slices[-1].stop == b
+    assert all(a.stop == c.start for a, c in zip(slices, slices[1:]))
+    assert all((sl.stop - sl.start) * h <= fa.MAX_GRID_Y for sl in slices)
+    assert len(slices) == -(-b * h // (fa.MAX_GRID_Y // h * h))
 
 
 # -- the kernels, on the card -------------------------------------------------
@@ -298,3 +350,132 @@ def test_wrapper_refuses_what_the_kernels_do_not_take(card):
         fa.flash_dq(q, k, v, q, lse, lse, causal=True, scale=0.25)
     with pytest.raises(ValueError, match="CUDA"):
         fa.flash_fwd(q, k.cpu(), v, causal=True, scale=0.25)
+
+
+def _flash_bwd_float64(q, k, v, dout, lse, delta, causal, scale):
+    """dq, dk, dv in float64 from the same (f32) inputs: the answer that the
+    f32 kernels and the f32 plain versions both approximate."""
+    q, k, v, dout, lse, delta = (x.double() for x in (q, k, v, dout, lse, delta))
+    s = torch.einsum("bqhd,bkhd->bhqk", q, k) * scale
+    p = torch.exp(s - lse.permute(0, 2, 1)[..., None])
+    if causal:
+        p = p.tril()
+    ds = p * (torch.einsum("bqhd,bkhd->bhqk", dout, v) - delta.permute(0, 2, 1)[..., None])
+    return (scale * torch.einsum("bhqk,bkhd->bqhd", ds, k),
+            scale * torch.einsum("bhqk,bqhd->bkhd", ds, q),
+            torch.einsum("bhqk,bqhd->bkhd", p, dout))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t", [37, 77, 200], ids=["T37", "T77", "T200"])
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+@pytest.mark.parametrize("d", fa.HEAD_DIMS)
+def test_f32_backward_keeps_f32_accuracy(card, d, causal, t):
+    """The 3xTF32 dQ and dK/dV against float64, beside the f32 plain version
+    (full f32 products) on the same inputs: within 10 times its error (one
+    TF32 product would be ~1000 times), and within the f32 tolerance of the
+    plain version."""
+    q, k, v = _qkv(2, t, 3, d, seed=t + d, device=card)
+    gen = torch.Generator().manual_seed(t)
+    dout = torch.randn((2, t, 3, d), generator=gen).to(card)
+    kw = dict(causal=causal, scale=1.0 / math.sqrt(d))
+    out_r, lse_r = fa.flash_fwd_reference(q, k, v, **kw)
+    delta = ((dout * out_r).sum(-1) - torch.randn((2, t, 3), generator=gen).to(card)).contiguous()
+    args = (q, k, v, dout, lse_r, delta)
+    got = (fa.flash_dq(*args, **kw), *fa.flash_dkv(*args, **kw))
+    plain = (fa.flash_dq_reference(*args, **kw), *fa.flash_dkv_reference(*args, **kw))
+    exact = _flash_bwd_float64(*args, **kw)
+    torch.cuda.synchronize()
+    for name, g, p, e in zip(("dq", "dk", "dv"), got, plain, exact):
+        err_kernel = float((g.double() - e).abs().max())
+        err_plain = float((p.double() - e).abs().max())
+        assert err_kernel <= 10 * err_plain, (name, err_kernel, err_plain)
+        _assert_near(name, g, p, TOL[torch.float32])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+def test_f32_backward_launches_are_bitwise_repeatable(card, causal):
+    q, k, v = _qkv(2, 200, 3, 64, seed=15, device=card)
+    dout = torch.randn((2, 200, 3, 64), device=card)
+    lse = torch.randn((2, 200, 3), device=card) + 5.0
+    delta = torch.randn((2, 200, 3), device=card)
+    kw = dict(causal=causal, scale=0.125)
+    dq = [fa.flash_dq(q, k, v, dout, lse, delta, **kw) for _ in range(2)]
+    dkv = [fa.flash_dkv(q, k, v, dout, lse, delta, **kw) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert torch.equal(dq[0], dq[1])
+    assert torch.equal(dkv[0][0], dkv[1][0]) and torch.equal(dkv[0][1], dkv[1][1])
+    assert float(dq[0].abs().max()) > 0 and float(dkv[0][0].abs().max()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("d", [48, 96])
+def test_a_padded_head_dim_runs_the_kernels(card, d, dtype):
+    """flash_attention_lse at a head dim between the kernels' (and on
+    non-contiguous views) launches each kernel once and matches autograd
+    through the plain forward on the same tensors."""
+    q, k, v = _qkv(2, 200, 3, d, seed=d, device=card, dtype=dtype)
+    w = torch.randn((2, 200, 3), device=card)
+    before = (fa.flash_fwd.launches, fa.flash_dq.launches, fa.flash_dkv.launches)
+
+    def grads(fn, xs):
+        xs = [x.detach().transpose(1, 2).contiguous().transpose(1, 2).requires_grad_(True)
+              for x in xs]
+        out, lse = fn(*xs)
+        loss = torch.sin(out.float()).sum() + (w * lse).sum()
+        return (out.detach(), lse.detach(), *torch.autograd.grad(loss, xs))
+
+    got = grads(lambda *xs: fa.flash_attention_lse(*xs, causal=True), (q, k, v))
+    after = (fa.flash_fwd.launches, fa.flash_dq.launches, fa.flash_dkv.launches)
+    assert tuple(a - b for a, b in zip(after, before)) == (1, 1, 1)
+    scale = 1.0 / math.sqrt(d)
+    want = grads(lambda *xs: fa.flash_fwd_reference(*xs, causal=True, scale=scale), (q, k, v))
+    for name, g, r in zip(("out", "lse", "dq", "dk", "dv"), got, want):
+        assert g.shape == r.shape
+        _assert_near(name, g, r, TOL[torch.float32] if name == "lse" else TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_b_h_above_the_grid_is_split_over_the_batch(card, dtype):
+    """B*H = 65600 (> 65535): each wrapper launches its kernel twice, on two
+    batch slices, and matches its plain version."""
+    b, t, h, d = 4100, 24, 16, 16
+    q, k, v = _qkv(b, t, h, d, seed=11, device=card, dtype=dtype)
+    dout = torch.randn((b, t, h, d), device=card).to(dtype)
+    kw = dict(causal=True, scale=0.25)
+    before = (fa.flash_fwd.launches, fa.flash_dq.launches, fa.flash_dkv.launches)
+    out, lse = fa.flash_fwd(q, k, v, **kw)
+    delta = ((dout.float() * out.float()).sum(-1)).contiguous()
+    dq = fa.flash_dq(q, k, v, dout, lse, delta, **kw)
+    dk, dv = fa.flash_dkv(q, k, v, dout, lse, delta, **kw)
+    torch.cuda.synchronize()
+    after = (fa.flash_fwd.launches, fa.flash_dq.launches, fa.flash_dkv.launches)
+    assert tuple(a - c for a, c in zip(after, before)) == (2, 2, 2)
+    out_r, lse_r = fa.flash_fwd_reference(q, k, v, **kw)
+    _assert_near("out", out, out_r, TOL[dtype])
+    _assert_near("lse", lse, lse_r, TOL[torch.float32])
+    refs = (fa.flash_dq_reference(q, k, v, dout, lse, delta, **kw),
+            *fa.flash_dkv_reference(q, k, v, dout, lse, delta, **kw))
+    for name, g, r in zip(("dq", "dk", "dv"), (dq, dk, dv), refs):
+        _assert_near(name, g, r, TOL[dtype])
+
+
+@pytest.mark.cuda
+def test_head_dims_above_128_take_the_dense_path_under_auto(card):
+    """On the card, attention="auto" at head dim 256 resolves to the dense
+    path; flash attention there raises, naming its ROADMAP item."""
+    from znicz_tpu_torch.loader.fullbatch import FullBatchLoader
+    from znicz_tpu_torch.workflow.transformer import TransformerLMWorkflow
+
+    loader = FullBatchLoader({"train": torch.zeros((2, 512), dtype=torch.int32).numpy()},
+                             minibatch_size=2)
+    for n_heads, resolved in ((2, None), (8, fa.flash_attention)):  # head dim 256, 64
+        wf = TransformerLMWorkflow(loader, vocab=8, d_model=512, n_heads=n_heads,
+                                   attention="auto", device=card)
+        assert wf._attention_fn_base() is resolved
+    x = torch.zeros((1, 64, 2, 256), device=card)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md B6"):
+        fa.flash_attention(x, x, x, causal=True)

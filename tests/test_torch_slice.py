@@ -254,8 +254,8 @@ def test_full_alexnet_build_matches_jax_shapes(small_alexnet_data):
 
 
 @pytest.mark.parametrize(
-    "spec", [{"type": "attention"}, {"type": "deconv"}, {"type": "activation_tanh"}],
-    ids=["attention", "deconv", "activation"],
+    "spec", [{"type": "moe"}, {"type": "deconv"}, {"type": "activation_tanh"}],
+    ids=["moe", "deconv", "activation"],
 )
 def test_layer_types_of_later_slices_raise(spec):
     with pytest.raises(NotImplementedError, match="slice"):
@@ -306,3 +306,83 @@ def test_imagenet_synthetic_matches_jax():
         np.asarray(jl.device_preproc()(jnp.asarray(jl.data["train"]), None)),
         rtol=1e-6, atol=1e-7,
     )
+
+
+# -- the declarative attention layer -----------------------------------------
+
+ATTENTION_LAYERS = [  # tests/test_declarative_parallel.py's model
+    {"type": "attention", "->": {"n_heads": 2, "causal": False}},
+    {"type": "attention", "->": {"n_heads": 2, "causal": False}},
+    {"type": "softmax", "->": {"output_sample_shape": 2}},
+]
+
+
+@pytest.fixture(scope="module")
+def attention_runs():
+    """A [T 8, D 16] sequence model in both frameworks from one seed: the
+    forward on weights carried by ``params_from_jax``, then 3 epochs."""
+    rng = np.random.default_rng(SEED + 1)
+    n, t, d = 96, 8, 16
+    labels = rng.integers(0, 2, n).astype(np.int32)
+    x = rng.normal(0, 0.1, (n, t, d)).astype(np.float32)
+    x[np.arange(n), labels * (t // 2) + rng.integers(0, t // 2, n)] += 2.0
+    data = ({"train": x[:64], "test": x[64:]}, {"train": labels[:64], "test": labels[64:]})
+    kw = dict(decision_config={"max_epochs": 3},
+              default_hyper={"learning_rate": 0.05, "gradient_moment": 0.9})
+    _seed_both()
+    jwf = JaxWorkflow(JaxLoader(*data, minibatch_size=32), ATTENTION_LAYERS,
+                      prefetch_batches=0, **kw)
+    twf = StandardWorkflow(FullBatchLoader(*data, minibatch_size=32), ATTENTION_LAYERS,
+                           device="cpu", **kw)
+    jinit = jax.device_get(jwf.model.params)
+    carried = model_lib.params_from_jax(jinit, "cpu")
+    out = {
+        "jax_init": jinit,
+        "torch_init": model_lib.params_to_numpy(twf.model.params),
+        "jax_fwd": np.asarray(jwf.model.apply(jwf.model.params, jnp.asarray(x[:16]), train=False)),
+        "torch_fwd": twf.model.apply(carried, torch.from_numpy(x[:16])).numpy(),
+        "shapes": (jwf.model.output_shape, twf.model.layer_shapes),
+        "jax_epochs": [], "torch_epochs": [],
+    }
+    jwf.initialize()
+    twf.initialize()
+    for _ in range(3):
+        out["jax_epochs"].append(jwf.run_epoch()["summary"])
+        out["torch_epochs"].append(twf.run_epoch()["summary"])
+    out["jax_final"] = jax.device_get(jwf.state.params)
+    out["torch_final"] = model_lib.params_to_numpy(twf.state.params)
+    tprng.reset()
+    return out
+
+
+def test_attention_layer_init_and_forward_match_jax(attention_runs):
+    r = attention_runs
+    assert tuple(r["shapes"][1]) == ((8, 16), (8, 16), (2,))
+    assert tuple(r["shapes"][0]) == (2,)
+    for lj, lt in zip(r["jax_init"], r["torch_init"]):
+        assert lj.keys() == lt.keys()
+        for k in lj:
+            np.testing.assert_array_equal(lt[k], np.asarray(lj[k]))
+    np.testing.assert_allclose(r["torch_fwd"], r["jax_fwd"], rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("epoch", [0, 1, 2])
+def test_attention_layer_epochs_match_jax(attention_runs, epoch):
+    for split in ("train", "test"):
+        mj = attention_runs["jax_epochs"][epoch][split]
+        mt = attention_runs["torch_epochs"][epoch][split]
+        assert mt["n_samples"] == mj["n_samples"] and mt["n_err"] == mj["n_err"]
+        np.testing.assert_allclose(mt["loss"], mj["loss"], rtol=RTOL_EPOCH, err_msg=split)
+
+
+def test_attention_layer_final_weights_match_jax(attention_runs):
+    r = attention_runs
+    for lj, lt, l0 in zip(r["jax_final"], r["torch_final"], r["torch_init"]):
+        for k in lj:
+            assert not np.array_equal(lt[k], l0[k])  # training moved them
+            np.testing.assert_allclose(lt[k], np.asarray(lj[k]), rtol=RTOL_W, atol=ATOL_W)
+
+
+def test_attention_layer_needs_sequence_input():
+    with pytest.raises(ValueError, match="attention"):
+        model_lib.build([{"type": "attention", "->": {"n_heads": 2}}], (16,), device="cpu")

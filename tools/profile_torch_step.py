@@ -29,7 +29,8 @@ FAMILIES = (  # first match wins; matched against the lower-cased kernel name
     ("flash (hand-written)", ("flash_attention_cu", "namespace)::fwd_kernel",
                               "namespace)::dq_kernel", "namespace)::dkv_kernel",
                               "namespace)::fwd_mma_kernel", "namespace)::dq_mma_kernel",
-                              "namespace)::dkv_mma_kernel")),
+                              "namespace)::dkv_mma_kernel", "namespace)::dq_tf32_kernel",
+                              "namespace)::dkv_tf32_kernel")),
     # csrc/kohonen.cu's and csrc/rbm.cu's kernels
     ("kohonen (hand-written)", ("kohonen_cu", "namespace)::winners_kernel",
                                 "namespace)::accum_kernel")),

@@ -2,8 +2,8 @@
 //
 // Replaces the three pl.pallas_call's of znicz_tpu/ops/pallas/attention.py:
 //   _flash_fwd_impl / _fwd_kernel (:212)  ->  fwd_kernel (f32), fwd_mma_kernel (bf16)
-//   _flash_bwd / _dq_kernel        (:265)  ->  dq_kernel (f32), dq_mma_kernel (bf16)
-//   _flash_bwd / _dkv_kernel       (:277)  ->  dkv_kernel (f32), dkv_mma_kernel (bf16)
+//   _flash_bwd / _dq_kernel        (:265)  ->  dq_tf32_kernel (f32), dq_mma_kernel (bf16)
+//   _flash_bwd / _dkv_kernel       (:277)  ->  dkv_tf32_kernel (f32), dkv_mma_kernel (bf16)
 //
 // Layout: q, k, v, out, dout and the gradients are [B, T, H, D] contiguous,
 // read in place through their strides (no [B*H, T, D] transposes); lse and
@@ -55,11 +55,15 @@
 //   checks).
 // - ~46 KB (forward) to ~55 KB of shared memory a block at D 64 (~87 to
 //   ~105 KB at D 128), so several blocks share an SM.
-// The f32 kernels take the simple FMA path: a block of 256 threads, each
-// computing a 4 x 4 register tile of every 64 x 64 product with f32 FMAs
-// fed from shared memory (row tiles kept transposed, [D][64 + 4], so a
-// thread's 4 rows are one vector), in full f32 (no TF32).  wgmma, TMA and
-// warp specialisation are left for later work.
+// The f32 dQ and dK/dV (dq_tf32_kernel, dkv_tf32_kernel) take the same
+// skeleton on the tensor cores in 3xTF32: mma.sync m16n8k8 tf32 x tf32 ->
+// f32, each f32 operand split into a big and a small TF32 part and each
+// product taken three times, which keeps f32's accuracy (the section below
+// says how, and what the numerics are).  The f32 forward takes the simple
+// FMA path: a block of 256 threads, each computing a 4 x 4 register tile of
+// every 64 x 64 product with f32 FMAs fed from shared memory (row tiles kept
+// transposed, [D][64 + 4], so a thread's 4 rows are one vector), in full f32.
+// wgmma, TMA and warp specialisation are left for later work.
 //
 // Causal: the k loop of a q tile stops at the diagonal tile, and the q loop
 // of a k tile (dK/dV) starts there (the TPU kernels' _live skip); the
@@ -87,7 +91,7 @@ constexpr int LD = TILE + 4;      // row of a transposed tile; 16-byte aligned
 constexpr float NEG_INF = -1e30f;  // the TPU kernels' sentinel
 constexpr float L_FLOOR = 1e-30f;
 
-// the FMA kernels' element type: only float is instantiated (bf16 takes the
+// the FMA forward's element type: only float is instantiated (bf16 takes the
 // tensor-core kernels)
 template <typename T>
 __device__ __forceinline__ float to_f(T x);
@@ -311,178 +315,6 @@ __global__ void __launch_bounds__(NT) fwd_kernel(const T* __restrict__ q, const 
 #pragma unroll
     for (int c = 0; c < C; ++c) orow[out_col<D>(c, tx)] = from_f<T>(acc[i][c] / li);
     if (tx == 0) lse[((long long)b * g.t + qi) * g.h + h] = m[i] + logf(li);
-  }
-}
-
-// ---------------------------------------------------------------------------
-// dQ: one block per (q tile, batch-head), looping over the live k tiles:
-//   p = exp(s - lse), ds = p (dp - delta), dq = scale * sum_k ds.K
-
-template <typename T, int D>
-__global__ void __launch_bounds__(NT) dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                                                const T* __restrict__ v, const T* __restrict__ dout,
-                                                const float* __restrict__ lse,
-                                                const float* __restrict__ delta,
-                                                T* __restrict__ dq, Geom g, float scale,
-                                                int causal) {
-  constexpr int C = D / 16;
-  extern __shared__ float4 smem4[];
-  float* Qt = reinterpret_cast<float*>(smem4);  // [D][LD]
-  float* dOt = Qt + D * LD;                     // [D][LD]
-  float* Kt = dOt + D * LD;                     // [D][LD]
-  float* Vt = Kt + D * LD;                      // [D][LD]
-  float* Ks = Vt + D * LD;                      // [64][D]
-  float* dSt = Ks + TILE * D;                   // [64 keys][LD queries]
-
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const int nt = (g.t + TILE - 1) / TILE;
-  const int qb = nt - 1 - blockIdx.x;
-  const int b = blockIdx.y / g.h, h = blockIdx.y % g.h;
-  const long long base = b * g.sb + (long long)h * D;
-  const int q0 = qb * TILE;
-
-  load_t<T, D>(Qt, q + base, q0, g);
-  load_t<T, D>(dOt, dout + base, q0, g);
-  float lse_r[4], delta_r[4], acc[4][C];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int qi = q0 + ty * 4 + i;
-    const long long si = ((long long)b * g.t + qi) * g.h + h;
-    lse_r[i] = qi < g.t ? lse[si] : 0.f;
-    delta_r[i] = qi < g.t ? delta[si] : 0.f;
-#pragma unroll
-    for (int c = 0; c < C; ++c) acc[i][c] = 0.f;
-  }
-
-  const int k_end = causal ? qb + 1 : nt;
-  for (int kb = 0; kb < k_end; ++kb) {
-    const int k0 = kb * TILE;
-    __syncthreads();
-    load_t<T, D>(Kt, k + base, k0, g);
-    load_t<T, D>(Vt, v + base, k0, g);
-    load_n<T, D>(Ks, k + base, k0, g);
-    __syncthreads();
-
-    float s[4][4], dp[4][4];
-    tile_abt<D>(s, Qt, Kt, ty, tx);
-    tile_abt<D>(dp, dOt, Vt, ty, tx);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qi = q0 + ty * 4 + i;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const bool ok = valid(qi, k0 + tx * 4 + j, g.t, causal);
-        const float p = ok ? expf(s[i][j] * scale - lse_r[i]) : 0.f;
-        s[i][j] = p * (dp[i][j] - delta_r[i]);  // ds
-      }
-    }
-    store_t<T>(dSt, s, ty, tx);  // ds cast to k's type before ds.K
-    __syncthreads();
-    tile_atx<D>(acc, dSt, Ks, ty, tx);
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int qi = q0 + ty * 4 + i;
-    if (qi >= g.t) continue;
-    T* row = dq + base + (long long)qi * g.st;
-#pragma unroll
-    for (int c = 0; c < C; ++c) row[out_col<D>(c, tx)] = from_f<T>(scale * acc[i][c]);
-  }
-}
-
-// ---------------------------------------------------------------------------
-// dK/dV: one block per (k tile, batch-head), looping over the live q tiles
-// (the transposed traversal): dv = sum_q p^T.dout, dk = scale sum_q ds^T.q
-
-template <typename T, int D>
-__global__ void __launch_bounds__(NT) dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                                                 const T* __restrict__ v,
-                                                 const T* __restrict__ dout,
-                                                 const float* __restrict__ lse,
-                                                 const float* __restrict__ delta,
-                                                 T* __restrict__ dk, T* __restrict__ dv, Geom g,
-                                                 float scale, int causal) {
-  constexpr int C = D / 16;
-  extern __shared__ float4 smem4[];
-  float* Kt = reinterpret_cast<float*>(smem4);  // [D][LD] (rows: this block's keys)
-  float* Vt = Kt + D * LD;                      // [D][LD]
-  float* Qt = Vt + D * LD;                      // [D][LD] (cols: the q tile)
-  float* dOt = Qt + D * LD;                     // [D][LD]
-  float* Qs = dOt + D * LD;                     // [64][D]
-  float* dOs = Qs + TILE * D;                   // [64][D]
-  float* Ps = dOs + TILE * D;                   // [64 queries][LD keys]: p, then ds
-  float* lse_s = Ps + TILE * LD;                // [64]
-  float* delta_s = lse_s + TILE;                // [64]
-
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const int nt = (g.t + TILE - 1) / TILE;
-  const int kb = blockIdx.x;  // the longest causal columns start first
-  const int b = blockIdx.y / g.h, h = blockIdx.y % g.h;
-  const long long base = b * g.sb + (long long)h * D;
-  const int k0 = kb * TILE;
-
-  load_t<T, D>(Kt, k + base, k0, g);
-  load_t<T, D>(Vt, v + base, k0, g);
-  float dk_acc[4][C], dv_acc[4][C];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int c = 0; c < C; ++c) dk_acc[i][c] = dv_acc[i][c] = 0.f;
-
-  for (int qb = causal ? kb : 0; qb < nt; ++qb) {
-    const int q0 = qb * TILE;
-    __syncthreads();
-    load_t<T, D>(Qt, q + base, q0, g);
-    load_t<T, D>(dOt, dout + base, q0, g);
-    load_n<T, D>(Qs, q + base, q0, g);
-    load_n<T, D>(dOs, dout + base, q0, g);
-    if (threadIdx.x < TILE) {
-      const int qi = q0 + threadIdx.x;
-      const long long si = ((long long)b * g.t + qi) * g.h + h;
-      lse_s[threadIdx.x] = qi < g.t ? lse[si] : 0.f;
-      delta_s[threadIdx.x] = qi < g.t ? delta[si] : 0.f;
-    }
-    __syncthreads();
-
-    float st[4][4], ds[4][4];  // [key ty*4+i][query tx*4+j]
-    tile_abt<D>(st, Kt, Qt, ty, tx);
-    tile_abt<D>(ds, Vt, dOt, ty, tx);  // dp^T
-    const float4 l4 = *reinterpret_cast<const float4*>(lse_s + tx * 4);
-    const float4 d4 = *reinterpret_cast<const float4*>(delta_s + tx * 4);
-    const float lv[4] = {l4.x, l4.y, l4.z, l4.w};
-    const float dv4[4] = {d4.x, d4.y, d4.z, d4.w};
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int ki = k0 + ty * 4 + i;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const bool ok = valid(q0 + tx * 4 + j, ki, g.t, causal);
-        const float p = ok ? expf(st[i][j] * scale - lv[j]) : 0.f;
-        ds[i][j] = p * (ds[i][j] - dv4[j]);
-        st[i][j] = p;
-      }
-    }
-    store_t<T>(Ps, st, ty, tx);  // p -> Ps[query][key], cast to dout's type
-    __syncthreads();
-    tile_atx<D>(dv_acc, Ps, dOs, ty, tx);
-    __syncthreads();
-    store_t<T>(Ps, ds, ty, tx);  // ds -> Ps[query][key], cast to q's type
-    __syncthreads();
-    tile_atx<D>(dk_acc, Ps, Qs, ty, tx);
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int ki = k0 + ty * 4 + i;
-    if (ki >= g.t) continue;
-    T* krow = dk + base + (long long)ki * g.st;
-    T* vrow = dv + base + (long long)ki * g.st;
-#pragma unroll
-    for (int c = 0; c < C; ++c) {
-      krow[out_col<D>(c, tx)] = from_f<T>(scale * dk_acc[i][c]);
-      vrow[out_col<D>(c, tx)] = from_f<T>(dv_acc[i][c]);
-    }
   }
 }
 
@@ -1060,17 +892,562 @@ __global__ void __launch_bounds__(MMA_NT)
 }
 
 // ---------------------------------------------------------------------------
+// f32 dQ and dK/dV on the tensor cores, in 3xTF32
+//
+// Each f32 operand x is split into a big part b = tf32(x) (rounded to
+// nearest, ties away) and a small part s = x - b, exact in f32, of which the
+// tensor cores read the top 19 bits (a tf32 operand's low 13 bits are
+// ignored), so x = b + s to within 2^-21 |x|.  A product a.c is taken as
+// a_s.c_b + a_b.c_s + a_b.c_b on mma.sync m16n8k8 tf32 x tf32 -> f32; the
+// dropped a_s.c_s is at most 2^-22 of |a.c|, so each product keeps about
+// f32's accuracy (a few f32 roundings) where one TF32 product would keep
+// 2^-11.  p, ds and every sum are f32: nothing is rounded to a narrower type,
+// and the split is the only approximation (the TPU kernels' f32 case takes
+// f32 products).  The tensor cores truncate as they accumulate, so no long
+// sum is left in an mma accumulator: a score's small terms and big terms
+// gather in two accumulators over D, added once, and the output products
+// of each 16-row piece go into a fresh accumulator that one f32 add (round
+// to nearest) puts into the running sum.  Measured against float64 on the
+// card, the dq, dk and dv errors stay within a few times the f32 plain
+// version's (full f32 products).
+//
+// m16n8k8 tf32 fragments (g = lane / 4, t = lane % 4): an A tile (16 x 8)
+// holds a[0] (row g, k t), a[1] (g + 8, t), a[2] (g, t + 4), a[3] (g + 8,
+// t + 4); a B tile (8 x 8) b[0] (k t, column g) and b[1] (t + 4, g); the f32
+// accumulator (16 x 8) c[0..1] at row g and c[2..3] at row g + 8, columns
+// 2t + {0, 1}.  So an accumulator is not an A fragment in place: the p and
+// ds accumulators enter the next product with k permuted (a sum does not
+// care about the order of its terms): columns 2t and 2t + 1 become k
+// positions t and t + 4, and the B operand's rows are read in the same order,
+// b[0] from row 2t and b[1] from row 2t + 1.  Those B columns (K in dQ, dO
+// and Q in dK/dV) are scalar shared-memory loads; ldmatrix (16-bit elements,
+// no 32-bit transpose) gives the A fragments and the B fragments of the
+// A.B^T products, a 16-byte row piece being 4 floats.
+//
+// The kernels are bound by their instruction count more than by the tensor cores:
+// a split is three instructions, and each warp would split every element of
+// the streamed tile (K and V in dQ, Q and dO in dK/dV) twice over.  At D <= 64
+// the block splits each streamed tile once into big and small copies in
+// shared memory, and the tile's raw copy is single-buffered (the next one in
+// flight while this one's split copies are computed on); dQ holds Q's and
+// dO's split A fragments in registers, dK/dV K's and V's raw ones (its dk and
+// dv accumulators take D registers already).  At D 128 there is no room for
+// that: the streamed tiles are double-buffered raw, and every operand is
+// split as it is read.
+
+// row stride, in floats, of an f32 tile in shared memory: D + 4 puts the 8
+// rows an ldmatrix reads in 8 distinct 16-byte bank groups, and the column
+// reads of rows 2t and 2t + 1 at columns g in 32 distinct banks
+template <int D>
+__host__ __device__ constexpr int ldf() { return D + 4; }
+
+// the streamed tiles split once in shared memory (see above)
+template <int D>
+__host__ __device__ constexpr bool presplit() { return D <= 64; }
+
+// x = big + small: big is x rounded to tf32 (10 stored mantissa bits), to
+// nearest with ties away from zero, as cvt.rna.tf32.f32 rounds a finite x
+// but in two integer instructions where the cvt compiles to five (its checks
+// for special values); small = x - big is exact, and the tensor cores read
+// its top 19 bits
+__device__ __forceinline__ void split_tf32(float x, uint32_t& big, uint32_t& small) {
+  big = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  small = __float_as_uint(x - __uint_as_float(big));
+}
+
+// four 8 x 4 f32 matrices; lanes 8i..8i+7 give the row addresses of matrix i
+__device__ __forceinline__ void ldsm_x4_f32(uint32_t r[4], const float* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p))
+               : "memory");
+}
+
+// c += a.b for one m16n8k8 tile, tf32 in, f32 accumulate
+__device__ __forceinline__ void mma_tf32(float c[4], const uint32_t a[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c += a.b in 3xTF32: small.big, big.small, then big.big
+__device__ __forceinline__ void mma_3xtf32(float c[4], const uint32_t ab[4], const uint32_t as[4],
+                                           uint32_t bb0, uint32_t bb1, uint32_t bs0,
+                                           uint32_t bs1) {
+  mma_tf32(c, as, bb0, bb1);
+  mma_tf32(c, ab, bs0, bs1);
+  mma_tf32(c, ab, bb0, bb1);
+}
+
+// rows [r0, r0 + 64) of one head into dst[r * ldf + c], one 16-byte copy
+// each; rows at or past the end of the sequence are zero-filled
+template <int D>
+__device__ __forceinline__ void load_tile_f32(float* dst, const float* src, int r0,
+                                              const Geom& g) {
+  constexpr int CH = D / 4;  // 16-byte chunks a row
+  static_assert(TILE * CH % MMA_NT == 0, "a tile is a whole number of copies a thread");
+#pragma unroll
+  for (int it = 0; it < TILE * CH / MMA_NT; ++it) {
+    const int i = threadIdx.x + it * MMA_NT;
+    const int r = i / CH, c = i % CH;
+    const bool in = r0 + r < g.t;
+    cp_async16(dst + r * ldf<D>() + c * 4, in ? src + (long long)(r0 + r) * g.st + c * 4 : src,
+               in);
+  }
+}
+
+// a raw f32 tile split into its big and small copies, by the whole block
+template <int D>
+__device__ __forceinline__ void split_tile(float* big, float* small, const float* raw) {
+  constexpr int CH = D / 4;
+#pragma unroll
+  for (int it = 0; it < TILE * CH / MMA_NT; ++it) {
+    const int i = threadIdx.x + it * MMA_NT;
+    const int o = (i / CH) * ldf<D>() + (i % CH) * 4;
+    const float4 x = *reinterpret_cast<const float4*>(raw + o);
+    uint4 b, s;
+    split_tf32(x.x, b.x, s.x);
+    split_tf32(x.y, b.y, s.y);
+    split_tf32(x.z, b.z, s.z);
+    split_tf32(x.w, b.w, s.w);
+    *reinterpret_cast<uint4*>(big + o) = b;
+    *reinterpret_cast<uint4*>(small + o) = s;
+  }
+}
+
+// the x4 loads' per-lane row and column (in floats) offsets: A fragments
+// (row lane % 16, column 4 (lane / 16)) and the B fragments of an A.B^T
+// product (two n8 tiles of one k8 step: row lane % 8 + 8 (lane / 16), column
+// 4 ((lane / 8) % 2)); g and t of the fragment layouts
+struct LanesF32 {
+  int a_row, a_col, b_row, b_col, g, t;
+  __device__ __forceinline__ explicit LanesF32(int lane)
+      : a_row(lane & 15),
+        a_col((lane >> 4) * 4),
+        b_row((lane & 7) + ((lane >> 4) << 3)),
+        b_col(((lane >> 3) & 1) * 4),
+        g(lane >> 2),
+        t(lane & 3) {}
+};
+
+// An operand's A fragments over D (16 rows of a tile, k8 step ks): held in
+// registers split (SPLIT: xb, xs) or raw (RAW: xb, split as used), or read
+// from the tile X in shared memory and split (SMEM).
+enum AFrom { SPLIT, RAW, SMEM };
+
+template <int D, AFrom FROM>
+__device__ __forceinline__ void afrag_tf32(uint32_t ab[4], uint32_t as[4],
+                                           const uint32_t (*xb)[4], const uint32_t (*xs)[4],
+                                           const float* X, int x0, int ks, const LanesF32& ln) {
+  uint32_t r[4];
+  if constexpr (FROM == SPLIT) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) ab[i] = xb[ks][i], as[i] = xs[ks][i];
+    return;
+  } else if constexpr (FROM == RAW) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) r[i] = xb[ks][i];
+  } else {
+    ldsm_x4_f32(r, X + (x0 + ln.a_row) * ldf<D>() + 8 * ks + ln.a_col);
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) split_tf32(__uint_as_float(r[i]), ab[i], as[i]);
+}
+
+// the raw A fragments of rows [x0, x0 + 16) of an f32 tile, over D
+template <int D>
+__device__ __forceinline__ void load_afrags_f32(uint32_t (*xr)[4], const float* X, int x0,
+                                                const LanesF32& ln) {
+#pragma unroll
+  for (int ks = 0; ks < D / 8; ++ks)
+    ldsm_x4_f32(xr[ks], X + (x0 + ln.a_row) * ldf<D>() + 8 * ks + ln.a_col);
+}
+
+// s[j] += X[16 rows] . Y[y0 + 8j .. + 8)^T over D, for j 0, 1, in 3xTF32:
+// X's A fragments as FROM says, Y's rows (the other side's tile) from
+// shared memory: its split copies Yb and Ys when PRE, else the raw tile Yb
+// split as it is read.  The small terms gather apart from the big ones.
+template <int D, AFrom FROM, bool PRE>
+__device__ __forceinline__ void scores16_tf32(float s[2][4], const uint32_t (*xb)[4],
+                                              const uint32_t (*xs)[4], const float* X, int x0,
+                                              const float* Yb, const float* Ys, int y0,
+                                              const LanesF32& ln) {
+  float sm[2][4] = {};
+#pragma unroll
+  for (int ks = 0; ks < D / 8; ++ks) {
+    uint32_t ab[4], as[4], yb[4], ys[4];
+    afrag_tf32<D, FROM>(ab, as, xb, xs, X, x0, ks, ln);
+    const int off = (y0 + ln.b_row) * ldf<D>() + 8 * ks + ln.b_col;
+    if constexpr (PRE) {
+      ldsm_x4_f32(yb, Yb + off);
+      ldsm_x4_f32(ys, Ys + off);
+    } else {
+      uint32_t y[4];
+      ldsm_x4_f32(y, Yb + off);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) split_tf32(__uint_as_float(y[i]), yb[i], ys[i]);
+    }
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      mma_tf32(sm[j], as, yb[2 * j], yb[2 * j + 1]);
+      mma_tf32(sm[j], ab, ys[2 * j], ys[2 * j + 1]);
+      mma_tf32(s[j], ab, yb[2 * j], yb[2 * j + 1]);
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < 2; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[j][e] += sm[j][e];
+}
+
+// acc[n] += x . Z[z0 .. z0 + 16)[8n .. 8n + 8) for every n8 tile of D, in
+// 3xTF32: x is 16 rows x 16 of the k axis held as two n8 accumulators, each
+// the A fragment of one k8 step with k permuted (its columns 2t and 2t + 1
+// at k positions t and t + 4), and Z's rows are read in the same order, from
+// its split copies Zb and Zs when PRE, else from the raw tile Zb.  The
+// piece's 6 products go into a fresh accumulator, added to acc by one f32
+// add.
+template <int D, bool PRE>
+__device__ __forceinline__ void accumulate16_tf32(float (*acc)[4], const float x[2][4],
+                                                  const float* Zb, const float* Zs, int z0,
+                                                  const LanesF32& ln) {
+  uint32_t ab[2][4], as[2][4];
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    split_tf32(x[j][0], ab[j][0], as[j][0]);  // row g, k position t: column 2t
+    split_tf32(x[j][2], ab[j][1], as[j][1]);  // row g + 8, column 2t
+    split_tf32(x[j][1], ab[j][2], as[j][2]);  // row g, k position t + 4: column 2t + 1
+    split_tf32(x[j][3], ab[j][3], as[j][3]);  // row g + 8, column 2t + 1
+  }
+  const int off = (z0 + 2 * ln.t) * ldf<D>() + ln.g;
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) {
+    float c[4] = {};
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int o0 = off + 8 * j * ldf<D>() + 8 * n, o1 = o0 + ldf<D>();
+      uint32_t b0b, b0s, b1b, b1s;
+      if constexpr (PRE) {
+        b0b = __float_as_uint(Zb[o0]), b0s = __float_as_uint(Zs[o0]);
+        b1b = __float_as_uint(Zb[o1]), b1s = __float_as_uint(Zs[o1]);
+      } else {
+        split_tf32(Zb[o0], b0b, b0s);
+        split_tf32(Zb[o1], b1b, b1s);
+      }
+      mma_3xtf32(c, ab[j], as[j], b0b, b1b, b0s, b1s);
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] += c[e];
+  }
+}
+
+// 16 rows x D of f32 accumulators times mul, stored at rows r0 + lane/4
+// {, + 8} of one head; rows at or past T skipped
+template <int D>
+__device__ __forceinline__ void store_rows_f32(float* dst, float (*acc)[4], float mul, int r0,
+                                               const Geom& g, int lane) {
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int r = r0 + lane / 4 + 8 * half;
+    if (r >= g.t) continue;
+    float* row = dst + (long long)r * g.st + 2 * (lane % 4);
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n)
+      *reinterpret_cast<float2*>(row + 8 * n) =
+          make_float2(mul * acc[n][2 * half], mul * acc[n][2 * half + 1]);
+  }
+}
+
+// p = exp(s.scale - lse), from one FMA (one rounding, so the argument's
+// error stays relative to its own small size) and exp2
+__device__ __forceinline__ float prob_f32(float s, float scale, float lse) {
+  return exp2f(fmaf(s, scale, -lse) * LOG2E);
+}
+
+// The streamed side of a tf32 kernel: two tiles (K and V, or Q and dO) a
+// step, from raw copies double-buffered (!presplit) or from split copies
+// refilled from one raw copy each (presplit).  Its shared memory: 6 tiles.
+template <int D>
+struct Stream {
+  static constexpr int LT = TILE * ldf<D>();
+  float* base;
+  // the raw tile j (0, 1) that step `it`'s copies go to
+  __device__ __forceinline__ float* raw(int j, int it) const {
+    return presplit<D>() ? base + j * LT : base + (2 * j + (it & 1)) * LT;
+  }
+  // the big and small tiles j that step `it` computes on (small: null, the
+  // raw tile split as it is read, when !presplit)
+  __device__ __forceinline__ const float* big(int j, int it) const {
+    return presplit<D>() ? base + (2 + 2 * j) * LT : raw(j, it);
+  }
+  __device__ __forceinline__ const float* small(int j) const {
+    return presplit<D>() ? base + (3 + 2 * j) * LT : nullptr;
+  }
+  // after step `it`'s raw copies landed and a __syncthreads(): split them
+  // (the caller syncs again before they are read)
+  __device__ __forceinline__ void split(int it) const {
+    if constexpr (presplit<D>()) {
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+        split_tile<D>(base + (2 + 2 * j) * LT, base + (3 + 2 * j) * LT, raw(j, it));
+    }
+  }
+};
+
+// f32 dQ: one block per (q tile, batch-head), each warp 16 query rows,
+// looping over the live k tiles:
+//   p = exp(s - lse), ds = p (dp - delta), dq = scale * sum_k ds.K
+// Q's and dO's split A fragments are held in registers at D <= 64 (2 D
+// registers; their tiles' room then takes the split K and V); at D 128
+// they are re-read from shared memory and split there.
+template <int D>
+__global__ void __launch_bounds__(MMA_NT)
+    dq_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                   const float* __restrict__ v, const float* __restrict__ dout,
+                   const float* __restrict__ lse, const float* __restrict__ delta,
+                   float* __restrict__ dq, Geom g, float scale, int causal) {
+  constexpr int LT = TILE * ldf<D>();  // floats of one tile
+  constexpr bool PRE = presplit<D>();
+  constexpr AFrom FROM = PRE ? SPLIT : SMEM;
+  constexpr int NF = PRE ? D / 8 : 1;
+  extern __shared__ float4 smem4[];
+  float* sm = reinterpret_cast<float*>(smem4);
+  // !PRE: [Q, dO, K 2 stages, V 2 stages]; PRE: [K, V raw, K big, small,
+  // V big, small], Q and dO first in the split tiles' room
+  float* Qs = PRE ? sm + 2 * LT : sm;
+  float* dOs = Qs + LT;
+  const Stream<D> kv{PRE ? sm : sm + 2 * LT};
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const LanesF32 ln(lane);
+  const int nt = (g.t + TILE - 1) / TILE;
+  const int qb = nt - 1 - blockIdx.x;  // the longest causal rows start first
+  const int b = blockIdx.y / g.h, h = blockIdx.y % g.h;
+  const long long base = b * g.sb + (long long)h * D;
+  const int q0 = qb * TILE;
+  const int k_end = causal ? qb + 1 : nt;
+
+  load_tile_f32<D>(Qs, q + base, q0, g);
+  load_tile_f32<D>(dOs, dout + base, q0, g);
+  load_tile_f32<D>(kv.raw(0, 0), k + base, 0, g);
+  load_tile_f32<D>(kv.raw(1, 0), v + base, 0, g);
+  cp_async_commit();
+
+  const int w0 = q0 + warp * 16;  // this warp's first row
+  float lse_r[2], delta_r[2];     // rows w0 + lane/4 and + 8
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int qi = w0 + lane / 4 + 8 * half;
+    const long long si = ((long long)b * g.t + qi) * g.h + h;
+    lse_r[half] = qi < g.t ? lse[si] : 0.f;
+    delta_r[half] = qi < g.t ? delta[si] : 0.f;
+  }
+  float acc[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+
+  cp_async_wait_all();
+  __syncthreads();
+  uint32_t qfb[NF][4], qfs[NF][4], dofb[NF][4], dofs[NF][4];
+  if constexpr (PRE) {
+#pragma unroll
+    for (int ks = 0; ks < D / 8; ++ks) {
+      afrag_tf32<D, SMEM>(qfb[ks], qfs[ks], nullptr, nullptr, Qs, warp * 16, ks, ln);
+      afrag_tf32<D, SMEM>(dofb[ks], dofs[ks], nullptr, nullptr, dOs, warp * 16, ks, ln);
+    }
+    __syncthreads();  // Q and dO read: their room takes the split tiles
+    kv.split(0);
+    __syncthreads();
+  }
+
+  for (int kb = 0; kb < k_end; ++kb) {
+    if (kb + 1 < k_end) {  // the next tile's copies, in flight during this one
+      load_tile_f32<D>(kv.raw(0, kb + 1), k + base, (kb + 1) * TILE, g);
+      load_tile_f32<D>(kv.raw(1, kb + 1), v + base, (kb + 1) * TILE, g);
+      cp_async_commit();
+    }
+    const int k0 = kb * TILE;
+#pragma unroll
+    for (int c = 0; c < TILE / 16; ++c) {
+      const int kc = k0 + 16 * c;  // this piece's first key
+      // wholly masked for this warp: past the diagonal, past T
+      if ((causal && kc > w0 + 15) || kc >= g.t || w0 >= g.t) continue;
+      float s[2][4] = {}, dp[2][4] = {};
+      scores16_tf32<D, FROM, PRE>(s, qfb, qfs, Qs, warp * 16, kv.big(0, kb), kv.small(0),
+                                  16 * c, ln);
+      scores16_tf32<D, FROM, PRE>(dp, dofb, dofs, dOs, warp * 16, kv.big(1, kb), kv.small(1),
+                                  16 * c, ln);
+      // s -> ds = p (dp - delta); the index mask only where the piece
+      // crosses the diagonal or the end of the sequence
+      auto to_ds = [&](auto masked) {
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            float p = prob_f32(s[j][e], scale, lse_r[e >> 1]);
+            if constexpr (decltype(masked)::value) {
+              const int qi = w0 + lane / 4 + 8 * (e >> 1);
+              const int ki = kc + 8 * j + 2 * (lane % 4) + (e & 1);
+              p = valid(qi, ki, g.t, causal) ? p : 0.f;
+            }
+            s[j][e] = p * (dp[j][e] - delta_r[e >> 1]);
+          }
+      };
+      if ((causal && kc + 15 > w0) || kc + 16 > g.t || w0 + 16 > g.t)
+        to_ds(std::true_type{});
+      else
+        to_ds(std::false_type{});
+      accumulate16_tf32<D, PRE>(acc, s, kv.big(0, kb), kv.small(0), 16 * c, ln);
+    }
+    cp_async_wait_all();
+    __syncthreads();  // the next tile has landed; this one is consumed
+    if (PRE && kb + 1 < k_end) {
+      kv.split(kb + 1);
+      __syncthreads();
+    }
+  }
+  store_rows_f32<D>(dq + base, acc, scale, w0, g, lane);
+}
+
+// f32 dK/dV: one block per (k tile, batch-head), each warp 16 keys, looping
+// over the live q tiles, key-major: s^T = K.Q^T, dp^T = V.dO^T;
+// dv = sum_q p^T.dout, dk = scale sum_q ds^T.q.  K's and V's raw A
+// fragments are held in registers at D <= 64 (D registers; their tiles'
+// room then takes the split Q and dO) and split as they are used; at D 128,
+// with the dk and dv accumulators taking 128 registers, they are re-read
+// from shared memory.
+template <int D>
+__global__ void __launch_bounds__(MMA_NT)
+    dkv_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v, const float* __restrict__ dout,
+                    const float* __restrict__ lse, const float* __restrict__ delta,
+                    float* __restrict__ dk, float* __restrict__ dv, Geom g, float scale,
+                    int causal) {
+  constexpr int LT = TILE * ldf<D>();
+  constexpr bool PRE = presplit<D>();
+  constexpr AFrom FROM = PRE ? RAW : SMEM;
+  constexpr int NF = PRE ? D / 8 : 1;
+  extern __shared__ float4 smem4[];
+  float* sm = reinterpret_cast<float*>(smem4);
+  // !PRE: [K, V, Q 2 stages, dO 2 stages]; PRE: [Q, dO raw, Q big, small,
+  // dO big, small], K and V first in the split tiles' room; then lse and
+  // delta, 2 stages
+  float* Ks = PRE ? sm + 2 * LT : sm;
+  float* Vs = Ks + LT;
+  const Stream<D> qdo{PRE ? sm : sm + 2 * LT};
+  float* stat = sm + 6 * LT;  // [2 stages][lse 64, delta 64]
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const LanesF32 ln(lane);
+  const int nt = (g.t + TILE - 1) / TILE;
+  const int kb = blockIdx.x;  // the longest causal columns start first
+  const int b = blockIdx.y / g.h, h = blockIdx.y % g.h;
+  const long long base = b * g.sb + (long long)h * D;
+  const int k0 = kb * TILE;
+  const int q_begin = causal ? kb : 0;
+
+  // step it's (q tile qb's) Q, dO, lse and delta
+  auto load_q_tile = [&](int qb, int it) {
+    const int q0 = qb * TILE;
+    load_tile_f32<D>(qdo.raw(0, it), q + base, q0, g);
+    load_tile_f32<D>(qdo.raw(1, it), dout + base, q0, g);
+    const int r = threadIdx.x % TILE, qi = q0 + r;
+    const float* src = threadIdx.x < TILE ? lse : delta;
+    const long long si = ((long long)b * g.t + qi) * g.h + h;
+    cp_async4(stat + (it & 1) * 2 * TILE + threadIdx.x, qi < g.t ? src + si : src, qi < g.t);
+  };
+
+  load_tile_f32<D>(Ks, k + base, k0, g);
+  load_tile_f32<D>(Vs, v + base, k0, g);
+  load_q_tile(q_begin, 0);
+  cp_async_commit();
+
+  const int w0 = k0 + warp * 16;  // this warp's first key
+  float dk_acc[D / 8][4], dv_acc[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk_acc[n][e] = dv_acc[n][e] = 0.f;
+
+  cp_async_wait_all();
+  __syncthreads();
+  uint32_t kf[NF][4], vf[NF][4];
+  if constexpr (PRE) {
+    load_afrags_f32<D>(kf, Ks, warp * 16, ln);
+    load_afrags_f32<D>(vf, Vs, warp * 16, ln);
+    __syncthreads();  // K and V read: their room takes the split tiles
+    qdo.split(0);
+    __syncthreads();
+  }
+
+  for (int qb = q_begin; qb < nt; ++qb) {
+    const int it = qb - q_begin;
+    if (qb + 1 < nt) {  // the next q tile's copies, in flight during this one
+      load_q_tile(qb + 1, it + 1);
+      cp_async_commit();
+    }
+    const float* lse_c = stat + (it & 1) * 2 * TILE;
+    const float* delta_c = lse_c + TILE;
+    const int q0 = qb * TILE;
+#pragma unroll
+    for (int c = 0; c < TILE / 16; ++c) {
+      const int qc = q0 + 16 * c;  // this piece's first query
+      // wholly masked for this warp: before the diagonal, past T
+      if ((causal && qc + 15 < w0) || qc >= g.t || w0 >= g.t) continue;
+      float st[2][4] = {}, dpt[2][4] = {};  // [key][query]
+      scores16_tf32<D, FROM, PRE>(st, kf, nullptr, Ks, warp * 16, qdo.big(0, it), qdo.small(0),
+                                  16 * c, ln);
+      scores16_tf32<D, FROM, PRE>(dpt, vf, nullptr, Vs, warp * 16, qdo.big(1, it),
+                                  qdo.small(1), 16 * c, ln);
+      // s^T -> p^T, dp^T -> ds^T; the index mask only where the piece
+      // crosses the diagonal or the end of the sequence
+      auto to_p_ds = [&](auto masked) {
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const int col = 16 * c + 8 * j + 2 * (lane % 4);  // this thread's queries: col, col + 1
+          const float2 l2 = *reinterpret_cast<const float2*>(lse_c + col);
+          const float2 d2 = *reinterpret_cast<const float2*>(delta_c + col);
+          const float lq[2] = {l2.x, l2.y}, dlt[2] = {d2.x, d2.y};
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            float p = prob_f32(st[j][e], scale, lq[e & 1]);
+            if constexpr (decltype(masked)::value) {
+              const int ki = w0 + lane / 4 + 8 * (e >> 1);
+              const int qi = q0 + col + (e & 1);
+              p = valid(qi, ki, g.t, causal) ? p : 0.f;
+            }
+            dpt[j][e] = p * (dpt[j][e] - dlt[e & 1]);
+            st[j][e] = p;
+          }
+        }
+      };
+      if ((causal && qc < w0 + 15) || qc + 16 > g.t || w0 + 16 > g.t)
+        to_p_ds(std::true_type{});
+      else
+        to_p_ds(std::false_type{});
+      accumulate16_tf32<D, PRE>(dv_acc, st, qdo.big(1, it), qdo.small(1), 16 * c, ln);
+      accumulate16_tf32<D, PRE>(dk_acc, dpt, qdo.big(0, it), qdo.small(0), 16 * c, ln);
+    }
+    cp_async_wait_all();
+    __syncthreads();  // the next tile has landed; this one is consumed
+    if (PRE && qb + 1 < nt) {
+      qdo.split(it + 1);
+      __syncthreads();
+    }
+  }
+  store_rows_f32<D>(dk + base, dk_acc, scale, w0, g, lane);
+  store_rows_f32<D>(dv + base, dv_acc, 1.f, w0, g, lane);
+}
+
+// ---------------------------------------------------------------------------
 // launchers
 
 template <int D>
 constexpr size_t fwd_smem() { return (2 * D * LD + TILE * D + TILE * LD) * sizeof(float); }
-template <int D>
-constexpr size_t dq_smem() { return (4 * D * LD + TILE * D + TILE * LD) * sizeof(float); }
-template <int D>
-constexpr size_t dkv_smem() {
-  return (4 * D * LD + 2 * TILE * D + TILE * LD + 2 * TILE) * sizeof(float);
-}
-static_assert(dkv_smem<128>() <= 232448, "dK/dV tile exceeds a block's shared memory");
 template <int D>
 constexpr size_t fwd_mma_smem() { return 5 * TILE * ldb<D>() * sizeof(bf16); }
 static_assert(fwd_mma_smem<128>() <= 232448, "forward tile exceeds a block's shared memory");
@@ -1079,6 +1456,13 @@ constexpr size_t dq_mma_smem() { return 6 * TILE * ldb<D>() * sizeof(bf16); }
 template <int D>
 constexpr size_t dkv_mma_smem() { return 6 * TILE * ldb<D>() * sizeof(bf16) + 4 * TILE * sizeof(float); }
 static_assert(dkv_mma_smem<128>() <= 232448, "dK/dV tile exceeds a block's shared memory");
+template <int D>
+constexpr size_t dq_tf32_smem() { return 6 * TILE * ldf<D>() * sizeof(float); }
+template <int D>
+constexpr size_t dkv_tf32_smem() {
+  return 6 * TILE * ldf<D>() * sizeof(float) + 4 * TILE * sizeof(float);
+}
+static_assert(dkv_tf32_smem<128>() <= 232448, "f32 dK/dV tile exceeds a block's shared memory");
 
 Geom make_geom(int t, int h, int d) {
   Geom g;
@@ -1133,13 +1517,14 @@ cudaError_t run_dq(const void* q, const void* k, const void* v, const void* dout
         causal);
     return cudaGetLastError();
   } else {
-    const size_t smem = dq_smem<D>();
-    cudaError_t e = prepare(dq_kernel<T, D>, smem);
+    const size_t smem = dq_tf32_smem<D>();
+    cudaError_t e = prepare(dq_tf32_kernel<D>, smem);
     if (e != cudaSuccess) return e;
-    dq_kernel<T, D><<<grid, NT, smem, stream>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-        static_cast<const T*>(dout), static_cast<const float*>(lse),
-        static_cast<const float*>(delta), static_cast<T*>(dq), make_geom(t, h, D), scale, causal);
+    dq_tf32_kernel<D><<<grid, MMA_NT, smem, stream>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+        static_cast<const float*>(dout), static_cast<const float*>(lse),
+        static_cast<const float*>(delta), static_cast<float*>(dq), make_geom(t, h, D), scale,
+        causal);
     return cudaGetLastError();
   }
 }
@@ -1160,13 +1545,13 @@ cudaError_t run_dkv(const void* q, const void* k, const void* v, const void* dou
         make_geom(t, h, D), scale, causal);
     return cudaGetLastError();
   } else {
-    const size_t smem = dkv_smem<D>();
-    cudaError_t e = prepare(dkv_kernel<T, D>, smem);
+    const size_t smem = dkv_tf32_smem<D>();
+    cudaError_t e = prepare(dkv_tf32_kernel<D>, smem);
     if (e != cudaSuccess) return e;
-    dkv_kernel<T, D><<<grid, NT, smem, stream>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-        static_cast<const T*>(dout), static_cast<const float*>(lse),
-        static_cast<const float*>(delta), static_cast<T*>(dk), static_cast<T*>(dv),
+    dkv_tf32_kernel<D><<<grid, MMA_NT, smem, stream>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+        static_cast<const float*>(dout), static_cast<const float*>(lse),
+        static_cast<const float*>(delta), static_cast<float*>(dk), static_cast<float*>(dv),
         make_geom(t, h, D), scale, causal);
     return cudaGetLastError();
   }
@@ -1226,10 +1611,10 @@ int znicz_flash_dkv(const void* q, const void* k, const void* v, const void* dou
 // asks for at head dim d and dtype (0 float32, 1 bfloat16); -1 for a head
 // dim without a kernel
 int znicz_flash_smem_bytes(int which, int d, int dtype) {
-#define ZNICZ_SMEM(D)                                                          \
-  return (int)(which == 0   ? (dtype == 1 ? fwd_mma_smem<D>() : fwd_smem<D>()) \
-               : which == 1 ? (dtype == 1 ? dq_mma_smem<D>() : dq_smem<D>())   \
-                            : (dtype == 1 ? dkv_mma_smem<D>() : dkv_smem<D>()))
+#define ZNICZ_SMEM(D)                                                             \
+  return (int)(which == 0   ? (dtype == 1 ? fwd_mma_smem<D>() : fwd_smem<D>())    \
+               : which == 1 ? (dtype == 1 ? dq_mma_smem<D>() : dq_tf32_smem<D>()) \
+                            : (dtype == 1 ? dkv_mma_smem<D>() : dkv_tf32_smem<D>()))
   switch (d) {
     case 16: ZNICZ_SMEM(16);
     case 32: ZNICZ_SMEM(32);

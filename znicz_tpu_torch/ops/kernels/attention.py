@@ -31,14 +31,37 @@ each kernel a block owns one 64-row tile and loops over the other side's
   orientations; the next tile's ``cp.async`` copies are in flight while
   this one is computed.  These copies need q, k, v and dout to start on a
   16-byte boundary, which the wrappers check for every kernel.
-- The f32 forward, dQ and dK/dV take a simple FMA path: 256 threads, each
-  a 4 x 4 register tile of every product in f32 FMAs (f32 in full f32, no
-  TF32), at most the card's 67 TFLOP/s f32 rate.  Tensor cores for those
-  (3xTF32) and ``wgmma`` with TMA come later.
+- The f32 dQ and dK/dV run on the tensor cores in 3xTF32 (``mma.sync``
+  m16n8k8 tf32, f32 accumulation), on the bf16 kernels' skeleton: each f32
+  operand is split into a big and a small TF32 part, ``b = tf32(x)`` and
+  ``s = x - b`` (the tensor cores read its top 19 bits, so ``x = b + s``
+  to 2^-21 of ``x``), and a product is taken as ``a_s.c_b + a_b.c_s +
+  a_b.c_b``.  The dropped ``a_s.c_s`` is at most 2^-22 of the product, so
+  each product keeps about f32's accuracy (a few f32 roundings) where plain
+  TF32 would keep 2^-11; ``p``, ``ds`` and every sum stay f32 (no long sum
+  is left in an mma accumulator, which truncates), and the split is the
+  only approximation.  On the card their errors against float64 stay
+  within a few times the f32 plain version's (``chip_smoke.py`` fails past
+  10 times).  ``p`` and ``ds`` enter the next product from the accumulators
+  with the k axis permuted (m16n8k8's A fragment does not match its
+  accumulator), never through shared memory.
+- The f32 forward takes a simple FMA path: 256 threads, each a 4 x 4
+  register tile of every product in f32 FMAs, at most the card's 67
+  TFLOP/s f32 rate.  Its 3xTF32 design, and ``wgmma`` with TMA for all six,
+  come later.
 
 Tiles are the kernels' own: ``block_q``/``block_k`` are accepted so JAX
 call sites load unchanged, and are ignored (the TPU's 512 x 512 blocks were
 a VMEM choice).
+
+:func:`flash_attention_lse` takes what JAX's kernel takes up to head dim
+128: its autograd layer makes the inputs contiguous and 16-byte aligned,
+and zero-pads a head dim between the kernels' 16, 32, 64 and 128 up to the
+next (exact: zero columns change no score, and give zero output and
+gradient columns), with the scale of the true head dim.  Above 128 it
+raises ``NotImplementedError`` on the card (``attention="auto"`` takes the
+dense path there).  The counted wrappers launch a B*H above the grid's 65535
+a batch slice at a time.
 
 The layout stays BTHD ``[B, T, H, D]`` (``lse``: ``[B, T, H]``); the
 kernels read it through strides, so the JAX package's ``[B*H, T, D]``
@@ -56,6 +79,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
+from typing import Optional
 
 import torch
 
@@ -65,6 +89,7 @@ BLOCK_Q = 512  # the JAX package's defaults, accepted and ignored
 BLOCK_K = 512
 NEG_INF = -1e30
 HEAD_DIMS = (16, 32, 64, 128)
+MAX_GRID_Y = 65535  # (batch, head) pairs of one launch
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}  # the C interface's dtype codes
 
 
@@ -165,14 +190,23 @@ def _check(name: str, qkv, stats=()) -> None:
                 f"{name}: kernel copies 16-byte pieces; a tensor's data starts at "
                 f"{t.data_ptr() % 16} bytes past a 16-byte boundary (a view at an offset)"
             )
-    b, _, h, d = x.shape
+    _, _, h, d = x.shape
     if d not in HEAD_DIMS:
         raise ValueError(f"{name}: head dim {d} not in {HEAD_DIMS}")
-    if b * h > 65535:
-        raise ValueError(f"{name}: B*H = {b * h} exceeds the grid's 65535")
+    if h > MAX_GRID_Y:
+        raise ValueError(f"{name}: {h} heads exceed the grid's {MAX_GRID_Y} blocks of one batch row")
     for t in stats:
         if t.dtype != torch.float32 or t.shape != x.shape[:3]:
             raise ValueError(f"{name}: lse and delta must be float32 [B, T, H]")
+
+
+def _batch_slices(x: torch.Tensor):
+    """The batch ranges of one launch each: the grid holds at most 65535
+    (batch, head) pairs, so a larger B*H is launched a batch slice at a
+    time (a contiguous, 16-byte-aligned view of every tensor)."""
+    b, _, h, _ = x.shape
+    step = MAX_GRID_Y // h
+    return [slice(b0, min(b0 + step, b)) for b0 in range(0, b, step)]
 
 
 def _launch(name: str, fn, x: torch.Tensor, tensors, causal: bool, scale: float) -> None:
@@ -192,8 +226,8 @@ def _launch(name: str, fn, x: torch.Tensor, tensors, causal: bool, scale: float)
 
 def flash_fwd(q, k, v, *, causal: bool, scale: float):
     """``(out, lse)``: the plain version for CPU tensors, else the forward
-    kernel (counted in ``flash_fwd.launches``); raises on what it does not
-    take."""
+    kernel (counted in ``flash_fwd.launches``, one a launch: B*H above
+    65535 takes more than one); raises on what it does not take."""
     if q.device.type == "cpu":
         return flash_fwd_reference(q, k, v, causal=causal, scale=scale)
     _check("flash_fwd", (q, k, v))
@@ -201,8 +235,10 @@ def flash_fwd(q, k, v, *, causal: bool, scale: float):
     lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
     if q.numel() == 0:
         return out, lse
-    _launch("flash_fwd", _lib().znicz_flash_fwd, q, (q, k, v, out, lse), causal, scale)
-    flash_fwd.launches += 1
+    for sl in _batch_slices(q):
+        _launch("flash_fwd", _lib().znicz_flash_fwd, q[sl],
+                (q[sl], k[sl], v[sl], out[sl], lse[sl]), causal, scale)
+        flash_fwd.launches += 1
     return out, lse
 
 
@@ -215,8 +251,10 @@ def flash_dq(q, k, v, dout, lse, delta, *, causal: bool, scale: float):
     dq = torch.empty_like(q)
     if q.numel() == 0:
         return dq
-    _launch("flash_dq", _lib().znicz_flash_dq, q, (q, k, v, dout, lse, delta, dq), causal, scale)
-    flash_dq.launches += 1
+    for sl in _batch_slices(q):
+        _launch("flash_dq", _lib().znicz_flash_dq, q[sl],
+                (q[sl], k[sl], v[sl], dout[sl], lse[sl], delta[sl], dq[sl]), causal, scale)
+        flash_dq.launches += 1
     return dq
 
 
@@ -229,10 +267,11 @@ def flash_dkv(q, k, v, dout, lse, delta, *, causal: bool, scale: float):
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     if q.numel() == 0:
         return dk, dv
-    _launch(
-        "flash_dkv", _lib().znicz_flash_dkv, q, (q, k, v, dout, lse, delta, dk, dv), causal, scale
-    )
-    flash_dkv.launches += 1
+    for sl in _batch_slices(q):
+        _launch("flash_dkv", _lib().znicz_flash_dkv, q[sl],
+                (q[sl], k[sl], v[sl], dout[sl], lse[sl], delta[sl], dk[sl], dv[sl]),
+                causal, scale)
+        flash_dkv.launches += 1
     return dk, dv
 
 
@@ -241,27 +280,52 @@ flash_dq.launches = 0
 flash_dkv.launches = 0
 
 
+def kernel_head_dim(d: int) -> Optional[int]:
+    """The head dim the kernels run a head dim ``d`` at: the next of
+    :data:`HEAD_DIMS`, the columns past ``d`` zero; None above 128."""
+    return next((k for k in HEAD_DIMS if k >= d), None)
+
+
+def _ready(x: torch.Tensor, d: int) -> torch.Tensor:
+    """x contiguous, 16-byte aligned and zero-padded along the head dim to
+    ``d`` (zero columns change no score and give zero output and gradient
+    columns, so the padding is exact)."""
+    x = x.contiguous()
+    if x.shape[-1] != d:
+        x = torch.nn.functional.pad(x, (0, d - x.shape[-1]))
+    elif x.data_ptr() % 16:
+        x = x.clone()
+    return x
+
+
 class _Flash(torch.autograd.Function):
     """``(out, lse)`` with both outputs differentiable: an lse cotangent
     folds into ``delta = rowsum(dout * out) - dlse`` (plain PyTorch, as it
     was XLA outside the TPU kernels), so the backward kernels need no new
-    input."""
+    input.  Here, not in the counted wrappers, inputs are made contiguous
+    and aligned, and a head dim between the kernels' is zero-padded up to
+    the next one (:func:`kernel_head_dim`) and sliced back after."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, scale):
+        d = q.shape[-1]
+        dp = kernel_head_dim(d) or d
+        q, k, v = (_ready(x, dp) for x in (q, k, v))
         out, lse = flash_fwd(q, k, v, causal=causal, scale=scale)
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.hyper = (causal, scale)
-        return out, lse
+        ctx.hyper = (causal, scale, d)
+        return out[..., :d].contiguous() if dp != d else out, lse
 
     @staticmethod
     def backward(ctx, dout, dlse):
         q, k, v, out, lse = ctx.saved_tensors
-        causal, scale = ctx.hyper
-        dout = dout.contiguous()
+        causal, scale, d = ctx.hyper
+        dout = _ready(dout, q.shape[-1])
         delta = ((dout.float() * out.float()).sum(dim=-1) - dlse.float()).contiguous()
         dq = flash_dq(q, k, v, dout, lse, delta, causal=causal, scale=scale)
         dk, dv = flash_dkv(q, k, v, dout, lse, delta, causal=causal, scale=scale)
+        if q.shape[-1] != d:
+            dq, dk, dv = (g[..., :d].contiguous() for g in (dq, dk, dv))
         return dq, dk, dv, None, None
 
 
@@ -280,7 +344,12 @@ def flash_attention_lse(
     ``block_q``/``block_k`` are accepted and ignored: the CUDA kernels use
     their own 64-row tiles."""
     del block_q, block_k
-    if scale is None:
+    if q.device.type == "cuda" and kernel_head_dim(q.shape[-1]) is None:
+        raise NotImplementedError(
+            f"flash attention at head dim {q.shape[-1]} (above 128) has no kernel yet "
+            f"(ROADMAP.md B6, a D-256 instantiation); use attention='dot'"
+        )
+    if scale is None:  # the true head dim's, before any padding
         scale = 1.0 / math.sqrt(q.shape[-1])
     return _Flash.apply(q, k, v, bool(causal), float(scale))
 

@@ -22,6 +22,7 @@ from znicz_tpu_torch.core import device as device_lib
 from znicz_tpu_torch.nn import optimizer
 from znicz_tpu_torch.ops import (
     all2all,
+    attention as attention_op,
     conv,
     dropout as dropout_op,
     normalization,
@@ -83,8 +84,7 @@ _LATER = {
     "cutter": "the conv-family slice",
     "activation_*": "the conv-family slice",
     "deconv": "the unsupervised slice",
-    "moe": "the transformer LM slice",
-    "attention": "the transformer LM slice",
+    "moe": "a later slice (ROADMAP.md A7, ops/moe.py)",
 }
 _INIT_KEYS = ("weights_stddev", "bias_stddev", "weights_filling", "bias_filling")
 
@@ -194,6 +194,27 @@ def build(
                     x, dropout_ratio=r, generator=gen, train=train
                 )
 
+        elif kind == "attention":
+            # pre-LN residual multi-head self-attention block
+            # (ops/attention.py): per-sample input must be [T, D]
+            if len(shape) != 3:
+                raise ValueError(
+                    f"layer {i} (attention) needs [T, D] per-sample input, "
+                    f"got shape {shape}"
+                )
+            d = shape[2]
+            n_heads = int(fwd.get("n_heads", 4))
+            causal = bool(fwd.get("causal", True))
+            p = attention_op.init_mha_params(
+                d, n_heads, rand_name=rand_name, device=device, **_init_kwargs(fwd)
+            )
+            p["ln_scale"] = torch.ones((d,), device=device)
+            p["ln_bias"] = torch.zeros((d,), device=device)
+
+            def fn(p, x, train, gen, nh=n_heads, c=causal):
+                h = normalization.layer_norm(x, p["ln_scale"], p["ln_bias"])
+                return x + attention_op.mha(p, h, n_heads=nh, causal=c)
+
         else:
             later = _LATER.get(
                 "activation_*" if kind.startswith("activation_") else kind
@@ -204,7 +225,7 @@ def build(
                 )
             raise ValueError(
                 f"unknown layer type {kind!r} at index {i}; known: "
-                f"{sorted(_A2A_ACT) + sorted(_CONV_ACT) + sorted(_POOL) + ['dropout', 'norm', 'softmax']}"
+                f"{sorted(_A2A_ACT) + sorted(_CONV_ACT) + sorted(_POOL) + ['attention', 'dropout', 'norm', 'softmax']}"
             )
 
         params.append(p)

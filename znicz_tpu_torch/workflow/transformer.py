@@ -14,8 +14,12 @@ or, with ``attention="flash"`` (and ``"auto"`` on the card when
 hand-written CUDA flash kernels (:mod:`ops.kernels.attention`).
 
 Not ported here, and refused with ``NotImplementedError`` naming their
-``ROADMAP.md`` item: MoE blocks, sequence/tensor/pipeline parallelism and
-the ``parallel=`` placement policy, the snapshotter, and ``generate()``.
+``ROADMAP.md`` item: MoE blocks (``moe_experts``, ``moe_top_k``,
+``moe_dispatch``), sequence/tensor/pipeline parallelism
+(``pipeline_microbatches``, ``mesh``) and the ``parallel=`` placement
+policy, the snapshotter, the prefetch thread (``prefetch_batches`` other
+than 2), deferred epoch sync, rollback ``recovery`` and ``generate()``;
+each JAX keyword is taken at its JAX default.
 The anomaly watch's ``grad_norm`` is not computed (the port's workflow has
 no anomaly watch yet).
 """
@@ -36,9 +40,9 @@ from znicz_tpu_torch.nn.decision import Decision
 from znicz_tpu_torch.nn.train_state import TrainState
 from znicz_tpu_torch.ops import attention as attention_op
 from znicz_tpu_torch.ops.filling import fill
-from znicz_tpu_torch.ops.kernels.attention import flash_attention
+from znicz_tpu_torch.ops.kernels.attention import flash_attention, kernel_head_dim
 from znicz_tpu_torch.ops.normalization import layer_norm
-from znicz_tpu_torch.workflow.workflow import Workflow
+from znicz_tpu_torch.workflow.workflow import Workflow, refuse_unported
 
 ATTENTIONS = ("dot", "flash", "auto")
 METRICS = ["loss", "n_samples", "n_err", "token_accuracy"]
@@ -158,30 +162,45 @@ class TransformerLMWorkflow(Workflow):
         attention_dtype: str = "f32",
         remat: bool = False,
         moe_experts: int = 0,
+        moe_top_k: int = 1,
+        moe_dispatch: str = "dense",
         sequence_parallel: bool = False,
         tensor_parallel: bool = False,
         pipeline_parallel: bool = False,
+        pipeline_microbatches: Optional[int] = None,
+        mesh=None,
         decision: Optional[Decision] = None,
         snapshotter=None,
         lr_policy=None,
         parallel=None,
+        prefetch_batches: int = 2,
+        epoch_sync: str = "sync",
+        recovery=None,
         rand_name: str = "default",
         device=None,
         name: str = "TransformerLMWorkflow",
     ):
-        refused = (
+        refuse_unported((
             (moe_experts > 1, "moe_experts > 1 (MoE FFN blocks)", "A7, ops/moe.py"),
+            (moe_top_k != 1, "moe_top_k != 1 (MoE routing)", "A7, ops/moe.py"),
+            (moe_dispatch != "dense", "moe_dispatch != 'dense' (MoE capacity dispatch)",
+             "A7, ops/moe.py"),
             (sequence_parallel, "sequence_parallel (ring attention)",
              "A7, parallel/ring_attention.py"),
             (tensor_parallel, "tensor_parallel", "A6, lm_tp_rules"),
             (pipeline_parallel, "pipeline_parallel", "A7, parallel/pipeline.py"),
+            (pipeline_microbatches is not None, "pipeline_microbatches (GPipe)",
+             "A7, parallel/pipeline.py"),
+            (mesh is not None, "a mesh= device mesh", "A6, parallel/mesh.py"),
             (parallel is not None, "a parallel= placement policy",
              "A6, parallel/data_parallel.py"),
             (snapshotter is not None, "the snapshotter", "A4, workflow/snapshotter.py"),
-        )
-        for on, what, item in refused:
-            if on:
-                raise _not_ported(what, item)
+            (prefetch_batches != 2, "the prefetch thread (prefetch_batches != 2)",
+             "A4, loader/prefetch.py"),
+            (epoch_sync != "sync", "deferred epoch sync (epoch_sync != 'sync')",
+             "A4, workflow/workflow.py"),
+            (recovery is not None, "rollback recovery", "A4, workflow/recovery.py"),
+        ))
         if attention not in ATTENTIONS:
             raise ValueError(f"attention={attention!r}: want one of {ATTENTIONS}")
         if attention_dtype not in ("f32", "bf16"):
@@ -217,10 +236,12 @@ class TransformerLMWorkflow(Workflow):
 
     def _attention_fn_base(self):
         """The flash kernels where the JAX package picks its kernel on the
-        TPU (here: on the card) or where asked; else None (dense)."""
+        TPU (here: on the card, at a head dim the kernels take) or where
+        asked; else None (dense)."""
         on_card = self.device.type == "cuda"
+        has_kernel = kernel_head_dim(self.d_model // self.n_heads) is not None
         if self.attention == "flash" or (
-            self.attention == "auto" and on_card and self.max_seq >= 512
+            self.attention == "auto" and on_card and self.max_seq >= 512 and has_kernel
         ):
             return flash_attention
         return None

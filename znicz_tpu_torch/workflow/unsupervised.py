@@ -28,7 +28,7 @@ from znicz_tpu_torch.nn.decision import Decision
 from znicz_tpu_torch.nn.train_state import TrainState
 from znicz_tpu_torch.ops import kohonen as kh, rbm as rbm_op
 from znicz_tpu_torch.ops.kernels import kohonen as kh_kernel, rbm as rbm_kernel
-from znicz_tpu_torch.workflow.workflow import Workflow
+from znicz_tpu_torch.workflow.workflow import Workflow, refuse_unported
 
 METRICS = ["loss", "n_samples", "n_err"]
 IMPLS = ("auto", "pallas", "xla")
@@ -55,19 +55,14 @@ def params_to_numpy(params: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
 
 
 def _refuse(snapshotter, parallel, prefetch_batches, epoch_sync, impl) -> None:
-    refused = (
+    refuse_unported((
         (snapshotter is not None, "the snapshotter", "A4, workflow/snapshotter.py"),
         (parallel is not None, "a parallel= placement policy", "A6, parallel/data_parallel.py"),
         (prefetch_batches != 2, "the prefetch thread (prefetch_batches != 2)",
          "A4, loader/prefetch.py"),
         (epoch_sync != "sync", "deferred epoch sync (epoch_sync != 'sync')",
          "A4, workflow/workflow.py"),
-    )
-    for on, what, item in refused:
-        if on:
-            raise NotImplementedError(
-                f"{what} is not ported to znicz_tpu_torch yet (ROADMAP.md {item})"
-            )
+    ))
     if impl not in IMPLS:
         raise ValueError(f"impl={impl!r}: want one of {IMPLS}")
 

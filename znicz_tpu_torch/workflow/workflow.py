@@ -32,6 +32,17 @@ from znicz_tpu_torch.workflow.model import Model
 logger = logging.getLogger(__name__)
 
 
+def refuse_unported(cases) -> None:
+    """Raise ``NotImplementedError`` for the first ``(on, what, item)`` of
+    ``cases`` that is on, naming its ``ROADMAP.md`` item: a JAX keyword the
+    port takes at its default and refuses by name otherwise."""
+    for on, what, item in cases:
+        if on:
+            raise NotImplementedError(
+                f"{what} is not ported to znicz_tpu_torch yet (ROADMAP.md {item})"
+            )
+
+
 def _is_additive(name: str) -> bool:
     return not name.startswith("max_")
 
