@@ -24,21 +24,23 @@ result line) when any phase fails:
    spills with the dynamic shared memory of each kernel; then the tensor-core
    instructions (SASS ``HMMA``, and ``HGMMA`` for ``wgmma``) of each kernel,
    counted in ``cuobjdump -sass`` of the built library: it fails if one of
-   the 20 tensor-core kernels (the bf16 forward, dQ and dK/dV, the f32 dQ
-   and dK/dV in 3xTF32) has none, or an f32 forward kernel has any;
+   the 24 kernels (the bf16 forward, dQ and dK/dV; the f32 ones in 3xTF32)
+   has none;
 6. each flash kernel (forward, dQ, dK/dV) against its plain version on the
    same CUDA tensors, with O(1) ``dout`` and ``dlse``: the LM slice's shape
    (B 16, T 2048, H 8, D 64, causal), D 32 and 128, a non-causal and a
    ragged (T 2000) case, each in f32 and bf16; at the slice shape a second
    launch of the forward, dQ and dK/dV must be bitwise equal to the first,
-   in both dtypes, and the f32 dQ and dK/dV's errors against a float64
-   plain version within 10 times the f32 plain version's;
+   in both dtypes; the f32 forward's ``out`` and ``lse`` (at the slice
+   shape, D 128 and without the mask) and dQ and dK/dV (at the slice shape)
+   against a float64 plain version, within 10 times the f32 plain
+   version's error;
    6b. ``flash_attention_lse`` at a head dim the kernels take zero-padded
    (96, on non-contiguous views), forward and gradients against autograd
    through the plain forward, in f32 and bf16; and the three wrappers at a
    B*H of 65600, launched as two batch slices, against their plain versions;
 7. the flash kernels' times at the slice shape beside their bound (the f32
-   dQ and dK/dV at the 3xTF32 rate, their f32-FMA bound beside it), the
+   kernels at the 3xTF32 rate, their f32-FMA bound beside it), the
    plain versions' and ``F.scaled_dot_product_attention``'s forward and
    autograd backward (timed here only; the port never calls it), in f32 and
    bf16;
@@ -80,8 +82,8 @@ result line) when any phase fails:
     identical weights (the RBM with the same seed: the same chain);
 15. the whole script's seconds, the ``kernels`` JSON line (each flash row
     with its bf16 times, bound, launches and error beside the f32 ones under
-    ``"bf16"``; the f32 dQ and dK/dV rows also with their f32-FMA bound and
-    their float64 errors beside the plain version's), then the result line.
+    ``"bf16"``; the f32 flash rows also with their f32-FMA bound and their
+    float64 errors beside the plain version's), then the result line.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``.
 """
@@ -129,7 +131,7 @@ FLASH_CASES = [  # (tag, B, T, H, D, causal)
 # of the reference's largest magnitude: f32 sums run in another order; bf16
 # rounds p and ds before their products at other places (running maxima)
 FLASH_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
-# the 3xTF32 f32 dQ and dK/dV against float64: within this factor of the
+# the 3xTF32 f32 flash kernels against float64: within this factor of the
 # f32 plain version's error (one TF32 product would be ~1000 times it)
 FLOAT64_FACTOR = 10
 PEAK_FLOPS = {"float32": F32_FLOPS, "bfloat16": 989e12}  # H100 SXM, dense
@@ -143,6 +145,7 @@ REPLACES.update({
     "flash_dkv": "znicz_tpu/ops/pallas/attention.py:277",
 })
 FLASH = tuple(FLASH_PRODUCTS)
+F64_OUTPUTS = {"flash_fwd": ("out", "lse"), "flash_dq": ("dq",), "flash_dkv": ("dk", "dv")}
 
 
 def fail(msg: str) -> None:
@@ -348,10 +351,9 @@ def phase_slice(torch, lrn_kernel, alexnet, model_lib, prng):
     return launches, {"step_ms": med * 1e3, "images_per_s": batch / med}
 
 
-# a flash kernel's mangled name: fwd_kernel<float, D> (the f32 forward, FMA
-# path), (fwd|dq|dkv)_mma_kernel<D> (bf16 on the tensor cores),
-# (dq|dkv)_tf32_kernel<D> (the f32 backward on the tensor cores, 3xTF32)
-_FLASH_KERNEL = re.compile(r"(fwd|dq|dkv)(_mma|_tf32)?_kernelI(f|13__nv_bfloat16)?Li(\d+)E")
+# a flash kernel's mangled name: (fwd|dq|dkv)_mma_kernel<D> (bf16) and
+# (fwd|dq|dkv)_tf32_kernel<D> (f32, 3xTF32), all on the tensor cores
+_FLASH_KERNEL = re.compile(r"(fwd|dq|dkv)_(mma|tf32)_kernelILi(\d+)E")
 _PTXAS_ENTRY = re.compile(r"Compiling entry function '\S*?" + _FLASH_KERNEL.pattern)
 
 
@@ -369,7 +371,7 @@ def build_all(cuda_build):
 
 def _flash_key(m):
     """(kernel, dtype, D) of a _FLASH_KERNEL match."""
-    return m.group(1), "bf16" if m.group(2) == "_mma" else "f32", int(m.group(4))
+    return m.group(1), "bf16" if m.group(2) == "mma" else "f32", int(m.group(3))
 
 
 def _sass_mma_counts(cuda_build, lib_path):
@@ -424,11 +426,9 @@ def phase_flash_build(built, fa, cuda_build, torch):
               f"spill stores/loads {r['spill']} bytes, "
               f"{fa.smem_bytes(r['kernel'], r['d'], dtypes[r['dtype']])} bytes dynamic shared "
               f"memory a block; SASS tensor-core instructions: {hmma} HMMA, {hgmma} HGMMA")
-        # all on the tensor cores (the f32 backward in 3xTF32) but the f32
-        # forward, which is still f32 FMAs
-        if (hmma + hgmma > 0) != (r["dtype"] == "bf16" or r["kernel"] != "fwd"):
-            fail(f"flash_{r['kernel']} {r['dtype']} D={r['d']} has {hmma + hgmma} tensor-core "
-                 f"instructions")
+        # all on the tensor cores (the f32 ones in 3xTF32)
+        if hmma + hgmma == 0:
+            fail(f"flash_{r['kernel']} {r['dtype']} D={r['d']} has no tensor-core instructions")
 
 
 def _flash_inputs(torch, b, t, h, d, dtype, seed):
@@ -470,12 +470,25 @@ def _flash_bwd_float64(torch, q, k, v, dout, lse, delta, causal, scale):
             torch.einsum("bhqk,bqhd->bkhd", p, dout))
 
 
-def _float64_check(torch, label, got, plain, exact):
-    """Each f32 gradient's max error against float64, the kernel's within
-    FLOAT64_FACTOR of the plain version's; returns the kernel's and the
-    plain version's max errors."""
+def _flash_fwd_float64(torch, q, k, v, causal, scale):
+    """out and lse in float64 from the same inputs: the answer that the f32
+    forward kernel and the f32 plain version both approximate."""
+    s = torch.einsum("bqhd,bkhd->bhqk", q.double(), k.double()) * scale
+    if causal:
+        t = q.shape[1]
+        s = s.masked_fill(~torch.ones((t, t), dtype=torch.bool, device=s.device).tril(),
+                          -math.inf)
+    lse = torch.logsumexp(s, dim=-1)
+    s = torch.exp(s - lse[..., None])
+    return torch.einsum("bhqk,bkhd->bqhd", s, v.double()), lse.permute(0, 2, 1)
+
+
+def _float64_check(torch, label, names, got, plain, exact):
+    """Each f32 result's max error against float64, the kernel's within
+    FLOAT64_FACTOR of the plain version's; returns {name: (kernel's, plain
+    version's max error)}."""
     out = {}
-    for name, g, p, e in zip(("dq", "dk", "dv"), got, plain, exact):
+    for name, g, p, e in zip(names, got, plain, exact):
         ek = float((g.double() - e).abs().max())
         ep = float((p.double() - e).abs().max())
         ok = math.isfinite(ek) and ek <= FLOAT64_FACTOR * ep
@@ -490,9 +503,10 @@ def _float64_check(torch, label, got, plain, exact):
 
 def phase_flash_checks(torch, fa):
     """Phase 6: each flash kernel against its plain version; at the slice
-    shape every kernel launched twice, and the f32 dQ and dK/dV against
-    float64.  Returns the slice shape's max errors in f32 and bf16, and the
-    f32 backward's float64 errors."""
+    shape every kernel launched twice; the f32 forward (slice, D 128, no
+    mask) and the f32 dQ and dK/dV (slice) against float64.  Returns the
+    slice shape's max errors in f32 and bf16, and the f32 kernels' float64
+    errors there."""
     err, bf16_err, f64_err = {}, {}, {}
     for seed, (tag, b, t, h, d, causal) in enumerate(FLASH_CASES):
         for dtype in (torch.float32, torch.bfloat16):
@@ -517,13 +531,21 @@ def phase_flash_checks(torch, fa):
             dk_r, dv_r = fa.flash_dkv_reference(q, k, v, dout, lse_r, delta, **kw)
             e["flash_dkv"] = max(_near(f"flash_dkv dk {label}", dk, dk_r, tol),
                                  _near(f"flash_dkv dv {label}", dv, dv_r, tol))
+            if dtype is torch.float32 and tag in ("slice", "d128", "full"):
+                out_r, _ = fa.flash_fwd_reference(q, k, v, **kw)
+                exact = _flash_fwd_float64(torch, q, k, v, causal, kw["scale"])
+                f64 = _float64_check(torch, f"flash_fwd {label}", ("out", "lse"), (out, lse),
+                                     (out_r, lse_r), exact)
+                del out_r, exact
+                if tag == "slice":
+                    f64_err.update(f64)
             if tag == "slice":
                 if dtype is torch.float32:  # the counted epoch's
                     err = e
                     exact = _flash_bwd_float64(torch, q, k, v, dout, lse_r, delta, causal,
                                                kw["scale"])
-                    f64_err = _float64_check(torch, f"{label}", (dq, dk, dv),
-                                             (dq_r, dk_r, dv_r), exact)
+                    f64_err.update(_float64_check(torch, f"{label}", ("dq", "dk", "dv"),
+                                                  (dq, dk, dv), (dq_r, dk_r, dv_r), exact))
                     del exact
                 else:
                     bf16_err = e
@@ -606,12 +628,9 @@ def phase_flash_inputs(torch, fa):
 
 
 def _flash_rate(name, dname):
-    """The card's peak rate for the products a kernel takes: f32 FMAs for
-    the f32 forward, 3xTF32 (three TF32 products for one) for the f32 dQ
-    and dK/dV, bf16 for the bf16 kernels."""
-    if dname == "float32" and name != "flash_fwd":
-        return TF32_FLOPS / 3
-    return PEAK_FLOPS[dname]
+    """The card's peak rate for the products a kernel takes: 3xTF32 (three
+    TF32 products for one) for the f32 kernels, bf16 for the bf16 ones."""
+    return TF32_FLOPS / 3 if dname == "float32" else PEAK_FLOPS[dname]
 
 
 def _flash_bounds(b, t, h, d, causal, esize, dname, rate=_flash_rate):
@@ -664,7 +683,7 @@ def phase_flash_times(torch, fa):
             lambda: torch.autograd.grad(o_lib, xr, g_lib, retain_graph=True), iters=5, repeats=3
         )
         bounds = _flash_bounds(b, t, h, d, causal, q.element_size(), dname)
-        # the f32 backward's bound on f32 FMAs too, beside its 3xTF32 one
+        # the f32 kernels' bound on f32 FMAs too, beside their 3xTF32 one
         fma = _flash_bounds(b, t, h, d, causal, q.element_size(), dname,
                             rate=lambda name, dname: PEAK_FLOPS[dname])
         for name in FLASH:
@@ -676,7 +695,7 @@ def phase_flash_times(torch, fa):
                 "bound_by": bound_by, "library_ms": lib,
             }
             extra = ""
-            if dname == "float32" and name != "flash_fwd":
+            if dname == "float32":
                 rows[(name, dname)]["f32_fma_bound_ms"] = fma[name][0]
                 extra = f" (3xTF32; {fma[name][0]:.4f} ms on f32 FMAs)"
             print(f"time {name} [{b},{t},{h},{d}] causal {dname}: kernel {kernel_ms:.4f} ms, "
@@ -1255,11 +1274,9 @@ def main() -> int:
             "launches": flash_launches[kname],
             "max_abs_err": flash_err[kname],
             **row,
-            # the f32 backward against float64, beside the f32 plain version
-            **({"float64_err": {g: dict(zip(("kernel", "plain"), e))
-                                for g, e in flash_f64_err.items()
-                                if (g == "dq") == (kname == "flash_dq")}}
-               if kname != "flash_fwd" else {}),
+            # the f32 kernel against float64, beside the f32 plain version
+            "float64_err": {g: dict(zip(("kernel", "plain"), e))
+                            for g, e in flash_f64_err.items() if g in F64_OUTPUTS[kname]},
             # bf16 attention: its timed steps' launches, the slice shape's check
             "bf16": {
                 "launches": lm_steps["bf16"][2][kname],

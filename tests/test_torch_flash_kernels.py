@@ -7,24 +7,27 @@ runs on the machine with the card:
 On the CPU the plain versions are checked against independent formulas:
 PyTorch's ``F.scaled_dot_product_attention`` (math path) for the output, a
 dense logsumexp for ``lse``, and autograd through a naive softmax attention
-for the gradients of ``sum(sin(out)) + sum(w * lse)`` (rtol 1e-5 / 1e-4).
+for the gradients of ``sum(sin(out)) + sum(w * lse)`` (rtol 1e-5 / 1e-4),
+and ``chip_smoke.py``'s rates and bounds at the LM slice's shape.
 The ``cuda``-marked tests compare each kernel with its plain version on the
 same CUDA tensors, with ``dout`` and ``dlse`` drawn at O(1) so that a zero
 or misplaced gradient fails: f32 within 1e-4 of the reference's largest
 magnitude (the sums run in another order), bf16 within 2e-2 of it (about
 one bf16 rounding of ``p`` and ``ds`` before their products).  They also
-hold the bf16 kernels (forward, dQ and dK/dV, all on the tensor cores) and
-the f32 dQ and dK/dV (3xTF32) to bitwise-equal repeat launches, ragged
-lengths at the narrowest and the register-heavy head dims (16, 128), the
-forward to a negative scale, and the refusal of a view whose data is not
-16-byte aligned.  The f32 dQ and dK/dV are also held against float64: their
-error within 10 times the f32 plain version's.  The autograd layer's
+hold the bf16 kernels and the f32 ones (3xTF32), forward, dQ and dK/dV, all
+on the tensor cores, to bitwise-equal repeat launches, ragged lengths at the
+narrowest and the register-heavy head dims (16, 128), the forwards to a
+negative scale, and the refusal of a view whose data is not 16-byte aligned.
+The f32 forward, dQ and dK/dV are also held against float64: their error
+within 10 times the f32 plain version's.  The autograd layer's
 zero-padding of a head dim between the kernels' is checked on the CPU and
 on the card, as are the batch slices of a B*H above the grid's 65535 and
 the dense path that ``attention="auto"`` takes above head dim 128.
 """
 
+import importlib.util
 import math
+import pathlib
 
 import pytest
 import torch
@@ -44,11 +47,13 @@ def _qkv(b, t, h, d, seed, device="cpu", dtype=torch.float32):
 
 
 def _naive(q, k, v, causal, scale):
-    """Softmax attention written out, differentiable, f64 on the CPU."""
+    """Softmax attention written out, differentiable, in the inputs' dtype
+    (f64 in these tests) and on their device."""
     s = torch.einsum("bqhd,bkhd->bhqk", q, k) * scale
     if causal:
         t = q.shape[1]
-        s = s.masked_fill(~torch.ones((t, t), dtype=torch.bool).tril(), -torch.inf)
+        s = s.masked_fill(~torch.ones((t, t), dtype=torch.bool, device=s.device).tril(),
+                          -torch.inf)
     lse = torch.logsumexp(s, dim=-1)
     out = torch.einsum("bhqk,bkhd->bqhd", torch.exp(s - lse[..., None]), v)
     return out, lse.permute(0, 2, 1)
@@ -165,6 +170,49 @@ def test_batch_slices_keep_each_launch_inside_the_grid(b, h):
     assert all(a.stop == c.start for a, c in zip(slices, slices[1:]))
     assert all((sl.stop - sl.start) * h <= fa.MAX_GRID_Y for sl in slices)
     assert len(slices) == -(-b * h // (fa.MAX_GRID_Y // h * h))
+
+
+# -- chip_smoke.py's bounds, on the CPU ----------------------------------------
+
+@pytest.fixture(scope="module")
+def chip_smoke():
+    """chip_smoke.py as a module (its top level imports no torch or card)."""
+    path = pathlib.Path(__file__).resolve().parent.parent / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke_bounds", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+@pytest.mark.parametrize("dname,rate", [("float32", 495e12 / 3), ("bfloat16", 989e12)],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("name", ["flash_fwd", "flash_dq", "flash_dkv"])
+def test_flash_rate_is_the_rate_of_each_kernels_products(chip_smoke, name, dname, rate):
+    """Every f32 flash kernel, the forward too, takes its products in 3xTF32:
+    three TF32 products for one; the bf16 ones in bf16."""
+    assert chip_smoke._flash_rate(name, dname) == rate
+
+
+@pytest.mark.parametrize("name,dname,fma,want", [
+    ("flash_fwd", "float32", False, 0.4167),
+    ("flash_dq", "float32", False, 0.6250),
+    ("flash_dkv", "float32", False, 0.8334),
+    ("flash_fwd", "float32", True, 1.0262),
+    ("flash_dq", "float32", True, 1.5392),
+    ("flash_dkv", "float32", True, 2.0523),
+    ("flash_fwd", "bfloat16", False, 0.0695),
+    ("flash_dq", "bfloat16", False, 0.1043),
+    ("flash_dkv", "bfloat16", False, 0.1390),
+], ids=lambda x: str(x))
+def test_flash_bounds_at_the_lm_slice(chip_smoke, name, dname, fma, want):
+    """At [16, 2048, 8, 64] causal, 268,566,528 live (q, k) pairs: the f32
+    kernels' bounds at the 3xTF32 rate (the forward's 68.75 GFLOP in 0.4167
+    ms), their f32-FMA bounds beside them, and the bf16 ones; all bound by
+    operations."""
+    esize = 4 if dname == "float32" else 2
+    rate = (lambda kernel, dtype: chip_smoke.PEAK_FLOPS[dtype]) if fma else chip_smoke._flash_rate
+    ms, by = chip_smoke._flash_bounds(16, 2048, 8, 64, True, esize, dname, rate=rate)[name]
+    assert round(ms, 4) == want and by == "operations"
 
 
 # -- the kernels, on the card -------------------------------------------------
@@ -407,6 +455,61 @@ def test_f32_backward_launches_are_bitwise_repeatable(card, causal):
     assert torch.equal(dq[0], dq[1])
     assert torch.equal(dkv[0][0], dkv[1][0]) and torch.equal(dkv[0][1], dkv[1][1])
     assert float(dq[0].abs().max()) > 0 and float(dkv[0][0].abs().max()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t", [1, 37, 65, 77, 200], ids=["T1", "T37", "T65", "T77", "T200"])
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+@pytest.mark.parametrize("d", fa.HEAD_DIMS)
+def test_f32_forward_keeps_f32_accuracy(card, d, causal, t):
+    """The 3xTF32 forward's out and lse against float64, beside the f32
+    plain version on the same inputs: within 10 times its error (or 10 f32
+    ulps of the largest magnitude where the plain version is exact, as at
+    T 1: one key a row, p = 1), and within the f32 tolerance of the plain
+    version.  T 1 and T 65 leave all but one row of the last q tile wholly
+    masked (rows past T: zero mass, never written), T 37 and 77 a ragged
+    tile, T 200 several."""
+    q, k, v = _qkv(2, t, 3, d, seed=t + 3 * d, device=card)
+    kw = dict(causal=causal, scale=1.0 / math.sqrt(d))
+    got = fa.flash_fwd(q, k, v, **kw)
+    plain = fa.flash_fwd_reference(q, k, v, **kw)
+    exact = _naive(q.double(), k.double(), v.double(), **kw)  # float64
+    torch.cuda.synchronize()
+    for name, g, p, e in zip(("out", "lse"), got, plain, exact):
+        assert g.shape == p.shape and g.dtype == torch.float32
+        err_kernel = float((g.double() - e).abs().max())
+        err_plain = float((p.double() - e).abs().max())
+        ulp = 2.0**-23 * float(e.abs().max())
+        assert err_kernel <= 10 * max(err_plain, ulp), (name, err_kernel, err_plain)
+        _assert_near(name, g, p, TOL[torch.float32])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+def test_f32_forward_takes_a_negative_scale(card, causal):
+    """The row max is taken over s.scale: with a negative scale it is the
+    scaled minimum of the products, and the softmax must still be the
+    reference's."""
+    q, k, v = _qkv(1, 130, 2, 64, seed=18, device=card)
+    kw = dict(causal=causal, scale=-0.125)
+    out, lse = fa.flash_fwd(q, k, v, **kw)
+    out_r, lse_r = fa.flash_fwd_reference(q, k, v, **kw)
+    torch.cuda.synchronize()
+    _assert_near("out", out, out_r, TOL[torch.float32])
+    _assert_near("lse", lse, lse_r, TOL[torch.float32])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+def test_f32_forward_launches_are_bitwise_repeatable(card, causal, d):
+    """One owner per q tile and no atomics: two launches on the same inputs
+    give the same bits (the split K and V at D 64, raw ones at D 128)."""
+    q, k, v = _qkv(2, 200, 3, d, seed=16, device=card)
+    runs = [fa.flash_fwd(q, k, v, causal=causal, scale=0.125) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert torch.equal(runs[0][0], runs[1][0]) and torch.equal(runs[0][1], runs[1][1])
+    assert float(runs[0][0].abs().max()) > 0
 
 
 @pytest.mark.cuda

@@ -9,13 +9,14 @@ say, unpacked with ``git archive`` into a directory ``.gitignore`` lists),
 with the same C interface.  Builds this tree's source and every other one
 with the flags of ``ops/kernels/cuda_build.py`` into ``build/ab/``, in
 parallel, and prints each version's registers and spills (ptxas) and SASS
-instructions (all, and the tensor cores' ``HMMA``) of its f32 dQ and dK/dV
-at D 64.  For f32 and for bf16: checks each version's forward (``out`` and
-``lse``), dQ and dK/dV against the plain versions (within ``chip_smoke.py``'s
-``FLASH_TOL`` of the reference's largest magnitude, ``lse`` within its f32
-one) at the LM slice's shape ``[16, 2048, 8, 64]`` causal, at D 128 with a
-ragged T 1000, and without the causal mask, and in f32 prints each version's
-dq, dk and dv error against float64 beside the f32 plain version's; then
+instructions (all, and the tensor cores' ``HMMA``) of its f32 forward, dQ
+and dK/dV at D 64.  For f32 and for bf16: checks each version's forward
+(``out`` and ``lse``), dQ and dK/dV against the plain versions (within
+``chip_smoke.py``'s ``FLASH_TOL`` of the reference's largest magnitude,
+``lse`` within its f32 one) at the LM slice's shape ``[16, 2048, 8, 64]``
+causal, at D 128 with a ragged T 1000, and without the causal mask, and in
+f32 prints each version's out, lse, dq, dk and dv error against float64
+beside the f32 plain version's; then
 times the three kernels at the slice shape in turns (this tree first, then
 the others, then the reverse order, three rounds), each turn the median of
 3 x 10 launches by CUDA events.  Prints the card's name and power limit, and
@@ -40,19 +41,19 @@ CASES = [  # (B, T, H, D, causal); the first is timed
 ]
 
 
-# the f32 dQ and dK/dV at D 64, by mangled name: this tree's 3xTF32 kernels or
-# an older source's FMA ones
-_F32_BWD_64 = re.compile(r"(dq|dkv)(?:_tf32)?_kernelI(?:f)?Li64E")
+# the f32 forward, dQ and dK/dV at D 64, by mangled name: this tree's 3xTF32
+# kernels or an older source's FMA ones
+_F32_64 = re.compile(r"(fwd|dq|dkv)(?:_tf32)?_kernelI(?:f)?Li64E")
 
 
-def _f32_backward_summary(cuda_build, src: Path, out: Path, log: str) -> None:
+def _f32_summary(cuda_build, src: Path, out: Path, log: str) -> None:
     """ptxas' registers and spills, and SASS instruction counts, of the f32
-    dQ and dK/dV at D 64."""
+    forward, dQ and dK/dV at D 64."""
     regs, cur = {}, None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            k = _F32_BWD_64.search(m.group(1))
+            k = _F32_64.search(m.group(1))
             cur = k.group(1) if k else None
         elif cur and "spill" in line:
             regs[cur] = line.strip()
@@ -64,13 +65,13 @@ def _f32_backward_summary(cuda_build, src: Path, out: Path, log: str) -> None:
     ops, cur = collections.defaultdict(collections.Counter), None
     for line in sass.splitlines():
         if "Function :" in line:
-            k = _F32_BWD_64.search(line)
+            k = _F32_64.search(line)
             cur = k.group(1) if k else None
         elif cur:
             m = re.search(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)", line)
             if m:
                 ops[cur][m.group(1)] += 1
-    for name in ("dq", "dkv"):
+    for name in ("fwd", "dq", "dkv"):
         print(f"f32 {name} D=64 of {src}: {regs.get(name)}; SASS {sum(ops[name].values())} "
               f"instructions, {ops[name]['HMMA']} HMMA")
 
@@ -80,7 +81,7 @@ def _build(cuda_build, src: Path, out: Path) -> ctypes.CDLL:
                           capture_output=True, text=True, timeout=900)
     if proc.returncode:
         raise SystemExit(f"nvcc failed on {src}:\n{proc.stdout}{proc.stderr}")
-    _f32_backward_summary(cuda_build, src, out, proc.stdout + proc.stderr)
+    _f32_summary(cuda_build, src, out, proc.stdout + proc.stderr)
     lib = ctypes.CDLL(str(out))
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.znicz_flash_fwd.argtypes = [ptr] * 5 + [i32] * 6 + [f32, ptr]
@@ -143,7 +144,8 @@ def _check_and_time(torch, cs, fa, libs, launch, dtype, dname, b, t, h, d, causa
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     shape = (b, t, h, d)
     label = f"[{b},{t},{h},{d}] {'causal' if causal else 'full'} {dname}"
-    exact = (cs._flash_bwd_float64(torch, *args, causal, scale)
+    exact = ((*cs._flash_fwd_float64(torch, q, k, v, causal, scale),
+              *cs._flash_bwd_float64(torch, *args, causal, scale))
              if dtype is torch.float32 else None)
     for src, lib in libs.items():
         launch(lib, "fwd", (q, k, v), (out, lse), shape, causal, scale)
@@ -155,10 +157,10 @@ def _check_and_time(torch, cs, fa, libs, launch, dtype, dname, b, t, h, d, causa
                      cs.FLASH_TOL["float32"] if name == "lse" else tol)
         if exact is not None:
             errs = [(float((g.double() - e).abs().max()), float((r.double() - e).abs().max()))
-                    for g, r, e in zip((dq, dk, dv), refs[2:], exact)]
+                    for g, r, e in zip((out, lse, dq, dk, dv), refs, exact)]
             print(f"float64 {label} {src}: "
                   + ", ".join(f"{n} kernel {ek:.3e} plain {ep:.3e} ratio {ek / ep:.2f}"
-                              for n, (ek, ep) in zip(("dq", "dk", "dv"), errs)))
+                              for n, (ek, ep) in zip(("out", "lse", "dq", "dk", "dv"), errs)))
     del exact
     if (b, t, h, d, causal) != CASES[0]:
         return

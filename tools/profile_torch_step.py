@@ -26,10 +26,9 @@ from collections import defaultdict
 FAMILIES = (  # first match wins; matched against the lower-cased kernel name
     ("lrn (hand-written)", ("lrn_fwd_kernel", "lrn_bwd_kernel")),
     # csrc/flash_attention.cu's kernels, mangled or demangled
-    ("flash (hand-written)", ("flash_attention_cu", "namespace)::fwd_kernel",
-                              "namespace)::dq_kernel", "namespace)::dkv_kernel",
-                              "namespace)::fwd_mma_kernel", "namespace)::dq_mma_kernel",
-                              "namespace)::dkv_mma_kernel", "namespace)::dq_tf32_kernel",
+    ("flash (hand-written)", ("flash_attention_cu", "namespace)::fwd_mma_kernel",
+                              "namespace)::dq_mma_kernel", "namespace)::dkv_mma_kernel",
+                              "namespace)::fwd_tf32_kernel", "namespace)::dq_tf32_kernel",
                               "namespace)::dkv_tf32_kernel")),
     # csrc/kohonen.cu's and csrc/rbm.cu's kernels
     ("kohonen (hand-written)", ("kohonen_cu", "namespace)::winners_kernel",

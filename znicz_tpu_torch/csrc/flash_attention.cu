@@ -1,7 +1,7 @@
 // Flash attention for Hopper (sm_90a): forward, dQ and dK/dV kernels.
 //
 // Replaces the three pl.pallas_call's of znicz_tpu/ops/pallas/attention.py:
-//   _flash_fwd_impl / _fwd_kernel (:212)  ->  fwd_kernel (f32), fwd_mma_kernel (bf16)
+//   _flash_fwd_impl / _fwd_kernel (:212)  ->  fwd_tf32_kernel (f32), fwd_mma_kernel (bf16)
 //   _flash_bwd / _dq_kernel        (:265)  ->  dq_tf32_kernel (f32), dq_mma_kernel (bf16)
 //   _flash_bwd / _dkv_kernel       (:277)  ->  dkv_tf32_kernel (f32), dkv_mma_kernel (bf16)
 //
@@ -55,20 +55,21 @@
 //   checks).
 // - ~46 KB (forward) to ~55 KB of shared memory a block at D 64 (~87 to
 //   ~105 KB at D 128), so several blocks share an SM.
-// The f32 dQ and dK/dV (dq_tf32_kernel, dkv_tf32_kernel) take the same
-// skeleton on the tensor cores in 3xTF32: mma.sync m16n8k8 tf32 x tf32 ->
-// f32, each f32 operand split into a big and a small TF32 part and each
-// product taken three times, which keeps f32's accuracy (the section below
-// says how, and what the numerics are).  The f32 forward takes the simple
-// FMA path: a block of 256 threads, each computing a 4 x 4 register tile of
-// every 64 x 64 product with f32 FMAs fed from shared memory (row tiles kept
-// transposed, [D][64 + 4], so a thread's 4 rows are one vector), in full f32.
-// wgmma, TMA and warp specialisation are left for later work.
+// The f32 kernels (fwd_tf32_kernel, dq_tf32_kernel, dkv_tf32_kernel) take
+// the same skeleton on the tensor cores in 3xTF32: mma.sync m16n8k8 tf32 x
+// tf32 -> f32, each f32 operand split into a big and a small TF32 part and
+// each product taken three times, which keeps f32's accuracy (the section
+// below says how, and what the numerics are).  The f32 forward keeps the
+// bf16 forward's online softmax on the score accumulators, with the running
+// max in natural units and p in f32, exp2f of one FMA times log2 e as the
+// backward computes it (not the bf16 forward's ex2.approx.ftz, which
+// flushes a subnormal p to 0).  wgmma, TMA and warp specialisation are left
+// for later work.
 //
 // Causal: the k loop of a q tile stops at the diagonal tile, and the q loop
 // of a k tile (dK/dV) starts there (the TPU kernels' _live skip); the
-// tensor-core kernels also skip, warp by warp, the 16-row pieces of the
-// diagonal tile that are wholly masked (no score and no output product).
+// kernels also skip, warp by warp, the 16-row pieces of the diagonal tile
+// that are wholly masked (no score and no output product).
 // Masked probabilities are exactly 0 (selected by index, never computed
 // from the NEG_INF sentinel).  dK/dV has one owner per k tile, the forward
 // and dQ one per q tile: no atomics, a launch is bitwise repeatable.  out,
@@ -86,28 +87,8 @@
 namespace {
 
 constexpr int TILE = 64;          // rows of a q tile and of a k tile
-constexpr int NT = 256;           // threads a block: 16 x 16, 4 x 4 outputs each
-constexpr int LD = TILE + 4;      // row of a transposed tile; 16-byte aligned
 constexpr float NEG_INF = -1e30f;  // the TPU kernels' sentinel
 constexpr float L_FLOOR = 1e-30f;
-
-// the FMA forward's element type: only float is instantiated (bf16 takes the
-// tensor-core kernels)
-template <typename T>
-__device__ __forceinline__ float to_f(T x);
-template <>
-__device__ __forceinline__ float to_f<float>(float x) { return x; }
-
-template <typename T>
-__device__ __forceinline__ T from_f(float x);
-template <>
-__device__ __forceinline__ float from_f<float>(float x) { return x; }
-
-// x rounded to T's precision (the casts before a product), kept in f32
-template <typename T>
-__device__ __forceinline__ float round_to(float x) {
-  return to_f<T>(from_f<T>(x));
-}
 
 struct Geom {
   int t;           // sequence length
@@ -116,206 +97,8 @@ struct Geom {
   long long st;    // element stride of the time axis (H * D)
 };
 
-// rows [r0, r0 + 64) of one head into dst[d * LD + r] (transposed), zero
-// past the end of the sequence
-template <typename T, int D>
-__device__ __forceinline__ void load_t(float* dst, const T* src, int r0, const Geom& g) {
-  for (int i = threadIdx.x; i < TILE * D; i += NT) {
-    const int r = i / D, d = i % D;
-    const int t = r0 + r;
-    dst[d * LD + r] = t < g.t ? to_f<T>(src[(long long)t * g.st + d]) : 0.f;
-  }
-}
-
-// rows [r0, r0 + 64) of one head into dst[r * D + d]
-template <typename T, int D>
-__device__ __forceinline__ void load_n(float* dst, const T* src, int r0, const Geom& g) {
-  for (int i = threadIdx.x; i < TILE * D; i += NT) {
-    const int r = i / D, d = i % D;
-    const int t = r0 + r;
-    dst[i] = t < g.t ? to_f<T>(src[(long long)t * g.st + d]) : 0.f;
-  }
-}
-
-// acc[i][j] = sum_d A[d][ty*4 + i] * B[d][tx*4 + j] over transposed tiles
-template <int D>
-__device__ __forceinline__ void tile_abt(float acc[4][4], const float* A, const float* B,
-                                         int ty, int tx) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-#pragma unroll 8
-  for (int d = 0; d < D; ++d) {
-    const float4 a = *reinterpret_cast<const float4*>(A + d * LD + ty * 4);
-    const float4 b = *reinterpret_cast<const float4*>(B + d * LD + tx * 4);
-    const float av[4] = {a.x, a.y, a.z, a.w};
-    const float bv[4] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-  }
-}
-
-// The D / 16 output columns a thread owns: 16-byte groups spread 64 apart
-// when there are 4 or more (each vector load is contiguous across the 16
-// threads of a row), else tx * C + c.
-template <int D>
-__device__ __forceinline__ int out_col(int c, int tx) {
-  constexpr int C = D / 16;
-  if constexpr (C >= 4) {
-    return (c / 4) * 64 + tx * 4 + (c % 4);
-  } else {
-    return tx * C + c;
-  }
-}
-
-// acc[i][c] += sum_r P[r][ty*4 + i] * X[r][out_col(c)], P transposed
-// ([r][LD]) and X natural ([r][D]), r over the 64 rows of the tile
-template <int D>
-__device__ __forceinline__ void tile_atx(float acc[4][D / 16], const float* P, const float* X,
-                                         int ty, int tx) {
-  constexpr int C = D / 16;
-#pragma unroll 4
-  for (int r = 0; r < TILE; ++r) {
-    const float4 p = *reinterpret_cast<const float4*>(P + r * LD + ty * 4);
-    const float pv[4] = {p.x, p.y, p.z, p.w};
-    float xv[C];
-    const float* row = X + r * D;
-    if constexpr (C >= 4) {
-#pragma unroll
-      for (int gi = 0; gi < C / 4; ++gi) {
-        const float4 x = *reinterpret_cast<const float4*>(row + gi * 64 + tx * 4);
-        xv[gi * 4 + 0] = x.x;
-        xv[gi * 4 + 1] = x.y;
-        xv[gi * 4 + 2] = x.z;
-        xv[gi * 4 + 3] = x.w;
-      }
-    } else if constexpr (C == 2) {
-      const float2 x = *reinterpret_cast<const float2*>(row + tx * 2);
-      xv[0] = x.x;
-      xv[1] = x.y;
-    } else {
-      xv[0] = row[tx];
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int c = 0; c < C; ++c) acc[i][c] = fmaf(pv[i], xv[c], acc[i][c]);
-  }
-}
-
-// sum / max over the 16 threads of a row (lanes differing in bits 0..3)
-__device__ __forceinline__ float row_sum(float x) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-__device__ __forceinline__ float row_max(float x) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-
-// write a 4 x 4 register tile v[i][j] (row ty*4+i, col tx*4+j) transposed:
-// dst[(tx*4 + j) * LD + ty*4 + i], each value rounded to T
-template <typename T>
-__device__ __forceinline__ void store_t(float* dst, float v[4][4], int ty, int tx) {
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    *reinterpret_cast<float4*>(dst + (tx * 4 + j) * LD + ty * 4) =
-        make_float4(round_to<T>(v[0][j]), round_to<T>(v[1][j]), round_to<T>(v[2][j]),
-                    round_to<T>(v[3][j]));
-  }
-}
-
 __device__ __forceinline__ bool valid(int qi, int ki, int t, int causal) {
   return ki < t && qi < t && (!causal || ki <= qi);
-}
-
-// ---------------------------------------------------------------------------
-// f32 forward: one block per (q tile, batch-head); online softmax over k tiles
-
-template <typename T, int D>
-__global__ void __launch_bounds__(NT) fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                                                 const T* __restrict__ v, T* __restrict__ o,
-                                                 float* __restrict__ lse, Geom g, float scale,
-                                                 int causal) {
-  constexpr int C = D / 16;
-  extern __shared__ float4 smem4[];
-  float* Qt = reinterpret_cast<float*>(smem4);  // [D][LD]
-  float* Kt = Qt + D * LD;                      // [D][LD]
-  float* Vs = Kt + D * LD;                      // [64][D]
-  float* Pt = Vs + TILE * D;                    // [64 keys][LD queries]
-
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const int nt = (g.t + TILE - 1) / TILE;
-  const int qb = nt - 1 - blockIdx.x;  // the longest causal rows start first
-  const int b = blockIdx.y / g.h, h = blockIdx.y % g.h;
-  const long long base = b * g.sb + (long long)h * D;
-  const int q0 = qb * TILE;
-
-  load_t<T, D>(Qt, q + base, q0, g);
-  float m[4], l[4], acc[4][C];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = NEG_INF;
-    l[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < C; ++c) acc[i][c] = 0.f;
-  }
-
-  const int k_end = causal ? qb + 1 : nt;
-  for (int kb = 0; kb < k_end; ++kb) {
-    const int k0 = kb * TILE;
-    __syncthreads();  // the previous tile's Kt, Vs and Pt are consumed
-    load_t<T, D>(Kt, k + base, k0, g);
-    load_n<T, D>(Vs, v + base, k0, g);
-    __syncthreads();
-
-    float s[4][4];
-    tile_abt<D>(s, Qt, Kt, ty, tx);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qi = q0 + ty * 4 + i;
-      bool ok[4];
-      float mx = NEG_INF;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        ok[j] = valid(qi, k0 + tx * 4 + j, g.t, causal);
-        s[i][j] = ok[j] ? s[i][j] * scale : NEG_INF;
-        mx = fmaxf(mx, s[i][j]);
-      }
-      const float m_new = fmaxf(m[i], row_max(mx));
-      float rs = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        // masked entries carry zero mass even when the whole row is masked
-        s[i][j] = ok[j] ? expf(s[i][j] - m_new) : 0.f;
-        rs += s[i][j];
-      }
-      const float alpha = expf(m[i] - m_new);
-      l[i] = alpha * l[i] + row_sum(rs);
-      m[i] = m_new;
-#pragma unroll
-      for (int c = 0; c < C; ++c) acc[i][c] *= alpha;
-    }
-    store_t<T>(Pt, s, ty, tx);  // p cast to v's type before p.V
-    __syncthreads();
-    tile_atx<D>(acc, Pt, Vs, ty, tx);
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int qi = q0 + ty * 4 + i;
-    if (qi >= g.t) continue;
-    const float li = fmaxf(l[i], L_FLOOR);
-    T* orow = o + base + (long long)qi * g.st;
-#pragma unroll
-    for (int c = 0; c < C; ++c) orow[out_col<D>(c, tx)] = from_f<T>(acc[i][c] / li);
-    if (tx == 0) lse[((long long)b * g.t + qi) * g.h + h] = m[i] + logf(li);
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -731,6 +514,43 @@ __device__ __forceinline__ float exp2_ftz(float x) {
   return y;
 }
 
+// The four 16-key pieces of a k tile (keys from k0) for one warp's 16 query
+// rows (from w0), in the forwards, which score all of a tile before its row
+// max.  A piece wholly masked (past the causal diagonal, past T) is dead and
+// skipped: no score product, no P.V product.  The index mask is applied only
+// to the pieces that cross the diagonal or the end of the sequence (`masked`
+// a compile-time true there, false elsewhere).
+struct KeyPieces {
+  int k0, w0, t, causal, lane;
+  __device__ __forceinline__ bool dead(int c) const {
+    const int kc = k0 + 16 * c;
+    return (causal && kc > w0 + 15) || kc >= t || w0 >= t;
+  }
+  // fn(c, masked) for each live piece c
+  template <typename Fn>
+  __device__ __forceinline__ void each_live(Fn&& fn) const {
+#pragma unroll
+    for (int c = 0; c < TILE / 16; ++c) {
+      if (dead(c)) continue;
+      const int kc = k0 + 16 * c;
+      if ((causal && kc + 15 > w0) || kc + 16 > t || w0 + 16 > t)
+        fn(c, std::true_type{});
+      else
+        fn(c, std::false_type{});
+    }
+  }
+  // whether element e of piece c's n8 score tile j (an f32 accumulator, in
+  // the m16n8k16 and m16n8k8 layouts alike) is a live (q, k) pair
+  template <typename Masked>
+  __device__ __forceinline__ bool ok(Masked, int c, int j, int e) const {
+    if constexpr (Masked::value)
+      return valid(w0 + lane / 4 + 8 * (e >> 1), k0 + 16 * c + 8 * j + 2 * (lane % 4) + (e & 1),
+                   t, causal);
+    else
+      return true;
+  }
+};
+
 // bf16 forward: one block per (q tile, batch-head), each warp 16 query rows, an
 // online softmax over the live k tiles kept on the score accumulators:
 //   s = Q.K^T, m = running row max of s.scale, p = exp(s.scale - m),
@@ -795,48 +615,22 @@ __global__ void __launch_bounds__(MMA_NT)
     }
     const bf16* Kc = Ks + (kb & 1) * LT;
     const bf16* Vc = Vs + (kb & 1) * LT;
-    const int k0 = kb * TILE;
-    // a 16-key piece wholly masked for this warp (past the diagonal, past
-    // T) is skipped: no score product, no P.V product; the index mask is
-    // applied only to the pieces that cross the diagonal or the end of the
-    // sequence (`masked` a compile-time true there, false elsewhere)
-    auto dead = [&](int c) {
-      const int kc = k0 + 16 * c;
-      return (causal && kc > w0 + 15) || kc >= g.t || w0 >= g.t;
-    };
-    auto each_live_piece = [&](auto&& fn) {
-#pragma unroll
-      for (int c = 0; c < TILE / 16; ++c) {
-        if (dead(c)) continue;
-        const int kc = k0 + 16 * c;
-        if ((causal && kc + 15 > w0) || kc + 16 > g.t || w0 + 16 > g.t)
-          fn(c, std::true_type{});
-        else
-          fn(c, std::false_type{});
-      }
-    };
-    auto ok = [&](auto masked, int c, int j, int e) {
-      if constexpr (decltype(masked)::value)
-        return valid(w0 + lane / 4 + 8 * (e >> 1), k0 + 16 * c + 8 * j + 2 * (lane % 4) + (e & 1),
-                     g.t, causal);
-      else
-        return true;
-    };
+    const KeyPieces pc{kb * TILE, w0, g.t, causal, lane};
 
     float s[TILE / 8][4] = {};  // 16 rows x 64 keys: n8 tile 2c + j is keys 16c + 8j ..
 #pragma unroll
     for (int c = 0; c < TILE / 16; ++c)
-      if (!dead(c)) scores16<D>(&s[2 * c], qf, Kc, 16 * c, ln);
+      if (!pc.dead(c)) scores16<D>(&s[2 * c], qf, Kc, 16 * c, ln);
 
     // the rows' maxima over this tile: the thread's 16 values a row, then
     // the 4 lanes that share the row (lane/4)
     float mx[2] = {NEG_INF, NEG_INF};
-    each_live_piece([&](int c, auto masked) {
+    pc.each_live([&](int c, auto masked) {
 #pragma unroll
       for (int j = 0; j < 2; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e)
-          if (ok(masked, c, j, e)) mx[e >> 1] = fmaxf(mx[e >> 1], s[2 * c + j][e]);
+          if (pc.ok(masked, c, j, e)) mx[e >> 1] = fmaxf(mx[e >> 1], s[2 * c + j][e]);
     });
     float neg_m2[2];
 #pragma unroll
@@ -858,13 +652,13 @@ __global__ void __launch_bounds__(MMA_NT)
 
     // p, summed unrounded into l; masked entries exactly 0 (selected by
     // index); then p rounded to bf16 (v's type) as the A fragment of P.V
-    each_live_piece([&](int c, auto masked) {
+    pc.each_live([&](int c, auto masked) {
 #pragma unroll
       for (int j = 0; j < 2; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           float p = exp2_ftz(fmaf(s[2 * c + j][e], scale2, neg_m2[e >> 1]));
-          p = ok(masked, c, j, e) ? p : 0.f;
+          p = pc.ok(masked, c, j, e) ? p : 0.f;
           s[2 * c + j][e] = p;
           l[e >> 1] += p;
         }
@@ -892,7 +686,7 @@ __global__ void __launch_bounds__(MMA_NT)
 }
 
 // ---------------------------------------------------------------------------
-// f32 dQ and dK/dV on the tensor cores, in 3xTF32
+// f32 forward, dQ and dK/dV on the tensor cores, in 3xTF32
 //
 // Each f32 operand x is split into a big part b = tf32(x) (rounded to
 // nearest, ties away) and a small part s = x - b, exact in f32, of which the
@@ -908,8 +702,8 @@ __global__ void __launch_bounds__(MMA_NT)
 // gather in two accumulators over D, added once, and the output products
 // of each 16-row piece go into a fresh accumulator that one f32 add (round
 // to nearest) puts into the running sum.  Measured against float64 on the
-// card, the dq, dk and dv errors stay within a few times the f32 plain
-// version's (full f32 products).
+// card, the out, lse, dq, dk and dv errors stay within a few times the f32
+// plain version's (full f32 products).
 //
 // m16n8k8 tf32 fragments (g = lane / 4, t = lane % 4): an A tile (16 x 8)
 // holds a[0] (row g, k t), a[1] (g + 8, t), a[2] (g, t + 4), a[3] (g + 8,
@@ -926,14 +720,14 @@ __global__ void __launch_bounds__(MMA_NT)
 //
 // The kernels are bound by their instruction count more than by the tensor cores:
 // a split is three instructions, and each warp would split every element of
-// the streamed tile (K and V in dQ, Q and dO in dK/dV) twice over.  At D <= 64
-// the block splits each streamed tile once into big and small copies in
-// shared memory, and the tile's raw copy is single-buffered (the next one in
-// flight while this one's split copies are computed on); dQ holds Q's and
-// dO's split A fragments in registers, dK/dV K's and V's raw ones (its dk and
-// dv accumulators take D registers already).  At D 128 there is no room for
-// that: the streamed tiles are double-buffered raw, and every operand is
-// split as it is read.
+// the streamed tile (K and V in the forward and dQ, Q and dO in dK/dV) twice
+// over.  At D <= 64 the block splits each streamed tile once into big and
+// small copies in shared memory, and the tile's raw copy is single-buffered
+// (the next one in flight while this one's split copies are computed on);
+// the forward holds Q's split A fragments in registers, dQ Q's and dO's,
+// dK/dV K's and V's raw ones (its dk and dv accumulators take D registers
+// already).  At D 128 there is no room for that: the streamed tiles are
+// double-buffered raw, and every operand is split as it is read.
 
 // row stride, in floats, of an f32 tile in shared memory: D + 4 puts the 8
 // rows an ldmatrix reads in 8 distinct 16-byte bank groups, and the column
@@ -1160,10 +954,11 @@ __device__ __forceinline__ void store_rows_f32(float* dst, float (*acc)[4], floa
   }
 }
 
-// p = exp(s.scale - lse), from one FMA (one rounding, so the argument's
-// error stays relative to its own small size) and exp2
-__device__ __forceinline__ float prob_f32(float s, float scale, float lse) {
-  return exp2f(fmaf(s, scale, -lse) * LOG2E);
+// p = exp(s.scale - x), x the backward's lse or the forward's running max,
+// from one FMA (one rounding, so the argument's error stays relative to its
+// own small size) and exp2
+__device__ __forceinline__ float prob_f32(float s, float scale, float x) {
+  return exp2f(fmaf(s, scale, -x) * LOG2E);
 }
 
 // The streamed side of a tf32 kernel: two tiles (K and V, or Q and dO) a
@@ -1443,11 +1238,154 @@ __global__ void __launch_bounds__(MMA_NT)
   store_rows_f32<D>(dv + base, dv_acc, 1.f, w0, g, lane);
 }
 
+// f32 forward: one block per (q tile, batch-head), each warp 16 query rows, in
+// 3xTF32, with the bf16 forward's online softmax over the live k tiles kept
+// on the score accumulators:
+//   s = Q.K^T, m = running row max of s.scale, p = exp(s.scale - m),
+//   l = running row sum of p, acc = alpha acc + p.V with alpha = exp(m_old - m),
+//   out = acc / max(l, 1e-30), lse = m + log(max(l, 1e-30))
+// m is kept in natural units and p is f32, the backward's prob_f32 against
+// the running max; l sums the unrounded p.  All 64 keys of a tile are scored
+// before the row max, the small and big terms of each 16-key piece in two
+// accumulators; p enters P.V from the accumulators with k permuted, each
+// piece's products in a fresh accumulator added in f32.  Q's split A
+// fragments are held in registers at D <= 64 (D registers; its tile's room
+// then takes the split K and V); at D 128 they are re-read from shared
+// memory and split there, and K and V are double-buffered raw.  Rows at or
+// past T (m NEG_INF, l 0) are not written.
+template <int D>
+__global__ void __launch_bounds__(MMA_NT)
+    fwd_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v, float* __restrict__ o, float* __restrict__ lse,
+                    Geom g, float scale, int causal) {
+  constexpr int LT = TILE * ldf<D>();
+  constexpr bool PRE = presplit<D>();
+  constexpr AFrom FROM = PRE ? SPLIT : SMEM;
+  constexpr int NF = PRE ? D / 8 : 1;
+  extern __shared__ float4 smem4[];
+  float* sm = reinterpret_cast<float*>(smem4);
+  // !PRE: [Q, K 2 stages, V 2 stages]; PRE: [K, V raw, K big, small, V big,
+  // small], Q first in the split tiles' room
+  float* Qs = PRE ? sm + 2 * LT : sm;
+  const Stream<D> kv{PRE ? sm : sm + LT};
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const LanesF32 ln(lane);
+  const int nt = (g.t + TILE - 1) / TILE;
+  const int qb = nt - 1 - blockIdx.x;  // the longest causal rows start first
+  const int b = blockIdx.y / g.h, h = blockIdx.y % g.h;
+  const long long base = b * g.sb + (long long)h * D;
+  const int q0 = qb * TILE;
+  const int k_end = causal ? qb + 1 : nt;
+
+  load_tile_f32<D>(Qs, q + base, q0, g);
+  load_tile_f32<D>(kv.raw(0, 0), k + base, 0, g);
+  load_tile_f32<D>(kv.raw(1, 0), v + base, 0, g);
+  cp_async_commit();
+
+  const int w0 = q0 + warp * 16;     // this warp's first row
+  float m[2] = {NEG_INF, NEG_INF};  // rows w0 + lane/4 and + 8
+  float l[2] = {0.f, 0.f};  // this thread's columns' share of the row sums
+  float acc[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+
+  cp_async_wait_all();
+  __syncthreads();
+  uint32_t qfb[NF][4], qfs[NF][4];
+  if constexpr (PRE) {
+#pragma unroll
+    for (int ks = 0; ks < D / 8; ++ks)
+      afrag_tf32<D, SMEM>(qfb[ks], qfs[ks], nullptr, nullptr, Qs, warp * 16, ks, ln);
+    __syncthreads();  // Q read: its room takes the split tiles
+    kv.split(0);
+    __syncthreads();
+  }
+
+  for (int kb = 0; kb < k_end; ++kb) {
+    if (kb + 1 < k_end) {  // the next tile's copies, in flight during this one
+      load_tile_f32<D>(kv.raw(0, kb + 1), k + base, (kb + 1) * TILE, g);
+      load_tile_f32<D>(kv.raw(1, kb + 1), v + base, (kb + 1) * TILE, g);
+      cp_async_commit();
+    }
+    const KeyPieces pc{kb * TILE, w0, g.t, causal, lane};
+
+    float s[TILE / 8][4] = {};  // 16 rows x 64 keys: n8 tile 2c + j is keys 16c + 8j ..
+#pragma unroll
+    for (int c = 0; c < TILE / 16; ++c)
+      if (!pc.dead(c))
+        scores16_tf32<D, FROM, PRE>(&s[2 * c], qfb, qfs, Qs, warp * 16, kv.big(0, kb),
+                                    kv.small(0), 16 * c, ln);
+
+    // the rows' maxima of s.scale over this tile: the thread's 16 values a
+    // row, then the 4 lanes that share the row (lane/4)
+    float mx[2] = {NEG_INF, NEG_INF};
+    pc.each_live([&](int c, auto masked) {
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (pc.ok(masked, c, j, e)) mx[e >> 1] = fmaxf(mx[e >> 1], s[2 * c + j][e] * scale);
+    });
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      float x = mx[half];
+      x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+      x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+      const float m_new = fmaxf(m[half], x);
+      const float alpha = exp2f((m[half] - m_new) * LOG2E);
+      m[half] = m_new;
+      l[half] *= alpha;
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n) {
+        acc[n][2 * half] *= alpha;
+        acc[n][2 * half + 1] *= alpha;
+      }
+    }
+
+    // p in f32, summed into l; masked entries exactly 0 (selected by index)
+    pc.each_live([&](int c, auto masked) {
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float p = prob_f32(s[2 * c + j][e], scale, m[e >> 1]);
+          p = pc.ok(masked, c, j, e) ? p : 0.f;
+          s[2 * c + j][e] = p;
+          l[e >> 1] += p;
+        }
+      accumulate16_tf32<D, PRE>(acc, &s[2 * c], kv.big(1, kb), kv.small(1), 16 * c, ln);
+    });
+    cp_async_wait_all();
+    __syncthreads();  // the next tile has landed; this one is consumed
+    if (PRE && kb + 1 < k_end) {
+      kv.split(kb + 1);
+      __syncthreads();
+    }
+  }
+
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    float lt = l[half];
+    lt += __shfl_xor_sync(0xffffffffu, lt, 1);
+    lt += __shfl_xor_sync(0xffffffffu, lt, 2);
+    lt = fmaxf(lt, L_FLOOR);  // padded rows have zero mass
+    const int qi = w0 + lane / 4 + 8 * half;
+    if (qi >= g.t) continue;
+    if (lane % 4 == 0) lse[((long long)b * g.t + qi) * g.h + h] = m[half] + logf(lt);
+    float* row = o + base + (long long)qi * g.st + 2 * (lane % 4);
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n)
+      *reinterpret_cast<float2*>(row + 8 * n) =
+          make_float2(acc[n][2 * half] / lt, acc[n][2 * half + 1] / lt);
+  }
+}
+
 // ---------------------------------------------------------------------------
 // launchers
 
-template <int D>
-constexpr size_t fwd_smem() { return (2 * D * LD + TILE * D + TILE * LD) * sizeof(float); }
 template <int D>
 constexpr size_t fwd_mma_smem() { return 5 * TILE * ldb<D>() * sizeof(bf16); }
 static_assert(fwd_mma_smem<128>() <= 232448, "forward tile exceeds a block's shared memory");
@@ -1456,6 +1394,11 @@ constexpr size_t dq_mma_smem() { return 6 * TILE * ldb<D>() * sizeof(bf16); }
 template <int D>
 constexpr size_t dkv_mma_smem() { return 6 * TILE * ldb<D>() * sizeof(bf16) + 4 * TILE * sizeof(float); }
 static_assert(dkv_mma_smem<128>() <= 232448, "dK/dV tile exceeds a block's shared memory");
+template <int D>
+constexpr size_t fwd_tf32_smem() {  // the split K and V and two raw tiles, or Q and two stages
+  return (presplit<D>() ? 6 : 5) * TILE * ldf<D>() * sizeof(float);
+}
+static_assert(fwd_tf32_smem<128>() <= 232448, "f32 forward tile exceeds a block's shared memory");
 template <int D>
 constexpr size_t dq_tf32_smem() { return 6 * TILE * ldf<D>() * sizeof(float); }
 template <int D>
@@ -1491,12 +1434,12 @@ cudaError_t run_fwd(const void* q, const void* k, const void* v, void* o, void* 
         static_cast<bf16*>(o), static_cast<float*>(lse), make_geom(t, h, D), scale, causal);
     return cudaGetLastError();
   } else {
-    const size_t smem = fwd_smem<D>();
-    cudaError_t e = prepare(fwd_kernel<T, D>, smem);
+    const size_t smem = fwd_tf32_smem<D>();
+    cudaError_t e = prepare(fwd_tf32_kernel<D>, smem);
     if (e != cudaSuccess) return e;
-    fwd_kernel<T, D><<<grid, NT, smem, stream>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-        static_cast<T*>(o), static_cast<float*>(lse), make_geom(t, h, D), scale, causal);
+    fwd_tf32_kernel<D><<<grid, MMA_NT, smem, stream>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+        static_cast<float*>(o), static_cast<float*>(lse), make_geom(t, h, D), scale, causal);
     return cudaGetLastError();
   }
 }
@@ -1611,9 +1554,9 @@ int znicz_flash_dkv(const void* q, const void* k, const void* v, const void* dou
 // asks for at head dim d and dtype (0 float32, 1 bfloat16); -1 for a head
 // dim without a kernel
 int znicz_flash_smem_bytes(int which, int d, int dtype) {
-#define ZNICZ_SMEM(D)                                                             \
-  return (int)(which == 0   ? (dtype == 1 ? fwd_mma_smem<D>() : fwd_smem<D>())    \
-               : which == 1 ? (dtype == 1 ? dq_mma_smem<D>() : dq_tf32_smem<D>()) \
+#define ZNICZ_SMEM(D)                                                              \
+  return (int)(which == 0   ? (dtype == 1 ? fwd_mma_smem<D>() : fwd_tf32_smem<D>()) \
+               : which == 1 ? (dtype == 1 ? dq_mma_smem<D>() : dq_tf32_smem<D>())   \
                             : (dtype == 1 ? dkv_mma_smem<D>() : dkv_tf32_smem<D>()))
   switch (d) {
     case 16: ZNICZ_SMEM(16);

@@ -31,24 +31,22 @@ each kernel a block owns one 64-row tile and loops over the other side's
   orientations; the next tile's ``cp.async`` copies are in flight while
   this one is computed.  These copies need q, k, v and dout to start on a
   16-byte boundary, which the wrappers check for every kernel.
-- The f32 dQ and dK/dV run on the tensor cores in 3xTF32 (``mma.sync``
-  m16n8k8 tf32, f32 accumulation), on the bf16 kernels' skeleton: each f32
-  operand is split into a big and a small TF32 part, ``b = tf32(x)`` and
-  ``s = x - b`` (the tensor cores read its top 19 bits, so ``x = b + s``
-  to 2^-21 of ``x``), and a product is taken as ``a_s.c_b + a_b.c_s +
-  a_b.c_b``.  The dropped ``a_s.c_s`` is at most 2^-22 of the product, so
-  each product keeps about f32's accuracy (a few f32 roundings) where plain
-  TF32 would keep 2^-11; ``p``, ``ds`` and every sum stay f32 (no long sum
-  is left in an mma accumulator, which truncates), and the split is the
-  only approximation.  On the card their errors against float64 stay
-  within a few times the f32 plain version's (``chip_smoke.py`` fails past
-  10 times).  ``p`` and ``ds`` enter the next product from the accumulators
-  with the k axis permuted (m16n8k8's A fragment does not match its
-  accumulator), never through shared memory.
-- The f32 forward takes a simple FMA path: 256 threads, each a 4 x 4
-  register tile of every product in f32 FMAs, at most the card's 67
-  TFLOP/s f32 rate.  Its 3xTF32 design, and ``wgmma`` with TMA for all six,
-  come later.
+- The f32 forward, dQ and dK/dV run on the tensor cores in 3xTF32
+  (``mma.sync`` m16n8k8 tf32, f32 accumulation), on the bf16 kernels'
+  skeleton: each f32 operand is split into a big and a small TF32 part,
+  ``b = tf32(x)`` and ``s = x - b`` (the tensor cores read its top 19
+  bits, so ``x = b + s`` to 2^-21 of ``x``), and a product is taken as
+  ``a_s.c_b + a_b.c_s + a_b.c_b``.  The dropped ``a_s.c_s`` is at most
+  2^-22 of the product, so each product keeps about f32's accuracy (a few
+  f32 roundings) where plain TF32 would keep 2^-11; ``p``, ``ds`` and every
+  sum stay f32 (no long sum is left in an mma accumulator, which
+  truncates), and the split is the only approximation.  The forward keeps
+  the bf16 forward's online softmax, with ``p`` from ``exp2f`` in f32.  On
+  the card their errors against float64 stay within a few times the f32
+  plain version's (``chip_smoke.py`` fails past 10 times).  ``p`` and
+  ``ds`` enter the next product from the accumulators with the k axis
+  permuted (m16n8k8's A fragment does not match its accumulator), never
+  through shared memory.  ``wgmma`` with TMA for all six comes later.
 
 Tiles are the kernels' own: ``block_q``/``block_k`` are accepted so JAX
 call sites load unchanged, and are ignored (the TPU's 512 x 512 blocks were
