@@ -54,8 +54,10 @@ result line) when any phase fails:
    and a 512-token f32 forward on the card against the CPU from identical
    weights;
 9. the Kohonen and RBM builds (made with the flash build): nvcc's seconds, ptxas' registers, spills and
-   static shared memory of each kernel, and the RBM chain's rows a block
-   and dynamic shared memory at each check shape;
+   static shared memory of each kernel; the SASS ``HMMA`` count of each of
+   the six RBM GEMM instantiations (``hidden_kernel``, ``visible_kernel``,
+   ``stats_kernel``, each with 16- and 4-byte copies: it fails if one has
+   none), and the RBM's launches and grids at each check shape;
 10. the Kohonen kernel against its plain version (num, den and the updated
     weights within 1e-5 of the largest magnitude, on the synthetic MNIST
     blobs): the model's shape (B 100, 8x8, F 784, masked tail), B 600 with
@@ -66,13 +68,20 @@ result line) when any phase fails:
     with injected uniforms and with the kernel's own draws against the
     plain version fed the generator twin's uniforms, at (B 100, 784x128,
     k 1), (B 1024, 784x1024, k 1) and (B 256, 784x1024, k 3) with a masked
-    tail, within 1e-4 when no sampled unit flipped and at most 1e-5 of the
-    draws flipped; the same seed bitwise equal, another seed different; the
-    kernel's generator bitwise equal to its twin; Bernoulli frequencies at
-    p 0.1, 0.5, 0.9 within 5 sigma;
+    tail, and at (B 8, 784x14000, k 1) with injected uniforms: one launch
+    count a call; every draw of the chain counted as a flip where the plain
+    version, led along the kernel's own samples, would have drawn the other
+    way, at most 1e-5 of the draws; within 1e-4 when none flipped; dW, dvb
+    and dhb against a float64 plain version along the kernel's samples
+    within 10 times the f32 plain version's error, never skipped; the same
+    seed bitwise equal, another seed different; a canary (every output and
+    scratch buffer at the front of a NaN-filled larger one, with 16- and
+    4-byte copies) unchanged past them; the kernel's generator bitwise equal
+    to its twin; Bernoulli frequencies at p 0.1, 0.5, 0.9 within 5 sigma;
 12. both kernels' times at the model's shape and the large check shape
-    beside their bound and their plain version's (no PyTorch call computes
-    either: library none);
+    (the RBM's k 3 case too) beside their bound (the RBM's at the 3xTF32
+    rate, its f32-FMA bound beside it) and their plain version's (no
+    PyTorch call computes either: library none);
 13. the Kohonen model (``kohonen.build_workflow(device="cuda")``: 8x8 map,
     784 features, batch 100) and 14. the MNIST RBM (``mnist_rbm``: 784 x
     128, CD-1, batch 100), each on the synthetic MNIST stand-in at MNIST's
@@ -842,6 +851,18 @@ RBM_CASES = [  # (tag, B, V, H, cd_k, valid rows)
 MNIST_SPLITS = {"train": 60000, "test": 10000}  # MNIST's own split sizes
 
 
+RBM_GEMMS = {f"{k}_kernel<{copy}>" for k in ("hidden", "visible", "stats") for copy in (4, 16)}
+
+
+def _kernel_name(mangled):
+    """A csrc kernel's name from its mangled one: ``hidden_kernel<16>``,
+    ``uniforms_kernel``; None for anything else."""
+    name = re.search(r"\d+([a-z]+_kernel)(ILi(\d+)EE)?", mangled)
+    if name is None:
+        return None
+    return name.group(1) + (f"<{name.group(3)}>" if name.group(3) else "")
+
+
 def _ptxas_rows(log):
     """(kernel name, registers, (spill stores, loads), static smem bytes) of
     each entry nvcc's ptxas reported."""
@@ -849,8 +870,7 @@ def _ptxas_rows(log):
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            name = re.search(r"\d+([a-z]+_kernel)(ILi(\d+)EE)?", m.group(1))
-            cur = [name.group(1) + (f"<{name.group(3)}>" if name.group(3) else ""), None, None, 0]
+            cur = [_kernel_name(m.group(1)), None, None, 0]
             rows.append(cur)
         elif cur is not None:
             regs = re.search(r"Used (\d+) registers", line)
@@ -865,25 +885,49 @@ def _ptxas_rows(log):
     return rows
 
 
-def phase_unsup_build(built, rbk):
-    """Phase 9: the Kohonen and RBM libraries' builds."""
+def _sass_hmma(cuda_build, lib_path):
+    """{kernel name: SASS HMMA count} of each kernel of a built library."""
+    from pathlib import Path
+
+    cuobjdump = Path(cuda_build.nvcc_path()).with_name("cuobjdump")
+    sass = subprocess.run([str(cuobjdump), "-sass", str(lib_path)], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    counts, cur = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            cur = _kernel_name(line.split("Function :")[1])
+            counts.setdefault(cur, 0)
+        elif cur is not None and re.search(r"\bHMMA\.", line):
+            counts[cur] += 1
+    return counts
+
+
+def phase_unsup_build(built, rbk, cuda_build):
+    """Phase 9: the Kohonen and RBM libraries' builds; every RBM GEMM
+    instantiation on the tensor cores (SASS HMMA)."""
     want = {"kohonen": {"winners_kernel", "accum_kernel"},
-            "rbm": {"chain_kernel<4>", "chain_kernel<8>", "chain_kernel<16>", "stats_kernel",
-                    "uniforms_kernel"}}
+            "rbm": RBM_GEMMS | {"uniforms_kernel"}}
     for name in ("kohonen", "rbm"):
         b = built[name]
         print(f"build: {b.path.name}: nvcc {b.seconds:.1f} s"
               + ("" if b.seconds else " (the library was there already)"))
         rows = _ptxas_rows(b.log)
         if {r[0] for r in rows} != want[name]:
-            fail(f"ptxas reported {sorted(r[0] for r in rows)} for {name}.cu, want {sorted(want[name])}")
+            fail(f"ptxas reported {sorted(map(str, (r[0] for r in rows)))} for {name}.cu, "
+                 f"want {sorted(want[name])}")
         for kname, regs, spill, smem in sorted(rows):
             print(f"ptxas {name} {kname}: {regs} registers, spill stores/loads {spill} bytes, "
                   f"{smem} bytes static shared memory a block")
-    for tag, b, v, h, _, _ in RBM_CASES:
-        rows, smem = rbk.chain_rows(b, v, h)
-        print(f"rbm chain_kernel at {tag} (B {b}, {v} x {h}): {rows} rows a block, "
-              f"{smem} bytes dynamic shared memory, {-(-b // rows)} blocks")
+    hmma = _sass_hmma(cuda_build, built["rbm"].path)
+    for kname in sorted(RBM_GEMMS):
+        print(f"sass rbm {kname}: {hmma.get(kname, 0)} HMMA")
+        if not hmma.get(kname):
+            fail(f"rbm {kname} has no tensor-core instructions")
+    for tag, b, v, h, cd_k, _ in RBM_CASES:
+        t = lambda n: -(-n // rbk.TILE)  # noqa: E731
+        print(f"rbm launches at {tag} (B {b}, {v} x {h}, k {cd_k}): {2 * cd_k + 2} a step: "
+              f"hidden grid {t(h)} x {t(b)}, visible {t(v)} x {t(b)}, stats {t(h)} x {t(v)} "
+              f"blocks of 128 threads; {'16' if v % 4 == 0 and h % 4 == 0 else '4'}-byte copies")
 
 
 def _mnist_rows(datasets, n, normalization):
@@ -944,13 +988,6 @@ def phase_kohonen_checks(torch, khk, kh, datasets, prng):
     return err
 
 
-def _flip_count(chain, ref_chain, uh, uv, cd_k):
-    """Sampled units whose draw differs between the kernel's chain and the
-    plain version's: the first hidden draws and the last visible draws."""
-    return int(((uh[0] < chain["h0p"]) != (uh[0] < ref_chain["h0p"])).sum()
-               + ((uv[cd_k - 1] < chain["vp"]) != (uv[cd_k - 1] < ref_chain["vp"])).sum())
-
-
 def _rbm_inputs(torch, xs, b, v, h, n_valid, seed):
     gen = torch.Generator(device="cuda")
     gen.manual_seed(seed)
@@ -964,11 +1001,75 @@ def _rbm_inputs(torch, xs, b, v, h, n_valid, seed):
     return params, v0, mask
 
 
+def _rbm_against_plain(torch, rbk, label, params, v0, mask, seed, cd_k, uniforms, uh, uv):
+    """One kernel call against the plain version: every draw of the chain a
+    flip where the plain version, led along the kernel's samples, would have
+    drawn the other way; dW, dvb, dhb and stats within RBM_TOL where none
+    flipped; dW, dvb and dhb against float64 along the kernel's samples,
+    within FLOAT64_FACTOR of the f32 plain version's error, never skipped.
+    Returns (the statistics, max error against the plain version where no
+    draw flipped, else 0, and the float64 errors by output)."""
+    chain, led = {}, {}
+    before = rbk.statistics.launches
+    got = rbk.statistics(params, v0, mask, seed, cd_k=cd_k, uniforms=uniforms, chain=chain)
+    torch.cuda.synchronize()
+    if rbk.statistics.launches - before != 1:
+        fail(f"{label}: {rbk.statistics.launches - before} launch counts for one call")
+    samples = (chain["hidden_samples"], chain["visible_samples"])
+    plain = rbk.statistics_reference(params, v0, mask, uh, uv, cd_k=cd_k, chain=led,
+                                     samples=samples)
+    flips = rbk.count_flips(chain, led, uh, uv)
+    draws = samples[0].numel() + samples[1].numel()
+    print(f"check {label}: {flips} of {draws} draws flipped (every draw of the chain; "
+          f"limit {1e-5 * draws:.1f})")
+    if flips > 1e-5 * draws:
+        fail(f"{label}: {flips} flips")
+    err = 0.0
+    if flips == 0:  # then the kernel's chain is the plain version's own
+        ref = rbk.statistics_reference(params, v0, mask, uh, uv, cd_k=cd_k)
+        err = max(_rel_err(f"{label}, {name}", g, r, RBM_TOL)
+                  for name, g, r in zip(("dW", "dvb", "dhb", "stats"), got, ref))
+    p64 = {k: t.double() for k, t in params.items()}
+    exact = rbk.statistics_reference(p64, v0.double(), mask.double(), None, None, cd_k=cd_k,
+                                     samples=samples)
+    f64 = _float64_check(torch, label, ("dW", "dvb", "dhb"), got[:3], plain[:3], exact[:3])
+    return got, err, f64
+
+
+def _rbm_canary(torch, rbk, label, params, v0, mask, seed, cd_k):
+    """The C entry with every output and scratch buffer taken from the front
+    of a NaN-filled larger one: fails if anything past them changed or the
+    results differ from the wrapper's own."""
+    want = rbk.statistics(params, v0, mask, seed, cd_k=cd_k)
+    carved, own = {}, rbk._buffers
+
+    def canary_buffers(b, v, h, k, device):
+        out = {}
+        for name, shape in rbk.buffer_shapes(b, v, h, k).items():
+            n = math.prod(shape)
+            carved[name] = (torch.full((n + 4096,), math.nan, device=device), n)
+            out[name] = carved[name][0][:n].view(shape)
+        return out
+
+    rbk._buffers = canary_buffers
+    try:
+        got = rbk.statistics(params, v0, mask, seed, cd_k=cd_k)
+        torch.cuda.synchronize()
+    finally:
+        rbk._buffers = own
+    past = [name for name, (full, n) in carved.items() if not bool(torch.isnan(full[n:]).all())]
+    same = all(torch.equal(g, w) for g, w in zip(got, want))
+    print(f"check {label} canary: {len(carved)} buffers each at the front of a NaN-filled "
+          f"one: written past {past or 'none'}; results bitwise the wrapper's: {same}")
+    if past or not same:
+        fail(f"{label}: the kernel wrote past its buffers or read what it did not write")
+
+
 def phase_rbm_checks(torch, rbk, datasets, prng):
     """Phase 11: the RBM kernel against its plain version."""
     prng.seed_all(12)
     xs = torch.as_tensor((_mnist_rows(datasets, 1024, "linear") + 1.0) / 2.0, device="cuda")
-    err = 0.0
+    err, f64 = 0.0, {}
     # the saturated regime: sampling cannot depend on the draws
     v, h = 128, 64
     params = {"weights": torch.zeros((v, h), device="cuda"),
@@ -987,24 +1088,12 @@ def phase_rbm_checks(torch, rbk, datasets, prng):
     for seed, (tag, b, v, h, cd_k, n_valid) in enumerate(RBM_CASES):
         params, v0, mask = _rbm_inputs(torch, xs, b, v, h, n_valid, seed)
         uh, uv = rbk.chain_uniforms(seed, b, v, h, cd_k, "cuda")
-        draws = b * h * cd_k + b * v * cd_k
-        ref_chain = {}
-        ref = rbk.statistics_reference(params, v0, mask, uh, uv, cd_k=cd_k, chain=ref_chain)
         label = f"rbm {tag} (B {b}, {v} x {h}, k {cd_k}, {b - n_valid} masked)"
         for how, uniforms in (("injected uniforms", (uh, uv)), ("in-kernel draws", None)):
-            chain = {}
-            got = rbk.statistics(params, v0, mask, seed, cd_k=cd_k, uniforms=uniforms, chain=chain)
-            torch.cuda.synchronize()
-            flips = _flip_count(chain, ref_chain, uh, uv, cd_k)
-            print(f"check {label}, {how}: {flips} of {draws} sampled units flipped "
-                  f"(limit {1e-5 * draws:.1f})")
-            if flips > 1e-5 * draws:
-                fail(f"{label}, {how}: {flips} flips")
-            # the statistics are held to the tolerance when no unit flipped
-            e = max(_rel_err(f"{label}, {how}, {name}", g, r, RBM_TOL, strict=flips == 0)
-                    for name, g, r in zip(("dW", "dvb", "dhb", "stats"), got, ref))
+            got, e, e64 = _rbm_against_plain(torch, rbk, f"{label}, {how}", params, v0, mask,
+                                             seed, cd_k, uniforms, uh, uv)
             if tag == "model":
-                err = max(err, e)
+                err, f64 = max(err, e), e64
         again = rbk.statistics(params, v0, mask, seed, cd_k=cd_k)
         other = rbk.statistics(params, v0, mask, seed + 1000, cd_k=cd_k)
         torch.cuda.synchronize()
@@ -1013,6 +1102,19 @@ def phase_rbm_checks(torch, rbk, datasets, prng):
         print(f"check {label}: same seed bitwise equal {same}; another seed changes dW {changed}")
         if not (same and changed):
             fail(f"{label}: the seed does not key the chain")
+    # a wide hidden layer (C4: beyond one block's shared memory in the old design)
+    b, v, h = 8, 784, 14_000
+    params, v0, mask = _rbm_inputs(torch, xs, b, v, h, 7, 40)
+    uh, uv = rbk.chain_uniforms(40, b, v, h, 1, "cuda")
+    _rbm_against_plain(torch, rbk, f"rbm wide (B {b}, {v} x {h}, k 1, 1 masked), injected "
+                       "uniforms", params, v0, mask, 40, 1, (uh, uv), uh, uv)
+    # the canary, with 16-byte copies (the model's shape) and 4-byte ones
+    for b, v, h, cd_k in ((100, 784, 128, 1), (70, 50, 33, 3)):
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(b)
+        params, v0, mask = _rbm_inputs(torch, torch.rand((b, v), generator=gen, device="cuda"),
+                                       b, v, h, b - 3, 41)
+        _rbm_canary(torch, rbk, f"rbm (B {b}, {v} x {h}, k {cd_k})", params, v0, mask, 21, cd_k)
     for stream, shape in ((rbk.HIDDEN, (2, 1024, 1024)), (rbk.VISIBLE, (1, 1024, 784))):
         same = torch.equal(rbk.uniforms_cuda(77, stream, shape), rbk.philox_uniforms(77, stream, shape, "cuda"))
         print(f"check rbm generator stream {stream} {list(shape)}: kernel draws bitwise equal "
@@ -1036,11 +1138,11 @@ def phase_rbm_checks(torch, rbk, datasets, prng):
               f"({(freq - p_exact) / sd:+.2f} sigma, limit 5)")
         if abs(freq - p_exact) > 5 * sd:
             fail("rbm Bernoulli frequency off")
-    return err
+    return err, f64
 
 
-def _unsup_bound(flops, nbytes):
-    t_ops, t_bytes = flops / F32_FLOPS, nbytes / HBM_BYTES_PER_S
+def _unsup_bound(flops, nbytes, rate=F32_FLOPS):
+    t_ops, t_bytes = flops / rate, nbytes / HBM_BYTES_PER_S
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
 
 
@@ -1065,19 +1167,24 @@ def phase_unsup_times(torch, khk, kh, rbk):
         print(f"time kohonen_accumulate {tag} (B {b}, {side}x{side}, F {f}): kernel {ms:.4f} ms, "
               f"bound {bound:.4f} ms ({by}), plain {plain:.4f} ms, library: none (no single "
               f"PyTorch call computes it)")
-    for tag, b, v, h, cd_k, _ in RBM_CASES[:2]:
+    for tag, b, v, h, cd_k, _ in RBM_CASES:
         params, v0, mask = _rbm_inputs(torch, torch.rand((b, v), device="cuda"), b, v, h, b, 3)
         uh, uv = rbk.chain_uniforms(3, b, v, h, cd_k, "cuda")
         ms = cuda_ms(lambda: rbk.statistics(params, v0, mask, 3, cd_k=cd_k))
         plain = cuda_ms(lambda: rbk.statistics_reference(params, v0, mask, uh, uv, cd_k=cd_k))
-        # v0, mask, W and the biases read once; dW, dvb, dhb, stats written once
+        # v0, mask, W and the biases read once; dW, dvb, dhb, stats written once;
+        # the products at the 3xTF32 rate (three TF32 products for one), and on
+        # f32 FMAs beside it
         nbytes = 4 * (b * v + b + 2 * v * h + 2 * (v + h) + 2)
-        bound, by = _unsup_bound((2 * cd_k + 3) * 2 * b * v * h, nbytes)
+        flops = (2 * cd_k + 3) * 2 * b * v * h
+        bound, by = _unsup_bound(flops, nbytes, TF32_FLOPS / 3)
+        fma_bound, _ = _unsup_bound(flops, nbytes)
         rows[("rbm_cd", tag)] = dict(ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by,
-                                     library_ms=None)
-        print(f"time rbm_cd {tag} (B {b}, {v} x {h}, k {cd_k}): kernel {ms:.4f} ms, bound "
-              f"{bound:.4f} ms ({by}), plain {plain:.4f} ms (uniforms given), library: none "
-              f"(no single PyTorch call computes it)")
+                                     library_ms=None, f32_fma_bound_ms=fma_bound)
+        print(f"time rbm_cd {tag} (B {b}, {v} x {h}, k {cd_k}): kernel {ms:.4f} ms "
+              f"({2 * cd_k + 2} launches), bound {bound:.4f} ms ({by}; 3xTF32; {fma_bound:.4f} "
+              f"ms on f32 FMAs), plain {plain:.4f} ms (uniforms given), library: none (no "
+              f"single PyTorch call computes it)")
     return rows
 
 
@@ -1177,14 +1284,19 @@ def phase_rbm_model(torch, mnist_rbm, rbk, troot, prng):
     cpu_params = {k: t.cpu() for k, t in params.items()}
     v0, mask = torch.as_tensor(mb.data), torch.as_tensor(mb.mask)
     seed, b, v, h = wf.state.step, v0.shape[0], v0.shape[1], wf.n_hidden
-    chain, ref_chain = {}, {}
+    chain, led = {}, {}
     stats_card = rbk.statistics(params, v0.cuda(), mask.cuda(), seed, cd_k=1, chain=chain)
-    stats_cpu = rbk.statistics(cpu_params, v0, mask, seed, cd_k=1, chain=ref_chain)
     uh, uv = rbk.chain_uniforms(seed, b, v, h, 1)
-    flips = _flip_count({k: t.cpu() for k, t in chain.items()}, ref_chain, uh, uv, 1)
-    draws = b * (v + h)
+    card_chain = {k: t.cpu() for k, t in chain.items()}
+    samples = (card_chain["hidden_samples"], card_chain["visible_samples"])
+    # the CPU step led along the card's draws: every draw a flip where the
+    # CPU would have drawn the other way
+    stats_cpu = rbk.statistics_reference(cpu_params, v0, mask, uh, uv, cd_k=1, chain=led,
+                                         samples=samples)
+    flips = rbk.count_flips(card_chain, led, uh, uv)
+    draws = samples[0].numel() + samples[1].numel()
     print(f"rbm: one CD-1 step card vs CPU from identical weights, seed {seed}: {flips} of "
-          f"{draws} sampled units flipped")
+          f"{draws} draws flipped")
     if flips > 1e-5 * draws:
         fail("rbm: card and CPU chains diverge")
     if flips == 0:
@@ -1236,11 +1348,9 @@ def main() -> int:
     )
     print(f"flash phases: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    phase_unsup_build(built, rbk)
-    unsup_err = {
-        "kohonen_accumulate": phase_kohonen_checks(torch, khk, kh_op, datasets, prng),
-        "rbm_cd": phase_rbm_checks(torch, rbk, datasets, prng),
-    }
+    phase_unsup_build(built, rbk, cuda_build)
+    unsup_err = {"kohonen_accumulate": phase_kohonen_checks(torch, khk, kh_op, datasets, prng)}
+    unsup_err["rbm_cd"], rbm_f64 = phase_rbm_checks(torch, rbk, datasets, prng)
     unsup_rows = phase_unsup_times(torch, khk, kh_op, rbk)
     unsup_launches = {
         "kohonen_accumulate": phase_kohonen_model(torch, kohonen, khk, kh_op, troot, prng)[0],
@@ -1293,7 +1403,14 @@ def main() -> int:
             "launches": unsup_launches[kname],
             "max_abs_err": unsup_err[kname],
             **unsup_rows[(kname, "model")],  # the main path's shape
+            # the check shapes' times beside their bounds
+            "shapes": {tag: row for (k, tag), row in unsup_rows.items()
+                       if k == kname and tag != "model"},
         })
+    # the RBM's dW, dvb, dhb against float64 at the model's shape, beside the
+    # f32 plain version's
+    rbm_row = next(k for k in kernels if k["name"] == "rbm_cd")
+    rbm_row["float64_err"] = {g: dict(zip(("kernel", "plain"), e)) for g, e in rbm_f64.items()}
     print(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({

@@ -13,6 +13,9 @@ threefry masks, so it is left out of the training comparison and checked
 on its own.
 """
 
+import re
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -262,6 +265,35 @@ def test_layer_types_of_later_slices_raise(spec):
         model_lib.build([spec], (4, 4, 2), device="cpu")
     with pytest.raises(ValueError, match="unknown layer type"):
         model_lib.build([{"type": "bogus"}], (4, 4, 2), device="cpu")
+
+
+_ROADMAP = (Path(__file__).resolve().parents[1] / "ROADMAP.md").read_text()
+_ITEM = re.compile(r"ROADMAP\.md (A\d+), ([\w/]+\.py)")
+
+
+def _names_its_item(message: str) -> None:
+    """The refusal names a queue-A item of ROADMAP.md whose entry mentions
+    the module it names."""
+    found = _ITEM.search(message)
+    assert found, message
+    item, module = found.groups()
+    entry = re.search(rf"^{item}\. \*\*.*?(?=^A\d+\. \*\*|^### )", _ROADMAP, re.M | re.S)
+    assert entry, f"ROADMAP.md has no item {item}"
+    assert module in entry.group(0), f"ROADMAP.md {item} does not mention {module}"
+
+
+@pytest.mark.parametrize("kind", sorted(model_lib._LATER))
+def test_later_layer_types_name_their_roadmap_item(kind):
+    with pytest.raises(NotImplementedError, match="slice") as err:
+        model_lib.build([{"type": kind.replace("*", "tanh")}], (4, 4, 2), device="cpu")
+    _names_its_item(str(err.value))
+
+
+def test_alexnet_data_dir_names_its_roadmap_item(small_alexnet_data):
+    troot.alexnet.loader.update({"data_dir": "/nonexistent"})
+    with pytest.raises(NotImplementedError, match="slice") as err:
+        alexnet.build_workflow(device="cpu")
+    _names_its_item(str(err.value))
 
 
 @pytest.mark.parametrize("device_convert", [True, False], ids=["u8_to_device", "host_f32"])

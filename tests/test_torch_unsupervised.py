@@ -289,6 +289,31 @@ def test_rbm_plain_statistics_match_pallas(cd_k):
         assert torch.equal(g, g2)
 
 
+@pytest.mark.parametrize("cd_k", [1, 2])
+def test_rbm_plain_statistics_led_by_samples_match_pallas(cd_k):
+    """The plain version led along a given sample path (how the card checks
+    hold the kernel to float64): the draws JAX's interpret-mode uniforms
+    make, given as samples, reproduce the Pallas kernel's statistics."""
+    rng = np.random.default_rng(20 + cd_k)
+    b, v, h, seed = 36, 80, 20, 5
+    params = {"weights": rng.normal(0, 0.2, (v, h)).astype(np.float32),
+              "vbias": rng.normal(0, 0.1, v).astype(np.float32),
+              "hbias": rng.normal(0, 0.1, h).astype(np.float32)}
+    v0 = (rng.uniform(size=(b, v)) > 0.5).astype(np.float32)
+    mask = (np.arange(b) < 30).astype(np.float32)
+    want = jprbm._statistics(params, v0, mask, seed, cd_k=cd_k)
+    uh, uv = _jax_uniforms(seed, b, v, h, cd_k)
+    tparams = {k: _t(a) for k, a in params.items()}
+    chain = {}
+    rbm_kernel.statistics_reference(tparams, _t(v0), _t(mask), _t(uh), _t(uv), cd_k=cd_k,
+                                    chain=chain)
+    got = rbm_kernel.statistics_reference(
+        {k: t.double() for k, t in tparams.items()}, _t(v0).double(), _t(mask).double(),
+        None, None, cd_k=cd_k, samples=(chain["hidden_samples"], chain["visible_samples"]))
+    for g, w_ in zip(got, want):
+        _near(g.numpy(), np.asarray(w_).reshape(g.shape), 1e-5)
+
+
 # -- the workflows over whole epochs ------------------------------------------
 
 def _kohonen_runs(impl):

@@ -16,12 +16,19 @@ same CUDA tensors:
   largest magnitude (f32 sums in another order), the plain version run with
   the kernel's winners where a near-tie picked another unit (the count of
   such samples is asserted small); two launches are bitwise equal.
-- RBM: with injected uniforms, the statistics within 1e-4 of the largest
-  magnitude when no sampled unit flipped, and the flips (a draw ``u`` that
-  lands between the kernel's and cuBLAS's ``p``) at most 1e-5 of the draws;
-  the in-kernel generator bitwise equal to the twin; the same seed gives
-  bitwise-equal outputs and another seed other ones; the saturated regime
-  exact; Bernoulli frequencies within 5 sigma.
+- RBM: with injected uniforms and with the kernel's own draws, every
+  draw of the chain counted as a flip where the plain version, led along
+  the kernel's own samples, would have drawn the other way (a draw ``u``
+  that lands between the kernel's and cuBLAS's ``p``): at most 1e-5 of the
+  draws; the statistics within 1e-4 of the largest magnitude when no draw
+  flipped, and always (along the kernel's samples) within 10 times the f32
+  plain version's error against a float64 plain version; one launch count
+  a call; the in-kernel generator bitwise equal to the twin; the same seed
+  gives bitwise-equal outputs and another seed other ones; the saturated
+  regime exact; Bernoulli frequencies within 5 sigma; nothing written past
+  any output or scratch buffer (each taken from the front of a NaN-filled
+  larger one); V 784 with H 14,000 (above what one block's shared memory
+  held before the kernel became a GEMM).
 """
 
 import math
@@ -156,6 +163,72 @@ def test_rbm_plain_version_matches_numpy():
     np.testing.assert_allclose(float(err), want[3][0] / mn.sum(), rtol=1e-5)
 
 
+@pytest.mark.parametrize("cd_k", [1, 3])
+def test_rbm_plain_version_led_by_its_own_samples_is_bitwise_the_same(cd_k):
+    params, v0, mask = _rbm_case(33, 50, 21, 30, 6)
+    uh, uv = rbk.chain_uniforms(8, 33, 50, 21, cd_k)
+    chain, led = {}, {}
+    want = rbk.statistics_reference(params, v0, mask, uh, uv, cd_k=cd_k, chain=chain)
+    samples = (chain["hidden_samples"], chain["visible_samples"])
+    got = rbk.statistics_reference(params, v0, mask, None, None, cd_k=cd_k, chain=led,
+                                   samples=samples)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    for key in ("h0p", "vp", "hp", "hidden_samples", "visible_samples", "hidden_probs",
+                "visible_probs"):
+        assert torch.equal(led[key], chain[key]), key
+    # the draws are its own thresholds: nothing flips
+    assert rbk.count_flips(chain, led, uh, uv) == 0
+    # a draw turned over is counted, and the chain then follows it
+    turned = (samples[0].clone(), samples[1].clone())
+    turned[1][cd_k - 1, 0, 0] = 1.0 - turned[1][cd_k - 1, 0, 0]
+    other = {}
+    got = rbk.statistics_reference(params, v0, mask, None, None, cd_k=cd_k, chain=other,
+                                   samples=turned)
+    assert rbk.count_flips({"hidden_samples": turned[0], "visible_samples": turned[1]},
+                           other, uh, uv) >= 1
+    assert not torch.equal(got[0], want[0])
+
+
+@pytest.mark.parametrize("cd_k", [1, 2])
+def test_rbm_plain_version_in_float64_along_the_same_samples(cd_k):
+    """The oracle of the kernel's float64 check: the f32 plain version and a
+    float64 one led along one sample path agree to f32 rounding (1e-5 of
+    the largest magnitude: sums of B terms in f32)."""
+    params, v0, mask = _rbm_case(40, 96, 24, 35, 7)
+    uh, uv = rbk.chain_uniforms(3, 40, 96, 24, cd_k)
+    chain = {}
+    got = rbk.statistics_reference(params, v0, mask, uh, uv, cd_k=cd_k, chain=chain)
+    p64 = {k: t.double() for k, t in params.items()}
+    exact = rbk.statistics_reference(
+        p64, v0.double(), mask.double(), None, None, cd_k=cd_k,
+        samples=(chain["hidden_samples"], chain["visible_samples"]))
+    for g, e in zip(got, exact):
+        assert e.dtype == torch.float64
+        _near(g.numpy(), e.numpy(), 1e-5)
+
+
+def test_rbm_cpu_path_chain_holds_the_samples():
+    b, v, h, cd_k = 12, 20, 7, 3
+    params, v0, mask = _rbm_case(b, v, h, b, 4)
+    chain = {}
+    rbk.statistics(params, v0, mask, 5, cd_k=cd_k, chain=chain)
+    want = {"h0p": (b, h), "vp": (b, v), "hp": (b, h), "hidden_samples": (cd_k, b, h),
+            "visible_samples": (cd_k, b, v), "hidden_probs": (cd_k, b, h),
+            "visible_probs": (cd_k, b, v)}
+    assert {k: tuple(t.shape) for k, t in chain.items()} == want
+    for key in ("hidden_samples", "visible_samples"):
+        assert chain[key].dtype == torch.float32
+        assert bool(((chain[key] == 0) | (chain[key] == 1)).all())
+    uh, uv = rbk.chain_uniforms(5, b, v, h, cd_k)
+    assert torch.equal(chain["hidden_samples"][0], (uh[0] < chain["h0p"]).float())
+    assert torch.equal(chain["hidden_probs"][0], chain["h0p"])
+    assert torch.equal(chain["visible_probs"][-1], chain["vp"])
+    # the kernel's buffers cover what the chain holds
+    shapes = rbk.buffer_shapes(b, v, h, cd_k)
+    for key in ("h0p", "vp", "hp", "hidden_samples", "visible_samples"):
+        assert shapes[key] == want[key]
+
+
 def test_cpu_tensors_take_the_plain_versions_and_launch_nothing():
     before = (khk.accumulate.launches, rbk.statistics.launches)
     w, x, mask, d2m, coords = _kohonen_case(20, 2, 8, 20, 3)
@@ -240,16 +313,43 @@ def test_kohonen_kernel_refuses_what_it_does_not_take(card):
         khk.accumulate(w, x.cpu(), mask, d2m, 1.0)
 
 
-def _flips(got, ref, u):
-    """Sampled units whose draw differs between two probability tensors."""
-    return int(((u < got) != (u < ref)).sum())
-
+# the 3xTF32 kernel against float64: within this factor of the f32 plain
+# version's error (one TF32 product would be ~1000 times it)
+FLOAT64_FACTOR = 10
 
 RBM_CASES = [  # (B, V, H, cd_k, valid rows)
     (100, 784, 128, 1, 93),  # the model's shape, a masked tail
-    (70, 50, 33, 3, 64),     # ragged tiles, k 3
+    (70, 50, 33, 3, 64),     # ragged tiles, 4-byte copies, k 3
     (300, 200, 1024, 2, 300),
 ]
+
+
+def _check_rbm_kernel(params, v0, mask, seed, cd_k, uniforms, uh, uv):
+    """The kernel's statistics against the plain version's: flips over every
+    draw, 1e-4 where none flipped, float64 along the kernel's samples."""
+    chain, led = {}, {}
+    before = rbk.statistics.launches
+    got = rbk.statistics(params, v0, mask, seed, cd_k=cd_k, uniforms=uniforms, chain=chain)
+    torch.cuda.synchronize()
+    assert rbk.statistics.launches - before == 1
+    samples = (chain["hidden_samples"], chain["visible_samples"])
+    assert samples[0].shape == uh[:cd_k].shape and samples[1].shape == uv.shape
+    plain = rbk.statistics_reference(params, v0, mask, uh, uv, cd_k=cd_k, chain=led,
+                                     samples=samples)
+    flips = rbk.count_flips(chain, led, uh, uv)
+    assert flips <= 1e-5 * (samples[0].numel() + samples[1].numel()) + 1
+    if flips == 0:
+        ref = rbk.statistics_reference(params, v0, mask, uh, uv, cd_k=cd_k)
+        for g, r in zip(got, ref):
+            _near(g.cpu(), r.cpu(), 1e-4)
+    p64 = {k: t.double() for k, t in params.items()}
+    exact = rbk.statistics_reference(p64, v0.double(), mask.double(), None, None, cd_k=cd_k,
+                                     samples=samples)
+    for g, p, e in list(zip(got, plain, exact))[:3]:  # dW, dvb, dhb
+        ek = float((g.double() - e).abs().max())
+        ep = float((p.double() - e).abs().max())
+        assert math.isfinite(ek) and ek <= FLOAT64_FACTOR * ep, (ek, ep)
+    return got
 
 
 @pytest.mark.cuda
@@ -259,20 +359,57 @@ def test_rbm_kernel_matches_plain_version(card, b, v, h, cd_k, n_valid):
     params, v0, mask = _rbm_case(b, v, h, n_valid, b + v, card)
     seed = 17
     uh, uv = rbk.chain_uniforms(seed, b, v, h, cd_k, card)
-    draws = uh[:1].numel() + uv.numel() + (cd_k - 1) * uh[0].numel()
     for uniforms in ((uh, uv), None):  # injected, then the kernel's own draws
-        chain, ref_chain = {}, {}
-        before = rbk.statistics.launches
-        got = rbk.statistics(params, v0, mask, seed, cd_k=cd_k, uniforms=uniforms, chain=chain)
-        torch.cuda.synchronize()
-        assert rbk.statistics.launches - before == 1
-        ref = rbk.statistics_reference(params, v0, mask, uh, uv, cd_k=cd_k, chain=ref_chain)
-        flips = (_flips(chain["h0p"], ref_chain["h0p"], uh[0])
-                 + _flips(chain["vp"], ref_chain["vp"], uv[cd_k - 1]))
-        assert flips <= 1e-5 * draws + 1
-        if flips == 0:
-            for g, r in zip(got, ref):
-                _near(g.cpu(), r.cpu(), 1e-4)
+        _check_rbm_kernel(params, v0, mask, seed, cd_k, uniforms, uh, uv)
+
+
+@pytest.mark.cuda
+def test_rbm_kernel_takes_a_wide_hidden_layer(card):
+    """V 784 with H 14,000: beyond what one block's shared memory held when a
+    block ran a row's whole chain."""
+    b, v, h = 8, 784, 14_000
+    params, v0, mask = _rbm_case(b, v, h, 7, 3, card)
+    uh, uv = rbk.chain_uniforms(4, b, v, h, 1, card)
+    _check_rbm_kernel(params, v0, mask, 4, 1, (uh, uv), uh, uv)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,v,h,cd_k", [(100, 784, 128, 1), (70, 50, 33, 3)],
+                         ids=["b100_784x128_k1", "b70_50x33_k3"])
+def test_rbm_kernel_writes_nothing_past_its_buffers(card, monkeypatch, b, v, h, cd_k):
+    """The canary: every output and scratch buffer taken from the front of a
+    NaN-filled larger one; what lies past them stays NaN, and the results
+    are the wrapper's own, bit for bit."""
+    params, v0, mask = _rbm_case(b, v, h, b - 3, 9, card)
+    want = rbk.statistics(params, v0, mask, 21, cd_k=cd_k)
+    carved = {}
+
+    def canary_buffers(b_, v_, h_, k_, device):
+        out = {}
+        for name, shape in rbk.buffer_shapes(b_, v_, h_, k_).items():
+            n = math.prod(shape)
+            full = torch.full((n + 4096,), float("nan"), device=device)
+            carved[name] = (full, n)
+            out[name] = full[:n].view(shape)
+        return out
+
+    monkeypatch.setattr(rbk, "_buffers", canary_buffers)
+    got = rbk.statistics(params, v0, mask, 21, cd_k=cd_k)
+    torch.cuda.synchronize()
+    assert set(carved) == set(rbk.buffer_shapes(b, v, h, cd_k))
+    for name, (full, n) in carved.items():
+        assert bool(torch.isnan(full[n:]).all()), f"written past {name}"
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.cuda
+def test_rbm_kernel_refuses_a_grid_past_its_y_extent(card):
+    b = rbk.MAX_GRID_Y * rbk.TILE + 1
+    params = {"weights": torch.zeros((1, 1), device=card), "vbias": torch.zeros(1, device=card),
+              "hbias": torch.zeros(1, device=card)}
+    with pytest.raises(ValueError, match="65535"):
+        rbk.statistics(params, torch.zeros((b, 1), device=card), torch.ones(b, device=card), 0,
+                       cd_k=1)
 
 
 @pytest.mark.cuda

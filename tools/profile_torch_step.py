@@ -33,7 +33,8 @@ FAMILIES = (  # first match wins; matched against the lower-cased kernel name
     # csrc/kohonen.cu's and csrc/rbm.cu's kernels
     ("kohonen (hand-written)", ("kohonen_cu", "namespace)::winners_kernel",
                                 "namespace)::accum_kernel")),
-    ("rbm (hand-written)", ("rbm_cu", "namespace)::chain_kernel", "namespace)::stats_kernel")),
+    ("rbm (hand-written)", ("rbm_cu", "namespace)::hidden_kernel", "namespace)::visible_kernel",
+                            "namespace)::stats_kernel")),
     ("pooling", ("pool",)),
     ("conv (cuDNN)", ("cudnn", "conv", "implicit", "wgrad", "dgrad", "fprop", "nhwc")),
     ("matmul (cuBLAS)", ("gemm", "gemv", "cutlass", "nvjet")),

@@ -100,7 +100,8 @@ def build_workflow(**overrides) -> StandardWorkflow:
     if lcfg.get("data_dir") or root.common.get("data_dir"):
         raise NotImplementedError(
             "the real ImageNet loader (data_dir) comes in a later slice of "
-            "the port; leave data_dir unset for the synthetic stand-in"
+            "the port (ROADMAP.md A5, loader/imagenet.py); leave data_dir "
+            "unset for the synthetic stand-in"
         )
     loader = datasets.imagenet_synthetic(
         image_size=lcfg.get("image_size", 227),

@@ -7,11 +7,14 @@ Gibbs chain and emits the masked statistics ``dW``, ``dvb``, ``dhb`` and
 
 The kernel is ``znicz_tpu_torch/csrc/rbm.cu`` (plain C interface, built
 with ``nvcc`` for ``sm_90a`` at first use by :mod:`cuda_build`, loaded with
-ctypes): one launch runs the chain for a few batch rows a block with their
-states in shared memory, a second one owns each tile of ``dW`` and sums
-over the batch in a fixed order (no atomics, the same bits every run).  The
-two launches are one logical step: ``statistics.launches`` counts one per
-call that reaches the card.  What bounds it and why it is built so: see the
+ctypes): one tiled GEMM on the tensor cores in 3xTF32 (``mma.sync``
+m16n8k8), launched ``2k + 2`` times a step with a sampling epilogue for
+each product of the chain and a last launch for the statistics.  The
+chain's states live between launches in buffers that this wrapper
+allocates (:func:`_buffers`), so any shape that fits the card runs; sums
+run in a fixed order (no atomics, the same bits every run).  One C call
+is one logical step: ``statistics.launches`` counts one per call that
+reaches the card.  What bounds it and why it is built so: see the
 source.
 
 Random numbers: the TPU kernel samples with the TPU's hardware PRNG, which
@@ -25,9 +28,11 @@ and the CPU path draw the same numbers from the same seed.
 
 Beside the kernel is its plain PyTorch version,
 :func:`statistics_reference`, fed explicit uniforms as the JAX kernel's
-interpret mode is (``ops/pallas/rbm.py:148-157``); :func:`statistics` takes
-it for CPU tensors, with the twin's uniforms from :func:`chain_uniforms`,
-and for CUDA tensors launches the kernel or raises.
+interpret mode is (``ops/pallas/rbm.py:148-157``), or led along a given
+sample path (``samples=``: the kernel's own, to hold it to float64 and
+count its flips); :func:`statistics` takes it for CPU tensors, with the
+twin's uniforms from :func:`chain_uniforms`, and for CUDA tensors
+launches the kernel or raises.
 """
 
 from __future__ import annotations
@@ -93,27 +98,55 @@ def chain_uniforms(seed: int, b: int, v: int, h: int, cd_k: int, device="cpu"):
 
 # -- the plain PyTorch version (CPU path and the kernel's oracle) ---------------
 
-def statistics_reference(params, v0, mask, uh, uv, *, cd_k: int, chain: Optional[dict] = None):
+def statistics_reference(params, v0, mask, uh, uv, *, cd_k: int, chain: Optional[dict] = None,
+                         samples=None):
     """``(dW [V, H], dvb [V], dhb [H], stats [2])`` of a CD-k chain driven by
     the uniforms ``uh [1+k, B, H]`` and ``uv [k, B, V]``, as ``_cd_kernel``
     computes them; ``stats`` is ``(sum_b mean_v (v0 - vp)^2 m_b, sum_b
-    m_b)``.  ``chain``, if given, receives ``h0p``, ``vp`` and ``hp``."""
+    m_b)``.  ``samples=(hidden [k, B, H], visible [k, B, V])``, if given,
+    are taken as the chain's draws instead of thresholding the uniforms
+    (which may then be None): the first hidden draw and each step's
+    visible and hidden ones, the last step's hidden units never being
+    drawn.  ``chain``, if given, receives ``h0p``, ``vp``, ``hp``, the
+    draws (``hidden_samples``, ``visible_samples``) and the probability
+    each was drawn from (``hidden_probs``, ``visible_probs``)."""
     w, vb, hb = params["weights"], params["vbias"], params["hbias"]
-    h0p = torch.sigmoid(v0 @ w + hb)
-    h = (uh[0] < h0p).to(v0.dtype)
+
+    def draw(p, k, side):  # side 0: hidden, 1: visible
+        if samples is not None:
+            return samples[side][k].to(v0.dtype)
+        return ((uh, uv)[side][k] < p).to(v0.dtype)
+
+    h0p = hp = torch.sigmoid(v0 @ w + hb)
+    hs, vs, hps, vps = [], [], [], []
     for k in range(cd_k):
+        h = draw(hp, k, 0)
         vp = torch.sigmoid(h @ w.T + vb)
-        v = (uv[k] < vp).to(v0.dtype)
+        v = draw(vp, k, 1)
+        hs.append(h), hps.append(hp), vs.append(v), vps.append(vp)
         hp = torch.sigmoid(v @ w + hb)
-        h = (uh[k + 1] < hp).to(v0.dtype)
     if chain is not None:
-        chain.update(h0p=h0p, vp=vp, hp=hp)
+        chain.update(h0p=h0p, vp=vp, hp=hp, hidden_samples=torch.stack(hs),
+                     visible_samples=torch.stack(vs), hidden_probs=torch.stack(hps),
+                     visible_probs=torch.stack(vps))
     m = mask[:, None]
     dw = (v0 * m).T @ h0p - (vp * m).T @ hp
     dvb = torch.sum((v0 - vp) * m, dim=0)
     dhb = torch.sum((h0p - hp) * m, dim=0)
     err = torch.sum(torch.mean(torch.square(v0 - vp), dim=1) * mask)
     return dw, dvb, dhb, torch.stack([err, torch.sum(mask)])
+
+
+def count_flips(chain, led, uh, uv) -> int:
+    """Draws of ``chain`` (a kernel's) that the plain version, led along the
+    same samples (``led``: its ``chain`` from ``statistics_reference(...,
+    samples=)``), would have drawn the other way from the same uniforms:
+    every draw of the chain is counted."""
+    cd_k = uv.shape[0]
+    return int(((uh[:cd_k] < led["hidden_probs"]).to(torch.float32)
+                != chain["hidden_samples"]).sum()
+               + ((uv < led["visible_probs"]).to(torch.float32)
+                  != chain["visible_samples"]).sum())
 
 
 def _apply_update(params, dw, dvb, dhb, stats, learning_rate):
@@ -132,18 +165,42 @@ def _apply_update(params, dw, dvb, dhb, stats, learning_rate):
 
 # -- the CUDA kernel ----------------------------------------------------------
 
+TILE = 64  # the edge of a GEMM block's output tile in csrc/rbm.cu (its TILE)
+MAX_GRID_Y = 65535  # a CUDA grid's y extent: the launches' row tiles of B or V
+
+
+def _tiles(n: int) -> int:
+    return -(-n // TILE)
+
+
+def buffer_shapes(b: int, v: int, h: int, cd_k: int) -> Dict[str, Tuple[int, ...]]:
+    """Every output and scratch buffer of one kernel call, by name, in the C
+    entry's order: the chain's probabilities and draws, the partial sums of
+    the error (one a row and 64-column tile), of ``dvb`` and ``dhb`` (one a
+    64-row tile and column), and the four statistics."""
+    return {
+        "h0p": (b, h), "vp": (b, v), "hp": (b, h),
+        "hidden_samples": (cd_k, b, h), "visible_samples": (cd_k, b, v),
+        "err_part": (b, _tiles(v)), "dvb_part": (_tiles(b), v), "dhb_part": (_tiles(b), h),
+        "dw": (v, h), "dvb": (v,), "dhb": (h,), "stats": (2,),
+    }
+
+
+def _buffers(b: int, v: int, h: int, cd_k: int, device) -> Dict[str, torch.Tensor]:
+    """The buffers of :func:`buffer_shapes`, uninitialised: the kernel writes
+    each whole before it reads it."""
+    return {name: torch.empty(shape, dtype=torch.float32, device=device)
+            for name, shape in buffer_shapes(b, v, h, cd_k).items()}
+
+
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = cuda_build.load("rbm")
     ptr, i32, u32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
-    lib.znicz_rbm_cd.argtypes = [ptr] * 15 + [i32] * 4 + [u32, ptr]
+    lib.znicz_rbm_cd.argtypes = [ptr] * 19 + [i32] * 4 + [u32, ptr]
     lib.znicz_rbm_cd.restype = i32
     lib.znicz_rbm_uniforms.argtypes = [ptr, ctypes.c_longlong, u32, u32, ptr]
     lib.znicz_rbm_uniforms.restype = i32
-    lib.znicz_rbm_chain_rows.argtypes = [i32] * 3
-    lib.znicz_rbm_chain_rows.restype = i32
-    lib.znicz_rbm_chain_smem_bytes.argtypes = [i32] * 3
-    lib.znicz_rbm_chain_smem_bytes.restype = ctypes.c_longlong
     lib.znicz_rbm_error_string.argtypes = [i32]
     lib.znicz_rbm_error_string.restype = ctypes.c_char_p
     return lib
@@ -153,14 +210,6 @@ def _raise_on(rc: int, what: str) -> None:
     if rc != 0:
         msg = _lib().znicz_rbm_error_string(rc).decode()
         raise RuntimeError(f"{what}: kernel launch failed with CUDA error {rc} ({msg})")
-
-
-def chain_rows(b: int, v: int, h: int, device="cuda") -> Tuple[int, int]:
-    """(batch rows a chain block takes, its dynamic shared memory in bytes)
-    for this shape on ``device``; rows 0 means the shape does not fit."""
-    with torch.cuda.device(device):
-        rows = _lib().znicz_rbm_chain_rows(b, v, h)
-    return rows, (_lib().znicz_rbm_chain_smem_bytes(rows, v, h) if rows else 0)
 
 
 def uniforms_cuda(seed: int, stream: int, shape, device="cuda") -> torch.Tensor:
@@ -200,6 +249,12 @@ def _check(params, v0, mask, cd_k, uniforms) -> None:
         if tuple(t.shape) != want[name]:
             raise ValueError(f"rbm statistics: {name} has shape {tuple(t.shape)}, "
                              f"want {want[name]}")
+    if b == 0:
+        raise ValueError("rbm statistics: empty batch")
+    if _tiles(max(b, v)) > MAX_GRID_Y:
+        raise ValueError(f"rbm statistics: B {b} and V {v} must be at most "
+                         f"{MAX_GRID_Y * TILE} (their {TILE}-row tiles are a grid's y axis, "
+                         f"at most {MAX_GRID_Y})")
 
 
 def statistics(params, v0, mask, seed: int, *, cd_k: int, uniforms=None,
@@ -209,7 +264,10 @@ def statistics(params, v0, mask, seed: int, *, cd_k: int, uniforms=None,
     ``uniforms=(uh, uv)`` is given), else the kernel, which draws from
     ``seed`` itself or reads ``uniforms`` (counted in
     ``statistics.launches``).  ``chain``, if given, receives the chain's
-    ``h0p``, ``vp`` and ``hp``."""
+    ``h0p``, ``vp``, ``hp`` and its draws, ``hidden_samples [k, B, H]`` (the
+    first hidden draw, then each step's but the last) and
+    ``visible_samples [k, B, V]``; the plain version adds the probabilities
+    they were drawn from (see :func:`statistics_reference`)."""
     b, v = v0.shape
     h = params["hbias"].shape[0]
     tensors = [v0, mask, *params.values(), *(uniforms or ())]
@@ -218,22 +276,12 @@ def statistics(params, v0, mask, seed: int, *, cd_k: int, uniforms=None,
             seed, b, v, h, cd_k, v0.device)
         return statistics_reference(params, v0, mask, uh, uv, cd_k=cd_k, chain=chain)
     _check(params, v0, mask, cd_k, uniforms)
-    if b == 0:
-        raise ValueError("rbm statistics: empty batch")
-    dev = v0.device
-    f32 = dict(dtype=torch.float32, device=dev)
-    dw = torch.empty((v, h), **f32)
-    dvb, dhb, stats = torch.empty((v,), **f32), torch.empty((h,), **f32), torch.empty((2,), **f32)
-    h0p, vp, hp = torch.empty((b, h), **f32), torch.empty((b, v), **f32), torch.empty((b, h), **f32)
-    err_row = torch.empty((b,), **f32)
-    if chain_rows(b, v, h, dev)[0] == 0:
-        raise ValueError(f"rbm statistics: V + H = {v + h} does not fit a block's shared "
-                         "memory (the limit is about 14,000 units)")
+    out = _buffers(b, v, h, cd_k, v0.device)
     uh, uv = uniforms if uniforms is not None else (None, None)
     ptrs = [v0, mask, params["weights"], params["vbias"], params["hbias"], uh, uv,
-            h0p, vp, hp, err_row, dw, dvb, dhb, stats]
-    with torch.cuda.device(dev):
-        s = torch.cuda.current_stream(dev).cuda_stream
+            *out.values()]
+    with torch.cuda.device(v0.device):
+        s = torch.cuda.current_stream(v0.device).cuda_stream
         rc = _lib().znicz_rbm_cd(
             *(ctypes.c_void_p(None if t is None else t.data_ptr()) for t in ptrs),
             b, v, h, cd_k, int(seed) & M32, ctypes.c_void_p(s),
@@ -241,8 +289,9 @@ def statistics(params, v0, mask, seed: int, *, cd_k: int, uniforms=None,
     _raise_on(rc, "rbm statistics")
     statistics.launches += 1
     if chain is not None:
-        chain.update(h0p=h0p, vp=vp, hp=hp)
-    return dw, dvb, dhb, stats
+        chain.update({k: out[k] for k in ("h0p", "vp", "hp", "hidden_samples",
+                                          "visible_samples")})
+    return out["dw"], out["dvb"], out["dhb"], out["stats"]
 
 
 statistics.launches = 0

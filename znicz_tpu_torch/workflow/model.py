@@ -79,11 +79,11 @@ _POOL = {
 }
 # layer types of the JAX package that later slices of the port bring
 _LATER = {
-    "maxabs_pooling": "the conv-family slice",
-    "stochastic_pooling": "the conv-family slice",
-    "cutter": "the conv-family slice",
-    "activation_*": "the conv-family slice",
-    "deconv": "the unsupervised slice",
+    "maxabs_pooling": "a later slice (ROADMAP.md A5, ops/pooling.py)",
+    "stochastic_pooling": "a later slice (ROADMAP.md A5, ops/pooling.py)",
+    "cutter": "a later slice (ROADMAP.md A5, ops/cutter.py)",
+    "activation_*": "a later slice (ROADMAP.md A5, ops/cutter.py)",
+    "deconv": "a later slice (ROADMAP.md A10, ops/deconv.py)",
     "moe": "a later slice (ROADMAP.md A7, ops/moe.py)",
 }
 _INIT_KEYS = ("weights_stddev", "bias_stddev", "weights_filling", "bias_filling")
