@@ -55,15 +55,22 @@ result line) when any phase fails:
    weights;
 9. the Kohonen and RBM builds (made with the flash build): nvcc's seconds, ptxas' registers, spills and
    static shared memory of each kernel; the SASS ``HMMA`` count of each of
-   the six RBM GEMM instantiations (``hidden_kernel``, ``visible_kernel``,
-   ``stats_kernel``, each with 16- and 4-byte copies: it fails if one has
-   none), and the RBM's launches and grids at each check shape;
+   the four Kohonen GEMM instantiations (``scores_kernel``,
+   ``accum_kernel``) and the six RBM ones (``hidden_kernel``,
+   ``visible_kernel``, ``stats_kernel``), each with 16- and 4-byte copies:
+   it fails if one has none; both kernels' launches and grids at each check
+   shape;
 10. the Kohonen kernel against its plain version (num, den and the updated
     weights within 1e-5 of the largest magnitude, on the synthetic MNIST
     blobs): the model's shape (B 100, 8x8, F 784, masked tail), B 600 with
     500 valid (6x6, F 256), B 300 (6x6, F 64) and B 4096 (32x32, F 784); a
-    repeat launch must be bitwise equal; samples whose winner differs are
-    counted (the plain version then takes the kernel's winners);
+    repeat launch must be bitwise equal; one launch count a call; samples
+    whose winner differs are counted, at most max(1, B // 1000) near-ties
+    (the plain version then takes the kernel's winners); num and den
+    against a float64 plain version along the kernel's winners within 10
+    times the f32 plain version's error; a canary (every output and scratch
+    buffer at the front of a NaN-filled larger one, with 16- and 4-byte
+    copies) unchanged past them;
 11. the RBM kernel against its plain version: the saturated regime exact;
     with injected uniforms and with the kernel's own draws against the
     plain version fed the generator twin's uniforms, at (B 100, 784x128,
@@ -79,20 +86,23 @@ result line) when any phase fails:
     4-byte copies) unchanged past them; the kernel's generator bitwise equal
     to its twin; Bernoulli frequencies at p 0.1, 0.5, 0.9 within 5 sigma;
 12. both kernels' times at the model's shape and the large check shape
-    (the RBM's k 3 case too) beside their bound (the RBM's at the 3xTF32
-    rate, its f32-FMA bound beside it) and their plain version's (no
-    PyTorch call computes either: library none);
+    (the RBM's k 3 case too) beside their bound (at the 3xTF32 rate, the
+    f32-FMA bound beside it) and their plain version's (no PyTorch call
+    computes either: library none);
 13. the Kohonen model (``kohonen.build_workflow(device="cuda")``: 8x8 map,
     784 features, batch 100) and 14. the MNIST RBM (``mnist_rbm``: 784 x
     128, CD-1, batch 100), each on the synthetic MNIST stand-in at MNIST's
     split sizes (60000 / 10000): one epoch with the kernel's counter set to 0
     just before and read just after (one launch a train step, 600), timed
     train steps (images/sec), and one step on the card against the CPU from
-    identical weights (the RBM with the same seed: the same chain);
+    identical weights (the Kohonen kernel's own winners within max(1, B //
+    1000) near-ties of the CPU's; the RBM with the same seed: the same
+    chain);
 15. the whole script's seconds, the ``kernels`` JSON line (each flash row
     with its bf16 times, bound, launches and error beside the f32 ones under
-    ``"bf16"``; the f32 flash rows also with their f32-FMA bound and their
-    float64 errors beside the plain version's), then the result line.
+    ``"bf16"``; the f32 flash, Kohonen and RBM rows also with their f32-FMA
+    bound and their float64 errors beside the plain version's), then the
+    result line.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``.
 """
@@ -852,6 +862,7 @@ MNIST_SPLITS = {"train": 60000, "test": 10000}  # MNIST's own split sizes
 
 
 RBM_GEMMS = {f"{k}_kernel<{copy}>" for k in ("hidden", "visible", "stats") for copy in (4, 16)}
+KOHONEN_GEMMS = {f"{k}_kernel<{copy}>" for k in ("scores", "accum") for copy in (4, 16)}
 
 
 def _kernel_name(mangled):
@@ -902,10 +913,10 @@ def _sass_hmma(cuda_build, lib_path):
     return counts
 
 
-def phase_unsup_build(built, rbk, cuda_build):
-    """Phase 9: the Kohonen and RBM libraries' builds; every RBM GEMM
-    instantiation on the tensor cores (SASS HMMA)."""
-    want = {"kohonen": {"winners_kernel", "accum_kernel"},
+def phase_unsup_build(built, khk, rbk, cuda_build):
+    """Phase 9: the Kohonen and RBM libraries' builds; every Kohonen and RBM
+    GEMM instantiation on the tensor cores (SASS HMMA)."""
+    want = {"kohonen": KOHONEN_GEMMS | {"winners_kernel"},
             "rbm": RBM_GEMMS | {"uniforms_kernel"}}
     for name in ("kohonen", "rbm"):
         b = built[name]
@@ -918,11 +929,18 @@ def phase_unsup_build(built, rbk, cuda_build):
         for kname, regs, spill, smem in sorted(rows):
             print(f"ptxas {name} {kname}: {regs} registers, spill stores/loads {spill} bytes, "
                   f"{smem} bytes static shared memory a block")
-    hmma = _sass_hmma(cuda_build, built["rbm"].path)
-    for kname in sorted(RBM_GEMMS):
-        print(f"sass rbm {kname}: {hmma.get(kname, 0)} HMMA")
-        if not hmma.get(kname):
-            fail(f"rbm {kname} has no tensor-core instructions")
+    for name, gemms in (("kohonen", KOHONEN_GEMMS), ("rbm", RBM_GEMMS)):
+        hmma = _sass_hmma(cuda_build, built[name].path)
+        for kname in sorted(gemms):
+            print(f"sass {name} {kname}: {hmma.get(kname, 0)} HMMA")
+            if not hmma.get(kname):
+                fail(f"{name} {kname} has no tensor-core instructions")
+    for tag, b, side, f, _ in KOHONEN_CASES:
+        m, t = side * side, lambda n: -(-n // khk.TILE)  # noqa: E731
+        print(f"kohonen launches at {tag} (B {b}, {side}x{side}, F {f}): 3 a call: scores grid "
+              f"{t(m)} x {t(b)} x {khk.split_count(b, m, f)} (F split), winners "
+              f"{-(-b // 8)} + table blocks of 256 threads, accum {t(f + 1)} x {t(m)} blocks of "
+              f"128 threads; {'16' if f % 4 == 0 and m % 4 == 0 else '4'}-byte copies")
     for tag, b, v, h, cd_k, _ in RBM_CASES:
         t = lambda n: -(-n // rbk.TILE)  # noqa: E731
         print(f"rbm launches at {tag} (B {b}, {v} x {h}, k {cd_k}): {2 * cd_k + 2} a step: "
@@ -949,11 +967,42 @@ def _rel_err(name, got, ref, tol, *, strict=True):
     return err
 
 
+def _kohonen_canary(torch, khk, label, w, x, mask, d2m, sigma):
+    """The C entry with every output and scratch buffer taken from the front
+    of a NaN-filled larger one: fails if anything past them changed or the
+    results differ from the wrapper's own."""
+    want = khk.accumulate(w, x, mask, d2m, sigma)
+    carved, own = {}, khk._buffers
+
+    def canary_buffers(b, m, f, device):
+        ptr = {}
+        for name, shape in khk.buffer_shapes(b, m, f).items():
+            n = math.prod(shape)
+            carved[name] = (torch.full((n + 4096,), math.nan, device=device), n)
+            ptr[name] = carved[name][0].data_ptr()
+        return (carved["num"][0][:m * f].view(m, f), carved["den"][0][:m].view(m, 1), ptr)
+
+    khk._buffers = canary_buffers
+    try:
+        got = khk.accumulate(w, x, mask, d2m, sigma)
+        torch.cuda.synchronize()
+    finally:
+        khk._buffers = own
+    past = [name for name, (full, n) in carved.items() if not bool(torch.isnan(full[n:]).all())]
+    same = all(torch.equal(g, w_) for g, w_ in zip(got, want))
+    print(f"check {label} canary: {len(carved)} buffers each at the front of a NaN-filled "
+          f"one: written past {past or 'none'}; results bitwise the wrapper's: {same}")
+    if past or not same:
+        fail(f"{label}: the kernel wrote past its buffers or read what it did not write")
+
+
 def phase_kohonen_checks(torch, khk, kh, datasets, prng):
-    """Phase 10: the Kohonen kernel against its plain version."""
+    """Phase 10: the Kohonen kernel against its plain version and against
+    float64 along its own winners.  Returns the model shape's max error
+    against the plain version and its float64 errors by output."""
     prng.seed_all(11)
     xs = torch.as_tensor(_mnist_rows(datasets, 4096, "mean_disp"), device="cuda")
-    err = 0.0
+    err, f64 = 0.0, {}
     for tag, b, side, f, n_valid in KOHONEN_CASES:
         m = side * side
         x = xs[:b, :f].contiguous()
@@ -964,14 +1013,17 @@ def phase_kohonen_checks(torch, khk, kh, datasets, prng):
         d2m = khk.pairwise_d2(kh.grid_coords(side, side, device="cuda"))
         sigma, lr = 2.5, 0.3
         win = torch.empty((b,), dtype=torch.int32, device="cuda")
+        before = khk.accumulate.launches
         num, den = khk.accumulate(w, x, mask, d2m, sigma, winners_out=win)
         num2, den2 = khk.accumulate(w, x, mask, d2m, sigma)
         torch.cuda.synchronize()
+        if khk.accumulate.launches - before != 2:
+            fail(f"kohonen {tag}: {khk.accumulate.launches - before} launch counts for two calls")
         same = torch.equal(num, num2) and torch.equal(den, den2)
         differ = int((kh.winners({"weights": w}, x) != win).sum())
         label = f"kohonen {tag} (B {b}, {side}x{side}, F {f}, {b - n_valid} masked)"
         print(f"check {label}: repeat launch bitwise equal: {same}; samples whose winner "
-              f"differs from the plain version's: {differ}"
+              f"differs from the plain version's: {differ} (limit {max(1, b // 1000)})"
               + (" (plain version run with the kernel's winners)" if differ else ""))
         if not same:
             fail(f"{label}: two launches on the same inputs differ")
@@ -983,9 +1035,24 @@ def phase_kohonen_checks(torch, khk, kh, datasets, prng):
                 _rel_err(f"{label} den", den, ref_den, KOHONEN_TOL))
         _rel_err(f"{label} updated weights", khk._apply_update(w, num, den, lr),
                  khk._apply_update(w, ref_num, ref_den, lr), KOHONEN_TOL)
+        # float64 along the kernel's winners, beside the f32 plain version there
+        plain = khk.accumulate_reference(w, x, mask, d2m, sigma, win=win)
+        exact = khk.accumulate_reference(w.double(), x.double(), mask.double(), d2m.double(),
+                                         sigma, win=win)
+        e64 = _float64_check(torch, label, ("num", "den"), (num, den), plain, exact)
         if tag == "model":
-            err = e
-    return err
+            err, f64 = e, e64
+    # the canary, with 16-byte copies (the model's shape) and 4-byte ones
+    for b, side, f in ((100, 8, 784), (70, 5, 50)):
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(b)
+        x = torch.rand((b, f), generator=gen, device="cuda")
+        w = torch.rand((side * side, f), generator=gen, device="cuda")
+        mask = (torch.arange(b, device="cuda") < b - 3).float()
+        d2m = khk.pairwise_d2(kh.grid_coords(side, side, device="cuda"))
+        _kohonen_canary(torch, khk, f"kohonen (B {b}, {side}x{side}, F {f})", w, x, mask, d2m,
+                        1.3)
+    return err, f64
 
 
 def _rbm_inputs(torch, xs, b, v, h, n_valid, seed):
@@ -1160,13 +1227,19 @@ def phase_unsup_times(torch, khk, kh, rbk):
         d2m = khk.pairwise_d2(kh.grid_coords(side, side, device="cuda"))
         ms = cuda_ms(lambda: khk.accumulate(w, x, mask, d2m, 2.0))
         plain = cuda_ms(lambda: khk.accumulate_reference(w, x, mask, d2m, 2.0))
-        # x, w, mask and d2m read once; num and den written once
-        bound, by = _unsup_bound(4 * b * m * f, 4 * (b * f + m * f + b + m * m + m * f + m))
+        # x, w, mask and d2m read once; num and den written once; the two
+        # products at the 3xTF32 rate (three TF32 products for one), and on
+        # f32 FMAs beside it
+        nbytes = 4 * (b * f + m * f + b + m * m + m * f + m)
+        bound, by = _unsup_bound(4 * b * m * f, nbytes, TF32_FLOPS / 3)
+        fma_bound, _ = _unsup_bound(4 * b * m * f, nbytes)
         rows[("kohonen_accumulate", tag)] = dict(ms=ms, plain_ms=plain, bound_ms=bound,
-                                                 bound_by=by, library_ms=None)
-        print(f"time kohonen_accumulate {tag} (B {b}, {side}x{side}, F {f}): kernel {ms:.4f} ms, "
-              f"bound {bound:.4f} ms ({by}), plain {plain:.4f} ms, library: none (no single "
-              f"PyTorch call computes it)")
+                                                 bound_by=by, library_ms=None,
+                                                 f32_fma_bound_ms=fma_bound)
+        print(f"time kohonen_accumulate {tag} (B {b}, {side}x{side}, F {f}): kernel {ms:.4f} ms "
+              f"(3 launches), bound {bound:.4f} ms ({by}; 3xTF32; {fma_bound:.4f} ms on f32 "
+              f"FMAs), plain {plain:.4f} ms, library: none (no single PyTorch call computes "
+              f"it)")
     for tag, b, v, h, cd_k, _ in RBM_CASES:
         params, v0, mask = _rbm_inputs(torch, torch.rand((b, v), device="cuda"), b, v, h, b, 3)
         uh, uv = rbk.chain_uniforms(3, b, v, h, cd_k, "cuda")
@@ -1255,10 +1328,15 @@ def phase_kohonen_model(torch, kohonen, khk, kh, troot, prng):
     coords = kh.grid_coords(wf.sx, wf.sy, device="cpu")
     card = khk.train_step({"weights": w}, x.cuda(), coords.cuda(), mask=mask.cuda(), **kw)
     cpu = khk.train_step({"weights": w.cpu()}, x, coords, mask=mask, **kw)
-    differ = int((kh.winners({"weights": w}, x.cuda()).cpu() != kh.winners({"weights": w.cpu()}, x)).sum())
+    # the kernel's own winners on the same data against the CPU plain version's
+    win = torch.empty((x.shape[0],), dtype=torch.int32, device="cuda")
+    khk.accumulate(w, x.cuda(), mask.cuda(), khk.pairwise_d2(coords.cuda()), sigma,
+                   winners_out=win)
+    differ = int((win.cpu() != kh.winners({"weights": w.cpu()}, x)).sum())
+    limit = max(1, x.shape[0] // 1000)
     print(f"kohonen: one train step card vs CPU from identical weights (lr {lr}, sigma "
-          f"{sigma}): winners that differ {differ}")
-    if differ:
+          f"{sigma}): the kernel's winners that differ from the CPU's {differ} (limit {limit})")
+    if differ > limit:
         fail("kohonen: card and CPU pick other winners on the model's data")
     _rel_err("kohonen card vs CPU updated weights", card["weights"].cpu(), cpu["weights"],
              KOHONEN_TOL)
@@ -1348,9 +1426,11 @@ def main() -> int:
     )
     print(f"flash phases: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    phase_unsup_build(built, rbk, cuda_build)
-    unsup_err = {"kohonen_accumulate": phase_kohonen_checks(torch, khk, kh_op, datasets, prng)}
-    unsup_err["rbm_cd"], rbm_f64 = phase_rbm_checks(torch, rbk, datasets, prng)
+    phase_unsup_build(built, khk, rbk, cuda_build)
+    unsup_err, unsup_f64 = {}, {}
+    unsup_err["kohonen_accumulate"], unsup_f64["kohonen_accumulate"] = phase_kohonen_checks(
+        torch, khk, kh_op, datasets, prng)
+    unsup_err["rbm_cd"], unsup_f64["rbm_cd"] = phase_rbm_checks(torch, rbk, datasets, prng)
     unsup_rows = phase_unsup_times(torch, khk, kh_op, rbk)
     unsup_launches = {
         "kohonen_accumulate": phase_kohonen_model(torch, kohonen, khk, kh_op, troot, prng)[0],
@@ -1406,11 +1486,11 @@ def main() -> int:
             # the check shapes' times beside their bounds
             "shapes": {tag: row for (k, tag), row in unsup_rows.items()
                        if k == kname and tag != "model"},
+            # the outputs against float64 at the model's shape, beside the
+            # f32 plain version's
+            "float64_err": {g: dict(zip(("kernel", "plain"), e))
+                            for g, e in unsup_f64[kname].items()},
         })
-    # the RBM's dW, dvb, dhb against float64 at the model's shape, beside the
-    # f32 plain version's
-    rbm_row = next(k for k in kernels if k["name"] == "rbm_cd")
-    rbm_row["float64_err"] = {g: dict(zip(("kernel", "plain"), e)) for g, e in rbm_f64.items()}
     print(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({

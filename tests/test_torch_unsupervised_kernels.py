@@ -15,7 +15,11 @@ same CUDA tensors:
 - Kohonen: ``num``, ``den`` and the updated weights within 1e-5 of the
   largest magnitude (f32 sums in another order), the plain version run with
   the kernel's winners where a near-tie picked another unit (the count of
-  such samples is asserted small); two launches are bitwise equal.
+  such samples is asserted small); two launches are bitwise equal; a map
+  with duplicated units gives the first of them; ``num`` and ``den``
+  against a float64 plain version along the kernel's winners within 10
+  times the f32 plain version's error; nothing written past any output or
+  scratch buffer (each taken from the front of a NaN-filled larger one).
 - RBM: with injected uniforms and with the kernel's own draws, every
   draw of the chain counted as a flip where the plain version, led along
   the kernel's own samples, would have drawn the other way (a draw ``u``
@@ -125,6 +129,44 @@ def test_kohonen_plain_version_matches_numpy():
     # the winners are the closest units
     dist = ((xn[:, None, :] - wn[None, :, :]) ** 2).sum(-1)
     np.testing.assert_array_equal(win, dist.argmin(1))
+
+
+@pytest.mark.parametrize("b,m,f,want", [
+    (100, 64, 784, 13),   # the model's shape: 2 tiles, so F's 13 chunks split 13 ways
+    (4096, 1024, 784, 1),  # the large check shape: 1024 tiles fill the card
+    (600, 36, 256, 4),    # 10 tiles, 4 chunks
+    (33, 25, 50, 1),      # one chunk: nothing to split
+    (10, 9, 700, 11),     # 11 chunks, 1 tile
+    (64, 64, 64 * 40, 40),
+    (64 * 60, 64, 64 * 40, 5),  # 60 tiles: 5 pieces of 8 chunks
+])
+def test_kohonen_split_count(b, m, f, want):
+    nch = -(-f // khk.KC)
+    got = khk.split_count(b, m, f)
+    assert got == want
+    # the C entry's rule: pieces of ceil(nch / nsplit) chunks, none empty
+    cps = -(-nch // got)
+    assert 1 <= got <= nch and -(-nch // cps) == got and (got - 1) * cps < nch
+    blocks = -(-b // khk.TILE) * -(-m // khk.TILE)
+    assert got == 1 or blocks * got >= min(khk.TARGET_BLOCKS, blocks * nch) // 2
+
+
+def test_kohonen_buffer_shapes():
+    assert khk.buffer_shapes(100, 64, 784) == {
+        "neigh": (64, 64), "scores": (13, 100, 64), "sq": (13, 64), "win": (100,),
+        "num": (64, 784), "den": (64, 1)}
+    assert khk.buffer_shapes(4096, 1024, 784)["scores"] == (1, 4096, 1024)
+    shapes = khk.buffer_shapes(33, 25, 50)
+    num, den, ptr = khk._buffers(33, 25, 50, "cpu")
+    # one block, laid out in order, the table first
+    assert list(ptr) == list(shapes)
+    sizes = [math.prod(s) for s in shapes.values()]
+    assert [p - ptr["neigh"] for p in ptr.values()] == [4 * o for o in np.cumsum([0] + sizes[:-1])]
+    assert num.dtype == den.dtype == torch.float32
+    assert num.shape == (25, 50) and den.shape == (25, 1)
+    assert num.is_contiguous() and den.is_contiguous()
+    assert (num.data_ptr(), den.data_ptr()) == (ptr["num"], ptr["den"])
+    assert num.untyped_storage().nbytes() == 4 * sum(sizes)
 
 
 def _rbm_case(b, v, h, n_valid, seed, device="cpu", bias=0.1):
@@ -274,6 +316,10 @@ KOHONEN_CASES = [  # (B, map side, F, valid rows)
     (300, 6, 64, 300),   # no multiple of any tile
     (33, 5, 50, 33),     # one ragged tile everywhere
     (256, 32, 96, 250),  # a 32 x 32 map
+    (100, 8, 781, 90),   # F not a multiple of 4: 4-byte copies
+    (10, 9, 784, 10),    # B below one tile, M 81 not a multiple of the tile
+    (128, 8, 128, 120),  # F a multiple of the tile: den's ones column in a tile of its own
+    (1100, 10, 200, 1000),  # several batch tiles, F split 4 ways, 4-byte copies
 ]
 
 
@@ -316,6 +362,85 @@ def test_kohonen_kernel_refuses_what_it_does_not_take(card):
 # the 3xTF32 kernel against float64: within this factor of the f32 plain
 # version's error (one TF32 product would be ~1000 times it)
 FLOAT64_FACTOR = 10
+
+
+@pytest.mark.cuda
+def test_kohonen_kernel_takes_the_first_of_duplicated_units(card):
+    """Units 5, 70 and 99 of a 10x10 map are one vector, in other tiles of
+    the scores launch: the samples next to it take unit 5."""
+    rng = np.random.default_rng(3)
+    w = (rng.normal(size=(100, 96)) * 0.5).astype(np.float32)
+    w[70] = w[99] = w[5]
+    x = rng.normal(size=(300, 96)).astype(np.float32)
+    x[:150] = w[5] + 0.01 * rng.normal(size=(150, 96)).astype(np.float32)
+    w, x = torch.from_numpy(w).to(card), torch.from_numpy(x).to(card)
+    mask = torch.ones(300, device=card)
+    d2m = khk.pairwise_d2(kh.grid_coords(10, 10, device=card))
+    win = torch.empty((300,), dtype=torch.int32, device=card)
+    num, den = khk.accumulate(w, x, mask, d2m, 1.5, winners_out=win)
+    torch.cuda.synchronize()
+    assert bool((win[:150] == 5).all()), win[:150].unique()
+    assert int((kh.winners({"weights": w}, x) != win).sum()) <= 1
+    ref_num, ref_den = khk.accumulate_reference(w, x, mask, d2m, 1.5, win=win)
+    _near(num.cpu(), ref_num.cpu(), 1e-5)
+    _near(den.cpu(), ref_den.cpu(), 1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,side,f,n_valid", [(100, 8, 784, 93), (1100, 10, 200, 1000)],
+                         ids=["b100_m8x8_f784", "b1100_m10x10_f200"])
+def test_kohonen_kernel_against_float64(card, b, side, f, n_valid):
+    """num and den of the 3xTF32 kernel against a float64 plain version along
+    the kernel's own winners: within FLOAT64_FACTOR of the f32 plain
+    version's error (one TF32 product would be ~1000 times it)."""
+    w, x, mask, d2m, _ = _kohonen_case(b, side, f, n_valid, 5, card)
+    win = torch.empty((b,), dtype=torch.int32, device=card)
+    got = khk.accumulate(w, x, mask, d2m, 2.0, winners_out=win)
+    plain = khk.accumulate_reference(w, x, mask, d2m, 2.0, win=win)
+    exact = khk.accumulate_reference(w.double(), x.double(), mask.double(), d2m.double(), 2.0,
+                                     win=win)
+    for g, p, e in zip(got, plain, exact):
+        ek = float((g.double() - e).abs().max())
+        ep = float((p.double() - e).abs().max())
+        assert math.isfinite(ek) and ek <= FLOAT64_FACTOR * ep, (ek, ep)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,side,f", [(100, 8, 784), (70, 5, 50)],
+                         ids=["b100_m8x8_f784", "b70_m5x5_f50"])
+def test_kohonen_kernel_writes_nothing_past_its_buffers(card, monkeypatch, b, side, f):
+    """The canary: every output and scratch buffer taken from the front of a
+    NaN-filled larger one; what lies past it stays NaN, and the results are
+    the wrapper's own, bit for bit."""
+    w, x, mask, d2m, _ = _kohonen_case(b, side, f, b - 3, 8, card)
+    want = khk.accumulate(w, x, mask, d2m, 1.1)
+    carved = {}
+
+    def canary_buffers(b_, m_, f_, device):
+        ptr = {}
+        for name, shape in khk.buffer_shapes(b_, m_, f_).items():
+            n = math.prod(shape)
+            full = torch.full((n + 4096,), float("nan"), device=device)
+            carved[name] = (full, n)
+            ptr[name] = full.data_ptr()
+        return (carved["num"][0][:m_ * f_].view(m_, f_), carved["den"][0][:m_].view(m_, 1),
+                ptr)
+
+    monkeypatch.setattr(khk, "_buffers", canary_buffers)
+    got = khk.accumulate(w, x, mask, d2m, 1.1)
+    torch.cuda.synchronize()
+    assert set(carved) == set(khk.buffer_shapes(b, side * side, f))
+    for name, (full, n) in carved.items():
+        assert bool(torch.isnan(full[n:]).all()), f"written past {name}"
+    assert all(torch.equal(g, w_) for g, w_ in zip(got, want))
+
+
+@pytest.mark.cuda
+def test_kohonen_kernel_refuses_a_grid_past_its_y_extent(card):
+    b = khk.MAX_GRID_Y * khk.TILE + 1
+    with pytest.raises(ValueError, match="65535"):
+        khk.accumulate(torch.zeros((4, 1), device=card), torch.zeros((b, 1), device=card),
+                       torch.ones(b, device=card), torch.zeros((4, 4), device=card), 1.0)
 
 RBM_CASES = [  # (B, V, H, cd_k, valid rows)
     (100, 784, 128, 1, 93),  # the model's shape, a masked tail

@@ -31,8 +31,8 @@ FAMILIES = (  # first match wins; matched against the lower-cased kernel name
                               "namespace)::fwd_tf32_kernel", "namespace)::dq_tf32_kernel",
                               "namespace)::dkv_tf32_kernel")),
     # csrc/kohonen.cu's and csrc/rbm.cu's kernels
-    ("kohonen (hand-written)", ("kohonen_cu", "namespace)::winners_kernel",
-                                "namespace)::accum_kernel")),
+    ("kohonen (hand-written)", ("kohonen_cu", "namespace)::scores_kernel",
+                                "namespace)::winners_kernel", "namespace)::accum_kernel")),
     ("rbm (hand-written)", ("rbm_cu", "namespace)::hidden_kernel", "namespace)::visible_kernel",
                             "namespace)::stats_kernel")),
     ("pooling", ("pool",)),

@@ -7,11 +7,18 @@ accumulations ``num = h^T x`` and ``den = sum_b h`` of one batch-SOM step.
 
 The kernel is ``znicz_tpu_torch/csrc/kohonen.cu`` (plain C interface, built
 with ``nvcc`` for ``sm_90a`` at first use by :mod:`cuda_build`, loaded with
-ctypes): one launch finds the winners, a second one owns each ``[units x
-features]`` tile of ``num`` and loops over the batch in a fixed order, so
-the result is the same bits from run to run (no atomics).  What bounds it
-and why it is built so: see the source.  The two launches are one logical
-step: ``accumulate.launches`` counts one per call that reaches the card.
+ctypes): one tiled GEMM on the tensor cores in 3xTF32 (``mma.sync``
+m16n8k8), launched three times a call: the scores ``x.w^T`` (split along F
+into :func:`split_count` pieces when the tiles alone would leave the card
+idle), the winners with the neighbourhood table, and ``[num | den] = h^T
+[x | 1]`` with ``h`` gathered from that table as the batch rows are loaded.
+The partial scores, ``|w|^2``, the winners and the table live between the
+launches in scratch that this wrapper allocates with the results in one
+block (:func:`_buffers`, shapes from :func:`buffer_shapes`); every sum
+runs in a fixed order (no atomics), so the result is the same bits from
+run to run.  What bounds it and why it is built so: see the source.  The
+three launches are one logical step: ``accumulate.launches`` counts one
+per call that reaches the card.
 
 Beside it is the plain PyTorch version, :func:`accumulate_reference`, the
 CPU path and the kernel's oracle; :func:`accumulate` takes it for CPU
@@ -24,7 +31,8 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Dict, Optional
+import math
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -64,11 +72,70 @@ def _apply_update(w, num, den, learning_rate):
 
 # -- the CUDA kernel ----------------------------------------------------------
 
+TILE = 64  # the edge of a GEMM block's output tile in csrc/kohonen.cu (its TILE)
+KC = 64  # the features of one reduction chunk there (its KC)
+MAX_GRID_Y = 65535  # a CUDA grid's y extent: the launches' tiles of B or M
+# blocks that fill the card: two resident GEMM blocks on each of an H100's 132 SMs
+TARGET_BLOCKS = 2 * 132
+
+
+def _ceil_div(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def split_count(b: int, m: int, f: int) -> int:
+    """Pieces the scores launch splits F into: 1 when its ``[B tile, M tile]``
+    blocks fill the card, else enough pieces of whole 64-feature chunks to
+    come near :data:`TARGET_BLOCKS` (every piece non-empty)."""
+    nch, blocks = _ceil_div(f, KC), _ceil_div(b, TILE) * _ceil_div(m, TILE)
+    want = min(nch, max(1, _ceil_div(TARGET_BLOCKS, blocks)))
+    return _ceil_div(nch, _ceil_div(nch, want))
+
+
+def buffer_shapes(b: int, m: int, f: int) -> Dict[str, Tuple[int, ...]]:
+    """Every buffer of one kernel call, by name, in 4-byte elements: the
+    neighbourhood table, each piece's partial scores and ``|w|^2`` and the
+    winners (int32, taken when the caller passes no ``winners_out``), all
+    scratch that the kernel writes whole before it reads it, then the
+    results ``num`` and ``den``."""
+    nsplit = split_count(b, m, f)
+    return {"neigh": (m, m), "scores": (nsplit, b, m), "sq": (nsplit, m), "win": (b,),
+            "num": (m, f), "den": (m, 1)}
+
+
+_split_count = functools.lru_cache(maxsize=64)(split_count)
+
+
+@functools.lru_cache(maxsize=64)
+def _layout(b: int, m: int, f: int) -> Tuple[Dict[str, int], int]:
+    """Each buffer's offset in elements when :func:`buffer_shapes` is laid out
+    in order in one block, and the block's size; once per shape."""
+    offsets, total = {}, 0
+    for name, shape in buffer_shapes(b, m, f).items():
+        offsets[name] = total
+        total += math.prod(shape)
+    return offsets, total
+
+
+def _buffers(b: int, m: int, f: int, device):
+    """``(num [M, F], den [M, 1], {name: data pointer})`` of the buffers of
+    :func:`buffer_shapes`, uninitialised, carved from one float32 allocation
+    (the table first, so that it starts on 16 bytes).  Pointers and not
+    views: at the model's shape a call's host time is most of its time, and
+    ``num`` and ``den`` keep the allocation alive."""
+    offsets, total = _layout(b, m, f)
+    block = torch.empty(total, dtype=torch.float32, device=device)
+    base = block.data_ptr()
+    num = block.as_strided((m, f), (f, 1), offsets["num"])
+    den = block.as_strided((m, 1), (1, 1), offsets["den"])
+    return num, den, {name: base + 4 * off for name, off in offsets.items()}
+
+
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = cuda_build.load("kohonen")
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.znicz_kohonen_accumulate.argtypes = [ptr] * 7 + [i32] * 3 + [f32, ptr]
+    lib.znicz_kohonen_accumulate.argtypes = [ptr] * 10 + [i32] * 4 + [f32, ptr]
     lib.znicz_kohonen_accumulate.restype = i32
     lib.znicz_kohonen_error_string.argtypes = [i32]
     lib.znicz_kohonen_error_string.restype = ctypes.c_char_p
@@ -77,6 +144,16 @@ def _lib() -> ctypes.CDLL:
 
 def _check(w, x, mask, d2m) -> None:
     """Raise ``ValueError`` on what the kernel does not take."""
+    card = x.get_device()  # -1 off the card
+    if (card >= 0 and w.get_device() == card and mask.get_device() == card
+            and d2m.get_device() == card
+            and x.dtype == w.dtype == mask.dtype == d2m.dtype == torch.float32
+            and x.is_contiguous() and w.is_contiguous() and mask.is_contiguous()
+            and d2m.is_contiguous() and x.dim() == 2 and w.dim() == 2
+            and x.shape[1] == w.shape[1] and mask.shape == x.shape[:1]
+            and d2m.shape == (w.shape[0], w.shape[0])
+            and _ceil_div(max(x.shape[0], w.shape[0]), TILE) <= MAX_GRID_Y):
+        return  # the common case, in few host operations; what fails, by name below
     for name, t in (("w", w), ("x", x), ("mask", mask), ("d2m", d2m)):
         if t.device.type != "cuda" or t.device != x.device:
             raise ValueError(f"kohonen accumulate: kernel needs CUDA tensors on one card, "
@@ -92,6 +169,10 @@ def _check(w, x, mask, d2m) -> None:
     if mask.shape != (x.shape[0],) or d2m.shape != (m, m):
         raise ValueError(f"kohonen accumulate: want mask [B] and d2m [M, M], got "
                          f"{tuple(mask.shape)} and {tuple(d2m.shape)}")
+    if _ceil_div(max(x.shape[0], m), TILE) > MAX_GRID_Y:
+        raise ValueError(f"kohonen accumulate: B {x.shape[0]} and M {m} must be at most "
+                         f"{MAX_GRID_Y * TILE} (their {TILE}-row tiles are a grid's y axis, "
+                         f"at most {MAX_GRID_Y})")
 
 
 def accumulate(w, x, mask, d2m, sigma, *, winners_out: Optional[torch.Tensor] = None):
@@ -99,28 +180,34 @@ def accumulate(w, x, mask, d2m, sigma, *, winners_out: Optional[torch.Tensor] = 
     for CPU tensors, else the kernel (counted in ``accumulate.launches``).
     ``sigma`` is a host scalar.  ``winners_out`` (CUDA int32 ``[B]``), if
     given, receives the kernel's winners."""
-    if all(t.device.type == "cpu" for t in (w, x, mask, d2m)):
+    if w.is_cpu and x.is_cpu and mask.is_cpu and d2m.is_cpu:
         return accumulate_reference(w, x, mask, d2m, sigma)
     _check(w, x, mask, d2m)
     b, f = x.shape
     m = w.shape[0]
-    num = torch.empty((m, f), dtype=torch.float32, device=x.device)
-    den = torch.empty((m, 1), dtype=torch.float32, device=x.device)
     if b == 0:
-        return num.zero_(), den.zero_()
+        return (torch.zeros((m, f), dtype=torch.float32, device=x.device),
+                torch.zeros((m, 1), dtype=torch.float32, device=x.device))
+    num, den, ptr = _buffers(b, m, f, x.device)
     if winners_out is None:
-        winners_out = torch.empty((b,), dtype=torch.int32, device=x.device)
+        win = ptr["win"]
     elif (winners_out.dtype != torch.int32 or winners_out.shape != (b,)
           or winners_out.device != x.device or not winners_out.is_contiguous()):
         raise ValueError("kohonen accumulate: winners_out must be a contiguous int32 [B] "
                          "tensor on x's card")
-    ptrs = (x, w, mask, d2m, winners_out, num, den)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = _lib().znicz_kohonen_accumulate(
-            *(ctypes.c_void_p(t.data_ptr()) for t in ptrs),
-            b, m, f, two_sigma_sq(sigma), ctypes.c_void_p(stream),
-        )
+    else:
+        win = winners_out.data_ptr()
+    args = (x.data_ptr(), w.data_ptr(), mask.data_ptr(), d2m.data_ptr(), ptr["scores"],
+            ptr["sq"], ptr["neigh"], win, ptr["num"], ptr["den"], b, m, f,
+            _split_count(b, m, f), two_sigma_sq(sigma))
+    # the current stream's handle, as torch.cuda.current_stream(card).cuda_stream
+    # gives it, without building a Stream object a call
+    card = x.get_device()
+    if card == torch.cuda.current_device():
+        rc = _lib().znicz_kohonen_accumulate(*args, torch._C._cuda_getCurrentRawStream(card))
+    else:
+        with torch.cuda.device(card):
+            rc = _lib().znicz_kohonen_accumulate(*args, torch._C._cuda_getCurrentRawStream(card))
     if rc != 0:
         msg = _lib().znicz_kohonen_error_string(rc).decode()
         raise RuntimeError(f"kohonen accumulate: kernel launch failed with CUDA error {rc} ({msg})")
