@@ -3,17 +3,26 @@
 
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 It needs one CUDA card, builds every Hopper kernel of the ported paths from
-the sources here (the LRN pair in Triton, compiled at first launch; the
-flash-attention, Kohonen and RBM kernels in CUDA C++, built with nvcc up
-front, one process a source, in parallel), and fails (non-zero exit, no
-result line) when any phase fails:
+the sources here (the LRN forward in Triton, compiled at first launch; the
+LRN backward, flash-attention, Kohonen and RBM kernels in CUDA C++, built
+with nvcc up front, one process a source, in parallel), and fails (non-zero
+exit, no result line) when any phase fails:
 
-1. the card's ``nvidia-smi`` name and power limit, and the versions;
+1. the card's ``nvidia-smi`` name and power limit, and the versions; the
+   LRN backward's build: nvcc's seconds, ptxas' registers, spills and
+   shared memory of each of its 32 instantiations (it fails on a spill);
 2. each LRN kernel against its plain PyTorch version on the same CUDA
-   tensors, at AlexNet's two norm shapes (batch 128), in f32 and bf16;
+   tensors, at AlexNet's two norm shapes (batch 128), in f32 and bf16; the
+   backward's second launch bitwise equal to its first, and a canary (its C
+   entry with dx at the front of a NaN-filled larger buffer: nothing past
+   dx written, dx bitwise the wrapper's);
 3. the LRN kernels' times beside their memory bound, the plain versions'
    and the ``F.local_response_norm`` yardstick's (timed here only; the port
-   never calls it), with CUDA events;
+   never calls it), with CUDA events, in bf16 and f32;
+   3b. the backward at views 1 and 2 elements past an allocation (its
+   narrower instantiations) and at C 16,384 (n 5 and 7; whole rows in
+   shared memory), in f32 and bf16, against the plain version, each with a
+   canary;
 4. the AlexNet slice: ``alexnet.build_workflow(device="cuda")`` at the
    published geometry (227x227x3, 1000 classes, batch 128, bf16) runs one
    epoch (4 train steps and the eval pass) with the launch counters set to 0
@@ -134,7 +143,10 @@ REPLACES = {
     "lrn_fwd": "znicz_tpu/ops/pallas/lrn.py:123",
     "lrn_bwd": "znicz_tpu/ops/pallas/lrn.py:142",
 }
-SOURCE = "znicz_tpu_torch/ops/kernels/lrn.py"
+LRN_ROUTE = {  # (route, source)
+    "lrn_fwd": ("triton", "znicz_tpu_torch/ops/kernels/lrn.py"),
+    "lrn_bwd": ("cuda", "znicz_tpu_torch/csrc/lrn.cu"),
+}
 
 # the repo's mid LM (bench.py's LM_MID: ~50M parameters), T 2048, batch 16
 LM_MID = dict(vocab=8192, d_model=512, n_layers=12, n_heads=8)
@@ -211,22 +223,43 @@ def compare(name, got, ref, dtype_name, *, strict=True):
     return max_abs
 
 
+def _lrn_inputs(torch, gen, shape, dtype):
+    """Softplus-like positive activations, as after conv_relu, and an O(1)
+    output gradient, so that |dx| (up to ~10) stands well above atol and a
+    zero or misplaced dx fails the check."""
+    x = (torch.randn(shape, generator=gen, device="cuda") * 3).exp().log1p()
+    g = torch.randn(shape, generator=gen, device="cuda") * 3
+    return x.to(dtype), g.to(dtype)
+
+
+def _lrn_canary(torch, lrn_kernel, label, x, g, want, args):
+    """The backward's C entry with dx at the front of a NaN-filled larger
+    buffer: fails if anything past dx changed or dx differs from ``want``
+    (the wrapper's)."""
+    numel = x.numel()
+    buf = torch.full((numel + 4096,), math.nan, dtype=x.dtype, device="cuda")
+    lrn_kernel._launch_bwd(x, g, buf[:numel].view(x.shape), *args)
+    torch.cuda.synchronize()
+    past = not bool(torch.isnan(buf[numel:]).all())
+    same = torch.equal(buf[:numel].view(x.shape), want)
+    print(f"check lrn_bwd {label} canary: dx at the front of a NaN-filled buffer: written "
+          f"past it: {past}; values bitwise the wrapper's: {same}")
+    if past or not same:
+        fail(f"lrn_bwd {label}: the kernel wrote past dx or differs from the wrapper")
+
+
 def phase_kernels(torch, lrn_kernel):
-    """Phase 2 and 3: correctness at both shapes and dtypes, then times."""
+    """Phase 2 and 3: correctness at both shapes and dtypes (the backward
+    also a bitwise repeat and a canary), then times."""
     args = (LRN["alpha"], LRN["beta"], LRN["k"], LRN["n"])
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
-    err = {"lrn_fwd": 0.0, "lrn_bwd": 0.0}
-    rows = {"lrn_fwd": [], "lrn_bwd": []}
+    err = {"lrn_fwd": {}, "lrn_bwd": {}}  # {dtype name: max over the shapes}
+    rows = {"lrn_fwd": {}, "lrn_bwd": {}}  # {dtype name: [a row a shape]}
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).split(".")[-1]
         for tag, shape in ALEXNET_NORMS.items():
-            # softplus-like positive activations, as after conv_relu; an O(1)
-            # output gradient, so that |dx| (up to ~10) stands well above
-            # atol and a zero or misplaced dx fails the check
-            x = (torch.randn(shape, generator=gen, device="cuda") * 3).exp().log1p()
-            g = torch.randn(shape, generator=gen, device="cuda") * 3
-            x, g = x.to(dtype), g.to(dtype)
+            x, g = _lrn_inputs(torch, gen, shape, dtype)
             y = lrn_kernel.lrn_forward(x, *args)
             dx = lrn_kernel.lrn_backward(x, g, *args)
             torch.cuda.synchronize()
@@ -234,11 +267,14 @@ def phase_kernels(torch, lrn_kernel):
             e_b = compare(
                 f"lrn_bwd {tag}", dx, lrn_kernel.lrn_bwd_reference(x, g, *args), dname
             )
-            if dtype is not torch.bfloat16:
-                continue
-            # the main path's dtype: these feed the kernels line
-            err["lrn_fwd"] = max(err["lrn_fwd"], e_f)
-            err["lrn_bwd"] = max(err["lrn_bwd"], e_b)
+            err["lrn_fwd"][dname] = max(err["lrn_fwd"].get(dname, 0.0), e_f)
+            err["lrn_bwd"][dname] = max(err["lrn_bwd"].get(dname, 0.0), e_b)
+            same = torch.equal(lrn_kernel.lrn_backward(x, g, *args), dx)
+            print(f"check lrn_bwd {tag} {dname}: a second launch bitwise equal to the first: "
+                  f"{same}")
+            if not same:
+                fail(f"lrn_bwd {tag} {dname}: a repeat launch differs")
+            _lrn_canary(torch, lrn_kernel, f"{tag} {dname}", x, g, dx, args)
             nbytes = x.numel() * x.element_size()
             xc = x.permute(0, 3, 1, 2)  # NCHW view for the yardstick
             lib = lambda: torch.nn.functional.local_response_norm(  # noqa: E731
@@ -276,9 +312,9 @@ def phase_kernels(torch, lrn_kernel):
                     "bound_ms": max(limits[kname]) * 1e3,
                     "bound_by": "bytes" if limits[kname][0] >= limits[kname][1] else "operations",
                 }
-                rows[kname].append(row)
+                rows[kname].setdefault(dname, []).append(row)
                 print(
-                    f"time {kname} {tag} {list(shape)} bf16: kernel {row['ms']:.4f} ms, "
+                    f"time {kname} {tag} {list(shape)} {dname}: kernel {row['ms']:.4f} ms, "
                     f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}), "
                     f"plain {row['plain_ms']:.4f} ms, "
                     f"F.local_response_norm {'fwd' if short == 'fwd' else 'autograd bwd'} "
@@ -286,6 +322,50 @@ def phase_kernels(torch, lrn_kernel):
                 )
             del xr, y_lib
     return err, rows
+
+
+# the backward's other instantiations: contiguous views that start 1 and 2
+# elements past an allocation (narrower vectors), and C 16,384 (whole rows in
+# shared memory), each on 128 rows; the C 16,384 case also at n 7
+LRN_BWD_EXTRA = [  # (tag, shape, view offset in elements, n)
+    ("misaligned+1", ALEXNET_NORMS["norm1"], 1, LRN["n"]),
+    ("misaligned+2", ALEXNET_NORMS["norm1"], 2, LRN["n"]),
+    ("c16384", (128, 16384), 0, LRN["n"]),
+    ("c16384_n7", (128, 16384), 0, 7),
+]
+
+
+def phase_lrn_bwd_extra(torch, lrn_kernel):
+    """Phase 3b: the backward at the shapes and views the wrappers route to
+    its other instantiations, against the plain version, with a canary;
+    returns {tag: {dtype name: max abs error}}."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1)
+    out = {}
+    for tag, shape, offset, n in LRN_BWD_EXTRA:
+        args = (LRN["alpha"], LRN["beta"], LRN["k"], n)
+        for dtype in (torch.float32, torch.bfloat16):
+            dname = str(dtype).split(".")[-1]
+            x0, g0 = _lrn_inputs(torch, gen, shape, dtype)
+            numel = x0.numel()
+            x = torch.empty(numel + offset, dtype=dtype, device="cuda")[offset:].view(shape)
+            g = torch.empty(numel + offset, dtype=dtype, device="cuda")[offset:].view(shape)
+            x.copy_(x0)
+            g.copy_(g0)
+            geo = lrn_kernel.launch_geometry(numel // shape[-1], shape[-1], x.element_size(),
+                                             lrn_kernel._alignment(x, g), n)
+            launches = lrn_kernel.lrn_backward.launches
+            dx = lrn_kernel.lrn_backward(x, g, *args)
+            torch.cuda.synchronize()
+            if lrn_kernel.lrn_backward.launches != launches + 1:
+                fail(f"lrn_bwd {tag}: the wrapper did not launch the kernel")
+            print(f"lrn_bwd {tag} {list(shape)} {dname} n {n}: "
+                  f"{'halo' if geo.halo else 'rows'} kernel, {geo.vec}-element vectors, "
+                  f"{geo.rows_per_block} rows a block of {geo.threads} threads")
+            e = compare(f"lrn_bwd {tag}", dx, lrn_kernel.lrn_bwd_reference(x, g, *args), dname)
+            out.setdefault(tag, {})[dname] = e
+            _lrn_canary(torch, lrn_kernel, f"{tag} {dname}", x, g, dx, args)
+    return out
 
 
 def phase_slice(torch, lrn_kernel, alexnet, model_lib, prng):
@@ -838,7 +918,7 @@ def phase_lm(torch, fa, transformer_lm, transformer, model_lib, troot, prng):
 
 # -- the unsupervised slice: Kohonen SOM and RBM -------------------------------
 
-CUDA_SOURCES = ("flash_attention", "kohonen", "rbm")
+CUDA_SOURCES = ("lrn", "flash_attention", "kohonen", "rbm")
 UNSUP_SOURCE = {"kohonen_accumulate": "znicz_tpu_torch/csrc/kohonen.cu",
                 "rbm_cd": "znicz_tpu_torch/csrc/rbm.cu"}
 REPLACES.update({
@@ -874,14 +954,14 @@ def _kernel_name(mangled):
     return name.group(1) + (f"<{name.group(3)}>" if name.group(3) else "")
 
 
-def _ptxas_rows(log):
+def _ptxas_rows(log, name=_kernel_name):
     """(kernel name, registers, (spill stores, loads), static smem bytes) of
     each entry nvcc's ptxas reported."""
     rows, cur = [], None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            cur = [_kernel_name(m.group(1)), None, None, 0]
+            cur = [name(m.group(1)), None, None, 0]
             rows.append(cur)
         elif cur is not None:
             regs = re.search(r"Used (\d+) registers", line)
@@ -894,6 +974,43 @@ def _ptxas_rows(log):
             if smem:
                 cur[3] = int(smem.group(1))
     return rows
+
+
+# csrc/lrn.cu's instantiations: halo_kernel<BF16, VEC, beta kind> (the main
+# path) and rows_kernel<BF16, VEC>
+_LRN_KERNEL = re.compile(r"(halo|rows)_kernelILb([01])ELi(\d+)E(?:Li(\d)E)?")
+LRN_BETAS = ("0.75", "0.5", "0.25", "1", "any")  # the source's BetaKind, in order
+LRN_KERNELS = ({f"halo_kernel<{t}, {v}, beta {b}>"
+                for t, vs in (("f32", (2, 4)), ("bf16", (2, 4, 8))) for v in vs for b in LRN_BETAS}
+               | {f"rows_kernel<{t}, {v}>" for t, vs in (("f32", (1, 2, 4)), ("bf16", (1, 2, 4, 8)))
+                  for v in vs})
+
+
+def _lrn_kernel_name(mangled):
+    m = _LRN_KERNEL.search(mangled)
+    return m and (f"{m.group(1)}_kernel<{'bf16' if m.group(2) == '1' else 'f32'}, {m.group(3)}"
+                  + (f", beta {LRN_BETAS[int(m.group(4))]}>" if m.group(4) else ">"))
+
+
+def phase_lrn_build(b):
+    """Phase 1 (the build): the LRN backward's nvcc seconds and each
+    instantiation's registers, spills and shared memory; fails on a spill.
+    Returns {instantiation: [registers, spill store bytes]}."""
+    print(f"build: {b.path.name}: nvcc {b.seconds:.1f} s"
+          + ("" if b.seconds else " (the library was there already)"))
+    rows = _ptxas_rows(b.log, _lrn_kernel_name)
+    if {r[0] for r in rows} != LRN_KERNELS:
+        fail(f"ptxas reported {sorted(map(str, (r[0] for r in rows)))} for lrn.cu, "
+             f"want {sorted(LRN_KERNELS)}")
+    out = {}
+    for kname, regs, spill, smem in sorted(rows):
+        print(f"ptxas lrn {kname}: {regs} registers, spill stores/loads {spill} bytes, "
+              f"{smem} bytes static shared memory a block (dynamic: "
+              f"{'32 bytes a thread' if kname.startswith('halo') else '8 bytes a row channel'})")
+        if spill is None or spill != (0, 0):
+            fail(f"lrn {kname} spills registers: {spill}")
+        out[kname] = [regs, spill[0]]
+    return out
 
 
 def _sass_hmma(cuda_build, lib_path):
@@ -1414,7 +1531,9 @@ def main() -> int:
           f"device {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
 
     built = build_all(cuda_build)
+    lrn_ptxas = phase_lrn_build(built["lrn"])
     err, rows = phase_kernels(torch, lrn_kernel)
+    lrn_extra = phase_lrn_bwd_extra(torch, lrn_kernel)
     launches, _ = phase_slice(torch, lrn_kernel, alexnet, model_lib, prng)
     t0 = time.perf_counter()
     phase_flash_build(built["flash_attention"], fa, cuda_build, torch)
@@ -1440,20 +1559,28 @@ def main() -> int:
 
     kernels = []
     for kname in ("lrn_fwd", "lrn_bwd"):
-        rs = rows[kname]  # one train step's work: norm1 + norm2
-        kernels.append({
+        rs = rows[kname]["bfloat16"]  # one train step's work: norm1 + norm2, bf16
+        entry = {
             "name": kname,
-            "route": "triton",
-            "source": SOURCE,
+            "route": LRN_ROUTE[kname][0],
+            "source": LRN_ROUTE[kname][1],
             "replaces": REPLACES[kname],
             "launches": launches[kname],
-            "max_abs_err": err[kname],
+            "max_abs_err": err[kname]["bfloat16"],
             "ms": sum(r["ms"] for r in rs),
             "plain_ms": sum(r["plain_ms"] for r in rs),
             "bound_ms": sum(r["bound_ms"] for r in rs),
             "bound_by": "bytes" if all(r["bound_by"] == "bytes" for r in rs) else "operations",
             "library_ms": sum(r["library_ms"] for r in rs),
-        })
+            # each shape and dtype beside its bound; the f32 check's error
+            "shapes": {f"{r['shape']} {d}": {k: v for k, v in r.items() if k != "shape"}
+                       for d, dr in rows[kname].items() for r in dr},
+            "f32_max_abs_err": err[kname]["float32"],
+        }
+        if kname == "lrn_bwd":  # phases 2-3b passed: bitwise repeats, canaries untouched
+            entry.update(repeat="bitwise", canary="untouched", other_shapes_max_abs_err=lrn_extra,
+                         ptxas_registers_spill_bytes=lrn_ptxas)
+        kernels.append(entry)
     for kname in FLASH:
         row = flash_rows[(kname, "float32")]  # the counted epoch's dtype
         kernels.append({

@@ -9,7 +9,10 @@ gets ``alpha * n``; its window is the same, ``n//2`` before and
 ``(n-1)//2`` after) and its autograd gradient, rtol 1e-5 / 1e-4.  The
 ``cuda``-marked tests compare each kernel with its plain version on the
 card: f32 within rtol 1e-5 / atol 1e-6, bf16 within 2e-2 (about one bf16
-rounding of the output).
+rounding of the output).  The backward is ``csrc/lrn.cu``: its launch
+geometry (:func:`launch_geometry`) is checked here on the CPU; on the card,
+misaligned views (the narrower instantiations), C 16,384, a bitwise repeat, a
+canary (dx at the front of a NaN-filled larger buffer) and its launch count.
 """
 
 import pytest
@@ -30,6 +33,10 @@ CASES = [  # (NHWC shape, alpha, beta, k, n)
     ((2, 2, 3, 33), 5e-3, 1.0, 1.0, 2),
     ((4, 3, 3, 7), 1e-2, 0.75, 1.0, 6),
     ((2, 3, 3, 256), 5e-3, 0.75, 2.0, 5),  # AlexNet norm2's channel tile
+    ((1, 2, 3, 40), 1e-3, 0.75, 1.0, 19),  # a window wider than a 16-byte vector's halo
+    ((2, 3, 3, 1), 1e-2, 0.5, 1.0, 1),
+    ((1, 1, 3, 4096), 1e-4, 0.75, 2.0, 5),  # 3 rows
+    ((2, 3, 3, 48), 1e-3, 1.0, 1.0, 3),  # beta 1 in 16-byte vectors
 ]
 IDS = [f"C{c[0][-1]}_n{c[4]}_b{c[2]}" for c in CASES]
 
@@ -70,6 +77,37 @@ def test_tile_covers_the_channel_axis():
         block_r, block_c = lrn_kernel._blocks(c, tile)
         assert block_c >= c and block_c & (block_c - 1) == 0
         assert block_r >= 1 and block_r * block_c <= max(tile, block_c)
+
+
+GEOMETRY_C = (1, 7, 33, 96, 256, 4096, 16384)
+
+
+@pytest.mark.parametrize("esize", [4, 2], ids=["f32", "bf16"])
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("c", GEOMETRY_C)
+def test_backward_launch_geometry(c, offset, esize):
+    """The vector divides C and the pointers' alignment (a tensor that
+    starts ``offset`` elements past a 16-byte boundary), the block holds its
+    rows, and the grid covers every row once."""
+    align = 16 if offset == 0 else esize
+    for rows, n in ((1, 5), (3, 5), (387_200, 5), (1000, 19)):
+        geo = lrn_kernel.launch_geometry(rows, c, esize, align, n)
+        assert c % geo.vec == 0 and align % (geo.vec * esize) == 0
+        assert geo.vec * esize <= 16
+        if offset == 0 and c % (16 // esize) == 0:
+            assert geo.vec * esize == 16  # the widest access where C allows it
+        block_rows = geo.rows_per_block * (lrn_kernel.HALO_TILES if geo.halo else 1)
+        assert (geo.grid - 1) * block_rows < rows <= geo.grid * block_rows
+        assert geo.threads % 32 == 0
+        if geo.halo:
+            assert n <= lrn_kernel.HALO_MAX_N and geo.vec >= 2
+            assert geo.rows_per_block * (c // geo.vec) <= geo.threads <= lrn_kernel.MAX_THREADS
+            assert geo.threads - geo.rows_per_block * (c // geo.vec) < 32
+        else:
+            assert geo.threads == lrn_kernel.ROWS_THREADS
+            assert 8 * geo.rows_per_block * c <= 232_448  # two f32 rows of C a block row
+    if c in (96, 256) and offset == 0:
+        assert lrn_kernel.launch_geometry(387_200, c, esize, align, 5).halo  # AlexNet's norms
 
 
 @pytest.fixture
@@ -122,3 +160,87 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(card):
         lrn_kernel.lrn_forward(x.transpose(1, 2), 1e-4, 0.75, 2.0, 5)
     with pytest.raises(ValueError, match="differ"):
         lrn_kernel.lrn_backward(x, x.bfloat16(), 1e-4, 0.75, 2.0, 5)
+
+
+def _bwd_args(case):
+    shape, alpha, beta, k, n = case
+    return shape, (alpha, beta, k, n)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [1, 2, 4])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_backward_at_misaligned_views(card, dtype, offset):
+    """Contiguous views that start ``offset`` elements past an allocation:
+    the wrapper takes a narrower instantiation, never the plain version."""
+    shape, args = (2, 5, 5, 96), (1e-4, 0.75, 2.0, 5)
+    numel = 2 * 5 * 5 * 96
+    x = torch.empty(numel + offset, dtype=dtype, device=card)[offset:].view(shape)
+    g = torch.empty(numel + offset, dtype=dtype, device=card)[offset:].view(shape)
+    x.copy_(_x(shape, 7, card))
+    g.copy_(_x(shape, 8, card))
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    atol = 1e-6 if dtype == torch.float32 else 2e-2
+    b0 = lrn_kernel.lrn_backward.launches
+    got = lrn_kernel.lrn_backward(x, g, *args)
+    assert lrn_kernel.lrn_backward.launches - b0 == 1
+    torch.testing.assert_close(got, lrn_kernel.lrn_bwd_reference(x, g, *args), rtol=tol, atol=atol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("n", [5, 7])
+def test_backward_at_c16384(card, dtype, n):
+    shape, args = (1, 1, 3, 16384), (1e-4, 0.75, 2.0, n)
+    x, g = _x(shape, 9, card).to(dtype), _x(shape, 10, card).to(dtype)
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    atol = 1e-6 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(lrn_kernel.lrn_backward(x, g, *args),
+                               lrn_kernel.lrn_bwd_reference(x, g, *args), rtol=tol, atol=atol)
+
+
+@pytest.mark.cuda
+def test_backward_refuses_c_past_its_limit(card):
+    c = lrn_kernel.MAX_C + 1
+    x = torch.ones((1, c), device=card)
+    with pytest.raises(ValueError, match=str(lrn_kernel.MAX_C)):
+        lrn_kernel.lrn_backward(x, x, 1e-4, 0.75, 2.0, 5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", [CASES[0], CASES[7]], ids=[IDS[0], IDS[7]])
+def test_backward_repeat_is_bitwise_equal(card, case, dtype):
+    shape, args = _bwd_args(case)
+    x, g = _x(shape, 11, card).to(dtype), _x(shape, 12, card).to(dtype)
+    first = lrn_kernel.lrn_backward(x, g, *args)
+    assert torch.equal(lrn_kernel.lrn_backward(x, g, *args), first)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", [CASES[0], CASES[7], CASES[4]], ids=[IDS[0], IDS[7], IDS[4]])
+def test_backward_canary(card, case, dtype):
+    """The launch with dx at the front of a NaN-filled larger buffer: nothing
+    past dx changes, and dx holds the wrapper's values."""
+    shape, args = _bwd_args(case)
+    x, g = _x(shape, 13, card).to(dtype), _x(shape, 14, card).to(dtype)
+    want = lrn_kernel.lrn_backward(x, g, *args)
+    numel = x.numel()
+    buf = torch.full((numel + 4096,), float("nan"), dtype=dtype, device=card)
+    lrn_kernel._launch_bwd(x, g, buf[:numel].view(shape), *args)
+    torch.cuda.synchronize()
+    assert bool(torch.isnan(buf[numel:]).all())
+    assert torch.equal(buf[:numel].view(shape), want)
+
+
+@pytest.mark.cuda
+def test_backward_counts_one_launch_a_call(card):
+    x, g = _x((2, 5, 5, 96), 15, card), _x((2, 5, 5, 96), 16, card)
+    b0 = lrn_kernel.lrn_backward.launches
+    for _ in range(3):
+        lrn_kernel.lrn_backward(x, g, 1e-4, 0.75, 2.0, 5)
+    assert lrn_kernel.lrn_backward.launches - b0 == 3
+    empty = torch.empty((0, 96), device=card)
+    assert lrn_kernel.lrn_backward(empty, empty, 1e-4, 0.75, 2.0, 5).shape == (0, 96)
+    assert lrn_kernel.lrn_backward.launches - b0 == 3

@@ -24,7 +24,9 @@ import time
 from collections import defaultdict
 
 FAMILIES = (  # first match wins; matched against the lower-cased kernel name
-    ("lrn (hand-written)", ("lrn_fwd_kernel", "lrn_bwd_kernel")),
+    # the Triton forward; csrc/lrn.cu's backward, mangled or demangled
+    ("lrn (hand-written)", ("lrn_fwd_kernel", "lrn_cu",
+                            "namespace)::halo_kernel", "namespace)::rows_kernel")),
     # csrc/flash_attention.cu's kernels, mangled or demangled
     ("flash (hand-written)", ("flash_attention_cu", "namespace)::fwd_mma_kernel",
                               "namespace)::dq_mma_kernel", "namespace)::dkv_mma_kernel",

@@ -1,8 +1,9 @@
-"""Fused cross-channel LRN for Hopper: a Triton forward/backward kernel pair.
+"""Fused cross-channel LRN for Hopper: a Triton forward and a CUDA C++ backward.
 
 Replaces the TPU kernels of ``znicz_tpu/ops/pallas/lrn.py``: ``lrn`` (the
-``pl.pallas_call`` over ``_fwd_kernel``) and ``_lrn_bwd`` (the one over
-``_bwd_kernel``).  Math, all in f32 with casts at load and store::
+``pl.pallas_call`` over ``_fwd_kernel``, :123) and ``_lrn_bwd`` (the one over
+``_bwd_kernel``, :138-152, kernel at :80).  Math, all in f32 with casts at
+load and store::
 
     s_c  = k + alpha * sum_{c' = c - n//2}^{c + n - 1 - n//2} x_{c'}^2
     y_c  = x_c * s_c^-beta
@@ -17,38 +18,56 @@ the backward reads x and g and writes dx; there is no tensor-core work.  At
 AlexNet's norm1 (``[128, 55, 55, 96]`` bf16, 74.3 MB a tensor) that is
 148.7 MB forward and 223 MB backward, 44 us and 67 us at 3.35 TB/s.
 
-Design: the input is viewed as ``[rows, C]`` (rows = N*H*W, C contiguous).
-One program owns a ``[BLOCK_R, next_pow2(C)]`` row tile with the whole
-channel axis, so every window lies inside the tile and nothing crosses
-programs.  Each input is loaded once, with aligned vector loads, and the
-window sums shift the tile in registers (``tl.gather`` along the channel
-axis), so device memory sees one read of each input and one write of the
-output.  The TPU kernel's ``[C, C]`` band matmul (a way onto the TPU's
-matrix unit, ``2C`` flops an element where the window needs ``n``) is
-dropped.  The backward recomputes ``s`` from x instead of reading an ``s``
-residual written by the forward, which would add a tensor's bytes each way.
-``s^-beta`` uses rsqrt/sqrt chains for beta in {0.25, 0.5, 0.75, 1} and
-exp/log otherwise.  Tiles (elements a program): 2048 forward, 1024 backward,
-4 warps each.
+Forward (Triton): the input is viewed as ``[rows, C]`` (rows = N*H*W, C
+contiguous).  One program owns a ``[BLOCK_R, next_pow2(C)]`` row tile with
+the whole channel axis, so every window lies inside the tile and nothing
+crosses programs.  Each input is loaded once, with aligned vector loads, and
+the window sums shift the tile in registers (``tl.gather`` along the
+channel axis).  The TPU kernel's ``[C, C]`` band matmul (a way onto the
+TPU's matrix unit, ``2C`` flops an element where the window needs ``n``) is
+dropped.  Tiles: 2048 elements a program, 4 warps.
+
+Backward (CUDA C++, ``znicz_tpu_torch/csrc/lrn.cu``, plain C interface,
+built with ``nvcc`` for ``sm_90a`` at first use by :mod:`cuda_build`, loaded
+with ctypes, launched on PyTorch's current stream): each thread owns a
+vector of consecutive channels of one row, 16 bytes (8 bf16 or 4 f32) where
+C and the pointers allow it, so no lane is padding at C 96 or 256; a block
+walks a few tiles of whole rows, loads x and g once in 16-byte accesses
+(the next tile's while it computes this one), keeps them in registers, and
+trades only the windows' halos (two channels each side at n <= 5) with its
+row neighbours through shared memory.  The other shapes (n > 5, odd C,
+misaligned views, rows past 1024 vectors) take the source's general
+kernel, whose rows sit whole in shared memory: C up to :data:`MAX_C`.
+:func:`launch_geometry` picks the kernel, the vector, the rows a tile and
+the grid.  s is recomputed from x, never read from a residual the forward
+wrote, which would add a tensor's bytes each way.  ``s^-beta`` uses
+rsqrt/sqrt chains for beta in {0.25, 0.5, 0.75, 1} and exp/log otherwise,
+in all the kernels and in the plain versions; the backward takes the
+special-function unit's approximations for them and for its division
+(a few ulp, within the f32 check's 1e-5).
 
 The wrappers take a CPU tensor to the plain PyTorch versions below
 (:func:`lrn_reference`, :func:`lrn_bwd_reference`) and launch the kernel for
-a CUDA tensor; they count launches in ``lrn_forward.launches`` and
-``lrn_backward.launches``.  Triton is imported, and the kernels compiled,
-at the first launch, never at module import.
+a CUDA tensor, or raise; they count launches in ``lrn_forward.launches`` and
+``lrn_backward.launches``.  Triton is imported, and the forward compiled,
+and the backward built, at the first launch, never at module import.
 """
 
 from __future__ import annotations
 
+import ctypes
 import functools
+import math
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
 
+from znicz_tpu_torch.ops.kernels import cuda_build
+
 DTYPES = (torch.float32, torch.bfloat16)
-# elements of one program's tile: BLOCK_R * BLOCK_C
+# elements of one forward program's tile: BLOCK_R * BLOCK_C
 _FWD_TILE = 2048
-_BWD_TILE = 1024
 
 
 # -- plain PyTorch versions (CPU path and the kernels' oracle) -------------
@@ -160,26 +179,7 @@ def _kernels():
         y = x * _tl_inv_pow(s, BETA)
         tl.store(y_ptr + off, y.to(y_ptr.dtype.element_ty), mask=ok)
 
-    @triton.jit
-    def lrn_bwd_kernel(
-        x_ptr, g_ptr, dx_ptr, rows, C, alpha, k, two_ab,
-        N: tl.constexpr, LO: tl.constexpr, HI: tl.constexpr,
-        BETA: tl.constexpr, BLOCK_R: tl.constexpr, BLOCK_C: tl.constexpr,
-    ):
-        r = tl.program_id(0) * BLOCK_R + tl.arange(0, BLOCK_R)[:, None]
-        c = tl.arange(0, BLOCK_C)[None, :]
-        ok = (r < rows) & (c < C)
-        off = r.to(tl.int64) * C + c
-        x = tl.load(x_ptr + off, mask=ok, other=0.0).to(tl.float32)
-        g = tl.load(g_ptr + off, mask=ok, other=0.0).to(tl.float32)
-        s = k + alpha * _tl_window_sum(x * x, c, C, LO, N)
-        s_negb = _tl_inv_pow(s, BETA)
-        inner = tl.where(ok, g * x * s_negb / s, 0.0)  # g x s^(-beta-1)
-        wsum = _tl_window_sum(inner, c, C, HI, N)  # adjoint: extents swapped
-        dx = g * s_negb - two_ab * x * wsum
-        tl.store(dx_ptr + off, dx.to(dx_ptr.dtype.element_ty), mask=ok)
-
-    return triton, lrn_fwd_kernel, lrn_bwd_kernel
+    return triton, lrn_fwd_kernel
 
 
 def _blocks(c: int, tile: int):
@@ -194,8 +194,8 @@ def _check(name: str, *tensors: torch.Tensor) -> None:
             raise ValueError(f"{name}: kernel needs CUDA tensors, got {t.device}")
         if t.dtype not in DTYPES:
             raise ValueError(f"{name}: dtype {t.dtype} not in {DTYPES}")
-        if t.dtype != x.dtype or t.shape != x.shape:
-            raise ValueError(f"{name}: inputs differ in dtype or shape")
+        if t.dtype != x.dtype or t.shape != x.shape or t.device != x.device:
+            raise ValueError(f"{name}: inputs differ in dtype, shape or card")
         if not t.is_contiguous():
             raise ValueError(f"{name}: the [rows, C] view needs a contiguous tensor")
     if x.dim() < 1 or x.shape[-1] == 0:
@@ -210,7 +210,7 @@ def lrn_forward(x: torch.Tensor, alpha: float, beta: float, k: float, n: int) ->
     if x.device.type == "cpu":
         return lrn_reference(x, alpha, beta, k, n)
     _check("lrn forward", x)
-    triton, fwd, _ = _kernels()
+    triton, fwd = _kernels()
     c = x.shape[-1]
     rows = x.numel() // c
     y = torch.empty_like(x)
@@ -226,26 +226,120 @@ def lrn_forward(x: torch.Tensor, alpha: float, beta: float, k: float, n: int) ->
     return y
 
 
+# -- the CUDA backward: its launch geometry ---------------------------------
+
+# the halo kernel's windows reach two channels each side (n <= 5) and its
+# threads one vector each, at most a block's 1024; the rows kernel holds two
+# f32 rows of C in a block's 227 KB (232,448 bytes) of shared memory
+HALO_MAX_N = 5
+HALO_TILES = 4  # tiles of rows a halo block walks (csrc/lrn.cu's HALO_TILES)
+MAX_THREADS = 1024
+ROWS_THREADS = 256
+MAX_C = 232448 // 8
+ROWS_TILE = 4096  # f32 values of x^2 (and as many inner terms) a rows block stages
+_BETA_KIND = {0.75: 0, 0.5: 1, 0.25: 2, 1.0: 3}  # else 4: exp/log
+
+
+class Geometry(NamedTuple):
+    halo: bool  # the halo kernel (the main path), else the rows kernel
+    vec: int  # channels a thread accesses at once: 16 bytes where C and the pointers allow
+    rows_per_block: int  # a tile: a halo block walks HALO_TILES of them, a rows block one
+    threads: int
+    grid: int
+
+
+def _halo_rows(vpr: int) -> int:
+    """Rows a halo block owns, at ``vpr`` vectors a row: few padding lanes
+    in its last warp first, then near 256 threads."""
+    def cost(r):
+        t = -(-r * vpr // 32) * 32
+        return (t - r * vpr) / t + 0.1 * abs(math.log2(t / 256))
+    return min(range(1, MAX_THREADS // vpr + 1), key=cost)
+
+
+@functools.lru_cache(maxsize=256)
+def _block_geometry(c: int, esize: int, align: int, n: int):
+    vec = 16 // esize
+    while vec > 1 and (c % vec or align % (vec * esize)):
+        vec //= 2
+    vpr = c // vec
+    if n <= HALO_MAX_N and vec >= 2 and vpr <= MAX_THREADS:
+        r = _halo_rows(vpr)
+        return True, vec, r, -(-r * vpr // 32) * 32
+    return False, vec, max(1, ROWS_TILE // c), ROWS_THREADS
+
+
+def launch_geometry(rows: int, c: int, esize: int, align: int, n: int) -> Geometry:
+    """The backward's launch for ``rows`` rows of ``c`` channels of
+    ``esize``-byte elements whose pointers are all aligned to ``align``
+    bytes (a power of two) and window ``n``: the kernel, the vector (the
+    largest of 16, 8, 4 or 2 bytes, or one element, that divides C and the
+    alignment), the rows a block, its threads and the grid.  C at most
+    :data:`MAX_C`."""
+    halo, vec, r, threads = _block_geometry(c, esize, min(align, 16), n)
+    tiles = -(-rows // r)
+    return Geometry(halo, vec, r, threads, -(-tiles // HALO_TILES) if halo else tiles)
+
+
+def _alignment(*tensors: torch.Tensor) -> int:
+    """The largest power of two, up to 16, that divides every data pointer."""
+    bits = 0
+    for t in tensors:
+        bits |= t.data_ptr()
+    return min(16, bits & -bits) if bits else 16
+
+
+@functools.cache
+def _lib() -> ctypes.CDLL:
+    lib = cuda_build.load("lrn")
+    ptr, i32, i64, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+    lib.znicz_lrn_bwd.argtypes = [ptr, ptr, ptr, i64, i32, i32, f32, f32, i32, f32, f32,
+                                  i32, i32, i32, i32, i32, ptr]
+    lib.znicz_lrn_bwd.restype = i32
+    lib.znicz_lrn_error_string.argtypes = [i32]
+    lib.znicz_lrn_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _launch_bwd(x, g, dx, alpha: float, beta: float, k: float, n: int) -> None:
+    """One launch of the CUDA backward into ``dx`` (uncounted: the checks
+    call it too); x, g and dx already checked, non-empty."""
+    c = x.shape[-1]
+    if c > MAX_C:
+        raise ValueError(f"lrn backward: C {c} is above the kernel's limit {MAX_C} (two f32 "
+                         f"rows of C in a block's 227 KB of shared memory)")
+    rows = x.numel() // c
+    geo = launch_geometry(rows, c, x.element_size(), _alignment(x, g, dx), n)
+    args = (x.data_ptr(), g.data_ptr(), dx.data_ptr(), rows, c, int(n), float(alpha), float(k),
+            _BETA_KIND.get(float(beta), 4), -float(beta), 2.0 * alpha * beta,
+            int(x.dtype == torch.bfloat16), int(geo.halo), geo.vec, geo.rows_per_block,
+            geo.threads)
+    # the current stream's handle, as torch.cuda.current_stream(card).cuda_stream
+    # gives it, without building a Stream object a call
+    card = x.get_device()
+    if card == torch.cuda.current_device():
+        rc = _lib().znicz_lrn_bwd(*args, torch._C._cuda_getCurrentRawStream(card))
+    else:
+        with torch.cuda.device(card):
+            rc = _lib().znicz_lrn_bwd(*args, torch._C._cuda_getCurrentRawStream(card))
+    if rc != 0:
+        msg = _lib().znicz_lrn_error_string(rc).decode()
+        raise RuntimeError(f"lrn backward: kernel launch failed with CUDA error {rc} ({msg})")
+
+
 def lrn_backward(
     x: torch.Tensor, g: torch.Tensor, alpha: float, beta: float, k: float, n: int
 ) -> torch.Tensor:
     """LRN input gradient: the plain version for CPU tensors, else the
-    kernel (counted in ``lrn_backward.launches``)."""
+    CUDA kernel (counted in ``lrn_backward.launches``); raises on what it
+    does not take."""
     if x.device.type == "cpu":
         return lrn_bwd_reference(x, g, alpha, beta, k, n)
     _check("lrn backward", x, g)
-    triton, _, bwd = _kernels()
-    c = x.shape[-1]
-    rows = x.numel() // c
     dx = torch.empty_like(x)
-    if rows == 0:
+    if x.numel() == 0:
         return dx
-    block_r, block_c = _blocks(c, _BWD_TILE)
-    bwd[(triton.cdiv(rows, block_r),)](
-        x, g, dx, rows, c, float(alpha), float(k), 2.0 * alpha * beta,
-        N=int(n), LO=int(n) // 2, HI=int(n) - 1 - int(n) // 2, BETA=float(beta),
-        BLOCK_R=block_r, BLOCK_C=block_c, num_warps=4,
-    )
+    _launch_bwd(x, g, dx, alpha, beta, k, n)
     lrn_backward.launches += 1
     return dx
 
