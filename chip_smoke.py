@@ -107,11 +107,30 @@ exit, no result line) when any phase fails:
     identical weights (the Kohonen kernel's own winners within max(1, B //
     1000) near-ties of the CPU's; the RBM with the same seed: the same
     chain);
-15. the whole script's seconds, the ``kernels`` JSON line (each flash row
+15. the MNIST MLP (``mnist.build_workflow(device="cuda")``: 784 -> tanh 100
+    -> softmax 10, batch 100, the synthetic 2000 / 500 with 15% held out,
+    f32 without TF32; no hand kernel on its path) runs 3 epochs (17 train, 3
+    valid and 5 test steps each), then the same seed on the CPU: per-epoch
+    loss within 1e-4 relative and n_err within 1 a split;
+    ``evaluate("test", confusion=True)`` on both from the card's weights
+    (each matrix sums to n_samples with trace n_samples - n_err; the two
+    equal, or every sample classed otherwise a near-tie, top-2 logits within
+    1e-5); BASELINE's "MNIST MLP step latency", the median of 50
+    synchronized train steps, beside the card's name and power limit;
+16. CIFAR-10 (``cifar.build_workflow(device="cuda")``: conv 32 -> max-pool
+    -> LRN -> conv 64 -> avg-pool -> FC 64 -> softmax 10, f32 without TF32,
+    batch 100, the synthetic 2000 / 500) runs one epoch with the LRN
+    counters set to 0 just before and read just after (20 forward and 20
+    backward launches from the train steps, 5 forward from the test steps);
+    a 4-image f32 forward on the card against the CPU from the same weights;
+    20 timed train steps (images/sec); then both LRN kernels at the norm
+    layer's ``[100, 15, 15, 32]`` as in phases 2-3, in f32 and bf16;
+17. the whole script's seconds, the ``kernels`` JSON line (each flash row
     with its bf16 times, bound, launches and error beside the f32 ones under
     ``"bf16"``; the f32 flash, Kohonen and RBM rows also with their f32-FMA
-    bound and their float64 errors beside the plain version's), then the
-    result line.
+    bound and their float64 errors beside the plain version's; the LRN rows
+    with the CIFAR path's launches and f32 times under ``"cifar"``), then
+    the result line.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``.
 """
@@ -248,17 +267,18 @@ def _lrn_canary(torch, lrn_kernel, label, x, g, want, args):
         fail(f"lrn_bwd {label}: the kernel wrote past dx or differs from the wrapper")
 
 
-def phase_kernels(torch, lrn_kernel):
-    """Phase 2 and 3: correctness at both shapes and dtypes (the backward
-    also a bitwise repeat and a canary), then times."""
+def phase_kernels(torch, lrn_kernel, shapes=ALEXNET_NORMS, seed=0):
+    """Phase 2 and 3 (and 16's kernel part at CIFAR's shape): correctness at
+    each of ``shapes`` in both dtypes (the backward also a bitwise repeat
+    and a canary), then times."""
     args = (LRN["alpha"], LRN["beta"], LRN["k"], LRN["n"])
     gen = torch.Generator(device="cuda")
-    gen.manual_seed(0)
+    gen.manual_seed(seed)
     err = {"lrn_fwd": {}, "lrn_bwd": {}}  # {dtype name: max over the shapes}
     rows = {"lrn_fwd": {}, "lrn_bwd": {}}  # {dtype name: [a row a shape]}
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).split(".")[-1]
-        for tag, shape in ALEXNET_NORMS.items():
+        for tag, shape in shapes.items():
             x, g = _lrn_inputs(torch, gen, shape, dtype)
             y = lrn_kernel.lrn_forward(x, *args)
             dx = lrn_kernel.lrn_backward(x, g, *args)
@@ -1503,6 +1523,184 @@ def phase_rbm_model(torch, mnist_rbm, rbk, troot, prng):
     return launches, step_ms, ips
 
 
+MNIST_STEPS = {"train": 17, "valid": 3, "test": 5}  # batch 100 over 1700 / 300 / 500
+MNIST_EPOCHS = 3
+CIFAR_NORM = {"cifar": (100, 15, 15, 32)}  # the norm layer's input, batch 100
+NEAR_TIE = 1e-5  # top-2 logits this close may be ordered either way
+
+
+def _f32_exact(torch):
+    """f32 products and convolutions without TF32, as the CPU computes them."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def _epochs(wf, n):
+    return [wf.run_epoch()["summary"] for _ in range(n)]
+
+
+def _step_seconds(torch, wf, n, warmup):
+    """Seconds of ``n`` train steps on the first train minibatch, each
+    synchronized, after ``warmup`` more."""
+    mb = next(iter(wf.loader.batches("train", shuffle=False)))
+    x, y, mask = (torch.as_tensor(a, device="cuda") for a in (mb.data, mb.labels, mb.mask))
+    step_s = []
+    for _ in range(warmup + n):
+        t0 = time.perf_counter()
+        wf.train_step(x, y, mask)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+    return step_s[warmup:]
+
+
+def _copy_params(dst, src):
+    import torch
+
+    with torch.no_grad():
+        for ld, ls in zip(dst.state.params, src.state.params):
+            for k in ld:
+                ld[k].copy_(ls[k].to(ld[k].device))
+
+
+def _confusion_against_cpu(torch, label, wf, wf_cpu, split):
+    """``evaluate(split, confusion=True)`` on the card and on the CPU from the
+    card's weights: each matrix sums to n_samples with trace n_samples -
+    n_err, and the two are equal or differ only by near-ties (samples whose
+    top-2 logits are within NEAR_TIE)."""
+    _copy_params(wf_cpu, wf)
+    card, cpu = wf.evaluate(split, confusion=True), wf_cpu.evaluate(split, confusion=True)
+    for side, r in (("card", card), ("cpu", cpu)):
+        c = r["confusion"]
+        if c.dtype.name != "int32" or c.sum() != r["n_samples"] or (
+                c.trace() != r["n_samples"] - r["n_err"]):
+            fail(f"{label}: the {side} confusion {c.dtype} sums to {c.sum()} with trace "
+                 f"{c.trace()}, want {r['n_samples']} and {r['n_samples'] - r['n_err']}")
+    differ = int((card["confusion"] != cpu["confusion"]).sum())
+    ties = []
+    if differ:  # name every sample whose class differs; each must be a near-tie
+        with torch.no_grad():
+            for mb in wf.loader.batches(split, shuffle=False):
+                x = torch.as_tensor(mb.data)
+                lc = wf.model.apply(wf.state.params, x.cuda()).cpu()
+                lh = wf_cpu.model.apply(wf_cpu.state.params, x)
+                for i in torch.nonzero((lc.argmax(1) != lh.argmax(1)) & (
+                        torch.as_tensor(mb.mask) > 0)).flatten().tolist():
+                    top = lh[i].topk(2).values
+                    ties.append((int(mb.indices[i]), float(top[0] - top[1])))
+    print(f"{label}: evaluate({split!r}, confusion=True) card {json.dumps(card['confusion'].tolist())}"
+          f", n_err {card['n_err']:.0f} of {card['n_samples']:.0f}, loss {card['loss']:.6f}; CPU "
+          f"n_err {cpu['n_err']:.0f}, loss {cpu['loss']:.6f}; {differ} cells differ; samples "
+          f"classed otherwise (index, top-2 gap) {ties}")
+    if any(gap > NEAR_TIE for _, gap in ties) or (differ and not ties):
+        fail(f"{label}: the card's confusion differs from the CPU's beyond near-ties")
+    return card
+
+
+def _epochs_against_cpu(label, card, cpu, rtol=1e-4):
+    """Per-epoch loss within ``rtol`` relative and n_err within 1 a split."""
+    for e, (ec, eh) in enumerate(zip(card, cpu)):
+        for split in eh:
+            c, h = ec[split], eh[split]
+            rel = abs(c["loss"] - h["loss"]) / abs(h["loss"])
+            print(f"{label}: epoch {e} {split}: card loss {c['loss']:.7f} n_err {c['n_err']:.0f}; "
+                  f"CPU loss {h['loss']:.7f} n_err {h['n_err']:.0f} (loss rel diff {rel:.2e}, "
+                  f"limit {rtol}; n_err within 1)")
+            if not rel <= rtol or abs(c["n_err"] - h["n_err"]) > 1:
+                fail(f"{label}: epoch {e} {split} differs between the card and the CPU")
+
+
+def phase_mnist(torch, mnist, prng, smi):
+    """Phase 15: the MNIST MLP at its published widths (784 -> tanh 100 ->
+    softmax 10, batch 100, synthetic 2000 / 500 with 15% held out)."""
+    _f32_exact(torch)
+    prng.seed_all(1234)
+    wf = mnist.build_workflow(device="cuda")
+    wf.initialize()
+    steps = {s: wf.loader.n_minibatches(s) for s in MNIST_STEPS}
+    print(f"mnist: layer shapes {list(wf.model.layer_shapes)}; steps an epoch {steps}")
+    if steps != MNIST_STEPS:
+        fail(f"mnist: {steps} steps an epoch, want {MNIST_STEPS}")
+    t0 = time.perf_counter()
+    card = _epochs(wf, MNIST_EPOCHS)
+    torch.cuda.synchronize()
+    print(f"mnist: {MNIST_EPOCHS} epochs on the card in {time.perf_counter() - t0:.2f} s "
+          "(no hand kernel on this path: cuBLAS products)")
+    prng.seed_all(1234)
+    wf_cpu = mnist.build_workflow(device="cpu")
+    wf_cpu.initialize()
+    _epochs_against_cpu("mnist", card, _epochs(wf_cpu, MNIST_EPOCHS))
+    _confusion_against_cpu(torch, "mnist", wf, wf_cpu, "test")
+    step_s = _step_seconds(torch, wf, 50, 5)
+    med = statistics.median(step_s)
+    print(f"mnist: MNIST MLP step latency (batch 100, f32): median {med * 1e3:.4f} ms over 50 "
+          f"synchronized train steps after 5 warm-up, on {smi}; min "
+          f"{min(step_s) * 1e3:.4f}, max {max(step_s) * 1e3:.4f} ms")
+    return med * 1e3
+
+
+def phase_cifar(torch, cifar, lrn_kernel, model_lib, prng, smi):
+    """Phase 16: the CIFAR-10 model at its published geometry (f32, batch
+    100, synthetic 2000 / 500): one epoch with the LRN counters set to 0
+    just before and read just after, a card-vs-CPU forward, timed train
+    steps."""
+    _f32_exact(torch)
+    prng.seed_all(1234)
+    wf = cifar.build_workflow(device="cuda")
+    wf.initialize()
+    torch.backends.cudnn.benchmark = True
+    n_train, n_test = wf.loader.n_minibatches("train"), wf.loader.n_minibatches("test")
+    print(f"cifar: layer shapes {list(wf.model.layer_shapes)}; {n_train} train and {n_test} "
+          "test steps an epoch")
+    lrn_kernel.lrn_forward.launches = 0
+    lrn_kernel.lrn_backward.launches = 0
+    t0 = time.perf_counter()
+    verdict = wf.run_epoch()
+    torch.cuda.synchronize()
+    epoch_s = time.perf_counter() - t0
+    launches = {"lrn_fwd": lrn_kernel.lrn_forward.launches,
+                "lrn_bwd": lrn_kernel.lrn_backward.launches}
+    summary = verdict["summary"]
+    print(f"cifar: epoch 1 (first, with cuDNN autotuning) {epoch_s:.2f} s: {json.dumps(summary)}")
+    for split, n in (("train", 2000), ("test", 500)):
+        m = summary.get(split)
+        if m is None or m["n_samples"] != n or not all(
+                math.isfinite(float(v)) for v in m.values()):
+            fail(f"cifar: {split} saw {m}, want {n} samples and finite metrics")
+    want = {"lrn_fwd": n_train + n_test, "lrn_bwd": n_train}
+    print(f"cifar: launches {launches}, want {want} ({n_train} train steps: one forward and one "
+          f"backward each; {n_test} test steps: one forward each)")
+    if (n_train, n_test) != (20, 5) or launches != want:
+        fail(f"cifar: LRN launch counts {launches} != {want}")
+
+    # card vs CPU: 4-image f32 forward from identical weights
+    torch.backends.cudnn.benchmark = False
+    m32 = model_lib.build(cifar.DEFAULTS["layers"], wf.loader.sample_shape, device="cpu")
+    host = model_lib.params_to_numpy(wf.state.params)
+    mb = next(iter(wf.loader.batches("test", shuffle=False)))
+    xb = torch.as_tensor(mb.data[:4])
+    with torch.no_grad():
+        out_gpu = m32.apply(model_lib.params_from_jax(host, "cuda"), xb.cuda()).cpu()
+        out_cpu = m32.apply(model_lib.params_from_jax(host, "cpu"), xb)
+    rel = float((out_gpu - out_cpu).abs().max() / out_cpu.abs().max())
+    print(f"cifar: 4-image f32 forward, card vs CPU: max |diff| / max |logit| = {rel:.3e} "
+          f"(limit 1e-4); logits shape {list(out_gpu.shape)}")
+    if not rel < 1e-4 or out_gpu.shape != (4, 10):
+        fail("cifar: card and CPU forwards disagree")
+
+    torch.backends.cudnn.benchmark = True
+    step_s = _step_seconds(torch, wf, 20, 2)
+    med = statistics.median(step_s)
+    print(f"cifar: train step (batch 100, f32, TF32 off) median {med * 1e3:.4f} ms over 20 "
+          f"synchronized steps after 2 warm-up; {100 / med:.1f} images/sec on {smi}; all "
+          f"steps ms {[round(v * 1e3, 3) for v in step_s]}")
+    geo = lrn_kernel.launch_geometry(100 * 15 * 15, 32, 4, 16, LRN["n"])
+    print(f"cifar: lrn_bwd at {list(CIFAR_NORM['cifar'])} f32: "
+          f"{'halo' if geo.halo else 'rows'} kernel, {geo.vec}-element vectors, "
+          f"{geo.rows_per_block} rows a block of {geo.threads} threads, {geo.grid} blocks")
+    err, rows = phase_kernels(torch, lrn_kernel, CIFAR_NORM, seed=2)
+    return launches, err, rows, {"step_ms": med * 1e3, "images_per_s": 100 / med}
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -1513,7 +1711,7 @@ def main() -> int:
     from znicz_tpu_torch.core import prng
     from znicz_tpu_torch.core.config import root as troot
     from znicz_tpu_torch.loader import datasets
-    from znicz_tpu_torch.models import alexnet, kohonen, mnist_rbm, transformer_lm
+    from znicz_tpu_torch.models import alexnet, cifar, kohonen, mnist, mnist_rbm, transformer_lm
     from znicz_tpu_torch.ops import kohonen as kh_op
     from znicz_tpu_torch.ops.kernels import attention as fa, cuda_build, lrn as lrn_kernel
     from znicz_tpu_torch.ops.kernels import kohonen as khk, rbm as rbk
@@ -1556,6 +1754,11 @@ def main() -> int:
         "rbm_cd": phase_rbm_model(torch, mnist_rbm, rbk, troot, prng)[0],
     }
     print(f"unsupervised phases: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    phase_mnist(torch, mnist, prng, smi)
+    cifar_launches, cifar_err, cifar_rows, _ = phase_cifar(
+        torch, cifar, lrn_kernel, model_lib, prng, smi)
+    print(f"mnist and cifar phases: {time.perf_counter() - t0:.1f} s")
 
     kernels = []
     for kname in ("lrn_fwd", "lrn_bwd"):
@@ -1580,6 +1783,17 @@ def main() -> int:
         if kname == "lrn_bwd":  # phases 2-3b passed: bitwise repeats, canaries untouched
             entry.update(repeat="bitwise", canary="untouched", other_shapes_max_abs_err=lrn_extra,
                          ptxas_registers_spill_bytes=lrn_ptxas)
+        # the CIFAR-10 path (f32): its epoch's launches, the kernel at its
+        # norm shape in f32, with bf16 beside it
+        (c32,), (c16,) = cifar_rows[kname]["float32"], cifar_rows[kname]["bfloat16"]
+        entry["cifar"] = {
+            "shape": list(CIFAR_NORM["cifar"]),
+            "launches": cifar_launches[kname],
+            "max_abs_err": cifar_err[kname]["float32"],
+            **{k: v for k, v in c32.items() if k != "shape"},
+            "bf16": {"max_abs_err": cifar_err[kname]["bfloat16"],
+                     **{k: v for k, v in c16.items() if k != "shape"}},
+        }
         kernels.append(entry)
     for kname in FLASH:
         row = flash_rows[(kname, "float32")]  # the counted epoch's dtype

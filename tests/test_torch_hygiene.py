@@ -42,6 +42,8 @@ def test_package_has_the_slice_modules():
         "workflow.transformer", "models.transformer_lm", "loader.normalizers",
         "ops.kohonen", "ops.rbm", "ops.kernels.kohonen", "ops.kernels.rbm",
         "workflow.unsupervised", "models.kohonen", "models.mnist_rbm",
+        "ops.cutter", "ops.accumulator", "ops.weights_zerofilling",
+        "ops.resizable_all2all", "models.mnist", "models.wine", "models.cifar",
     ):
         assert f"znicz_tpu_torch.{name}" in mods
 
@@ -108,7 +110,9 @@ def test_param_builders_default_to_the_card():
     """The public builders put params on the card unless told otherwise."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the default device is valid here")
-    from znicz_tpu_torch.ops import all2all, attention, conv, kohonen, rbm
+    from znicz_tpu_torch.ops import (
+        accumulator, all2all, attention, conv, kohonen, rbm, weights_zerofilling,
+    )
     from znicz_tpu_torch.workflow import model, transformer
 
     layers = [{"type": "softmax", "->": {"output_sample_shape": 3}}]
@@ -121,6 +125,8 @@ def test_param_builders_default_to_the_card():
         lambda **kw: kohonen.init_params(2, 2, 5, **kw),
         lambda **kw: kohonen.grid_coords(2, 2, **kw),
         lambda **kw: rbm.init_params(5, 3, **kw),
+        lambda **kw: accumulator.init(4, **kw),
+        lambda **kw: weights_zerofilling.make_group_mask(4, 2, 2, **kw),
     ):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             build()

@@ -244,3 +244,41 @@ def test_backward_counts_one_launch_a_call(card):
     empty = torch.empty((0, 96), device=card)
     assert lrn_kernel.lrn_backward(empty, empty, 1e-4, 0.75, 2.0, 5).shape == (0, 96)
     assert lrn_kernel.lrn_backward.launches - b0 == 3
+
+
+CIFAR_NORM = (100, 15, 15, 32)  # the CIFAR-10 model's norm layer input, batch 100
+
+
+def test_backward_launch_geometry_at_cifar_norm():
+    """CIFAR's norm shape takes halo_kernel in 16-byte vectors: 8 threads a
+    row, 32 rows a block of 256 threads, and 176 blocks of 4 tiles."""
+    rows = CIFAR_NORM[0] * CIFAR_NORM[1] * CIFAR_NORM[2]
+    geo = lrn_kernel.launch_geometry(rows, CIFAR_NORM[3], 4, 16, 5)
+    assert (geo.halo, geo.vec, geo.rows_per_block, geo.threads, geo.grid) == (
+        True, 4, 32, 256, 176)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_kernels_at_cifar_norm(card, dtype):
+    """Both kernels at CIFAR-10's norm shape (n 5, alpha 1e-4, beta 0.75, k
+    2) against their plain versions, one launch each, the backward bitwise
+    equal on a repeat and writing nothing past dx."""
+    args = (1e-4, 0.75, 2.0, 5)
+    x = _x(CIFAR_NORM, 17, card).to(dtype)
+    g = _x(CIFAR_NORM, 18, card).to(dtype)
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    atol = 1e-6 if dtype == torch.float32 else 2e-2
+    f0, b0 = lrn_kernel.lrn_forward.launches, lrn_kernel.lrn_backward.launches
+    y = lrn_kernel.lrn_forward(x, *args)
+    dx = lrn_kernel.lrn_backward(x, g, *args)
+    assert (lrn_kernel.lrn_forward.launches - f0, lrn_kernel.lrn_backward.launches - b0) == (1, 1)
+    torch.testing.assert_close(y, lrn_kernel.lrn_reference(x, *args), rtol=tol, atol=atol)
+    torch.testing.assert_close(dx, lrn_kernel.lrn_bwd_reference(x, g, *args), rtol=tol, atol=atol)
+    assert torch.equal(lrn_kernel.lrn_backward(x, g, *args), dx)
+    numel = x.numel()
+    buf = torch.full((numel + 4096,), float("nan"), dtype=dtype, device=card)
+    lrn_kernel._launch_bwd(x, g, buf[:numel].view(CIFAR_NORM), *args)
+    torch.cuda.synchronize()
+    assert bool(torch.isnan(buf[numel:]).all())
+    assert torch.equal(buf[:numel].view(CIFAR_NORM), dx)

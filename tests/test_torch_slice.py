@@ -257,8 +257,7 @@ def test_full_alexnet_build_matches_jax_shapes(small_alexnet_data):
 
 
 @pytest.mark.parametrize(
-    "spec", [{"type": "moe"}, {"type": "deconv"}, {"type": "activation_tanh"}],
-    ids=["moe", "deconv", "activation"],
+    "spec", [{"type": "moe"}, {"type": "deconv"}], ids=["moe", "deconv"],
 )
 def test_layer_types_of_later_slices_raise(spec):
     with pytest.raises(NotImplementedError, match="slice"):

@@ -1,17 +1,19 @@
-"""Dataset constructors (port of the parts of ``znicz_tpu/loader/datasets.py``
-the ported slices need: MNIST and the synthetic ImageNet stand-in).
+"""Dataset constructors (port of ``znicz_tpu/loader/datasets.py``: MNIST,
+CIFAR-10, UCI Wine and the synthetic ImageNet stand-in).
 
-MNIST reads the standard IDX files when a data directory holds them, and
-otherwise makes the JAX package's synthetic 28x28, 10-class stand-in.  The
-synthetic data draws from the named "datasets" stream exactly as the JAX
-package does, so the same seed gives the same images and labels in both
-frameworks.
+Each reads its standard on-disk format when given a path that holds it
+(MNIST's IDX files, CIFAR-10's python-pickle batches, Wine's CSV), and
+otherwise makes the JAX package's synthetic stand-in of the same shapes.
+The synthetic data draws from the named "datasets" stream exactly as the
+JAX package does, so the same seed gives the same samples and labels in
+both frameworks.
 """
 
 from __future__ import annotations
 
 import gzip
 import os
+import pickle
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -122,6 +124,76 @@ def mnist(
     else:
         data = {k: v.reshape(len(v), 28, 28, 1) for k, v in data.items()}
     return FullBatchLoader(data, labels, minibatch_size=minibatch_size, **loader_kwargs)
+
+
+def cifar10(
+    data_dir: Optional[str] = None,
+    *,
+    minibatch_size: int = 100,
+    n_train: int = 2000,
+    n_test: int = 500,
+    **loader_kwargs,
+) -> FullBatchLoader:
+    """CIFAR-10 in NHWC: the python-pickle batches of ``data_dir`` when it
+    holds all of them (``data_batch_1`` to ``_5`` and ``test_batch``), else
+    the synthetic 32x32x3, 10-class stand-in sized (``n_train``,
+    ``n_test``).  Real images stay uint8 under "range" 255/-0.5 unless the
+    caller names a normalization, which then gets them as ``x / 255 - 0.5``
+    in float32, as in the JAX package."""
+    data: Dict[str, np.ndarray] = {}
+    labels: Dict[str, np.ndarray] = {}
+    if data_dir:
+        batch_paths = [os.path.join(data_dir, f"data_batch_{i}") for i in range(1, 6)]
+        test_path = os.path.join(data_dir, "test_batch")
+        if all(os.path.exists(p) for p in batch_paths + [test_path]):
+            data["train"], labels["train"] = _read_cifar_batches(batch_paths)
+            data["test"], labels["test"] = _read_cifar_batches([test_path])
+            if "normalization" in loader_kwargs:
+                data = {k: v.astype(np.float32) / 255.0 - 0.5 for k, v in data.items()}
+            else:
+                loader_kwargs["normalization"] = "range"
+                loader_kwargs["normalization_kwargs"] = {"scale": 255.0, "shift": -0.5}
+    if not data:
+        data, labels = _synthetic_split(n_train, n_test, (32, 32, 3), 10)
+    return FullBatchLoader(data, labels, minibatch_size=minibatch_size, **loader_kwargs)
+
+
+def _read_cifar_batches(paths) -> Tuple[np.ndarray, np.ndarray]:
+    """CIFAR-10's python-pickle batch files -> uint8 NHWC images and int32
+    labels.  Unpickling runs code, so ``data_dir`` must be trusted."""
+    xs, ys = [], []
+    for p in paths:
+        with open(p, "rb") as f:
+            d = pickle.load(f, encoding="bytes")
+        xs.append(np.asarray(d[b"data"], np.uint8))
+        ys.append(np.asarray(d[b"labels"], np.int32))
+    x = np.concatenate(xs).reshape(-1, 3, 32, 32).transpose(0, 2, 3, 1)
+    return np.ascontiguousarray(x), np.concatenate(ys)
+
+
+def wine(
+    data_path: Optional[str] = None,
+    *,
+    minibatch_size: int = 10,
+    **loader_kwargs,
+) -> FullBatchLoader:
+    """UCI Wine (one ``train`` split): the ``wine.data`` CSV at
+    ``data_path`` when it exists (the class, 1-3, then 13 features a row),
+    else the synthetic 178 x 13, 3-class stand-in; "mean_disp"
+    normalization unless the caller names another."""
+    if data_path and os.path.exists(data_path):
+        raw = np.loadtxt(data_path, delimiter=",")
+        labels_all = raw[:, 0].astype(np.int32) - 1
+        x_all = raw[:, 1:].astype(np.float32)
+    else:
+        x_all, labels_all = _synthetic_classes(178, (13,), 3, sep=3.0)
+    return FullBatchLoader(
+        {"train": x_all},
+        {"train": labels_all},
+        minibatch_size=minibatch_size,
+        normalization=loader_kwargs.pop("normalization", "mean_disp"),
+        **loader_kwargs,
+    )
 
 
 def imagenet_synthetic(

@@ -25,10 +25,16 @@ def softmax(
     labels: torch.Tensor,
     *,
     mask: Optional[torch.Tensor] = None,
+    n_classes: Optional[int] = None,
+    compute_confusion: bool = False,
 ) -> Dict[str, torch.Tensor]:
     """Cross-entropy over integer labels: ``loss`` (masked mean),
     ``n_err`` (misclassified count), ``n_samples`` and ``max_err_y_sum``
-    (largest ``sum |p - onehot|`` over the valid rows)."""
+    (largest ``sum |p - onehot|`` over the valid rows); with
+    ``compute_confusion``, ``confusion``: the int32 ``[n_classes,
+    n_classes]`` counts of the valid rows, rows the truth and columns the
+    prediction, summed on the device by an integer ``index_add_`` (exact in
+    any order)."""
     mask, n_valid = _norm_mask(mask, logits.shape[0], logits.device)
     labels = labels.long()
     logp = torch.log_softmax(logits, dim=-1)
@@ -38,12 +44,19 @@ def softmax(
     err = (pred != labels).float() * mask
     p = torch.exp(logp)
     onehot = torch.zeros_like(p).scatter_(1, labels[:, None], 1.0)
-    return {
+    out = {
         "loss": loss,
         "n_err": torch.sum(err).to(torch.int32),
         "n_samples": n_valid,
         "max_err_y_sum": torch.max(torch.sum(torch.abs(p - onehot), dim=1) * mask),
     }
+    if compute_confusion:
+        nc = n_classes or logits.shape[-1]
+        flat = labels * nc + pred
+        out["confusion"] = torch.zeros(
+            (nc * nc,), dtype=torch.int32, device=logits.device
+        ).index_add_(0, flat, mask.to(torch.int32)).reshape(nc, nc)
+    return out
 
 
 def mse(

@@ -21,9 +21,11 @@ import torch
 from znicz_tpu_torch.core import device as device_lib
 from znicz_tpu_torch.nn import optimizer
 from znicz_tpu_torch.ops import (
+    activation as act_op,
     all2all,
     attention as attention_op,
     conv,
+    cutter,
     dropout as dropout_op,
     normalization,
     pooling,
@@ -40,6 +42,13 @@ class Model(NamedTuple):
     returns_logits: bool  # final "softmax" layer emits logits (CE wants them)
     compute_dtype: Optional[torch.dtype] = None
     layer_shapes: Tuple[Tuple[int, ...], ...] = ()  # per-sample output of each layer
+    layer_specs: Tuple[dict, ...] = ()  # {"type": ..., **forward knobs} a layer (export)
+
+    def predict(self, params, x):
+        """Inference output: probabilities for a softmax-headed model, the
+        raw output otherwise."""
+        y = self.apply(params, x, train=False)
+        return torch.softmax(y, dim=-1) if self.returns_logits else y
 
 
 def _split_spec(spec: Dict[str, Any]) -> Tuple[str, dict, dict]:
@@ -76,13 +85,10 @@ _CONV_ACT = {
 _POOL = {
     "max_pooling": pooling.max_pool,
     "avg_pooling": pooling.avg_pool,
+    "maxabs_pooling": pooling.max_abs_pool,
 }
 # layer types of the JAX package that later slices of the port bring
 _LATER = {
-    "maxabs_pooling": "a later slice (ROADMAP.md A5, ops/pooling.py)",
-    "stochastic_pooling": "a later slice (ROADMAP.md A5, ops/pooling.py)",
-    "cutter": "a later slice (ROADMAP.md A5, ops/cutter.py)",
-    "activation_*": "a later slice (ROADMAP.md A5, ops/cutter.py)",
     "deconv": "a later slice (ROADMAP.md A10, ops/deconv.py)",
     "moe": "a later slice (ROADMAP.md A7, ops/moe.py)",
 }
@@ -163,16 +169,24 @@ def build(
 
             shape = conv.output_shape(shape, n_kernels, kx, ky, sliding, padding)
 
-        elif kind in _POOL:
+        elif kind in _POOL or kind == "stochastic_pooling":
             kx, ky = int(fwd["kx"]), int(fwd["ky"])
             sliding = fwd.get("sliding")
             if sliding is not None:
                 sliding = tuple(sliding)
             p = {}
-            pool_fn = _POOL[kind]
+            if kind == "stochastic_pooling":
 
-            def fn(p, x, train, gen, f=pool_fn, kx=kx, ky=ky, s=sliding):
-                return f(x, kx, ky, s)
+                def fn(p, x, train, gen, kx=kx, ky=ky, s=sliding):
+                    return pooling.stochastic_pool(
+                        x, kx, ky, s, generator=gen, train=train
+                    )
+
+            else:
+                pool_fn = _POOL[kind]
+
+                def fn(p, x, train, gen, f=pool_fn, kx=kx, ky=ky, s=sliding):
+                    return f(x, kx, ky, s)
 
             shape = pooling.output_shape(shape, kx, ky, sliding)
 
@@ -193,6 +207,22 @@ def build(
                 return dropout_op.dropout(
                     x, dropout_ratio=r, generator=gen, train=train
                 )
+
+        elif kind == "cutter":
+            p = {}
+            padding = fwd["padding"]
+
+            def fn(p, x, train, gen, pad=padding):
+                return cutter.cut(x, pad)
+
+            shape = cutter.output_shape(shape, padding)
+
+        elif kind.startswith("activation_"):
+            p = {}
+            a = act_op.get(kind[len("activation_"):])
+
+            def fn(p, x, train, gen, a=a):
+                return a(x)
 
         elif kind == "attention":
             # pre-LN residual multi-head self-attention block
@@ -216,16 +246,14 @@ def build(
                 return x + attention_op.mha(p, h, n_heads=nh, causal=c)
 
         else:
-            later = _LATER.get(
-                "activation_*" if kind.startswith("activation_") else kind
-            )
+            later = _LATER.get(kind)
             if later is not None:
                 raise NotImplementedError(
                     f"layer type {kind!r} (index {i}) is ported in {later}"
                 )
             raise ValueError(
                 f"unknown layer type {kind!r} at index {i}; known: "
-                f"{sorted(_A2A_ACT) + sorted(_CONV_ACT) + sorted(_POOL) + ['attention', 'dropout', 'norm', 'softmax']}"
+                f"{sorted(_A2A_ACT) + sorted(_CONV_ACT) + sorted(_POOL) + ['softmax', 'stochastic_pooling', 'norm', 'dropout', 'cutter', 'attention', 'activation_*']}"
             )
 
         params.append(p)
@@ -234,13 +262,13 @@ def build(
         types.append(kind)
         shapes.append(tuple(shape[1:]))
 
-    needs_rng = any(t == "dropout" for t in types)
+    needs_rng = any(t in ("dropout", "stochastic_pooling") for t in types)
 
     def apply(params, x, *, train: bool = False, generator: Optional[torch.Generator] = None):
         if train and needs_rng and generator is None:
             raise ValueError(
-                "model has dropout layers: apply(train=True) needs a "
-                "torch.Generator"
+                "model has dropout/stochastic layers: apply(train=True) "
+                "needs a torch.Generator"
             )
         if compute_dtype is not None:
             x = x.to(compute_dtype)
@@ -264,6 +292,9 @@ def build(
         returns_logits=returns_logits,
         compute_dtype=compute_dtype,
         layer_shapes=tuple(shapes),
+        layer_specs=tuple(
+            {"type": t, **_split_spec(s)[1]} for t, s in zip(types, layers)
+        ),
     )
 
 

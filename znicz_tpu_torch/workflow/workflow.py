@@ -249,6 +249,58 @@ class Workflow:
             self.initialize()
         return self._finish_epoch(self._run_epoch_stepwise())
 
+    @torch.no_grad()
+    def _eval_conf_step(self, x, y, mask, acc, conf):
+        """One evaluation step that also adds the minibatch's confusion
+        counts into ``conf`` (the softmax loss only)."""
+        x, y = self._prep(x, y)
+        out = self.model.apply(self.state.params, x, train=False)
+        m = evaluator.softmax(out, y, mask=mask, compute_confusion=True)
+        return self._combine(acc, m), conf + m.pop("confusion")
+
+    def evaluate(self, split: str = "test", *, confusion: bool = False) -> Dict[str, Any]:
+        """One evaluation pass over ``split``, read in its stored order (the
+        shuffle stream does not move).  Returns ``n_samples``, ``n_err``,
+        ``err_pct`` and ``loss``, plus ``confusion`` (a numpy int32
+        ``[n_classes, n_classes]`` array, rows the truth) when asked for and
+        the loss is "softmax".  The metrics and the confusion are summed on
+        the device: one fetch at the end, two with the confusion."""
+        if self.state is None:
+            self.initialize()
+        if self.loader.class_lengths.get(split, 0) == 0:
+            # evaluating zero samples would report a silent perfect score
+            raise ValueError(
+                f"evaluate({split!r}): the loader has no samples in that "
+                "split (available: "
+                f"{sorted(k for k, n in self.loader.class_lengths.items() if n)})"
+            )
+        use_conf = confusion and self.loss_function == "softmax"
+        acc = self._acc_init()
+        conf = None
+        if use_conf:
+            nc = int(np.prod(self.model.output_shape))
+            conf = torch.zeros((nc, nc), dtype=torch.int32, device=self.device)
+        for mb in self.loader.batches(split, shuffle=False):
+            x = self._put(mb.data)
+            y = x if self.target == "input" else self._put(self._batch_target(mb))
+            mask = self._put(mb.mask)
+            if use_conf:
+                acc, conf = self._eval_conf_step(x, y, mask, acc, conf)
+            else:
+                acc = self.eval_step(x, y, mask, acc)
+        m = _decode_metrics(acc.cpu().numpy(), self._metric_names)
+        n = m.get("n_samples", 0.0)
+        n_err = m.get("n_err", 0.0)
+        result = {
+            "n_samples": n,
+            "n_err": n_err,
+            "err_pct": 100.0 * n_err / max(n, 1.0),
+            "loss": m.get("loss", 0.0),
+        }
+        if conf is not None:
+            result["confusion"] = conf.cpu().numpy()
+        return result
+
     def run(self) -> Decision:
         """Train until the Decision stops; returns it (history, best)."""
         if self.state is None:
