@@ -125,12 +125,36 @@ exit, no result line) when any phase fails:
     a 4-image f32 forward on the card against the CPU from the same weights;
     20 timed train steps (images/sec); then both LRN kernels at the norm
     layer's ``[100, 15, 15, 32]`` as in phases 2-3, in f32 and bf16;
-17. the whole script's seconds, the ``kernels`` JSON line (each flash row
+17. the image-file loaders, with no image library needed: a Kanji-shaped
+    PNG tree (4 classes, 60 images in colour types 0, 2 and 6, every row
+    filter) written by the script's own encoder under ``build/chip_smoke/``,
+    each file decoded bitwise to its samples / 255, served by
+    ``ImageDirectoryLoader`` (grey 24x24) and packed by ``pack_image_dir``
+    equal to the expected; ``native/batch_assembler.cc`` built with g++
+    (its seconds); ``crop_gather_u8`` on a ``[640, 256, 256, 3]`` u8 pool
+    at batch 128, crop 227, with flips, bitwise equal to its numpy version,
+    and its ms and GB/s a batch; the pool saved as packed ImageNet files
+    (512 train, 128 valid, 1000 classes);
+18. AlexNet from disk: ``alexnet.build_workflow(device="cuda")`` with that
+    ``data_dir`` (the ImageNet loader, crop 227, batch 128, bf16, a
+    1000-class head) runs one epoch with the LRN counters set to 0 just
+    before and read just after (phase 4's counts), then 10 timed train
+    steps split into the host's fill, the u8 batch's H2D copy and the step,
+    as images/sec beside phase 4's synthetic rate, and a 4-image f32
+    forward on the card against the CPU from the same weights;
+19. ``mnist_ae`` at its published widths (batch 100, f32 without TF32): 3
+    epochs on the card against the CPU from one seed (per-epoch loss within
+    1e-4 relative), its step time (median of 20), the deconv and both its
+    gradients at the model's shape on the card against the CPU (within
+    1e-5 of the largest magnitude); one epoch each of ``video_ae``,
+    ``kanji`` and ``yale_faces`` on their synthetic data and of ``kanji``
+    on phase 17's tree, with images/sec;
+20. the whole script's seconds, the ``kernels`` JSON line (each flash row
     with its bf16 times, bound, launches and error beside the f32 ones under
     ``"bf16"``; the f32 flash, Kohonen and RBM rows also with their f32-FMA
     bound and their float64 errors beside the plain version's; the LRN rows
-    with the CIFAR path's launches and f32 times under ``"cifar"``), then
-    the result line.
+    with the CIFAR path's launches and f32 times under ``"cifar"`` and the
+    disk path's launches under ``"alexnet_disk"``), then the result line.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``.
 """
@@ -1540,10 +1564,12 @@ def _epochs(wf, n):
 
 
 def _step_seconds(torch, wf, n, warmup):
-    """Seconds of ``n`` train steps on the first train minibatch, each
-    synchronized, after ``warmup`` more."""
+    """Seconds of ``n`` train steps on the first train minibatch (its
+    labels, or the batch itself for an autoencoder), each synchronized,
+    after ``warmup`` more."""
     mb = next(iter(wf.loader.batches("train", shuffle=False)))
-    x, y, mask = (torch.as_tensor(a, device="cuda") for a in (mb.data, mb.labels, mb.mask))
+    x, mask = (torch.as_tensor(a, device="cuda") for a in (mb.data, mb.mask))
+    y = x if wf.target == "input" else torch.as_tensor(mb.labels, device="cuda")
     step_s = []
     for _ in range(warmup + n):
         t0 = time.perf_counter()
@@ -1701,6 +1727,358 @@ def phase_cifar(torch, cifar, lrn_kernel, model_lib, prng, smi):
     return launches, err, rows, {"step_ms": med * 1e3, "images_per_s": 100 / med}
 
 
+# -- the image-file loaders, AlexNet from disk, the autoencoders -------------
+WORK_DIR = "build/chip_smoke"  # under the checkout (gitignored), made anew each run
+PNG_FILTERS = ("None", "Sub", "Up", "Average", "Paeth")
+TREE_SPLITS = {"train": 12, "test": 3}  # images a class
+TREE_CLASSES = ("ka", "ki", "ku", "ke")
+TREE_SIZES = ((24, 24), (28, 20), (20, 30))  # (H, W): nearest resizes to 24x24 too
+CROP_POOL = (640, 256, 256, 3)  # phase 18's 512 train + 128 valid images
+CROP, CROP_BATCH = 227, 128
+DISK_SPLITS = {"train": 512, "valid": 128}
+AE_EPOCHS = 3
+
+
+def _png_bytes(samples, ctype, filters):
+    """An 8-bit, non-interlaced PNG of ``samples`` ``[H, W, S]`` (colour
+    type 0, 2 or 6), row ``r`` filtered by ``filters[r % len(filters)]``:
+    the script's own encoder (``zlib``), so that no image library is
+    needed to write the tree."""
+    import struct
+    import zlib
+
+    h, w, s = samples.shape
+    rows = samples.reshape(h, w * s).tolist()
+    raw, prev = bytearray(), [0] * (w * s)
+    for r, cur in enumerate(rows):
+        kind = filters[r % len(filters)]
+        raw.append(kind)
+        for i, x in enumerate(cur):
+            a = cur[i - s] if i >= s else 0
+            b = prev[i]
+            c = prev[i - s] if i >= s else 0
+            pa, pb, pc = abs(b - c), abs(a - c), abs(a + b - 2 * c)
+            paeth = a if pa <= pb and pa <= pc else (b if pb <= pc else c)
+            raw.append((x - (0, a, b, (a + b) >> 1, paeth)[kind]) & 0xFF)
+        prev = cur
+
+    def chunk(kind, body):
+        return struct.pack(">I", len(body)) + kind + body + struct.pack(
+            ">I", zlib.crc32(kind + body))
+
+    return (b"\x89PNG\r\n\x1a\n"
+            + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, ctype, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(bytes(raw))) + chunk(b"IEND", b""))
+
+
+def _nearest(img, h, w):
+    """Nearest-neighbour resize, written out here: the check's own."""
+    import numpy as np
+
+    ih, iw = img.shape[:2]
+    return img[(np.arange(h) * ih / h).astype(np.int64)][:, (np.arange(w) * iw / w).astype(np.int64)]
+
+
+def _write_png_tree(root):
+    """A Kanji-shaped tree (``<split>/<class>/*.png``, 4 classes) in colour
+    types 0, 2 and 6 and every row filter, each image alone and all five in
+    turn; returns {path: the expected float32 image [H, W, C]}."""
+    import numpy as np
+
+    rng = np.random.default_rng(17)
+    expected, k = {}, 0
+    for split, n in TREE_SPLITS.items():
+        for ci, cls in enumerate(TREE_CLASSES):
+            d = root / split / cls
+            d.mkdir(parents=True)
+            for i in range(n):
+                h, w = TREE_SIZES[k % len(TREE_SIZES)]
+                ctype = (0, 2, 6)[k % 3]
+                s = {0: 1, 2: 3, 6: 4}[ctype]
+                samples = np.clip(40 + 50 * ci + rng.normal(0, 30, (h, w, s)), 0, 255).astype(
+                    np.uint8)
+                filters = [k % 5] if k % 6 else [0, 1, 2, 3, 4]
+                path = d / f"{i:03d}.png"
+                path.write_bytes(_png_bytes(samples, ctype, filters))
+                expected[str(path)] = np.divide(samples[..., :3], 255, dtype=np.float32)
+                k += 1
+    return expected
+
+
+def phase_loaders(torch, image_lib, imagenet_lib, native_lib, smi):
+    """Phase 17: the loaders on this machine (no image library needed): a
+    PNG tree written by the script's encoder, decoded bitwise, served by
+    ``ImageDirectoryLoader`` and packed by ``pack_image_dir``; the native
+    crop gather built with g++, held bitwise against its numpy version at
+    AlexNet's batch and timed; the packed ImageNet-shaped files of phase
+    18.  Returns the tree's path, the packed dir's path and the crop's
+    numbers."""
+    import importlib.util
+    import shutil
+    from pathlib import Path
+
+    import numpy as np
+
+    work = Path(__file__).resolve().parent / WORK_DIR
+    shutil.rmtree(work, ignore_errors=True)
+    libs = {m: importlib.util.find_spec(m) is not None for m in ("PIL", "matplotlib")}
+    print(f"loaders: image libraries importable here: {libs} (the port decodes PNG and BMP "
+          "itself)")
+    t0 = time.perf_counter()
+    expected = _write_png_tree(work / "tree")
+    tree = str(work / "tree")
+    bad = [p for p, want in expected.items()
+           if not np.array_equal(image_lib._read_image(p), want)]
+    print(f"loaders: wrote {len(expected)} PNGs (colour types 0, 2, 6; filters "
+          f"{', '.join(PNG_FILTERS)}) in {time.perf_counter() - t0:.2f} s; decoded bitwise "
+          f"equal to the encoded samples / 255: {len(expected) - len(bad)} of {len(expected)}")
+    if bad:
+        fail(f"loaders: {len(bad)} PNGs decode to other values, e.g. {bad[0]}")
+    dl = image_lib.ImageDirectoryLoader(tree, target_shape=(24, 24, 1), grayscale=True,
+                                        minibatch_size=10)
+    n_rows = 0
+    for split in ("train", "test"):
+        for mb in dl.batches(split, shuffle=False):
+            for row, idx in enumerate(mb.indices[mb.mask > 0]):
+                path, label = dl.index[split][int(idx)]
+                want = _nearest(expected[path], 24, 24).mean(axis=-1, keepdims=True)
+                if not np.array_equal(mb.data[row], want) or mb.labels[row] != label:
+                    fail(f"loaders: ImageDirectoryLoader row {row} of {split} ({path}) differs")
+                n_rows += 1
+    if dl.classes != sorted(TREE_CLASSES) or n_rows != len(expected):
+        fail(f"loaders: ImageDirectoryLoader classes {dl.classes}, {n_rows} rows")
+    counts = imagenet_lib.pack_image_dir(tree, str(work / "packed_tree"), size=32)
+    packed = np.load(work / "packed_tree" / "train_images.npy")
+    labels = np.load(work / "packed_tree" / "train_labels.npy")
+    want = np.stack([imagenet_lib._to_u8_rgb(expected[p], 32) for p, _ in dl.index["train"]])
+    print(f"loaders: ImageDirectoryLoader served {n_rows} grey 24x24 rows equal to the "
+          f"expected; pack_image_dir {counts}, train images {list(packed.shape)} equal to the "
+          f"expected: {np.array_equal(packed, want)}")
+    if not np.array_equal(packed, want) or labels.tolist() != [
+            lab for _, lab in dl.index["train"]]:
+        fail("loaders: pack_image_dir wrote other images or labels")
+
+    t0 = time.perf_counter()
+    built = native_lib.build()
+    print(f"loaders: native/batch_assembler.cc built by g++ in {built.seconds:.2f} s "
+          f"({time.perf_counter() - t0:.2f} s with the load) -> {built.path.name}")
+    native_lib.load()
+    rng = np.random.default_rng(23)
+    pool = rng.integers(0, 256, CROP_POOL, dtype=np.uint8)
+    n, h, w, _ = pool.shape
+    args = (rng.integers(0, n, CROP_BATCH), rng.integers(0, h - CROP + 1, CROP_BATCH),
+            rng.integers(0, w - CROP + 1, CROP_BATCH), rng.integers(0, 2, CROP_BATCH), CROP, CROP)
+    got = native_lib.crop_gather_u8(pool, *args)
+    same = np.array_equal(got, native_lib.crop_gather_u8_reference(pool, *args))
+    print(f"loaders: crop_gather_u8 on a {list(CROP_POOL)} u8 pool, batch {CROP_BATCH}, crop "
+          f"{CROP}, {int(args[3].sum())} flips: native bitwise equal to the numpy version: {same}")
+    if not same:
+        fail("loaders: the native crop differs from its numpy version")
+    ms = []
+    for _ in range(23):
+        t0 = time.perf_counter()
+        native_lib.crop_gather_u8(pool, *args)
+        ms.append((time.perf_counter() - t0) * 1e3)
+    t0 = time.perf_counter()
+    native_lib.crop_gather_u8_reference(pool, *args)
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    med = statistics.median(ms[3:])
+    nbytes = got.nbytes
+    print(f"loaders: crop_gather_u8 {med:.3f} ms a batch (median of 20 after 3 warm-up; "
+          f"{nbytes / 1e6:.2f} MB out, the same read), {nbytes / med / 1e6:.2f} GB/s written; "
+          f"numpy version {plain_ms:.3f} ms; {smi}")
+
+    out = work / "imagenet"  # phase 18's data: pack_image_dir's layout at 256
+    out.mkdir()
+    n_train = DISK_SPLITS["train"]
+    labels = rng.integers(0, 1000, n).astype(np.int32)
+    for split, sl in (("train", slice(0, n_train)), ("valid", slice(n_train, n))):
+        np.save(out / f"{split}_images.npy", pool[sl])
+        np.save(out / f"{split}_labels.npy", labels[sl])
+    (out / "classes.json").write_text(json.dumps([f"n{i:08d}" for i in range(1000)]))
+    mean = pool[:n_train].reshape(-1, 3).mean(axis=0) / 255.0
+    (out / "mean_rgb.json").write_text(json.dumps(mean.tolist()))
+    return tree, str(out), {"crop_ms": med, "crop_gb_per_s": nbytes / med / 1e6,
+                            "crop_plain_ms": plain_ms, "gxx_s": built.seconds}
+
+
+def phase_alexnet_disk(torch, lrn_kernel, alexnet, imagenet_lib, model_lib, prng, troot,
+                       data_dir, synthetic, smi):
+    """Phase 18: AlexNet at its published geometry (227 crops, batch 128,
+    1000 classes, bf16) from phase 17's packed files: one epoch with the
+    LRN counters set to 0 just before and read just after, timed steps
+    split into the host's fill, the u8 batch's H2D copy and the step, and a
+    4-image f32 forward on the card against the CPU."""
+    saved = troot.to_dict()
+    try:
+        troot.alexnet.loader.update({"data_dir": data_dir})
+        prng.seed_all(1234)
+        t0 = time.perf_counter()
+        wf = alexnet.build_workflow(device="cuda")
+    finally:
+        troot.clear()
+        troot.update(saved)
+    wf.initialize()
+    loader = wf.loader
+    print(f"alexnet disk: built in {time.perf_counter() - t0:.1f} s on {type(loader).__name__} "
+          f"({loader.data_dir}): {loader.class_lengths}, {loader.n_classes()} classes, crops "
+          f"{loader.sample_shape}, head {wf.model.output_shape}, {wf.model.compute_dtype}")
+    if not isinstance(loader, imagenet_lib.ImageNetLoader) or wf.model.output_shape != (1000,) \
+            or loader.sample_shape != (CROP, CROP, 3) or loader.class_lengths != DISK_SPLITS:
+        fail("alexnet disk: not the ImageNet loader at the published geometry")
+    n_train, n_eval = loader.n_minibatches("train"), loader.n_minibatches("valid")
+    torch.backends.cudnn.benchmark = True
+    lrn_kernel.lrn_forward.launches = 0
+    lrn_kernel.lrn_backward.launches = 0
+    t0 = time.perf_counter()
+    verdict = wf.run_epoch()
+    torch.cuda.synchronize()
+    epoch_s = time.perf_counter() - t0
+    launches = {"lrn_fwd": lrn_kernel.lrn_forward.launches,
+                "lrn_bwd": lrn_kernel.lrn_backward.launches}
+    summary = verdict["summary"]
+    print(f"alexnet disk: epoch 1 {epoch_s:.2f} s: {json.dumps(summary)}")
+    for split, n in DISK_SPLITS.items():
+        m = summary.get(split)
+        if m is None or m["n_samples"] != n or not all(math.isfinite(float(v))
+                                                        for v in m.values()):
+            fail(f"alexnet disk: {split} saw {m}, want {n} samples and finite metrics")
+    want = {"lrn_fwd": 2 * (n_train + n_eval), "lrn_bwd": 2 * n_train}
+    print(f"alexnet disk: launches {launches}, want {want} (as phase 4: {n_train} train steps, "
+          f"{n_eval} eval steps, 2 norm layers)")
+    if launches != want:
+        fail(f"alexnet disk: LRN launch counts {launches} != {want}")
+
+    def train_batches():
+        while True:
+            yield from loader.batches("train")
+
+    batches = train_batches()
+    parts = {"fill": [], "h2d": [], "step": [], "total": []}
+    for i in range(12):
+        t0 = time.perf_counter()
+        mb = next(batches)  # the shuffle draw, the crop draws, the native crop
+        t1 = time.perf_counter()
+        x = torch.as_tensor(mb.data).to("cuda")
+        y = torch.as_tensor(mb.labels).to("cuda")
+        mask = torch.as_tensor(mb.mask).to("cuda")
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        acc = wf.train_step(x, y, mask)
+        float(acc[0])
+        t3 = time.perf_counter()
+        if i >= 2:
+            for k, v in zip(parts, (t1 - t0, t2 - t1, t3 - t2, t3 - t0)):
+                parts[k].append(v * 1e3)
+    med = {k: statistics.median(v) for k, v in parts.items()}
+    rate = CROP_BATCH / med["total"] * 1e3
+    print(f"alexnet disk: train step from disk (batch {CROP_BATCH}, bf16) median "
+          f"{med['total']:.2f} ms over 10 steps after 2 warm-up: host fill (crop) "
+          f"{med['fill']:.2f} ms, H2D of the u8 batch {med['h2d']:.2f} ms "
+          f"({x.numel() / 1e6:.1f} MB), step {med['step']:.2f} ms; {rate:.1f} images/sec, "
+          f"beside phase 4's synthetic {synthetic['images_per_s']:.1f} images/sec "
+          f"({synthetic['step_ms']:.2f} ms a step); {smi}; all totals ms "
+          f"{[round(v, 2) for v in parts['total']]}")
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.benchmark = False
+    m32 = model_lib.build(alexnet.DEFAULTS["layers"], loader.sample_shape, device="cpu")
+    host = model_lib.params_to_numpy(wf.state.params)
+    mb = next(iter(loader.batches("valid")))
+    xb = loader.device_preproc()(torch.as_tensor(mb.data[:4]))
+    with torch.no_grad():
+        out_gpu = m32.apply(model_lib.params_from_jax(host, "cuda"), xb.cuda()).cpu()
+        out_cpu = m32.apply(model_lib.params_from_jax(host, "cpu"), xb)
+    rel = float((out_gpu - out_cpu).abs().max() / out_cpu.abs().max())
+    print(f"alexnet disk: 4-image f32 forward of the valid crops, card vs CPU: max |diff| / "
+          f"max |logit| = {rel:.3e} (limit 1e-4); logits shape {list(out_gpu.shape)}")
+    if not rel < 1e-4 or out_gpu.shape != (4, 1000):
+        fail("alexnet disk: card and CPU forwards disagree")
+    return launches, {**med, "images_per_s": rate}
+
+
+def phase_autoencoders(torch, models, deconv, troot, prng, tree, smi):
+    """Phase 19: mnist_ae at its published widths (batch 100, f32 without
+    TF32) 3 epochs on the card against the CPU from one seed, its step
+    time, the deconv at its shape card against CPU; one epoch each of
+    video_ae, kanji and yale_faces (synthetic) and kanji from phase 17's
+    tree on the card."""
+    _f32_exact(torch)
+    torch.backends.cudnn.benchmark = False
+    mnist_ae = models["mnist_ae"]
+    prng.seed_all(1234)
+    wf = mnist_ae.build_workflow(device="cuda")
+    wf.initialize()
+    print(f"mnist_ae: layer shapes {list(wf.model.layer_shapes)}; "
+          f"{wf.loader.n_minibatches('train')} train and {wf.loader.n_minibatches('test')} test "
+          "steps an epoch")
+    if wf.model.layer_shapes != ((7, 7, 12), (28, 28, 1)):
+        fail(f"mnist_ae: layer shapes {wf.model.layer_shapes}")
+    t0 = time.perf_counter()
+    card = _epochs(wf, AE_EPOCHS)
+    torch.cuda.synchronize()
+    print(f"mnist_ae: {AE_EPOCHS} epochs on the card in {time.perf_counter() - t0:.2f} s "
+          "(conv and deconv: cuDNN; no hand kernel on this path)")
+    prng.seed_all(1234)
+    wf_cpu = mnist_ae.build_workflow(device="cpu")
+    wf_cpu.initialize()
+    _epochs_against_cpu("mnist_ae", card, _epochs(wf_cpu, AE_EPOCHS))
+    step_s = _step_seconds(torch, wf, 20, 5)
+    med = statistics.median(step_s) * 1e3
+    print(f"mnist_ae: train step (batch 100, f32, TF32 off) median {med:.4f} ms over 20 "
+          f"synchronized steps after 5 warm-up, on {smi}; min {min(step_s) * 1e3:.4f}, max "
+          f"{max(step_s) * 1e3:.4f} ms")
+
+    gen = torch.Generator().manual_seed(5)
+    x = torch.randn((100, 7, 7, 12), generator=gen)
+    w = torch.randn((10, 10, 1, 12), generator=gen) * 0.05
+    g = torch.randn((100, 28, 28, 1), generator=gen)
+    res = {}
+    for dev in ("cpu", "cuda"):
+        xd, wd = x.to(dev).requires_grad_(True), w.to(dev).requires_grad_(True)
+        y = deconv.apply({"weights": wd}, xd, sliding=(3, 3))
+        dx, dw = torch.autograd.grad((y * g.to(dev)).sum(), (xd, wd))
+        res[dev] = [t.detach().cpu() for t in (y, dx, dw)]
+    errs = {name: float((c - h).abs().max() / h.abs().max())
+            for name, c, h in zip(("y", "dx", "dw"), res["cuda"], res["cpu"])}
+    print(f"mnist_ae: deconv at [100, 7, 7, 12] -> [100, 28, 28, 1] (10x10, stride 3), card vs "
+          f"CPU, max |diff| / max |ref|: {errs} (limit 1e-5)")
+    if not all(v < 1e-5 for v in errs.values()):
+        fail("mnist_ae: the deconv or its gradients differ between the card and the CPU")
+
+    rates = {}
+    runs = [(name, None) for name in ("video_ae", "kanji", "yale_faces")] + [("kanji", tree)]
+    for name, data_dir in runs:
+        saved = troot.to_dict()
+        try:
+            if data_dir:
+                getattr(troot, name).loader.update({"data_dir": data_dir})
+            prng.seed_all(1234)
+            wf = models[name].build_workflow(device="cuda")
+        finally:
+            troot.clear()
+            troot.update(saved)
+        wf.initialize()
+        t0 = time.perf_counter()
+        summary = wf.run_epoch()["summary"]
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        n = sum(m["n_samples"] for m in summary.values())
+        label = f"{name}{' (PNG tree)' if data_dir else ''}"
+        if n != sum(wf.loader.class_lengths.values()) or not all(
+                math.isfinite(float(v)) for m in summary.values() for v in m.values()):
+            fail(f"{label}: epoch saw {n} samples or non-finite metrics: {summary}")
+        if data_dir and wf.model.output_shape != (len(TREE_CLASSES),):
+            fail(f"{label}: head {wf.model.output_shape}, want {len(TREE_CLASSES)} classes")
+        rates[label] = n / secs
+        print(f"{label}: one epoch on the card (first, synthetic data unless said) "
+              f"{secs:.3f} s, {n:.0f} images (train and eval), {n / secs:.1f} images/sec: "
+              + json.dumps(summary))
+    return {"mnist_ae_step_ms": med, "rates": rates}
+
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -1711,8 +2089,11 @@ def main() -> int:
     from znicz_tpu_torch.core import prng
     from znicz_tpu_torch.core.config import root as troot
     from znicz_tpu_torch.loader import datasets
+    from znicz_tpu_torch.loader import image as image_lib, imagenet as imagenet_lib
+    from znicz_tpu_torch.loader import native as native_lib
     from znicz_tpu_torch.models import alexnet, cifar, kohonen, mnist, mnist_rbm, transformer_lm
-    from znicz_tpu_torch.ops import kohonen as kh_op
+    from znicz_tpu_torch.models import kanji, mnist_ae, video_ae, yale_faces
+    from znicz_tpu_torch.ops import deconv, kohonen as kh_op
     from znicz_tpu_torch.ops.kernels import attention as fa, cuda_build, lrn as lrn_kernel
     from znicz_tpu_torch.ops.kernels import kohonen as khk, rbm as rbk
     from znicz_tpu_torch.workflow import model as model_lib, transformer
@@ -1732,7 +2113,7 @@ def main() -> int:
     lrn_ptxas = phase_lrn_build(built["lrn"])
     err, rows = phase_kernels(torch, lrn_kernel)
     lrn_extra = phase_lrn_bwd_extra(torch, lrn_kernel)
-    launches, _ = phase_slice(torch, lrn_kernel, alexnet, model_lib, prng)
+    launches, synthetic = phase_slice(torch, lrn_kernel, alexnet, model_lib, prng)
     t0 = time.perf_counter()
     phase_flash_build(built["flash_attention"], fa, cuda_build, torch)
     flash_err, flash_bf16_err, flash_f64_err = phase_flash_checks(torch, fa)
@@ -1759,6 +2140,16 @@ def main() -> int:
     cifar_launches, cifar_err, cifar_rows, _ = phase_cifar(
         torch, cifar, lrn_kernel, model_lib, prng, smi)
     print(f"mnist and cifar phases: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    tree, imagenet_dir, crop = phase_loaders(torch, image_lib, imagenet_lib, native_lib, smi)
+    disk_launches, disk = phase_alexnet_disk(
+        torch, lrn_kernel, alexnet, imagenet_lib, model_lib, prng, troot, imagenet_dir,
+        synthetic, smi)
+    ae = phase_autoencoders(
+        torch, {"mnist_ae": mnist_ae, "video_ae": video_ae, "kanji": kanji,
+                "yale_faces": yale_faces}, deconv, troot, prng, tree, smi)
+    print(f"loader, AlexNet-from-disk and autoencoder phases: {time.perf_counter() - t0:.1f} s; "
+          + json.dumps({"crop": crop, "alexnet_disk": disk, "synthetic": synthetic, **ae}))
 
     kernels = []
     for kname in ("lrn_fwd", "lrn_bwd"):
@@ -1794,6 +2185,8 @@ def main() -> int:
             "bf16": {"max_abs_err": cifar_err[kname]["bfloat16"],
                      **{k: v for k, v in c16.items() if k != "shape"}},
         }
+        # AlexNet from packed files on disk (phase 18): its epoch's launches
+        entry["alexnet_disk"] = {"launches": disk_launches[kname]}
         kernels.append(entry)
     for kname in FLASH:
         row = flash_rows[(kname, "float32")]  # the counted epoch's dtype

@@ -44,6 +44,8 @@ def test_package_has_the_slice_modules():
         "workflow.unsupervised", "models.kohonen", "models.mnist_rbm",
         "ops.cutter", "ops.accumulator", "ops.weights_zerofilling",
         "ops.resizable_all2all", "models.mnist", "models.wine", "models.cifar",
+        "loader.image", "loader.native", "loader.imagenet", "models.kanji",
+        "models.yale_faces", "ops.deconv", "models.mnist_ae", "models.video_ae",
     ):
         assert f"znicz_tpu_torch.{name}" in mods
 
@@ -66,6 +68,9 @@ def test_importing_every_module_loads_no_jax():
     assert "znicz_tpu_torch.ops.kernels.lrn" in loaded
     assert [m for m in loaded if _forbidden(m)] == []
     assert "triton" not in loaded  # imported only at a kernel's first launch
+    # the image decoders need neither image library (JPEG imports Pillow
+    # when it reads one)
+    assert [m for m in loaded if m.split(".")[0] in ("PIL", "matplotlib")] == []
 
 
 def _imports(path):
@@ -90,9 +95,12 @@ def test_no_card_means_an_error_not_the_cpu():
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the default device is valid here")
     from znicz_tpu_torch.core import device
-    from znicz_tpu_torch.models import alexnet, kohonen, mnist_rbm, transformer_lm
+    from znicz_tpu_torch.models import (
+        alexnet, cifar, kanji, kohonen, mnist, mnist_ae, mnist_rbm, transformer_lm, video_ae,
+        wine, yale_faces,
+    )
 
-    for model in (kohonen, mnist_rbm):
+    for model in (kohonen, mnist_rbm, mnist, wine, cifar, mnist_ae, video_ae, kanji, yale_faces):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             model.build_workflow()
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -111,7 +119,7 @@ def test_param_builders_default_to_the_card():
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the default device is valid here")
     from znicz_tpu_torch.ops import (
-        accumulator, all2all, attention, conv, kohonen, rbm, weights_zerofilling,
+        accumulator, all2all, attention, conv, deconv, kohonen, rbm, weights_zerofilling,
     )
     from znicz_tpu_torch.workflow import model, transformer
 
@@ -119,6 +127,7 @@ def test_param_builders_default_to_the_card():
     for build in (
         lambda **kw: model.build(layers, (4,), **kw),
         lambda **kw: conv.init_params(2, 3, 3, 3, **kw),
+        lambda **kw: deconv.init_params(1, 3, 3, 3, **kw),
         lambda **kw: all2all.init_params(4, 3, **kw),
         lambda **kw: attention.init_mha_params(8, 2, **kw),
         lambda **kw: transformer.init_lm_params(8, 8, 1, 2, 4, **kw),

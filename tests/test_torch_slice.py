@@ -13,6 +13,7 @@ threefry masks, so it is left out of the training comparison and checked
 on its own.
 """
 
+import json
 import re
 from pathlib import Path
 
@@ -29,6 +30,7 @@ from znicz_tpu.workflow import StandardWorkflow as JaxWorkflow, model as jax_mod
 from znicz_tpu_torch.core import prng as tprng
 from znicz_tpu_torch.core.config import root as troot
 from znicz_tpu_torch.loader.fullbatch import FullBatchLoader
+from znicz_tpu_torch.loader.imagenet import ImageNetLoader
 from znicz_tpu_torch.models import alexnet
 from znicz_tpu_torch.ops import dropout
 from znicz_tpu_torch.workflow import model as model_lib
@@ -256,9 +258,7 @@ def test_full_alexnet_build_matches_jax_shapes(small_alexnet_data):
     assert wf.loader.device_preproc() is not None
 
 
-@pytest.mark.parametrize(
-    "spec", [{"type": "moe"}, {"type": "deconv"}], ids=["moe", "deconv"],
-)
+@pytest.mark.parametrize("spec", [{"type": "moe"}], ids=["moe"])
 def test_layer_types_of_later_slices_raise(spec):
     with pytest.raises(NotImplementedError, match="slice"):
         model_lib.build([spec], (4, 4, 2), device="cpu")
@@ -288,11 +288,64 @@ def test_later_layer_types_name_their_roadmap_item(kind):
     _names_its_item(str(err.value))
 
 
-def test_alexnet_data_dir_names_its_roadmap_item(small_alexnet_data):
-    troot.alexnet.loader.update({"data_dir": "/nonexistent"})
-    with pytest.raises(NotImplementedError, match="slice") as err:
-        alexnet.build_workflow(device="cpu")
-    _names_its_item(str(err.value))
+# the mnist_ae encoder and decoder, then an asymmetric strided pair
+DECONV_LAYERS = [
+    {"type": "conv_tanh", "->": {"n_kernels": 12, "kx": 10, "ky": 10, "sliding": (3, 3),
+                                 "weights_filling": "gaussian", "weights_stddev": 0.05}},
+    {"type": "deconv", "->": {"n_channels": 1, "kx": 10, "ky": 10, "sliding": (3, 3),
+                              "weights_filling": "gaussian", "weights_stddev": 0.05}},
+    {"type": "conv", "->": {"n_kernels": 5, "kx": 4, "ky": 3, "sliding": (2, 1),
+                            "padding": (1, 0, 2, 1)}},
+    {"type": "deconv", "->": {"n_channels": 2, "kx": 4, "ky": 3, "sliding": (2, 1),
+                              "padding": (1, 0, 2, 1)}},
+]
+
+
+def test_deconv_layer_builds_with_jax_shapes():
+    _seed_both()
+    jm = jax_model.build(DECONV_LAYERS, (28, 28, 1))
+    tm = model_lib.build(DECONV_LAYERS, (28, 28, 1), device="cpu")
+    assert tm.layer_types == jm.layer_types
+    assert tm.layer_shapes == ((7, 7, 12), (28, 28, 1), (27, 14, 5), (28, 27, 2))
+    assert tm.output_shape == jm.output_shape == (28, 27, 2)
+    for lj, lt in zip(jm.params, tm.params):
+        assert {k: tuple(v.shape) for k, v in lt.items()} == {
+            k: tuple(v.shape) for k, v in lj.items()
+        }
+        for k in lj:
+            np.testing.assert_array_equal(lt[k].numpy(), np.asarray(lj[k]))
+    x = np.random.default_rng(0).standard_normal((2, 28, 28, 1)).astype(np.float32)
+    want = np.asarray(jm.apply(jm.params, jnp.asarray(x)))
+    got = tm.apply(tm.params, torch.from_numpy(x)).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5 * np.abs(want).max())
+
+
+def test_alexnet_data_dir_builds_on_the_imagenet_loader(small_alexnet_data, tmp_path):
+    """The published geometry from packed 256x256 images with 1000 classes:
+    the ImageNet loader, its crops at 227 and a 1000-class head."""
+    rng = np.random.default_rng(5)
+    np.save(tmp_path / "train_images.npy", rng.integers(0, 256, (3, 256, 256, 3), dtype=np.uint8))
+    np.save(tmp_path / "train_labels.npy", np.array([0, 998, 999], np.int32))
+    (tmp_path / "classes.json").write_text(json.dumps([f"n{i:08d}" for i in range(1000)]))
+    (tmp_path / "mean_rgb.json").write_text(json.dumps([0.485, 0.456, 0.406]))
+    troot.alexnet.loader.update({"data_dir": str(tmp_path)})
+    _seed_both()
+    wf = alexnet.build_workflow(device="cpu")
+    assert isinstance(wf.loader, ImageNetLoader)
+    assert wf.loader.n_classes() == 1000
+    assert wf.loader.sample_shape == (227, 227, 3)
+    assert wf.loader.max_minibatch_size == 128
+    assert list(wf.model.layer_shapes) == ALEXNET_SHAPES
+    assert wf.model.output_shape == (1000,)
+    assert wf.model.compute_dtype == torch.bfloat16
+    mb = next(iter(wf.loader.batches("train")))
+    assert mb.data.dtype == np.uint8 and mb.data.shape == (128, 227, 227, 3)
+    assert mb.mask.sum() == 3
+    x = wf.loader.device_preproc()(torch.from_numpy(mb.data[:1]))
+    assert x.dtype == torch.float32
+    np.testing.assert_allclose(x.mean(dim=(0, 1, 2)).numpy(),
+                               mb.data[0].reshape(-1, 3).mean(0) / 255 - [0.485, 0.456, 0.406],
+                               rtol=0, atol=1e-5)
 
 
 @pytest.mark.parametrize("device_convert", [True, False], ids=["u8_to_device", "host_f32"])

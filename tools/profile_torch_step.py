@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where a train step of one of the PyTorch port's models spends its device time.
 
-    python3 tools/profile_torch_step.py [--model alexnet|lm|kohonen|rbm|mnist|cifar]
+    python3 tools/profile_torch_step.py [--model alexnet|lm|kohonen|rbm|mnist|cifar|mnist_ae]
                                         [--steps 5] [--attention-dtype f32|bf16]
 
 Runs on one CUDA card (run from the repository root): builds the model at
@@ -10,8 +10,9 @@ batch 128, bf16; ``lm``: the mid LM, vocab 8192, d_model 512, 12 layers, 8
 heads, T 2048, batch 16, flash attention with ``--attention-dtype``;
 ``kohonen``: the 8x8 SOM over 784 features, batch 100; ``rbm``: the MNIST
 RBM, 784 x 128, CD-1, batch 100; ``mnist``: the MNIST MLP, 784 -> 100 -> 10,
-batch 100; ``cifar``: the CIFAR-10 conv net, batch 100; both f32 without
-TF32, as ``chip_smoke.py`` times them), warms up, then profiles ``--steps``
+batch 100; ``cifar``: the CIFAR-10 conv net, batch 100; ``mnist_ae``: the
+MNIST conv/deconv autoencoder, batch 100; these three f32 without TF32, as
+``chip_smoke.py`` times them), warms up, then profiles ``--steps``
 train steps with ``torch.profiler``.  Prints
 the card's ``nvidia-smi`` name and power limit, the step's wall time under
 the profiler, the device-busy time (the sum of the kernels' device time, one
@@ -99,22 +100,23 @@ def _unsupervised(torch, name):
 
 
 def _supervised(torch, name):
-    from znicz_tpu_torch.models import cifar, mnist
+    from znicz_tpu_torch.models import cifar, mnist, mnist_ae
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    wf = {"mnist": mnist, "cifar": cifar}[name].build_workflow(device="cuda")
+    wf = {"mnist": mnist, "cifar": cifar, "mnist_ae": mnist_ae}[name].build_workflow(device="cuda")
     wf.initialize()
     torch.backends.cudnn.benchmark = True
     mb = next(iter(wf.loader.batches("train", shuffle=False)))
-    y = torch.as_tensor(mb.labels, device="cuda")
+    # an autoencoder's target is its input batch (None: the batch below)
+    y = None if wf.target == "input" else torch.as_tensor(mb.labels, device="cuda")
     return wf, mb, y
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--model", choices=("alexnet", "lm", "kohonen", "rbm", "mnist", "cifar"),
-                    default="alexnet")
+    ap.add_argument("--model", default="alexnet",
+                    choices=("alexnet", "lm", "kohonen", "rbm", "mnist", "cifar", "mnist_ae"))
     ap.add_argument("--steps", type=int, default=5)
     ap.add_argument("--attention-dtype", choices=("f32", "bf16"), default="f32")
     args = ap.parse_args()
@@ -136,11 +138,12 @@ def main() -> int:
         wf, mb, y = _alexnet(torch)
     elif args.model == "lm":
         wf, mb, y = _lm(torch, args.attention_dtype)
-    elif args.model in ("mnist", "cifar"):
+    elif args.model in ("mnist", "cifar", "mnist_ae"):
         wf, mb, y = _supervised(torch, args.model)
     else:
         wf, mb, y = _unsupervised(torch, args.model)
     x = torch.as_tensor(mb.data, device="cuda")
+    y = x if y is None else y
     mask = torch.as_tensor(mb.mask, device="cuda")
     for _ in range(5):
         wf.train_step(x, y, mask)

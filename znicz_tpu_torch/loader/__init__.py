@@ -1,2 +1,7 @@
 """Data loaders (port of ``znicz_tpu/loader``): split bookkeeping,
 shuffling from the named PRNG stream, fixed-shape masked minibatches."""
+
+from znicz_tpu_torch.loader.base import TEST, TRAIN, VALID, Loader, Minibatch  # noqa: F401
+from znicz_tpu_torch.loader.fullbatch import FullBatchLoader  # noqa: F401
+from znicz_tpu_torch.loader.image import ImageDirectoryLoader  # noqa: F401
+from znicz_tpu_torch.loader.imagenet import ImageNetLoader, pack_image_dir  # noqa: F401

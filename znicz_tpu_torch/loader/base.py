@@ -9,7 +9,8 @@ the valid rows.
 
 Not ported yet: the fetch retry/skip ladder and its counters, class-balanced
 shuffling, multi-host sample shards, the device-resident pool and snapshot
-state.
+state.  The JAX keywords of the first two are taken at their JAX defaults
+and refused otherwise, naming their ``ROADMAP.md`` item.
 """
 
 from __future__ import annotations
@@ -40,8 +41,23 @@ class Loader:
         *,
         minibatch_size: int = 100,
         shuffle: bool = True,
+        balanced: bool = False,
         rand_name: str = "loader",
+        fetch_retries: int = 2,
+        fetch_backoff_s: float = 0.05,
+        skip_bad_batches: bool = False,
     ):
+        for on, what in (
+            (balanced, "class-balanced shuffling (balanced=True)"),
+            (fetch_retries != 2 or fetch_backoff_s != 0.05,
+             "the fetch retry ladder (fetch_retries, fetch_backoff_s)"),
+            (skip_bad_batches, "skipping failed fetches (skip_bad_batches=True)"),
+        ):
+            if on:
+                raise NotImplementedError(
+                    f"{what} is not ported to znicz_tpu_torch yet "
+                    "(ROADMAP.md A3, loader/base.py)"
+                )
         self.max_minibatch_size = int(minibatch_size)
         self.shuffle = shuffle
         self.rand_name = rand_name

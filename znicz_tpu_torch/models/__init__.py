@@ -5,6 +5,27 @@ on the port's ``root`` config tree at import and exposes
 import copy
 
 
+def grayscale_image_dir_loader(
+    data_dir: str,
+    *,
+    side: int,
+    minibatch_size: int,
+    normalization: str = "mean_disp",
+):
+    """The zoo's shared real-data path for image trees (Kanji, Yale Faces,
+    the video autoencoder): ``train/<class>/*.png`` at side x side, grey,
+    with mean-dispersion normalization fitted on the training images."""
+    from znicz_tpu_torch.loader.image import ImageDirectoryLoader
+
+    return ImageDirectoryLoader(
+        data_dir,
+        target_shape=(side, side, 1),
+        grayscale=True,
+        minibatch_size=minibatch_size,
+        normalization=normalization,
+    )
+
+
 def effective_config(node, defaults: dict):
     """DEFAULTS merged under the user's ``root`` overrides (deep copies, so
     builders that mutate the merged config never write into ``root`` or the

@@ -1,15 +1,19 @@
 """AlexNet-class ImageNet workflow (port of ``znicz_tpu/models/alexnet.py``).
 
 Canonical single-tower AlexNet geometry (227 input, 5 conv + 3 FC, NHWC)
-with the JAX package's DEFAULTS, trained on the synthetic ImageNet stand-in
-(u8 images converted on the device).  On the card both ``norm`` layers run
-the hand-written LRN kernel pair (``ops/kernels/lrn.py``).  The real
-ImageNet loader (``data_dir``) comes in a later slice.
+with the JAX package's DEFAULTS: on the packed images of ``data_dir``
+(``loader/imagenet.py``: random crops and flips cut on the host by the
+native gather, a raw image tree packed on first use, the head sized to the
+dataset's classes) when given, else on the synthetic ImageNet stand-in.
+Either way u8 images cross to the device and are converted there.  On the
+card both ``norm`` layers run the hand-written LRN kernel pair
+(``ops/kernels/lrn.py``).
 """
 
 from znicz_tpu_torch.core import device as device_lib
 from znicz_tpu_torch.core.config import root
 from znicz_tpu_torch.loader import datasets
+from znicz_tpu_torch.loader.imagenet import ImageNetLoader
 from znicz_tpu_torch.models import effective_config, merge_workflow_kwargs
 from znicz_tpu_torch.workflow.standard import StandardWorkflow
 
@@ -36,7 +40,7 @@ def _conv(n, k, *, sliding=(1, 1), padding=(0, 0, 0, 0)):
 
 DEFAULTS = {
     "loader": {
-        "data_dir": None,  # the real ImageNet path: a later slice
+        "data_dir": None,  # packed (or raw) image tree; synthetic when None
         "pack_size": 256,
         "image_size": 227,
         "n_classes": 1000,
@@ -97,19 +101,25 @@ def build_workflow(**overrides) -> StandardWorkflow:
     overrides["device"] = device_lib.resolve(overrides.get("device"))
     cfg = effective_config(root.alexnet, DEFAULTS)
     lcfg = cfg.loader
-    if lcfg.get("data_dir") or root.common.get("data_dir"):
-        raise NotImplementedError(
-            "the real ImageNet loader (data_dir) comes in a later slice of "
-            "the port (ROADMAP.md A5, loader/imagenet.py); leave data_dir "
-            "unset for the synthetic stand-in"
+    layers = cfg.get("layers")
+    data_dir = lcfg.get("data_dir") or root.common.get("data_dir")
+    if data_dir:
+        loader = ImageNetLoader(
+            data_dir,
+            crop_size=lcfg.get("image_size", 227),
+            pack_size=lcfg.get("pack_size", 256),
+            minibatch_size=lcfg.get("minibatch_size", 128),
         )
-    loader = datasets.imagenet_synthetic(
-        image_size=lcfg.get("image_size", 227),
-        n_classes=lcfg.get("n_classes", 1000),
-        n_train=lcfg.get("n_train", 512),
-        n_valid=lcfg.get("n_valid", 128),
-        minibatch_size=lcfg.get("minibatch_size", 128),
-    )
+        # the classifier head matches the dataset's class count
+        layers[-1]["->"]["output_sample_shape"] = loader.n_classes()
+    else:
+        loader = datasets.imagenet_synthetic(
+            image_size=lcfg.get("image_size", 227),
+            n_classes=lcfg.get("n_classes", 1000),
+            n_train=lcfg.get("n_train", 512),
+            n_valid=lcfg.get("n_valid", 128),
+            minibatch_size=lcfg.get("minibatch_size", 128),
+        )
     kwargs = merge_workflow_kwargs(
         {
             "decision_config": cfg.decision.to_dict(),
@@ -119,4 +129,4 @@ def build_workflow(**overrides) -> StandardWorkflow:
         },
         overrides,
     )
-    return StandardWorkflow(loader, cfg.get("layers"), **kwargs)
+    return StandardWorkflow(loader, layers, **kwargs)

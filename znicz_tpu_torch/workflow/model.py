@@ -26,6 +26,7 @@ from znicz_tpu_torch.ops import (
     attention as attention_op,
     conv,
     cutter,
+    deconv,
     dropout as dropout_op,
     normalization,
     pooling,
@@ -89,7 +90,6 @@ _POOL = {
 }
 # layer types of the JAX package that later slices of the port bring
 _LATER = {
-    "deconv": "a later slice (ROADMAP.md A10, ops/deconv.py)",
     "moe": "a later slice (ROADMAP.md A7, ops/moe.py)",
 }
 _INIT_KEYS = ("weights_stddev", "bias_stddev", "weights_filling", "bias_filling")
@@ -190,6 +190,23 @@ def build(
 
             shape = pooling.output_shape(shape, kx, ky, sliding)
 
+        elif kind == "deconv":
+            # the adjoint of a conv of the same knobs; the output shape is
+            # the minimal exact inverse of that conv
+            n_channels = int(fwd["n_channels"])
+            kx, ky = int(fwd["kx"]), int(fwd["ky"])
+            sliding = tuple(fwd.get("sliding", (1, 1)))
+            padding = fwd.get("padding", (0, 0, 0, 0))
+            p = deconv.init_params(
+                n_channels, shape[3], kx, ky,
+                rand_name=rand_name, device=device, **_init_kwargs(fwd),
+            )
+
+            def fn(p, x, train, gen, s=sliding, pad=padding):
+                return deconv.apply(p, x, sliding=s, padding=pad)
+
+            shape = deconv.output_shape(shape, n_channels, kx, ky, sliding, padding)
+
         elif kind == "norm":
             p = {}
             kwargs = {
@@ -253,7 +270,7 @@ def build(
                 )
             raise ValueError(
                 f"unknown layer type {kind!r} at index {i}; known: "
-                f"{sorted(_A2A_ACT) + sorted(_CONV_ACT) + sorted(_POOL) + ['softmax', 'stochastic_pooling', 'norm', 'dropout', 'cutter', 'attention', 'activation_*']}"
+                f"{sorted(_A2A_ACT) + sorted(_CONV_ACT) + sorted(_POOL) + ['softmax', 'stochastic_pooling', 'deconv', 'norm', 'dropout', 'cutter', 'attention', 'activation_*']}"
             )
 
         params.append(p)
