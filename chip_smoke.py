@@ -149,12 +149,30 @@ exit, no result line) when any phase fails:
     1e-5 of the largest magnitude); one epoch each of ``video_ae``,
     ``kanji`` and ``yale_faces`` on their synthetic data and of ``kanji``
     on phase 17's tree, with images/sec;
-20. the whole script's seconds, the ``kernels`` JSON line (each flash row
+20. the host loop around the step, on phase 17's packed files at phase
+    18's geometry: ``run_epoch`` through the prefetch thread (depth 2, the
+    default; the producer copies each batch into pinned memory, the
+    consumer issues its copies on the step's stream), one epoch with the
+    LRN counters set to 0 just before and read just after (phase 18's
+    counts), every batch's int64 sum on the card equal to the loader's on
+    the host, then windows of 10 epochs through the thread and through the
+    serial loop in turns: images/sec over each whole window beside phase
+    18's serial split, the per-step means of the step wall, dispatch,
+    wait and producer stages, the pinned and pageable copy of one batch by
+    CUDA events and the pipeline attribution; what the thread costs the
+    SOM, the RBM, MNIST and CIFAR-10 (``run_epoch`` at depth 0 and 2 in
+    turns) beside the bare hand-off of one item; a ``snapshot_dir`` run's
+    'best' snapshot (MB, save and load ms) and a fresh workflow resumed
+    from it evaluating as the saved one (cuDNN deterministic: equal n_err,
+    loss within 1e-6); the registry's Prometheus text written to
+    ``build/chip_smoke/metrics.prom``;
+21. the whole script's seconds, the ``kernels`` JSON line (each flash row
     with its bf16 times, bound, launches and error beside the f32 ones under
     ``"bf16"``; the f32 flash, Kohonen and RBM rows also with their f32-FMA
     bound and their float64 errors beside the plain version's; the LRN rows
-    with the CIFAR path's launches and f32 times under ``"cifar"`` and the
-    disk path's launches under ``"alexnet_disk"``), then the result line.
+    with the CIFAR path's launches and f32 times under ``"cifar"``, the
+    disk path's launches under ``"alexnet_disk"`` and the host loop's under
+    ``"host_loop"``), then the result line.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``.
 """
@@ -163,6 +181,7 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import re
 import statistics
 import subprocess
@@ -2079,6 +2098,338 @@ def phase_autoencoders(torch, models, deconv, troot, prng, tree, smi):
 
 
 
+# -- the host loop around the step: prefetch, pinned copies, snapshots --------
+HOST_LOOP_CHECKED = 2  # epochs whose every batch is summed on both sides
+HOST_LOOP_EPOCHS = 10  # epochs a timed window: 40 train and 10 eval steps
+# the thread on the small models: epochs a window, at depth 0 and 2 in turns
+THREAD_COST_EPOCHS = {"kohonen": 1, "mnist_rbm": 1, "mnist": 8, "cifar": 4}
+
+
+def _window(torch, wf, epochs):
+    """``epochs`` epochs of ``wf.run_epoch()`` after the attribution window
+    is reset: the window's seconds, the mean (ms, the series' sum over its
+    count in the window) of the host loop's histograms, and the
+    attribution.  Series the loop did not observe (the serial loop has no
+    fetch, enqueue or wait) are None."""
+    from znicz_tpu_torch import observability as obs
+    from znicz_tpu_torch.observability import pipeline
+
+    pipeline.reset_window()
+    t0 = time.perf_counter()
+    for _ in range(epochs):
+        wf.run_epoch()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    fams = obs.get_registry().metrics()
+
+    def mean_ms(name, *labels):
+        child = fams[name].children().get(labels) if name in fams else None
+        return child.sum / child.count * 1e3 if child is not None and child.count else None
+
+    stages = (pipeline.STAGE_FETCH, pipeline.STAGE_H2D, pipeline.STAGE_ENQUEUE)
+    return {
+        "seconds": secs,
+        "step_wall_ms": mean_ms(pipeline.STEP_WALL_METRIC),
+        "dispatch_train_ms": mean_ms(pipeline.PHASE_METRIC, "dispatch/train"),
+        "wait_ms": mean_ms(pipeline.WAIT_METRIC),
+        **{f"{st}_ms": mean_ms(pipeline.STAGE_METRIC, st) for st in stages},
+        "attribution": pipeline.PipelineAttribution.from_registry().attribution(),
+    }
+
+
+def _ms(v):
+    return "-" if v is None else f"{v:.3f}"
+
+
+def _pinned_copy_ms(torch, shape, reps=20):
+    """Median ms (CUDA events) of one ``non_blocking`` copy of a u8 array
+    of ``shape`` from pinned memory to the card, and of the same copy from
+    pageable memory, in turns."""
+    import numpy as np
+
+    host = np.random.default_rng(0).integers(0, 256, shape, dtype=np.uint8)
+    src = {"pinned": torch.from_numpy(host).pin_memory(), "pageable": torch.from_numpy(host)}
+    times = {k: [] for k in src}
+    for _ in range(reps + 2):
+        for k, t in src.items():
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = t.to("cuda", non_blocking=True)
+            end.record()
+            end.synchronize()
+            times[k].append(start.elapsed_time(end))
+            if not torch.equal(out[0].cpu(), t[0]):
+                fail(f"host loop: the {k} copy changed the batch")
+    return {k: statistics.median(v[2:]) for k, v in times.items()}
+
+
+def phase_host_loop(torch, lrn_kernel, alexnet, prng, troot, data_dir, serial, smi):
+    """Phase 20: AlexNet from phase 17's packed files through the
+    workflow's own host loop: the prefetch thread (depth 2).  One epoch
+    with the LRN counters set to 0 just before and read just after; two
+    epochs whose every batch's int64 sum on the card is held against the
+    loader's on the host; timed windows of the thread and of the serial
+    loop (``prefetch_batches=0``) in turns, read through the registry's
+    series; one batch's copy from pinned and from pageable memory; the
+    attribution; a snapshot and an exact resume; the Prometheus text."""
+    import tempfile
+
+    import numpy as np
+
+    from znicz_tpu_torch import observability as obs
+    from znicz_tpu_torch.workflow import snapshotter as snap_lib
+
+    def build(**kw):
+        saved = troot.to_dict()
+        try:
+            troot.alexnet.loader.update({"data_dir": data_dir})
+            prng.seed_all(1234)
+            return alexnet.build_workflow(device="cuda", **kw)
+        finally:
+            troot.clear()
+            troot.update(saved)
+
+    torch.backends.cudnn.benchmark = True
+    wf = build()
+    if wf.prefetch_batches != 2:
+        fail(f"host loop: prefetch_batches {wf.prefetch_batches}, want the default 2")
+    wf.initialize()
+    loader = wf.loader
+    n_train, n_eval = loader.n_minibatches("train"), loader.n_minibatches("valid")
+    # every batch of the checked epochs: its sum on the host as the loader
+    # made it (the producer thread), and on the card as the step received it
+    host_sums, card_sums = [], []
+    fill, train_step, eval_step = loader.fill, wf.train_step, wf.eval_step
+
+    def fill_spy(indices, split):
+        mb = fill(indices, split)
+        host_sums.append(int(mb.data.sum(dtype=np.int64)))
+        return mb
+
+    def train_spy(x, y, mask, *args):
+        card_sums.append(x.sum(dtype=torch.int64))
+        return train_step(x, y, mask, *args)
+
+    def eval_spy(x, y, mask, *args):
+        card_sums.append(x.sum(dtype=torch.int64))
+        return eval_step(x, y, mask, *args)
+
+    loader.fill, wf.train_step, wf.eval_step = fill_spy, train_spy, eval_spy
+    lrn_kernel.lrn_forward.launches = 0
+    lrn_kernel.lrn_backward.launches = 0
+    t0 = time.perf_counter()
+    verdict = wf.run_epoch()
+    torch.cuda.synchronize()
+    epoch_s = time.perf_counter() - t0
+    launches = {"lrn_fwd": lrn_kernel.lrn_forward.launches,
+                "lrn_bwd": lrn_kernel.lrn_backward.launches}
+    want = {"lrn_fwd": 2 * (n_train + n_eval), "lrn_bwd": 2 * n_train}
+    summary = verdict["summary"]
+    print(f"host loop: epoch 1 through the prefetch thread {epoch_s:.2f} s: {json.dumps(summary)}")
+    print(f"host loop: launches {launches}, want {want} (phase 18's counts)")
+    if launches != want:
+        fail(f"host loop: LRN launch counts {launches} != {want}")
+    for split, n in DISK_SPLITS.items():
+        m = summary.get(split)
+        if m is None or m["n_samples"] != n or not all(math.isfinite(float(v))
+                                                        for v in m.values()):
+            fail(f"host loop: {split} saw {m}, want {n} samples and finite metrics")
+    for _ in range(HOST_LOOP_CHECKED - 1):
+        wf.run_epoch()
+    loader.fill, wf.train_step, wf.eval_step = fill, train_step, eval_step
+    got = [int(v) for v in card_sums]
+    bad = [i for i, (a, b) in enumerate(zip(got, host_sums)) if a != b]
+    n_items = HOST_LOOP_CHECKED * (n_train + n_eval)
+    print(f"host loop: {len(got)} batches of {HOST_LOOP_CHECKED} epochs checked on the card "
+          f"against the loader's int64 sums ({len(host_sums)} filled): {len(bad)} differ")
+    if len(got) != n_items or len(host_sums) != n_items or bad:
+        fail(f"host loop: batches changed on their way to the step (first at {bad[:3]})")
+
+    # the timed windows: the thread, the serial loop, the serial loop, the thread
+    ser = build(prefetch_batches=0)
+    ser.initialize()
+    ser.run_epoch()
+    rounds = {"thread": [], "serial": []}
+    for kind in ("thread", "serial", "serial", "thread"):
+        rounds[kind].append(_window(torch, wf if kind == "thread" else ser, HOST_LOOP_EPOCHS))
+    win, ser_win = rounds["thread"][-1], rounds["serial"][-1]
+    att = win["attribution"]
+    epoch_images = HOST_LOOP_EPOCHS * sum(DISK_SPLITS.values())
+    rates = {k: [epoch_images / w["seconds"] for w in ws] for k, ws in rounds.items()}
+    copy = _pinned_copy_ms(torch, (CROP_BATCH, CROP, CROP, 3))
+    batch_bytes = CROP_BATCH * CROP * CROP * 3
+    res = {
+        "images_per_s": rates["thread"],
+        "serial_images_per_s": rates["serial"],
+        **{k: win[k] for k in ("step_wall_ms", "dispatch_train_ms", "wait_ms", "fetch_ms",
+                               "h2d_ms", "enqueue_ms")},
+        "serial_step_wall_ms": ser_win["step_wall_ms"],
+        "serial_dispatch_train_ms": ser_win["dispatch_train_ms"],
+        "serial_h2d_ms": ser_win["h2d_ms"],
+        "pinned_copy_ms": copy["pinned"],
+        "pinned_copy_gb_per_s": batch_bytes / copy["pinned"] / 1e6,
+        "pageable_copy_ms": copy["pageable"],
+        "verdict": att["verdict"],
+        "fractions": att["fractions"],
+        "serial_verdict": ser_win["attribution"]["verdict"],
+    }
+    print(f"host loop: {HOST_LOOP_EPOCHS} epochs a window ({epoch_images} images, train and "
+          f"eval, the epoch ends and the final sync included), run_epoch through the prefetch "
+          f"thread (batch {CROP_BATCH}, bf16, depth 2, pinned copies) "
+          f"{', '.join(f'{r:.1f}' for r in rates['thread'])} images/sec in its two windows, "
+          f"beside the serial run_epoch (prefetch_batches=0) "
+          f"{', '.join(f'{r:.1f}' for r in rates['serial'])} and phase 18's split "
+          f"{serial['total']:.2f} ms a step (fill {serial['fill']:.2f} + pageable H2D "
+          f"{serial['h2d']:.2f} + synchronized step {serial['step']:.2f}; "
+          f"{serial['images_per_s']:.1f} images/sec) in this run; {smi}")
+    print(f"host loop: per-step means of the last thread window (ms, the registry's sum over "
+          f"count): step wall {_ms(win['step_wall_ms'])}, dispatch/train "
+          f"{_ms(win['dispatch_train_ms'])}, consumer wait {_ms(win['wait_ms'])}; producer "
+          f"stages fetch {_ms(win['fetch_ms'])}, h2d (the copy into pinned memory) "
+          f"{_ms(win['h2d_ms'])}, enqueue {_ms(win['enqueue_ms'])}; serial: step wall "
+          f"{_ms(ser_win['step_wall_ms'])}, dispatch/train {_ms(ser_win['dispatch_train_ms'])}, "
+          f"h2d (pageable, synchronous) {_ms(ser_win['h2d_ms'])}; one batch's copy to the card "
+          f"(CUDA events) from pinned memory {copy['pinned']:.3f} ms "
+          f"({res['pinned_copy_gb_per_s']:.2f} GB/s), from pageable {copy['pageable']:.3f} ms; "
+          f"{smi}")
+    print(f"host loop: attribution {att['verdict']} ({att['confidence']}), fractions "
+          f"{json.dumps(att['fractions'])} (serial: {res['serial_verdict']}, "
+          f"{json.dumps(ser_win['attribution']['fractions'])})")
+
+    # snapshot and exact resume
+    torch.backends.cudnn.benchmark = False
+    torch.backends.cudnn.deterministic = True
+    with tempfile.TemporaryDirectory() as tmp:
+        saver = build(snapshot_dir=tmp)
+        saver.initialize()
+        save_s = []
+        save = saver.snapshotter.save
+
+        def timed_save(*args, **kw):
+            t = time.perf_counter()
+            try:
+                return save(*args, **kw)
+            finally:
+                save_s.append(time.perf_counter() - t)
+
+        saver.snapshotter.save = timed_save
+        saver.run_epoch()
+        path = saver.snapshotter.best_path
+        if len(save_s) != 1 or not snap_lib.is_valid_snapshot(path):
+            fail(f"host loop: the epoch wrote {len(save_s)} snapshots, want one valid 'best'")
+        mb = os.path.getsize(path) / 1e6
+        t = time.perf_counter()
+        snap_lib.load_snapshot(path)
+        load_s = time.perf_counter() - t
+        want_eval = saver.evaluate("valid")
+        resumed = build()
+        t = time.perf_counter()
+        resumed.initialize(snapshot=path)
+        torch.cuda.synchronize()
+        resume_s = time.perf_counter() - t
+        got_eval = resumed.evaluate("valid")
+    torch.backends.cudnn.deterministic = False
+    rel = abs(got_eval["loss"] - want_eval["loss"]) / max(abs(want_eval["loss"]), 1e-30)
+    res.update(snapshot_mb=mb, save_ms=save_s[0] * 1e3, load_ms=load_s * 1e3,
+               resume_ms=resume_s * 1e3, resume_loss_rel=rel)
+    print(f"host loop: snapshot 'best' of epoch 1 {mb:.1f} MB (gzip) saved in "
+          f"{res['save_ms']:.0f} ms; load_snapshot {res['load_ms']:.0f} ms, initialize(snapshot=) "
+          f"on the card {res['resume_ms']:.0f} ms; evaluate('valid') saved {json.dumps(want_eval)} "
+          f"vs resumed {json.dumps(got_eval)}: loss rel diff {rel:.3e} (limit 1e-6); {smi}")
+    if got_eval["n_err"] != want_eval["n_err"] or not rel <= 1e-6:
+        fail("host loop: the resumed workflow does not evaluate as the saved one")
+
+    prom = obs.prometheus_text()
+    out = os.path.join(WORK_DIR, "metrics.prom")
+    with open(out, "w") as f:
+        f.write(prom)
+    families = sorted(obs.get_registry().metrics())
+    print(f"host loop: {out} {len(prom.encode())} bytes, {len(families)} families: "
+          + ", ".join(families))
+    return launches, res
+
+
+def _bare_loop_seconds(torch, wf, epochs, depth):
+    """``epochs`` epochs of the loader's batches through ``prefetch`` (no
+    transform: the producer only fills, in numpy) or in series (depth 0),
+    the consumer copying each batch from pageable memory and calling the
+    workflow's public steps, one fetch a split an epoch: the thread's own
+    cost, without the workflow's staging and telemetry.  Seconds."""
+    from znicz_tpu_torch.loader.prefetch import prefetch
+
+    labels = wf.loss_function == "softmax"
+    t0 = time.perf_counter()
+    for _ in range(epochs):
+        accs = {}
+        batches = wf.loader.epoch()
+        for split, mb in (prefetch(batches, depth) if depth else batches):
+            x = torch.as_tensor(mb.data, device=wf.device)
+            y = torch.as_tensor(mb.labels, device=wf.device) if labels else x
+            mask = torch.as_tensor(mb.mask, device=wf.device)
+            step = wf.train_step if split == "train" else wf.eval_step
+            accs[split] = step(x, y, mask, acc=accs.get(split))
+        for acc in accs.values():
+            acc.cpu()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def phase_thread_cost(torch, models, troot, prng, smi):
+    """Phase 20, continued: what the prefetch thread (the default) costs
+    the host-bound models at their phases' sizes (the SOM and the RBM on
+    MNIST's 60,000 / 10,000, MNIST and CIFAR-10): ``run_epoch`` of two
+    workflows from one seed, ``prefetch_batches`` 0 and 2, one warm-up
+    epoch each, then windows of ``THREAD_COST_EPOCHS`` epochs at depth 0,
+    2, 2, 0, and the same for the bare loop (``_bare_loop_seconds``); ms a
+    step and the per-step means of each window's series; beside them the
+    bare hand-off of one item through ``prefetch`` with no work on either
+    side."""
+    from znicz_tpu_torch.loader.prefetch import prefetch
+
+    for name in ("kohonen", "mnist_rbm"):
+        getattr(troot, name).update({"loader": {"n_train": MNIST_SPLITS["train"],
+                                                "n_test": MNIST_SPLITS["test"]}})
+    n = 20000
+    t0 = time.perf_counter()
+    for _ in prefetch(iter(range(n)), 2):
+        pass
+    out = {"handoff_us": (time.perf_counter() - t0) / n * 1e6}
+    print(f"thread cost: the bare hand-off of one item through prefetch (depth 2, no work) "
+          f"{out['handoff_us']:.2f} us, mean of {n}")
+    for name, epochs in THREAD_COST_EPOCHS.items():
+        wfs = {}
+        for depth in (0, 2):
+            prng.seed_all(1234)
+            wfs[depth] = models[name].build_workflow(device="cuda", prefetch_batches=depth)
+            wfs[depth].initialize()
+            wfs[depth].run_epoch()
+        wins, bare = {0: [], 2: []}, {0: [], 2: []}
+        for depth in (0, 2, 2, 0):
+            wins[depth].append(_window(torch, wfs[depth], epochs))
+        for depth in (0, 2, 2, 0):
+            bare[depth].append(_bare_loop_seconds(torch, wfs[0], epochs, depth))
+        loader = wfs[0].loader
+        steps = epochs * sum(loader.n_minibatches(s) for s in loader.class_lengths)
+        per_step = {d: [w["seconds"] / steps * 1e3 for w in ws] for d, ws in wins.items()}
+        bare_step = {d: [v / steps * 1e3 for v in vs] for d, vs in bare.items()}
+        means = {d: {k: statistics.mean(w[k] for w in ws) if ws[0][k] is not None else None
+                     for k in ("step_wall_ms", "dispatch_train_ms", "wait_ms", "fetch_ms",
+                               "h2d_ms")}
+                 for d, ws in wins.items()}
+        out[name] = {"steps": steps, "ms_a_step": per_step, "bare_ms_a_step": bare_step,
+                     "means": means}
+        print(f"thread cost: {name} ({steps} steps a window, train and eval) run_epoch ms a "
+              f"step at depth 0 {[round(v, 4) for v in per_step[0]]}, at depth 2 "
+              f"{[round(v, 4) for v in per_step[2]]}; the bare loop at depth 0 "
+              f"{[round(v, 4) for v in bare_step[0]]}, at depth 2 "
+              f"{[round(v, 4) for v in bare_step[2]]}; run_epoch's per-step means (ms) at "
+              "depth 0 / 2: "
+              + "; ".join(f"{k[:-3]} {_ms(means[0][k])} / {_ms(means[2][k])}"
+                          for k in means[0])
+              + f"; {smi}")
+    return out
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -2150,6 +2501,13 @@ def main() -> int:
                 "yale_faces": yale_faces}, deconv, troot, prng, tree, smi)
     print(f"loader, AlexNet-from-disk and autoencoder phases: {time.perf_counter() - t0:.1f} s; "
           + json.dumps({"crop": crop, "alexnet_disk": disk, "synthetic": synthetic, **ae}))
+    t0 = time.perf_counter()
+    loop_launches, host_loop = phase_host_loop(
+        torch, lrn_kernel, alexnet, prng, troot, imagenet_dir, disk, smi)
+    host_loop["thread_cost"] = phase_thread_cost(
+        torch, {"kohonen": kohonen, "mnist_rbm": mnist_rbm, "mnist": mnist, "cifar": cifar},
+        troot, prng, smi)
+    print(f"host loop phase: {time.perf_counter() - t0:.1f} s; " + json.dumps(host_loop))
 
     kernels = []
     for kname in ("lrn_fwd", "lrn_bwd"):
@@ -2187,6 +2545,9 @@ def main() -> int:
         }
         # AlexNet from packed files on disk (phase 18): its epoch's launches
         entry["alexnet_disk"] = {"launches": disk_launches[kname]}
+        # the same through the workflow's host loop (phase 20): prefetch
+        # thread, pinned copies
+        entry["host_loop"] = {"launches": loop_launches[kname]}
         kernels.append(entry)
     for kname in FLASH:
         row = flash_rows[(kname, "float32")]  # the counted epoch's dtype

@@ -8,6 +8,7 @@ import pkgutil
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -46,6 +47,9 @@ def test_package_has_the_slice_modules():
         "ops.resizable_all2all", "models.mnist", "models.wine", "models.cifar",
         "loader.image", "loader.native", "loader.imagenet", "models.kanji",
         "models.yale_faces", "ops.deconv", "models.mnist_ae", "models.video_ae",
+        "utils.faults", "utils.profiling", "observability", "observability.registry",
+        "observability.tracing", "observability.phases", "observability.pipeline",
+        "observability.anomaly", "loader.prefetch", "workflow.snapshotter",
     ):
         assert f"znicz_tpu_torch.{name}" in mods
 
@@ -140,3 +144,44 @@ def test_param_builders_default_to_the_card():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             build()
         assert build(device="cpu") is not None
+
+
+def test_loading_a_jax_snapshot_imports_neither_jax_nor_its_package(tmp_path):
+    """The port reads a snapshot the JAX package wrote through its own
+    restricted unpickler: the JAX class names map to port-local stand-ins."""
+    from znicz_tpu.core import prng as jprng
+    from znicz_tpu.loader.fullbatch import FullBatchLoader as JaxLoader
+    from znicz_tpu.workflow import StandardWorkflow as JaxStandard
+
+    jprng.reset()
+    rng = np.random.default_rng(0)
+    loader = JaxLoader({"train": rng.random((12, 5), np.float32)},
+                       {"train": rng.integers(0, 3, 12)}, minibatch_size=4)
+    wf = JaxStandard(loader, [{"type": "softmax", "->": {"output_sample_shape": 3}}],
+                     snapshot_dir=str(tmp_path), prefetch_batches=0)
+    wf.initialize()
+    wf.run_epoch()
+    path = wf.snapshotter.best_path
+    code = (
+        "import json, sys\n"
+        "from znicz_tpu_torch.loader.fullbatch import FullBatchLoader\n"
+        "from znicz_tpu_torch.workflow.snapshotter import load_snapshot\n"
+        "from znicz_tpu_torch.workflow.standard import StandardWorkflow\n"
+        "import numpy as np\n"
+        f"state, host = load_snapshot({path!r})\n"
+        "loader = FullBatchLoader({'train': np.zeros((12, 5), np.float32)},\n"
+        "                         {'train': np.zeros(12, np.int32)}, minibatch_size=4)\n"
+        "wf = StandardWorkflow(loader, [{'type': 'softmax', '->': {'output_sample_shape': 3}}],\n"
+        "                      device='cpu')\n"
+        f"wf.initialize(snapshot={path!r})\n"
+        "print(json.dumps([type(state).__name__, wf.state.step, sorted(sys.modules)]))\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = REPO
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=300, check=True,
+    )
+    kind, step, loaded = json.loads(out.stdout.strip().splitlines()[-1])
+    assert (kind, step) == ("JaxTrainState", 3)
+    assert [m for m in loaded if _forbidden(m)] == []

@@ -209,6 +209,26 @@ def test_bmp_written_by_pillow_equals_jax(tmp_path, mode):
     _same(image._read_image(path), jimage._read_image(path))
 
 
+@pytest.mark.parametrize("size", [(7, 10), (1, 1), (13, 33)], ids=lambda s: f"{s[0]}x{s[1]}")
+@pytest.mark.parametrize("mode", ["L", "P", "1"])
+def test_palette_bmp_written_by_pillow_equals_jax(tmp_path, mode, size):
+    """1- and 8-bit BMP with a colour table, in each mode Pillow reads them
+    back in: a grey ramp (L), 0 and 255 (1) and any other table (P, at
+    256, 7 and 2 colours)."""
+    rng = np.random.default_rng(size[0] * 100 + size[1])
+    rgb = Image.fromarray(rng.integers(0, 256, (*size, 3), dtype=np.uint8))
+    ims = ([rgb.quantize(colors=n) for n in (256, 7, 2)] if mode == "P"
+           else [rgb.convert(mode)])
+    for i, im in enumerate(ims):
+        path = str(tmp_path / f"{mode}{i}.bmp")
+        im.save(path)
+        with Image.open(path) as back:
+            assert back.mode == mode
+        got = image._read_image(path)
+        _same(got, jimage._read_image(path))
+        assert got.shape == (*size, 1 if mode == "L" else 3)
+
+
 @pytest.mark.parametrize("mode", ["RGB", "L"])
 def test_jpeg_through_pillow_equals_jax(tmp_path, mode):
     rgb = np.random.default_rng(11).integers(0, 256, (16, 12, 3), dtype=np.uint8)
@@ -239,7 +259,11 @@ def test_interlaced_png_and_other_formats_raise(tmp_path):
         image._read_image(gif)
     bmp = str(tmp_path / "b.bmp")
     Image.fromarray(np.zeros((4, 4), np.uint8)).convert("P").save(bmp)  # 8-bit palette
-    with pytest.raises(ValueError, match="8 bits a pixel"):
+    _same(image._read_image(bmp), jimage._read_image(bmp))  # read now, as JAX reads it
+    rle = bytearray(open(bmp, "rb").read())
+    rle[30:34] = struct.pack("<I", 1)  # BI_RLE8
+    open(bmp, "wb").write(bytes(rle))
+    with pytest.raises(ValueError, match="compression 1"):
         image._read_image(bmp)
 
 
@@ -478,9 +502,11 @@ def test_imagenet_loader_classes_from_labels_without_classes_json(packed, tmp_pa
         lambda tree, packed: ImageDirectoryLoader(tree, skip_bad_batches=True),
         lambda tree, packed: ImageDirectoryLoader(tree, fetch_retries=5),
         lambda tree, packed: FullBatchLoader({"train": np.zeros((4, 2))}, balanced=True),
+        lambda tree, packed: FullBatchLoader({"train": np.zeros((4, 2))}, device_resident=True),
+        lambda tree, packed: FullBatchLoader({"train": np.zeros((4, 2))}, pool_sharded=True),
     ],
     ids=["device_resident", "pool_sharded", "balanced", "skip_bad_batches", "fetch_retries",
-         "fullbatch_balanced"],
+         "fullbatch_balanced", "fullbatch_device_resident", "fullbatch_pool_sharded"],
 )
 def test_unported_loader_keywords_name_their_roadmap_item(tree, packed, make):
     with pytest.raises(NotImplementedError, match="not ported") as err:
@@ -500,6 +526,12 @@ def test_loader_keywords_at_jax_defaults_are_taken(packed):
     ref = JaxFullBatch({"train": np.zeros((4, 2), np.float32)}, **kw)
     assert FullBatchLoader({"train": np.zeros((4, 2), np.float32)}, **kw).max_minibatch_size == (
         ref.max_minibatch_size)
+    # FullBatchLoader's own keywords (device_resident, pool_sharded, ...)
+    fb = {n: p.default for n, p in inspect.signature(JaxFullBatch.__init__).parameters.items()
+          if p.kind is inspect.Parameter.KEYWORD_ONLY}
+    assert {"device_resident", "pool_sharded"} <= set(fb)
+    assert FullBatchLoader({"train": np.zeros((4, 2), np.float32)}, **fb).class_lengths == (
+        {"train": 4})
 
 
 # -- the image-tree models, 2 epochs against JAX --------------------------------

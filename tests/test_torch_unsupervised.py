@@ -396,8 +396,10 @@ def test_refused_options_name_their_roadmap_item():
             cls(loader, snapshotter=object(), device="cpu")
         with pytest.raises(NotImplementedError, match="ROADMAP.md A6"):
             cls(loader, parallel=object(), device="cpu")
+        # the base loop's prefetch depth is honoured, not refused
+        assert cls(loader, prefetch_batches=0, device="cpu").prefetch_batches == 0
         with pytest.raises(NotImplementedError, match="ROADMAP.md A4"):
-            cls(loader, prefetch_batches=0, device="cpu")
+            cls(loader, device="cpu").initialize(snapshot="no_such_file.pickle")
         with pytest.raises(NotImplementedError, match="ROADMAP.md A4"):
             cls(loader, epoch_sync="deferred", device="cpu")
         with pytest.raises(ValueError, match="impl"):

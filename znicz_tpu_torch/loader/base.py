@@ -7,9 +7,11 @@ frameworks see the same sample order.  Every minibatch has the same shape:
 the last one is padded by repeating its first index and a float mask marks
 the valid rows.
 
-Not ported yet: the fetch retry/skip ladder and its counters, class-balanced
-shuffling, multi-host sample shards, the device-resident pool and snapshot
-state.  The JAX keywords of the first two are taken at their JAX defaults
+``state_dict`` holds the epoch count, the split orders and the shuffle
+stream's position, as in the JAX package, so a resumed run draws the same
+permutations.  Not ported yet: the fetch retry/skip ladder and its counters,
+class-balanced shuffling, multi-host sample shards and the device-resident
+pool.  The JAX keywords of the first two are taken at their JAX defaults
 and refused otherwise, naming their ``ROADMAP.md`` item.
 """
 
@@ -61,6 +63,7 @@ class Loader:
         self.max_minibatch_size = int(minibatch_size)
         self.shuffle = shuffle
         self.rand_name = rand_name
+        self.epoch_number = 0
         self._order: Dict[str, np.ndarray] = {}
 
     # -- subclass interface ------------------------------------------------
@@ -129,3 +132,19 @@ class Loader:
         for split in SPLITS:
             for mb in self.batches(split):
                 yield split, mb
+        self.epoch_number += 1
+
+    # -- snapshot support ----------------------------------------------------
+    def state_dict(self) -> dict:
+        return {
+            "epoch_number": self.epoch_number,
+            "order": {k: v.copy() for k, v in self._order.items()},
+            # the shuffle stream's position
+            "prng": prng.get(self.rand_name).state_dict(),
+        }
+
+    def load_state_dict(self, state: dict) -> None:
+        self.epoch_number = state["epoch_number"]
+        self._order = {k: np.asarray(v) for k, v in state["order"].items()}
+        if "prng" in state:
+            prng.get(self.rand_name).load_state_dict(state["prng"])

@@ -7,8 +7,8 @@ fitted kinds are fitted on the ``train`` split, flattened, as in the JAX
 package, and each split is normalized once on the host.  With
 ``device_convert``, uint8 data under "range" stays uint8 and crosses to the
 device as uint8 (a quarter of the bytes), where ``x * (1/scale) + shift``
-runs, as in the JAX package.  The device-resident pool comes in a later
-slice.
+runs, as in the JAX package.  The device-resident pool
+(``device_resident=True``) and pool sharding are refused by name.
 """
 
 from __future__ import annotations
@@ -38,8 +38,20 @@ class FullBatchLoader(Loader):
         normalization: str = "none",
         normalization_kwargs: Optional[dict] = None,
         device_convert: bool = False,
+        device_resident: bool = False,
+        pool_sharded: bool = False,
         **kwargs,
     ):
+        if pool_sharded:
+            raise NotImplementedError(
+                "pool sharding (pool_sharded=True) is not ported to znicz_tpu_torch "
+                "yet (ROADMAP.md A6, loader/pool_sharded.py)"
+            )
+        if device_resident:
+            raise NotImplementedError(
+                "the device-resident pool (device_resident=True) is not ported to "
+                "znicz_tpu_torch yet (ROADMAP.md A3, loader/fullbatch.py)"
+            )
         super().__init__(**kwargs)
         # zero-length splits are simply absent
         self.data = {

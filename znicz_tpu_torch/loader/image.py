@@ -7,8 +7,9 @@ Layout (the reference's convention):
 
 Images load lazily per minibatch and are resized by nearest neighbour to a
 common ``target_shape``.  The JAX package decodes with matplotlib, which
-reads through Pillow; the port decodes PNG and BMP itself (numpy and
-``zlib``), to the same float32 values matplotlib gives, so it runs where
+reads through Pillow; the port decodes PNG and uncompressed BMP (1, 4, 8,
+24 and 32 bits) itself (numpy and ``zlib``), to the same float32 values
+matplotlib gives, so it runs where
 neither library is installed.  JPEG goes through Pillow when it can be
 imported, as in the JAX package, and raises otherwise.  The format is told
 by the file's first bytes.
@@ -136,28 +137,71 @@ def _read_png(path: str, data: bytes) -> np.ndarray:
     return np.divide(u8, 255, dtype=np.float32)
 
 
+def _bmp_palette(path: str, data: bytes, dib: int, bits: int) -> Tuple[np.ndarray, str]:
+    """A 1-, 4- or 8-bit BMP's colour table as RGB rows, and the mode Pillow
+    reads the file in: "L" for the grey ramp ``0..n-1``, "1" for ``0, 255``
+    at two colours, else "P"."""
+    colors = struct.unpack("<I", data[46:50])[0] or (1 << bits)
+    if not 0 < colors <= 65536 or len(data) < 14 + dib + 4 * colors:
+        raise ValueError(f"{path}: BMP colour table is truncated or has {colors} colours")
+    rgb = np.frombuffer(data, np.uint8, 4 * colors, 14 + dib).reshape(colors, 4)[:, 2::-1]
+    ramp = np.array([0, 255]) if colors == 2 else np.arange(colors) & 255
+    if np.array_equal(rgb, np.repeat(ramp[:, None], 3, 1)):
+        return rgb, "1" if colors == 2 else "L"
+    return rgb, "P"
+
+
 def _read_bmp(path: str, data: bytes) -> np.ndarray:
-    """An uncompressed 24- or 32-bit BMP (bottom-up or top-down) as the
-    uint8 ``[H, W, 3]`` RGB array Pillow gives (a 32-bit pixel's fourth
-    byte is not read, as Pillow reads such files)."""
-    if len(data) < 34:
+    """An uncompressed BMP (bottom-up or top-down) as matplotlib gives it
+    through Pillow: 24- and 32-bit files as uint8 ``[H, W, 3]`` RGB (a
+    32-bit pixel's fourth byte is not read, as Pillow reads such files);
+    1-, 4- and 8-bit files through their colour table, in Pillow's mode for
+    that table: "L" as the uint8 ``[H, W]`` indices, "1" and "P" as the RGB
+    of the RGBA that matplotlib converts them to (its alpha is dropped
+    later).  RLE compression raises."""
+    if len(data) < 50:
         raise ValueError(f"{path}: BMP header is truncated")
     offset, dib = struct.unpack("<I", data[10:14])[0], struct.unpack("<I", data[14:18])[0]
     if dib < 40:
         raise ValueError(f"{path}: BMP core header ({dib} bytes) is not supported")
     width, height, _, bits, compression = struct.unpack("<iiHHI", data[18:34])
-    if bits not in (24, 32) or compression != 0:
+    if bits not in (1, 4, 8, 24, 32) or compression != 0:
         raise ValueError(
             f"{path}: BMP with {bits} bits a pixel and compression {compression} is not "
-            "supported by the port's BMP decoder (uncompressed 24- and 32-bit only)"
+            "supported by the port's BMP decoder (uncompressed 1, 4, 8, 24 and 32 bits)"
         )
-    rows, bpp = abs(height), bits // 8
+    palette = mode = None
+    if bits <= 8:
+        palette, mode = _bmp_palette(path, data, dib, bits)
+        if offset == 14 + dib:  # Pillow: pixels then start past the table
+            offset += 4 * len(palette)
+        if (mode == "L" and bits != 8) or (mode == "1" and bits != 1):
+            # Pillow then decodes the pixels as 8-bit grey or as bits
+            raise ValueError(
+                f"{path}: a {bits}-bit BMP with a grey colour table of {len(palette)} "
+                "entries is not supported by the port's BMP decoder"
+            )
+    rows = abs(height)
     stride = (width * bits + 31) // 32 * 4
     if width <= 0 or len(data) < offset + rows * stride:
         raise ValueError(f"{path}: BMP pixel data is truncated")
     px = np.frombuffer(data, np.uint8, rows * stride, offset).reshape(rows, stride)
-    bgr = px[:, : width * bpp].reshape(rows, width, bpp)[..., 2::-1]
-    return np.ascontiguousarray(bgr if height < 0 else bgr[::-1])
+    if height > 0:
+        px = px[::-1]  # bottom-up rows
+    if palette is None:
+        bpp = bits // 8
+        return np.ascontiguousarray(px[:, : width * bpp].reshape(rows, width, bpp)[..., 2::-1])
+    if bits == 8:
+        idx = px[:, :width]
+    elif bits == 4:
+        idx = np.stack((px >> 4, px & 15), axis=-1).reshape(rows, -1)[:, :width]
+    else:
+        idx = np.unpackbits(px, axis=1)[:, :width]
+    if mode == "L":
+        return np.ascontiguousarray(idx)
+    if idx.size and idx.max() >= len(palette):
+        raise ValueError(f"{path}: BMP colour index past the colour table")
+    return palette[idx]
 
 
 def _read_jpeg(path: str) -> np.ndarray:

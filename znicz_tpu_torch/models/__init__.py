@@ -53,12 +53,14 @@ def merge_workflow_kwargs(base: dict, overrides: dict) -> dict:
 def translate_unsupervised_overrides(kwargs: dict, epochs_key: str) -> dict:
     """Map launcher-style ``decision_config`` overrides onto workflows that
     take a direct epochs kwarg and a Decision instance.  ``snapshot_dir``
-    raises: the snapshotter is not ported yet (ROADMAP.md A4)."""
+    raises here: the SOM, the RBM and the LM do not snapshot in the port yet
+    (ROADMAP.md A4); the layer-list models take it through
+    ``StandardWorkflow``."""
     kwargs = dict(kwargs)
     if kwargs.pop("snapshot_dir", None):
         raise NotImplementedError(
-            "snapshot_dir: the snapshotter is not ported to znicz_tpu_torch "
-            "yet (ROADMAP.md A4, workflow/snapshotter.py)"
+            "snapshot_dir: snapshots of the SOM, the RBM and the LM are not "
+            "ported to znicz_tpu_torch yet (ROADMAP.md A4, workflow/snapshotter.py)"
         )
     dc = kwargs.pop("decision_config", None)
     if dc:

@@ -130,3 +130,20 @@ class Decision:
         return (
             self.max_epochs is not None and epoch + 1 >= self.max_epochs
         ) or (epochs_since_best >= self.fail_iterations)
+
+    # -- checkpointable state (the host side of snapshot and resume) ---------
+    def state_dict(self) -> Dict[str, object]:
+        return {
+            "epoch": self.epoch,
+            "best_value": self.best_value,
+            "best_epoch": self.best_epoch,
+            "epochs_since_best": self.epochs_since_best,
+            "history": self.history,
+        }
+
+    def load_state_dict(self, state: Dict[str, object]) -> None:
+        self.epoch = state["epoch"]
+        self.best_value = state["best_value"]
+        self.best_epoch = state["best_epoch"]
+        self.epochs_since_best = state["epochs_since_best"]
+        self.history = list(state["history"])

@@ -1,0 +1,70 @@
+"""Telemetry substrate of the host loop (port of ``znicz_tpu/observability``).
+
+* **Registry** (:mod:`registry`): labeled counters, gauges and histograms
+  with a fixed bucket ladder; Prometheus text and JSON snapshots.
+* **Tracer** (:mod:`tracing`): nested host spans as Chrome trace-event
+  JSONL, each inside a recording window also a
+  ``torch.profiler.record_function`` range.
+* **PhaseTimer** (:mod:`phases`): StepTimer-compatible phase timing that
+  feeds both.
+* **Pipeline attribution** (:mod:`pipeline`): per-stage input-pipeline
+  timings, the H2D probe and the step-wall decomposition that the JAX
+  package's ``tools/znicz-doctor`` reads.
+* **Step anomaly flight recorder** (:mod:`anomaly`).
+
+The same public names as the JAX package's, except the fleet half
+(``aggregate``, ``collector``, ``slo``: ROADMAP.md A9) and the device and
+program ledger (``device``: ROADMAP.md A11).  Pure stdlib at import.
+"""
+
+from znicz_tpu_torch.observability.anomaly import (  # noqa: F401
+    StepAnomalyDetector,
+)
+from znicz_tpu_torch.observability.phases import PhaseTimer  # noqa: F401
+from znicz_tpu_torch.observability.pipeline import (  # noqa: F401
+    H2DProbe,
+    PipelineAttribution,
+)
+from znicz_tpu_torch.observability.registry import (  # noqa: F401
+    DEFAULT_FRACTION_BUCKETS,
+    DEFAULT_TIME_BUCKETS,
+    Metric,
+    MetricsRegistry,
+    fraction_le,
+    get_registry,
+    parse_prometheus_text,
+    quantile_from_cumulative,
+)
+from znicz_tpu_torch.observability.tracing import (  # noqa: F401
+    Tracer,
+    get_tracer,
+    instant,
+    span,
+)
+
+
+def counter(name: str, help: str = "", labelnames=()) -> Metric:
+    """Get-or-create a counter on the default registry."""
+    return get_registry().counter(name, help, labelnames)
+
+
+def gauge(name: str, help: str = "", labelnames=()) -> Metric:
+    """Get-or-create a gauge on the default registry."""
+    return get_registry().gauge(name, help, labelnames)
+
+
+def histogram(
+    name: str, help: str = "", labelnames=(), buckets=DEFAULT_TIME_BUCKETS
+) -> Metric:
+    """Get-or-create a histogram on the default registry."""
+    return get_registry().histogram(name, help, labelnames, buckets)
+
+
+def prometheus_text() -> str:
+    """Prometheus text exposition of the default registry."""
+    return get_registry().prometheus_text()
+
+
+def snapshot() -> dict:
+    """JSON-able snapshot of the default registry."""
+    return get_registry().snapshot()

@@ -15,7 +15,7 @@ import torch
 
 from znicz_tpu_torch.core import device as device_lib, prng
 from znicz_tpu_torch.ops import activation as act
-from znicz_tpu_torch.ops.filling import fill
+from znicz_tpu_torch.ops.filling import fill, to_param
 
 
 def init_params(
@@ -27,6 +27,7 @@ def init_params(
     weights_filling: str = "uniform",
     bias_filling: str = "uniform",
     rand_name: str = "default",
+    dtype=torch.float32,
     device: device_lib.DeviceLike = None,
 ) -> Dict[str, torch.Tensor]:
     """FC params from the shared named generator (default stddev
@@ -40,10 +41,7 @@ def init_params(
         bias_stddev = weights_stddev
     w = fill(gen, (n_input, n_output), weights_filling, weights_stddev)
     b = fill(gen, (n_output,), bias_filling, bias_stddev)
-    return {
-        "weights": torch.from_numpy(w).to(dev),
-        "bias": torch.from_numpy(b).to(dev),
-    }
+    return {"weights": to_param(w, dev, dtype), "bias": to_param(b, dev, dtype)}
 
 
 def apply(

@@ -23,7 +23,7 @@ import torch.nn.functional as F
 
 from znicz_tpu_torch.core import device as device_lib, prng
 from znicz_tpu_torch.ops import activation as act
-from znicz_tpu_torch.ops.filling import fill
+from znicz_tpu_torch.ops.filling import fill, to_param
 
 SPACE_TO_DEPTH = ("auto", "always", "never")
 
@@ -39,6 +39,7 @@ def init_params(
     weights_filling: str = "uniform",
     bias_filling: str = "uniform",
     rand_name: str = "default",
+    dtype=torch.float32,
     device: device_lib.DeviceLike = None,
 ) -> Dict[str, torch.Tensor]:
     dev = device_lib.resolve(device)
@@ -50,10 +51,7 @@ def init_params(
         bias_stddev = weights_stddev
     w = fill(gen, (ky, kx, n_channels, n_kernels), weights_filling, weights_stddev)
     b = fill(gen, (n_kernels,), bias_filling, bias_stddev)
-    return {
-        "weights": torch.from_numpy(w).to(dev),
-        "bias": torch.from_numpy(b).to(dev),
-    }
+    return {"weights": to_param(w, dev, dtype), "bias": to_param(b, dev, dtype)}
 
 
 def _pads(padding, h: int, w: int, kx: int, ky: int, sliding) -> Tuple[int, int, int, int]:

@@ -24,7 +24,7 @@ import torch.nn.functional as F
 
 from znicz_tpu_torch.core import device as device_lib, prng
 from znicz_tpu_torch.ops import activation as act
-from znicz_tpu_torch.ops.filling import fill
+from znicz_tpu_torch.ops.filling import fill, to_param
 
 
 def init_params(
@@ -36,6 +36,7 @@ def init_params(
     weights_stddev: Optional[float] = None,
     weights_filling: str = "uniform",
     rand_name: str = "default",
+    dtype=torch.float32,
     device: device_lib.DeviceLike = None,
 ) -> Dict[str, torch.Tensor]:
     """Deconv weights in the conv layout ``[ky, kx, n_channels, n_kernels]``:
@@ -48,7 +49,7 @@ def init_params(
     if weights_stddev is None:
         weights_stddev = 1.0 / np.sqrt(kx * ky * n_kernels)
     w = fill(gen, (ky, kx, n_channels, n_kernels), weights_filling, weights_stddev)
-    return {"weights": torch.from_numpy(w).to(dev)}
+    return {"weights": to_param(w, dev, dtype)}
 
 
 def _pads(padding) -> Tuple[int, int, int, int]:

@@ -7,6 +7,7 @@ same seed gives bit-identical initial weights in both frameworks.
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from znicz_tpu_torch.core.prng import RandomGenerator
 
@@ -27,3 +28,15 @@ def fill(
     raise ValueError(
         f"unknown filling {filling!r}; expected one of {FILLINGS}"
     )
+
+
+def to_param(arr: np.ndarray, device, dtype) -> torch.Tensor:
+    """A float32 draw as a tensor on ``device`` in ``dtype`` (a torch dtype,
+    or a name or numpy dtype such as "bfloat16" or ``np.float16``), cast
+    once, as the JAX package's ``jnp.asarray(w, dtype)``."""
+    if not isinstance(dtype, torch.dtype):
+        name = dtype if isinstance(dtype, str) else np.dtype(dtype).name
+        dtype = getattr(torch, name, None)
+        if not isinstance(dtype, torch.dtype):
+            raise ValueError(f"dtype {name!r} is not a torch dtype")
+    return torch.from_numpy(arr).to(device=device, dtype=dtype)

@@ -17,7 +17,8 @@ from znicz_tpu_torch.loader.base import Loader
 from znicz_tpu_torch.nn import lr_adjust, optimizer
 from znicz_tpu_torch.nn.decision import Decision
 from znicz_tpu_torch.workflow import model as model_lib
-from znicz_tpu_torch.workflow.workflow import Workflow, refuse_unported
+from znicz_tpu_torch.workflow.snapshotter import Snapshotter
+from znicz_tpu_torch.workflow.workflow import Workflow
 
 
 class StandardWorkflow(Workflow):
@@ -31,14 +32,11 @@ class StandardWorkflow(Workflow):
     ``compute_dtype``: e.g. "bfloat16" for mixed precision.  ``device``:
     None means the card (raises without one); "cpu" runs on the CPU.
 
-    The JAX package's other keywords are taken at their defaults and
-    refused otherwise with ``NotImplementedError`` naming their
-    ``ROADMAP.md`` item: ``snapshot_dir``/``snapshot_config`` (the
-    snapshotter), ``prefetch_batches`` other than 2 (the prefetch thread),
-    ``parallel``, ``epoch_dispatch`` other than "auto" (scan dispatch),
-    ``epoch_sync`` other than "sync", ``recovery``, and ``anomaly`` other
-    than its default True.  ``anomaly=True`` is accepted although the port
-    has no anomaly watch yet (A4): no step is checked.
+    ``snapshot_dir``: a :class:`Snapshotter` there (prefix ``name``, its
+    knobs from ``snapshot_config``), as in the JAX package.
+    ``prefetch_batches``: the prefetch thread's depth (0: in series).  The
+    JAX package's other loop keywords go to :class:`Workflow`, which takes
+    them at their defaults and refuses the rest by name.
     """
 
     def __init__(
@@ -64,21 +62,6 @@ class StandardWorkflow(Workflow):
         device=None,
         name: str = "StandardWorkflow",
     ):
-        refuse_unported((
-            (bool(snapshot_dir), "the snapshotter (snapshot_dir)", "A4, workflow/snapshotter.py"),
-            (snapshot_config is not None, "the snapshotter (snapshot_config)",
-             "A4, workflow/snapshotter.py"),
-            (prefetch_batches != 2, "the prefetch thread (prefetch_batches != 2)",
-             "A4, loader/prefetch.py"),
-            (parallel is not None, "a parallel= placement policy", "A6, parallel/data_parallel.py"),
-            (epoch_dispatch != "auto", "scan dispatch (epoch_dispatch != 'auto')",
-             "A4, workflow/workflow.py"),
-            (epoch_sync != "sync", "deferred epoch sync (epoch_sync != 'sync')",
-             "A4, workflow/workflow.py"),
-            (anomaly is not True, "the anomaly watch's settings (anomaly != True)",
-             "A4, workflow/workflow.py"),
-            (recovery is not None, "rollback recovery", "A4, workflow/recovery.py"),
-        ))
         dev = device_lib.resolve(device)
         if isinstance(compute_dtype, str):
             compute_dtype = getattr(torch, compute_dtype)
@@ -101,6 +84,9 @@ class StandardWorkflow(Workflow):
             metric="n_err" if loss_function == "softmax" else "loss",
             **(decision_config or {}),
         )
+        snapshotter = None
+        if snapshot_dir:
+            snapshotter = Snapshotter(snapshot_dir, prefix=name, **(snapshot_config or {}))
         policy = None
         if lr_policy:
             kw = dict(lr_policy)
@@ -111,7 +97,14 @@ class StandardWorkflow(Workflow):
             loss_function=loss_function,
             target=target,
             decision=decision,
+            snapshotter=snapshotter,
             lr_policy=policy,
+            parallel=parallel,
+            prefetch_batches=prefetch_batches,
+            epoch_dispatch=epoch_dispatch,
+            epoch_sync=epoch_sync,
+            anomaly=anomaly,
+            recovery=recovery,
             device=dev,
             name=name,
         )

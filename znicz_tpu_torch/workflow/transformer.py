@@ -17,9 +17,9 @@ Not ported here, and refused with ``NotImplementedError`` naming their
 ``ROADMAP.md`` item: MoE blocks (``moe_experts``, ``moe_top_k``,
 ``moe_dispatch``), sequence/tensor/pipeline parallelism
 (``pipeline_microbatches``, ``mesh``) and the ``parallel=`` placement
-policy, the snapshotter, the prefetch thread (``prefetch_batches`` other
-than 2), deferred epoch sync, rollback ``recovery`` and ``generate()``;
-each JAX keyword is taken at its JAX default.
+policy, the snapshotter, deferred epoch sync, rollback ``recovery`` and
+``generate()``; each JAX keyword is taken at its JAX default.  The base
+loop's prefetch thread (``prefetch_batches``) runs here too.
 The anomaly watch's ``grad_norm`` is not computed (the port's workflow has
 no anomaly watch yet).
 """
@@ -192,14 +192,8 @@ class TransformerLMWorkflow(Workflow):
             (pipeline_microbatches is not None, "pipeline_microbatches (GPipe)",
              "A7, parallel/pipeline.py"),
             (mesh is not None, "a mesh= device mesh", "A6, parallel/mesh.py"),
-            (parallel is not None, "a parallel= placement policy",
-             "A6, parallel/data_parallel.py"),
-            (snapshotter is not None, "the snapshotter", "A4, workflow/snapshotter.py"),
-            (prefetch_batches != 2, "the prefetch thread (prefetch_batches != 2)",
-             "A4, loader/prefetch.py"),
-            (epoch_sync != "sync", "deferred epoch sync (epoch_sync != 'sync')",
-             "A4, workflow/workflow.py"),
-            (recovery is not None, "rollback recovery", "A4, workflow/recovery.py"),
+            # the LM's resume is not held against the JAX package's yet
+            (snapshotter is not None, "the LM's snapshotter", "A4, workflow/snapshotter.py"),
         ))
         if attention not in ATTENTIONS:
             raise ValueError(f"attention={attention!r}: want one of {ATTENTIONS}")
@@ -212,6 +206,10 @@ class TransformerLMWorkflow(Workflow):
             target="labels",
             decision=decision or Decision(metric="loss", max_epochs=max_epochs),
             lr_policy=lr_policy,
+            parallel=parallel,
+            prefetch_batches=prefetch_batches,
+            epoch_sync=epoch_sync,
+            recovery=recovery,
             device=device,
             metric_names=METRICS,
             name=name,

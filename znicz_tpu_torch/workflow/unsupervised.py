@@ -11,8 +11,9 @@ Per-step host values (Kohonen's lr and sigma, RBM's chain seed) come from
 the host step counter, so a step fetches nothing from the card.
 
 Not ported here, and refused with ``NotImplementedError`` naming their
-``ROADMAP.md`` item: the snapshotter, ``parallel=``, the prefetch thread
-(``prefetch_batches`` other than 2) and deferred epoch sync.
+``ROADMAP.md`` item: the snapshotter and resuming (the Kohonen map's grid
+is built at initialize), ``parallel=`` and deferred epoch sync.  The base
+loop's prefetch thread (``prefetch_batches``) runs here too.
 """
 
 from __future__ import annotations
@@ -54,14 +55,9 @@ def params_to_numpy(params: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
     return {k: v.detach().cpu().numpy().copy() for k, v in params.items()}
 
 
-def _refuse(snapshotter, parallel, prefetch_batches, epoch_sync, impl) -> None:
+def _refuse(snapshotter, impl) -> None:
     refuse_unported((
         (snapshotter is not None, "the snapshotter", "A4, workflow/snapshotter.py"),
-        (parallel is not None, "a parallel= placement policy", "A6, parallel/data_parallel.py"),
-        (prefetch_batches != 2, "the prefetch thread (prefetch_batches != 2)",
-         "A4, loader/prefetch.py"),
-        (epoch_sync != "sync", "deferred epoch sync (epoch_sync != 'sync')",
-         "A4, workflow/workflow.py"),
     ))
     if impl not in IMPLS:
         raise ValueError(f"impl={impl!r}: want one of {IMPLS}")
@@ -70,7 +66,7 @@ def _refuse(snapshotter, parallel, prefetch_batches, epoch_sync, impl) -> None:
 class _Unsupervised(Workflow):
     """The shared part: dict params, a custom train step, no autograd."""
 
-    def __init__(self, loader: Loader, *, decision, device, name):
+    def __init__(self, loader: Loader, *, decision, device, name, **loop):
         super().__init__(
             loader,
             _NoModel(),
@@ -80,7 +76,15 @@ class _Unsupervised(Workflow):
             device=device,
             metric_names=METRICS,
             name=name,
+            **loop,
         )
+
+    def initialize(self, *, snapshot=None, **kwargs) -> None:
+        refuse_unported((
+            (bool(snapshot), "resuming the SOM or the RBM (initialize(snapshot=))",
+             "A4, workflow/snapshotter.py"),
+        ))
+        super().initialize(**kwargs)
 
     def _batch_target(self, mb):
         return np.zeros(len(mb.mask), np.int32)  # unused host-side dummy
@@ -130,12 +134,15 @@ class KohonenWorkflow(_Unsupervised):
         device=None,
         name: str = "KohonenWorkflow",
     ):
-        _refuse(snapshotter, parallel, prefetch_batches, epoch_sync, impl)
+        _refuse(snapshotter, impl)
         super().__init__(
             loader,
             decision=decision or Decision(metric="loss", max_epochs=total_epochs),
             device=device,
             name=name,
+            parallel=parallel,
+            prefetch_batches=prefetch_batches,
+            epoch_sync=epoch_sync,
         )
         self.sx, self.sy = sx, sy
         self.total_epochs = total_epochs
@@ -209,12 +216,15 @@ class RBMWorkflow(_Unsupervised):
         device=None,
         name: str = "RBMWorkflow",
     ):
-        _refuse(snapshotter, parallel, prefetch_batches, epoch_sync, impl)
+        _refuse(snapshotter, impl)
         super().__init__(
             loader,
             decision=decision or Decision(metric="loss", max_epochs=max_epochs),
             device=device,
             name=name,
+            parallel=parallel,
+            prefetch_batches=prefetch_batches,
+            epoch_sync=epoch_sync,
         )
         self.n_hidden = n_hidden
         self.learning_rate = learning_rate
