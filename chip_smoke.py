@@ -166,13 +166,34 @@ exit, no result line) when any phase fails:
     from it evaluating as the saved one (cuDNN deterministic: equal n_err,
     loss within 1e-6); the registry's Prometheus text written to
     ``build/chip_smoke/metrics.prom``;
-21. the whole script's seconds, the ``kernels`` JSON line (each flash row
+21. self-healing training: the anomaly watch's cost (``run_epoch`` with
+    the watch on and off in turns: ms a step over whole windows, the
+    per-step means of ``dispatch/train`` and the step wall, how many steps
+    late the detector read its vectors, and one epoch each under
+    ``torch.cuda.set_sync_debug_mode("warn")``, where the watch may add no
+    synchronizing call) on AlexNet at phase 4's geometry and on the SOM,
+    the RBM and MNIST at prefetch depth 0; then, with cuDNN deterministic,
+    AlexNet runs of 3 epochs: a loader that returns NaN data for one train
+    batch, once, under ``RecoveryPolicy(perturb=False, lr_backoff=1.0)``
+    (``non_finite_loss`` within 3 steps, the epoch-start buffer restored
+    bitwise, the rollback counter +1, the run bitwise equal to the
+    unfaulted one, the LRN counters set to 0 just before and read just
+    after; the rollback's and the clone's ms and the clone's MB);
+    ``request_stop()`` mid-epoch with emergency snapshots (the snapshot's MB
+    and seconds, a fresh workflow resumed from it bitwise equal to the
+    uninterrupted run); deferred against sync epoch sync in turns
+    (images/sec over whole runs, the same stop epoch, the same params);
+    the SOM, the RBM and the LM (the mid LM's width at 2 layers, flash
+    attention) each saved after one epoch and resumed, bitwise equal to
+    its uninterrupted run;
+22. the whole script's seconds, the ``kernels`` JSON line (each flash row
     with its bf16 times, bound, launches and error beside the f32 ones under
     ``"bf16"``; the f32 flash, Kohonen and RBM rows also with their f32-FMA
     bound and their float64 errors beside the plain version's; the LRN rows
     with the CIFAR path's launches and f32 times under ``"cifar"``, the
-    disk path's launches under ``"alexnet_disk"`` and the host loop's under
-    ``"host_loop"``), then the result line.
+    disk path's launches under ``"alexnet_disk"``, the host loop's under
+    ``"host_loop"`` and the poisoned run's of phase 21 under
+    ``"self_healing"``), then the result line.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``.
 """
@@ -2430,6 +2451,540 @@ def phase_thread_cost(torch, models, troot, prng, smi):
     return out
 
 
+# -- self-healing training (phase 21) -------------------------------------------
+
+HEAL_EPOCHS = 3  # the golden AlexNet runs: 12 train and 3 eval steps
+HEAL_POISON = 5  # the train batch (in fill order) filled with NaN once: epoch 1's second
+HEAL_STOP = 6  # the train step whose lr asks for the stop: mid epoch 1
+# epochs a window of the watch's cost: AlexNet 300 steps (~3 s), the others 400-1,400
+WATCH_EPOCHS = {"alexnet": 60, "kohonen": 2, "mnist_rbm": 2, "mnist": 16}
+WATCH_TURNS = (True, False, False, True) * 2 + (True, False)  # the watch on / off a window
+TRANSPORT_CALLS = 2000  # calls of each watch transport, in turns
+# deferred against sync: a stop driven by fail_iterations after ~20 epochs (~100 steps)
+DEFERRED_DECISION = {"max_epochs": 40, "fail_iterations": 20}
+DEFERRED_RUNS = ("sync", "deferred", "deferred", "sync", "sync", "deferred")
+RESUME_EPOCHS = 3  # SOM, RBM and LM: uninterrupted against 1 + snapshot + 2 resumed
+LM_RESUME = dict(LM_MID, n_layers=2)  # the mid LM's width at a smaller depth
+LM_RESUME_N = 48  # 3 train steps an epoch at batch 16, T 2048
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in _leaves(v)]
+    if isinstance(tree, (list, tuple)):
+        return [t for v in tree for t in _leaves(v)]
+    return [tree]
+
+
+def _differ(torch, a, b):
+    """(tensors of ``a`` not bitwise equal to ``b``'s, the largest |diff|)."""
+    la, lb = _leaves(a), _leaves(b)
+    if len(la) != len(lb):
+        fail(f"states of {len(la)} and {len(lb)} tensors compared")
+    bad = [(x, y) for x, y in zip(la, lb) if not torch.equal(x, y)]
+    worst = max((float((x.float() - y.float()).abs().max()) for x, y in bad), default=0.0)
+    return len(bad), worst
+
+
+def _sync_warnings(torch, wf):
+    """One ``run_epoch`` under ``torch.cuda.set_sync_debug_mode("warn")``:
+    the synchronizing calls it made (count, distinct first lines)."""
+    import warnings
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            wf.run_epoch()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    # the mode's one-time "prototype feature" notice is not a call
+    msgs = [str(w.message).splitlines()[0][:100] for w in caught
+            if "called a synchronizing CUDA operation" in str(w.message)]
+    return len(msgs), sorted(set(msgs))
+
+
+def _spread(on, off):
+    """The difference of two lists' means with its spread, the least and
+    the largest difference of one element of each."""
+    return (statistics.mean(on) - statistics.mean(off), min(on) - max(off), max(on) - min(off))
+
+
+def _watch_parts(torch, wf, epochs):
+    """One window of ``epochs`` epochs of ``wf`` (the watch on) with each
+    part of the watch timed on the host: the norms (``tensor_norms`` or the
+    unsupervised ``update_norms``, patched in their modules), the watch
+    vector's stack, pinned copy and event (``_watch_vector``), the lagged
+    read (``_feed_watch`` less the detector) and the detector
+    (``observe_step``); µs a train step, the window's ms a step, the reads,
+    the reads whose event had not completed, and the mean lag in train
+    steps."""
+    from znicz_tpu_torch.workflow import unsupervised as unsup_mod
+    from znicz_tpu_torch.workflow import workflow as wf_mod
+
+    secs = {"norms": 0.0, "vector": 0.0, "feed": 0.0, "detector": 0.0}
+    counts = {"reads": 0, "waits": 0, "lag": 0}
+
+    def timed(fn, key):
+        def call(*a, **kw):
+            t = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                secs[key] += time.perf_counter() - t
+        return call
+
+    feed = wf._feed_watch
+
+    def counted_feed(step, watch, step_seconds=None):
+        event = watch[1]
+        counts["reads"] += 1
+        counts["waits"] += int(event is not None and not event.query())
+        counts["lag"] += wf.state.step - 1 - int(step)
+        return feed(step, watch, step_seconds)
+
+    patched = [(wf_mod, "tensor_norms"), (unsup_mod, "update_norms")]
+    saved = [getattr(m, n) for m, n in patched]
+    for m, n in patched:
+        setattr(m, n, timed(getattr(m, n), "norms"))
+    wf._watch_vector = timed(wf._watch_vector, "vector")
+    wf._feed_watch = timed(counted_feed, "feed")
+    wf.anomaly.observe_step = timed(wf.anomaly.observe_step, "detector")
+    try:
+        loader = wf.loader
+        steps = epochs * sum(loader.n_minibatches(s) for s in loader.class_lengths)
+        win = _window(torch, wf, epochs)
+    finally:
+        for (m, n), fn in zip(patched, saved):
+            setattr(m, n, fn)
+        for name in ("_watch_vector", "_feed_watch"):
+            del wf.__dict__[name]
+        del wf.anomaly.__dict__["observe_step"]
+    n = max(counts["reads"], 1)
+    us = {k: v / n * 1e6 for k, v in secs.items()}
+    us["read"] = us.pop("feed") - us["detector"]
+    return {"us_a_train_step": us, "ms_a_step": win["seconds"] / steps * 1e3,
+            "reads": counts["reads"], "waits": counts["waits"],
+            "lag_steps_mean": counts["lag"] / n}
+
+
+def _watch_transport(torch, smi):
+    """The watch vector's way to the host, host µs a call over
+    ``TRANSPORT_CALLS`` calls each, in turns: the stack of a loss and 16
+    norms (AlexNet's tensors), the shipped copy into a fresh pinned tensor
+    with a fresh event (``_fetch_async``), and a copy into a reused ring of
+    pinned rows with reused events."""
+    from znicz_tpu_torch.workflow.workflow import WATCH_LAG, _fetch_async
+
+    loss = torch.rand((), device="cuda")
+    norms = list(torch.rand(16, device="cuda").unbind())
+    vec = torch.stack([loss, *norms])
+    ring = torch.empty((WATCH_LAG + 2, vec.numel()), dtype=torch.float32, pin_memory=True)
+    events = [torch.cuda.Event() for _ in range(len(ring))]
+
+    def stack(i):
+        torch.stack([loss, *norms])
+
+    def fresh(i):
+        _fetch_async([vec])
+
+    def reused(i):
+        j = i % len(ring)
+        ring[j].copy_(vec, non_blocking=True)
+        events[j].record()
+
+    us = {f.__name__: [] for f in (stack, fresh, reused)}
+    for f in (stack, fresh, reused, reused, fresh, stack):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for i in range(TRANSPORT_CALLS):
+            f(i)
+        us[f.__name__].append((time.perf_counter() - t) / TRANSPORT_CALLS * 1e6)
+        torch.cuda.synchronize()
+    print(f"self-healing: the watch vector's transport, host µs a call ({TRANSPORT_CALLS} "
+          f"calls a run, two runs each): stack of 17 {[round(v, 2) for v in us['stack']]}; "
+          f"copy into a fresh pinned tensor + fresh event {[round(v, 2) for v in us['fresh']]}; "
+          f"copy into a reused pinned ring + reused event {[round(v, 2) for v in us['reused']]}; "
+          f"{smi}")
+    return us
+
+
+def _watch_cost(torch, make, epochs, label, smi):
+    """``run_epoch`` of two workflows from one seed, the anomaly watch on
+    (the default) and off, one warm-up epoch each, then windows of
+    ``epochs`` epochs on and off in ``WATCH_TURNS``: ms a step over each whole
+    window, the difference of the means with its spread, and the per-step
+    means of ``dispatch/train`` and the step wall; then one window with the
+    watch's parts timed (:func:`_watch_parts`), and one epoch of each under
+    the sync debug mode, where the watch may add no synchronizing call."""
+    wfs = {}
+    for on in (True, False):
+        wfs[on] = make()
+        if not on:
+            wfs[on].anomaly = None  # what anomaly=False builds
+        wfs[on].initialize()
+        wfs[on].run_epoch()
+    wins = {True: [], False: []}
+    for on in WATCH_TURNS:
+        wins[on].append(_window(torch, wfs[on], epochs))
+    loader = wfs[True].loader
+    steps = epochs * sum(loader.n_minibatches(s) for s in loader.class_lengths)
+    per_step = {on: [w["seconds"] / steps * 1e3 for w in ws] for on, ws in wins.items()}
+    means = {on: {k: statistics.mean(w[k] for w in ws) for k in ("step_wall_ms",
+                                                                   "dispatch_train_ms")}
+             for on, ws in wins.items()}
+    diff = _spread(per_step[True], per_step[False])
+    parts = _watch_parts(torch, wfs[True], epochs)
+    syncs = {on: _sync_warnings(torch, wfs[on]) for on in (True, False)}
+    out = {"steps": steps, "ms_a_step": {"on": per_step[True], "off": per_step[False]},
+           "diff_ms": diff, "means_on": means[True], "means_off": means[False],
+           "parts": parts, "sync_calls_an_epoch": {"on": syncs[True][0], "off": syncs[False][0]}}
+    us = parts["us_a_train_step"]
+    print(f"self-healing: watch cost, {label} ({steps} steps a window, train and eval): "
+          f"run_epoch ms a step with the watch {[round(v, 4) for v in per_step[True]]}, "
+          f"without {[round(v, 4) for v in per_step[False]]}: on - off {diff[0]:+.4f} ms "
+          f"(spread {diff[1]:+.4f} .. {diff[2]:+.4f}); per-step means (ms) on / off: "
+          f"dispatch/train {_ms(means[True]['dispatch_train_ms'])} / "
+          f"{_ms(means[False]['dispatch_train_ms'])}, step wall "
+          f"{_ms(means[True]['step_wall_ms'])} / {_ms(means[False]['step_wall_ms'])}; "
+          f"the watch's parts, host µs a train step (a timed window of "
+          f"{parts['ms_a_step']:.4f} ms a step): norms {us['norms']:.1f}, stack + pinned copy "
+          f"+ event {us['vector']:.1f}, lagged read {us['read']:.1f}, detector "
+          f"{us['detector']:.1f}; the detector read {parts['reads']} vectors "
+          f"{parts['lag_steps_mean']:.3f} train steps late on average ({parts['waits']} "
+          f"found their copy incomplete); synchronizing calls in one epoch under the sync "
+          f"debug mode: {syncs[True][0]} with the watch, {syncs[False][0]} without "
+          f"({syncs[True][1]}); {smi}")
+    if syncs[True][0] > syncs[False][0]:
+        fail(f"self-healing: the watch synchronizes the host with the card ({label}: "
+             f"{syncs[True][1]})")
+    return out
+
+
+def _poisoned_rollback(torch, lrn_kernel, build, ref, cfg, smi):
+    """AlexNet with a loader whose ``fill`` returns NaN data for one train
+    batch, once, under ``RecoveryPolicy(perturb=False, lr_backoff=1.0)``:
+    the detector raises ``non_finite_loss`` within 3 steps, the rollback
+    restores the epoch-start buffer bitwise and the run ends bitwise equal
+    to ``ref``, the unfaulted run of the same seed.  The LRN counters are
+    set to 0 just before the run and read just after."""
+    import numpy as np
+
+    from znicz_tpu_torch import observability as obs
+    from znicz_tpu_torch.observability import pipeline
+    from znicz_tpu_torch.workflow.recovery import RecoveryPolicy
+
+    pol = RecoveryPolicy(perturb=False, lr_backoff=1.0)
+    wf = build(recovery=pol, **cfg)
+    fill, train_step, eval_step = wf.loader.fill, wf.train_step, wf.eval_step
+    seen = {"fills": 0, "poisoned": False, "train": 0, "eval": 0}
+
+    def poisoned(idx, split):
+        mb = fill(idx, split)
+        if split == "train":
+            if seen["fills"] == HEAL_POISON and not seen["poisoned"]:
+                seen["poisoned"] = True
+                mb = mb._replace(data=np.full(mb.data.shape, np.nan, np.float32))
+            seen["fills"] += 1
+        return mb
+
+    def train_spy(*args, **kw):
+        seen["train"] += 1
+        return train_step(*args, **kw)
+
+    def eval_spy(*args, **kw):
+        seen["eval"] += 1
+        return eval_step(*args, **kw)
+
+    retain, rollback = wf._retain_epoch_start, wf._execute_rollback
+    clone_ms, rb = [], {}
+
+    def timed_retain():
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = retain()
+        torch.cuda.synchronize()
+        clone_ms.append((time.perf_counter() - t) * 1e3)
+        return out
+
+    def timed_rollback(reason):
+        buf = wf._epoch_start[0]
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        rollback(reason)
+        torch.cuda.synchronize()
+        rb["ms"] = (time.perf_counter() - t) * 1e3
+        rb["differ"] = _differ(torch, list(buf[:2]), [wf.state.params, wf.state.velocity])
+        rb["steps"] = (wf.state.step, int(buf[2]))
+        rb["mb"] = sum(t.numel() * t.element_size() for t in _leaves(list(buf[:2]))) / 1e6
+
+    wf.loader.fill, wf.train_step, wf.eval_step = poisoned, train_spy, eval_spy
+    wf._retain_epoch_start, wf._execute_rollback = timed_retain, timed_rollback
+    fam = obs.get_registry().metrics().get(pipeline.ROLLBACKS_METRIC)
+    before = fam.children().get(("non_finite_loss",)) if fam is not None else None
+    before = before.value if before is not None else 0.0
+    wf.initialize()
+    lrn_kernel.lrn_forward.launches = 0
+    lrn_kernel.lrn_backward.launches = 0
+    t0 = time.perf_counter()
+    wf.run()
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = {"lrn_fwd": lrn_kernel.lrn_forward.launches,
+                "lrn_bwd": lrn_kernel.lrn_backward.launches}
+    after = obs.get_registry().metrics()[pipeline.ROLLBACKS_METRIC].children()[
+        ("non_finite_loss",)].value
+    ev = pol.events[0] if pol.events else {}
+    lag = ev.get("step", -1) - HEAL_POISON
+    differ = _differ(torch, wf.state.params, ref.state.params)
+    same_history = wf.decision.history == ref.decision.history
+    want = {"lrn_fwd": 2 * (seen["train"] + seen["eval"]), "lrn_bwd": 2 * seen["train"]}
+    res = {"rollback_ms": rb.get("ms"), "clone_ms": clone_ms, "clone_mb": rb.get("mb"),
+           "detected_steps_after": lag, "events": [{k: v for k, v in e.items() if k != "unix"}
+                                                   for e in pol.events],
+           "counter_delta": after - before, "final_differ": differ, "run_s": run_s,
+           "launches": launches, "steps": {k: seen[k] for k in ("train", "eval")}}
+    print(f"self-healing: poisoned batch (train batch {HEAL_POISON}, NaN data once): "
+          f"{json.dumps(res['events'])}; the detector raised {lag} steps after the poisoned "
+          f"step; znicz_train_rollbacks_total{{reason=\"non_finite_loss\"}} +{after - before:g}; "
+          f"rollback {rb.get('ms', float('nan')):.2f} ms; epoch-start clones "
+          f"{[round(v, 3) for v in clone_ms]} ms of {rb.get('mb', float('nan')):.1f} MB "
+          f"(params and momentum); restored against the buffer {rb.get('differ')} "
+          f"(tensors that differ, max |diff|); the run ({seen['train']} train and "
+          f"{seen['eval']} eval steps, {run_s:.2f} s) against the unfaulted one: {differ}, "
+          f"history {'equal' if same_history else 'differs'}; LRN launches {launches}, "
+          f"want {want}; {smi}")
+    if not seen["poisoned"] or pol.rollbacks_used != 1 or ev.get("reason") != "non_finite_loss":
+        fail(f"self-healing: the poisoned batch was not rolled back once: {pol.events}")
+    if ev.get("source") != "epoch-start buffer" or not 0 < lag <= 3:
+        fail(f"self-healing: rollback from {ev.get('source')}, {lag} steps after the poison")
+    if rb["differ"] != (0, 0.0) or rb["steps"][0] != rb["steps"][1]:
+        fail(f"self-healing: the rollback did not restore the buffer bitwise: {rb}")
+    if after - before != 1:
+        fail(f"self-healing: the rollback counter moved by {after - before}")
+    if differ != (0, 0.0) or not same_history:
+        fail(f"self-healing: the recovered run differs from the unfaulted one: {differ}")
+    if launches != want:
+        fail(f"self-healing: LRN launches {launches} != {want}")
+    return res
+
+
+def _graceful_stop(torch, build, ref, cfg, smi):
+    """``request_stop()`` mid-epoch with emergency snapshots on: the
+    ``TrainingPreempted`` path writes one snapshot (its MB and seconds), and
+    a fresh workflow resumed from it ends bitwise equal to ``ref``."""
+    import tempfile
+    from pathlib import Path
+
+    from znicz_tpu_torch.workflow.recovery import TrainingPreempted
+
+    work = Path(__file__).resolve().parent / WORK_DIR
+    work.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=work) as tmp:
+        # save_best off: the emergency snapshot is the run's only one
+        wf = build(snapshot_dir=tmp, snapshot_config={"save_best": False}, **cfg)
+        wf.enable_emergency_snapshots()
+        policy, save, save_s = wf.lr_policy, wf.snapshotter.save, []
+
+        def stop_at(base, step):
+            if step == HEAL_STOP:
+                wf.request_stop()
+            return policy(base, step) if policy else base
+
+        def timed_save(*args, **kw):
+            t = time.perf_counter()
+            try:
+                return save(*args, **kw)
+            finally:
+                save_s.append(time.perf_counter() - t)
+
+        wf.lr_policy, wf.snapshotter.save = stop_at, timed_save
+        wf.initialize()
+        path = None
+        try:
+            wf.run()
+        except TrainingPreempted as exc:
+            path = exc.snapshot_path
+        stopped_at = wf.state.step
+        if path is None or not os.path.exists(path) or len(save_s) != 1:
+            fail(f"self-healing: the stop wrote {len(save_s)} snapshots ({path}), want one")
+        mb = os.path.getsize(path) / 1e6
+        del wf
+        resumed = build(**cfg)
+        t = time.perf_counter()
+        resumed.initialize(snapshot=path)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t
+    epoch = resumed.decision.epoch
+    resumed.run()
+    torch.cuda.synchronize()
+    differ = _differ(torch, resumed.state.params, ref.state.params)
+    same_history = resumed.decision.history == ref.decision.history
+    res = {"snapshot_mb": mb, "save_s": save_s[0], "resume_s": load_s, "stopped_at_step":
+           stopped_at, "resumed_epoch": epoch, "final_differ": differ}
+    print(f"self-healing: request_stop() at train step {HEAL_STOP} (mid epoch 1): stopped "
+          f"before step {stopped_at}; emergency snapshot {mb:.1f} MB (gzip) written in "
+          f"{save_s[0]:.2f} s; a fresh workflow resumed from it in {load_s:.2f} s at epoch "
+          f"{epoch} and ran to the end: against the uninterrupted run {differ}, history "
+          f"{'equal' if same_history else 'differs'}; {smi}")
+    if stopped_at != HEAL_STOP + 1 or epoch != 1:
+        fail(f"self-healing: stopped before step {stopped_at}, resumed at epoch {epoch}")
+    if differ != (0, 0.0) or not same_history:
+        fail(f"self-healing: the resumed run differs from the uninterrupted one: {differ}")
+    return res
+
+
+def _deferred_against_sync(torch, build, smi):
+    """``run()`` in sync and deferred mode in turns (``DEFERRED_RUNS``),
+    each a fresh workflow from one seed under ``DEFERRED_DECISION``:
+    images/sec over each whole run (train and eval, the epoch ends
+    included), the difference of the modes' means with its spread, and the
+    epoch each stopped at, which must be the same; the first deferred run's
+    params and history bitwise the first sync run's."""
+    runs, finals = {"sync": [], "deferred": []}, {}
+    for mode in DEFERRED_RUNS:
+        wf = build(epoch_sync=mode, decision_config=DEFERRED_DECISION)
+        wf.initialize()
+        images = sum(wf.loader.class_lengths.values())
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        dec = wf.run()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t
+        runs[mode].append({"seconds": secs, "epochs": dec.epoch,
+                           "images_per_s": dec.epoch * images / secs})
+        finals.setdefault(mode, (wf.state.params, dec.history))
+        del wf
+    stops = {r["epochs"] for rs in runs.values() for r in rs}
+    differ = _differ(torch, finals["sync"][0], finals["deferred"][0])
+    rate = {m: [r["images_per_s"] for r in rs] for m, rs in runs.items()}
+    diff = _spread(rate["deferred"], rate["sync"])
+    pct = [100 * d / statistics.mean(rate["sync"]) for d in diff]
+    print(f"self-healing: deferred against sync, run() under {DEFERRED_DECISION}: images/sec "
+          f"sync {[round(v, 1) for v in rate['sync']]}, deferred "
+          f"{[round(v, 1) for v in rate['deferred']]}: deferred - sync {diff[0]:+.1f} "
+          f"({pct[0]:+.2f}%, spread {pct[1]:+.2f}% .. {pct[2]:+.2f}%); seconds a run "
+          f"{[round(r['seconds'], 3) for r in runs['sync']]} / "
+          f"{[round(r['seconds'], 3) for r in runs['deferred']]}; stopped after "
+          f"{[r['epochs'] for r in runs['sync']]} / {[r['epochs'] for r in runs['deferred']]} "
+          f"epochs; deferred params against sync {differ}; {smi}")
+    if len(stops) != 1 or differ != (0, 0.0) or finals["sync"][1] != finals["deferred"][1]:
+        fail(f"self-healing: deferred and sync runs disagree: stops {stops}, params {differ}")
+    return {"runs": runs, "diff_pct": pct}
+
+
+def _resume_golden(torch, label, make, smi):
+    """``RESUME_EPOCHS`` uninterrupted epochs against one epoch, its
+    snapshot (uncompressed), a fresh workflow resumed from it and the rest:
+    the params and the history bitwise equal."""
+    import tempfile
+    from pathlib import Path
+
+    from znicz_tpu_torch.workflow.snapshotter import Snapshotter
+
+    ref = make(None)
+    ref.initialize()
+    for _ in range(RESUME_EPOCHS):
+        ref.run_epoch()
+    work = Path(__file__).resolve().parent / WORK_DIR
+    work.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=work) as tmp:
+        snap = Snapshotter(tmp, label, interval=1, compress=False, save_best=False)
+        saver = make(snap)
+        saver.initialize()
+        saver.run_epoch()
+        path = snap._path("epoch0")
+        mb = os.path.getsize(path) / 1e6
+        resumed = make(None)
+        t = time.perf_counter()
+        resumed.initialize(snapshot=path)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t
+    for _ in range(RESUME_EPOCHS - 1):
+        resumed.run_epoch()
+    torch.cuda.synchronize()
+    differ = _differ(torch, resumed.state.params, ref.state.params)
+    same = resumed.decision.history == ref.decision.history
+    print(f"self-healing: {label} resume: snapshot of epoch 0 {mb:.1f} MB, resumed in "
+          f"{load_s:.2f} s at step {saver.state.step}, {RESUME_EPOCHS - 1} more epochs against "
+          f"{RESUME_EPOCHS} uninterrupted: {differ} (tensors that differ, max |diff|), history "
+          f"{'equal' if same else 'differs'}; {smi}")
+    if differ != (0, 0.0) or not same or resumed.state.step != ref.state.step:
+        fail(f"self-healing: the resumed {label} differs from its uninterrupted run: {differ}")
+    return {"snapshot_mb": mb, "resume_s": load_s}
+
+
+def phase_self_healing(torch, lrn_kernel, alexnet, models, prng, smi):
+    """Phase 21: self-healing training.  The anomaly watch's cost on AlexNet
+    (the synthetic stand-in at the published geometry, as phase 4) and on
+    the SOM, the RBM and MNIST at depth 0; then, with cuDNN deterministic, a
+    real poisoned batch rolled back, a graceful stop resumed, deferred
+    against sync, and snapshots of the SOM, the RBM and the LM resumed."""
+    import numpy as np
+
+    from znicz_tpu_torch.loader.fullbatch import FullBatchLoader
+    from znicz_tpu_torch.nn.optimizer import HyperParams
+    from znicz_tpu_torch.workflow.transformer import TransformerLMWorkflow
+
+    def build(**kw):
+        prng.seed_all(1234)
+        return alexnet.build_workflow(device="cuda", **kw)
+
+    def model(name, **kw):
+        def make():
+            prng.seed_all(1234)
+            return models[name].build_workflow(device="cuda", **kw)
+        return make
+
+    out = {"watch": {}}
+    torch.backends.cudnn.benchmark = True
+    out["watch"]["alexnet"] = _watch_cost(torch, build, WATCH_EPOCHS["alexnet"], "alexnet", smi)
+    out["watch"]["transport_us"] = _watch_transport(torch, smi)
+    for name in ("kohonen", "mnist_rbm", "mnist"):
+        out["watch"][name] = _watch_cost(torch, model(name, prefetch_batches=0),
+                                         WATCH_EPOCHS[name], name, smi)
+    prev = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        cfg = {"decision_config": {"max_epochs": HEAL_EPOCHS}}
+        ref = build(**cfg)
+        ref.initialize()
+        ref.run()
+        torch.cuda.synchronize()
+        out["rollback"] = _poisoned_rollback(torch, lrn_kernel, build, ref, cfg, smi)
+        out["stop"] = _graceful_stop(torch, build, ref, cfg, smi)
+        del ref
+        out["deferred"] = _deferred_against_sync(torch, build, smi)
+
+        def unsup(name):
+            def make(snap):
+                prng.seed_all(1234)
+                return models[name].build_workflow(
+                    device="cuda", snapshotter=snap,
+                    decision_config={"max_epochs": RESUME_EPOCHS})
+            return make
+
+        tokens = np.random.default_rng(5).integers(
+            0, LM_RESUME["vocab"], (LM_RESUME_N, LM_T)).astype(np.int32)
+
+        def lm(snap):
+            prng.seed_all(1234)
+            loader = FullBatchLoader({"train": tokens, "test": tokens[:LM_B]},
+                                     minibatch_size=LM_B)
+            # lr 0.01: the default 0.1 diverges at this width (as in JAX)
+            return TransformerLMWorkflow(
+                loader, **LM_RESUME, attention="flash", max_epochs=RESUME_EPOCHS,
+                hyper=HyperParams(learning_rate=0.01, gradient_moment=0.9),
+                snapshotter=snap, device="cuda")
+
+        out["resume"] = {name: _resume_golden(torch, name, make, smi) for name, make in (
+            ("kohonen", unsup("kohonen")), ("mnist_rbm", unsup("mnist_rbm")), ("lm", lm))}
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = prev
+    return out["rollback"]["launches"], out
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -2508,6 +3063,11 @@ def main() -> int:
         torch, {"kohonen": kohonen, "mnist_rbm": mnist_rbm, "mnist": mnist, "cifar": cifar},
         troot, prng, smi)
     print(f"host loop phase: {time.perf_counter() - t0:.1f} s; " + json.dumps(host_loop))
+    t0 = time.perf_counter()
+    heal_launches, heal = phase_self_healing(
+        torch, lrn_kernel, alexnet, {"kohonen": kohonen, "mnist_rbm": mnist_rbm, "mnist": mnist},
+        prng, smi)
+    print(f"self-healing phase: {time.perf_counter() - t0:.1f} s; " + json.dumps(heal))
 
     kernels = []
     for kname in ("lrn_fwd", "lrn_bwd"):
@@ -2548,6 +3108,9 @@ def main() -> int:
         # the same through the workflow's host loop (phase 20): prefetch
         # thread, pinned copies
         entry["host_loop"] = {"launches": loop_launches[kname]}
+        # the self-healing phase's poisoned AlexNet run (phase 21): its
+        # train and eval steps, the rolled-back ones included
+        entry["self_healing"] = {"launches": heal_launches[kname]}
         kernels.append(entry)
     for kname in FLASH:
         row = flash_rows[(kname, "float32")]  # the counted epoch's dtype

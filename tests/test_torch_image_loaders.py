@@ -499,19 +499,40 @@ def test_imagenet_loader_classes_from_labels_without_classes_json(packed, tmp_pa
         lambda tree, packed: ImageNetLoader(packed, crop_size=12, device_resident=True),
         lambda tree, packed: ImageNetLoader(packed, crop_size=12, pool_sharded=True),
         lambda tree, packed: ImageNetLoader(packed, crop_size=12, balanced=True),
-        lambda tree, packed: ImageDirectoryLoader(tree, skip_bad_batches=True),
-        lambda tree, packed: ImageDirectoryLoader(tree, fetch_retries=5),
         lambda tree, packed: FullBatchLoader({"train": np.zeros((4, 2))}, balanced=True),
         lambda tree, packed: FullBatchLoader({"train": np.zeros((4, 2))}, device_resident=True),
         lambda tree, packed: FullBatchLoader({"train": np.zeros((4, 2))}, pool_sharded=True),
     ],
-    ids=["device_resident", "pool_sharded", "balanced", "skip_bad_batches", "fetch_retries",
+    ids=["device_resident", "pool_sharded", "balanced",
          "fullbatch_balanced", "fullbatch_device_resident", "fullbatch_pool_sharded"],
 )
 def test_unported_loader_keywords_name_their_roadmap_item(tree, packed, make):
     with pytest.raises(NotImplementedError, match="not ported") as err:
         make(tree, packed)
     _names_its_item(str(err.value))
+
+
+@pytest.mark.parametrize("kwargs", [{"skip_bad_batches": True, "fetch_retries": 0},
+                                    {"fetch_retries": 5, "fetch_backoff_s": 0.0}],
+                         ids=["skip_bad_batches", "fetch_retries"])
+def test_fetch_ladder_keywords_are_honoured(tree, kwargs):
+    """The retry and skip ladder, refused until the port had it: a decode
+    that fails once is retried, or its batch skipped."""
+    from znicz_tpu_torch.utils import faults
+
+    ref = [mb.data for mb in ImageDirectoryLoader(tree, minibatch_size=8).batches("train",
+                                                                                  shuffle=False)]
+    loader = ImageDirectoryLoader(tree, minibatch_size=8, **kwargs)
+    with faults.injected("loader.fetch_flaky", times=1):
+        got = [mb.data for mb in loader.batches("train", shuffle=False)]
+    if kwargs.get("skip_bad_batches"):
+        assert len(got) == len(ref) - 1  # the first batch was skipped
+        pairs = zip(got, ref[1:])
+    else:
+        pairs = zip(got, ref)
+        assert len(got) == len(ref)
+    for a, b in pairs:
+        np.testing.assert_array_equal(a, b)
 
 
 def test_loader_keywords_at_jax_defaults_are_taken(packed):

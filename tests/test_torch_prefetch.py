@@ -226,3 +226,25 @@ def test_the_loader_fetch_fault_reads_as_input_bound():
     assert att["fractions"]["prefetch_wait"] > att["fractions"]["h2d"]
     assert abs(att["fractions_sum"] - 1.0) < 0.05
     assert att["h2d_bytes_per_second"] is not None
+
+
+def test_close_joins_a_producer_inside_its_fetch():
+    """Closing the generator waits for the producer to finish the item it is
+    fetching: nothing is drawn from the source after ``close()`` returns, so
+    a caller may restore the loader's streams right away."""
+    drawn = []
+
+    def slow_source():
+        for i in range(100):
+            time.sleep(0.02)
+            drawn.append(i)
+            yield i
+
+    before = set(threading.enumerate())
+    it = prefetch(slow_source(), 2)
+    assert next(it) == 0
+    it.close()
+    n = len(drawn)
+    assert not [t for t in threading.enumerate() if t not in before and t.is_alive()]
+    time.sleep(0.1)
+    assert len(drawn) == n

@@ -13,6 +13,8 @@ within rtol 1e-3 (q, k, v, p and ds rounded to bf16 in both; the rounding
 can fall on either side of a tie once the f32 sums differ).
 """
 
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -30,6 +32,7 @@ from znicz_tpu_torch.loader.fullbatch import FullBatchLoader
 from znicz_tpu_torch.models import transformer_lm as tlm
 from znicz_tpu_torch.ops.kernels import attention as tflash
 from znicz_tpu_torch.workflow import model as model_lib, transformer as ttf
+from znicz_tpu_torch.workflow.snapshotter import Snapshotter
 
 torch.set_float32_matmul_precision("highest")
 torch.backends.cuda.matmul.allow_tf32 = False
@@ -243,7 +246,6 @@ def test_auto_resolves_to_dot_on_the_cpu(t):
         {"tensor_parallel": True},
         {"pipeline_parallel": True},
         {"parallel": object()},
-        {"snapshotter": object()},
     ],
     ids=lambda kw: next(iter(kw)),
 )
@@ -252,14 +254,29 @@ def test_paths_not_ported_raise(kwargs):
         ttf.TransformerLMWorkflow(_loader(8), vocab=8, device="cpu", **kwargs)
 
 
+@pytest.mark.parametrize("how", ["snapshotter", "snapshot_dir"])
+def test_lm_snapshots_are_honoured(small_config, tmp_path, how):
+    """The LM's snapshotter and the model module's ``snapshot_dir``, refused
+    until the LM's resume was held against the JAX package's
+    (``tests/test_torch_self_healing.py``)."""
+    if how == "snapshotter":
+        snap = Snapshotter(str(tmp_path), "lm")
+        wf = ttf.TransformerLMWorkflow(_loader(8), vocab=8, device="cpu", snapshotter=snap)
+    else:
+        wf = tlm.build_workflow(device="cpu", snapshot_dir=str(tmp_path))
+        snap = wf.snapshotter
+        assert (snap.directory, snap.prefix) == (str(tmp_path), "TransformerLMWorkflow")
+    wf.initialize()
+    wf.run_epoch()
+    assert os.path.exists(snap.best_path)
+
+
 def test_entry_points_not_ported_raise(small_config):
     wf = ttf.TransformerLMWorkflow(_loader(8), vocab=8, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP.md A8"):
         wf.generate(np.zeros((1, 4), np.int32), max_new_tokens=2)
     with pytest.raises(NotImplementedError, match="ROADMAP.md A7"):
         ttf.init_lm_params(8, 16, 1, 2, 8, moe_experts=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A4"):
-        tlm.build_workflow(device="cpu", snapshot_dir="snapshots")
     troot.transformer_lm.update({"pipeline_stages": 2})
     with pytest.raises(NotImplementedError, match="ROADMAP.md A7"):
         tlm.build_workflow(device="cpu")

@@ -21,6 +21,7 @@ interpret mode); the comparisons feed both the JAX interpret recipe
 """
 
 import gzip
+import os
 
 import jax
 import jax.numpy as jnp
@@ -38,6 +39,7 @@ from znicz_tpu_torch.loader import datasets as tdatasets, normalizers as tnorm
 from znicz_tpu_torch.ops import kohonen as tkh, rbm as trbm
 from znicz_tpu_torch.ops.kernels import kohonen as kh_kernel, rbm as rbm_kernel
 from znicz_tpu_torch.workflow import unsupervised
+from znicz_tpu_torch.workflow.snapshotter import Snapshotter
 from znicz_tpu_torch.workflow.unsupervised import KohonenWorkflow, RBMWorkflow
 
 torch.set_float32_matmul_precision("highest")
@@ -389,19 +391,42 @@ def test_params_from_jax_round_trip():
     np.testing.assert_array_equal(back["weights"], pj["weights"])
 
 
+@pytest.mark.parametrize("option", ["snapshotter", "snapshot", "epoch_sync"])
+@pytest.mark.parametrize("cls", [KohonenWorkflow, RBMWorkflow], ids=["kohonen", "rbm"])
+def test_lifted_options_are_honoured(cls, option, tmp_path):
+    """The snapshotter, resuming and deferred sync, refused until the port
+    had them: a snapshot written at an epoch end, a resume from it, a
+    verdict one epoch late."""
+    loader = tdatasets.mnist(n_train=10, n_test=0, minibatch_size=5)
+    snap = Snapshotter(str(tmp_path), "u", interval=1, compress=False)
+    if option == "epoch_sync":
+        wf = cls(loader, epoch_sync="deferred", device="cpu")
+        wf.initialize()
+        assert wf.run_epoch() is None
+        assert wf.sync_epoch()["summary"]["train"]["n_samples"] == 10
+        return
+    wf = cls(loader, snapshotter=snap, device="cpu")
+    wf.initialize()
+    wf.run_epoch()
+    path = snap._path("epoch0")
+    assert os.path.exists(path)
+    if option == "snapshot":
+        resumed = cls(loader, device="cpu")
+        resumed.initialize(snapshot=path)
+        assert resumed.state.step == wf.state.step == 2
+        assert resumed.decision.epoch == 1
+        for k, v in wf.state.params.items():
+            assert torch.equal(resumed.state.params[k], v)
+            assert not resumed.state.params[k].requires_grad
+
+
 def test_refused_options_name_their_roadmap_item():
     loader = tdatasets.mnist(n_train=10, n_test=0, minibatch_size=5)
     for cls in (KohonenWorkflow, RBMWorkflow):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md A4"):
-            cls(loader, snapshotter=object(), device="cpu")
         with pytest.raises(NotImplementedError, match="ROADMAP.md A6"):
             cls(loader, parallel=object(), device="cpu")
         # the base loop's prefetch depth is honoured, not refused
         assert cls(loader, prefetch_batches=0, device="cpu").prefetch_batches == 0
-        with pytest.raises(NotImplementedError, match="ROADMAP.md A4"):
-            cls(loader, device="cpu").initialize(snapshot="no_such_file.pickle")
-        with pytest.raises(NotImplementedError, match="ROADMAP.md A4"):
-            cls(loader, epoch_sync="deferred", device="cpu")
         with pytest.raises(ValueError, match="impl"):
             cls(loader, impl="cudnn", device="cpu")
     x = torch.zeros((4, 6))

@@ -3,12 +3,15 @@
 Each JAX keyword of the base ``Workflow``, ``StandardWorkflow`` and
 ``TransformerLMWorkflow`` is in the port's signature with the JAX default,
 so a JAX call site never gets a ``TypeError``.  At its default each is
-accepted; the snapshotter and the prefetch depth are honoured at any value;
-off its default, a keyword whose path the port does not have yet raises
+accepted; the snapshotter, the prefetch depth, deferred epoch sync, the
+anomaly watch's switch and rollback recovery are honoured at any value;
+off its default, a keyword whose path the port does not have yet
+(``parallel``, scan dispatch, MoE, pipelines, meshes) raises
 ``NotImplementedError`` naming its ``ROADMAP.md`` item.
 """
 
 import inspect
+import os
 
 import numpy as np
 import pytest
@@ -18,6 +21,7 @@ from znicz_tpu.workflow.transformer import TransformerLMWorkflow as JaxLM
 from znicz_tpu.workflow.workflow import Workflow as JaxWorkflow
 from znicz_tpu_torch.loader.fullbatch import FullBatchLoader
 from znicz_tpu_torch.workflow import model as model_lib
+from znicz_tpu_torch.workflow.recovery import RecoveryPolicy
 from znicz_tpu_torch.workflow.snapshotter import Snapshotter
 from znicz_tpu_torch.workflow.standard import StandardWorkflow
 from znicz_tpu_torch.workflow.transformer import TransformerLMWorkflow
@@ -66,7 +70,7 @@ def test_every_jax_keyword_is_in_the_port_with_its_default(jax_cls, port_cls):
                          ids=["standard", "lm", "base"])
 def test_jax_keywords_at_their_defaults_are_taken(make, jax_cls):
     """Every JAX keyword passed explicitly at its JAX default (``anomaly=True``
-    included, although the port has no anomaly watch yet)."""
+    builds the default detector)."""
     skip = {"name", "rand_name", "vocab"}
     kw = {n: d for n, d in _keywords(jax_cls).items()
           if d is not inspect.Parameter.empty and n not in skip}
@@ -79,22 +83,12 @@ def test_jax_keywords_at_their_defaults_are_taken(make, jax_cls):
     [
         (_standard, {"parallel": object()}, "A6"),
         (_standard, {"epoch_dispatch": "scan"}, "A4"),
-        (_standard, {"epoch_sync": "deferred"}, "A4"),
-        (_standard, {"anomaly": False}, "A4"),
-        (_standard, {"recovery": object()}, "A4"),
         (_lm, {"moe_top_k": 2}, "A7"),
         (_lm, {"moe_dispatch": "capacity"}, "A7"),
         (_lm, {"pipeline_microbatches": 4}, "A7"),
         (_lm, {"mesh": object()}, "A6"),
-        (_lm, {"epoch_sync": "deferred"}, "A4"),
-        (_lm, {"recovery": object()}, "A4"),
-        (_lm, {"snapshotter": object()}, "A4"),
         (_base, {"parallel": object()}, "A6"),
         (_base, {"epoch_dispatch": "scan"}, "A4"),
-        (_base, {"epoch_sync": "deferred"}, "A4"),
-        (_base, {"anomaly": False}, "A4"),
-        (_base, {"anomaly": None}, "A4"),
-        (_base, {"recovery": object()}, "A4"),
     ],
     ids=lambda v: v.__name__.strip("_") if callable(v) else (next(iter(v)) if isinstance(v, dict) else v),
 )
@@ -121,6 +115,53 @@ def test_loop_keywords_are_honoured(make, kwargs):
     wf.initialize()
     n = wf.loader.class_lengths["train"]
     assert wf.run_epoch()["summary"]["train"]["n_samples"] == n
+
+
+@pytest.mark.parametrize(
+    "make,kwargs",
+    [
+        (_standard, {"epoch_sync": "deferred"}),
+        (_standard, {"anomaly": False}),
+        (_standard, {"recovery": "policy"}),
+        (_lm, {"epoch_sync": "deferred"}),
+        (_lm, {"recovery": "policy"}),
+        (_lm, {"snapshotter": "snapshotter"}),
+        (_base, {"epoch_sync": "deferred"}),
+        (_base, {"anomaly": False}),
+        (_base, {"anomaly": None}),
+        (_base, {"recovery": "policy"}),
+    ],
+    ids=lambda v: v.__name__.strip("_") if callable(v) else next(iter(v)),
+)
+def test_lifted_keywords_are_honoured(make, kwargs, tmp_path):
+    """The self-healing keywords that the port refused until it had the
+    anomaly watch, rollback, deferred sync and the LM's snapshots: each
+    changes what an epoch does."""
+    (name, value), = kwargs.items()
+    value = {"policy": RecoveryPolicy(), "snapshotter": Snapshotter(str(tmp_path), "lm")}.get(
+        value, value) if isinstance(value, str) else value
+    wf = make(**{name: value})
+    wf.initialize()
+    n = wf.loader.class_lengths["train"]
+    if name == "epoch_sync":
+        assert wf.run_epoch() is None  # the verdict lags one epoch
+        assert wf.sync_epoch()["summary"]["train"]["n_samples"] == n
+        assert wf.sync_epoch() is None
+        return
+    fed = []
+    if wf.anomaly is not None:
+        observe = wf.anomaly.observe_step
+        wf.anomaly.observe_step = lambda step, **kw: fed.append(step) or observe(step, **kw)
+    assert wf.run_epoch()["summary"]["train"]["n_samples"] == n
+    if name == "anomaly":
+        assert wf.anomaly is None and wf._last_watch is None
+    elif name == "recovery":
+        assert wf.recovery is value and wf.anomaly is not None
+        assert wf._epoch_start is not None  # the rollback's restore point
+        # every train step watched
+        assert fed == list(range(wf.loader.n_minibatches("train")))
+    else:
+        assert os.path.exists(value.best_path)
 
 
 def test_snapshot_dir_and_config_build_the_jax_snapshotter(tmp_path):

@@ -9,22 +9,51 @@ the valid rows.
 
 ``state_dict`` holds the epoch count, the split orders and the shuffle
 stream's position, as in the JAX package, so a resumed run draws the same
-permutations.  Not ported yet: the fetch retry/skip ladder and its counters,
-class-balanced shuffling, multi-host sample shards and the device-resident
-pool.  The JAX keywords of the first two are taken at their JAX defaults
-and refused otherwise, naming their ``ROADMAP.md`` item.
+permutations.  ``fill`` runs behind the JAX package's retry and skip
+ladder: a failed fetch is retried ``fetch_retries`` times with doubling
+backoff, then the batch is skipped (``skip_bad_batches``) or the typed
+:class:`LoaderFetchError` raises; both are counted.  Not ported yet:
+class-balanced shuffling (``balanced=True`` is refused, naming its
+``ROADMAP.md`` item), multi-host sample shards and the device-resident pool.
 """
 
 from __future__ import annotations
 
+import logging
+import time
 from typing import Dict, Iterator, NamedTuple, Optional
 
 import numpy as np
 
+from znicz_tpu_torch import observability
 from znicz_tpu_torch.core import prng
+from znicz_tpu_torch.observability import pipeline as _pipeline
+from znicz_tpu_torch.utils import faults
+
+logger = logging.getLogger(__name__)
 
 TRAIN, VALID, TEST = "train", "valid", "test"
 SPLITS = (TRAIN, VALID, TEST)
+
+
+class LoaderFetchError(RuntimeError):
+    """A minibatch fetch (``Loader.fill``) kept failing past the retry
+    budget: the typed form of a flaky data source."""
+
+
+def _loader_retry_counter():
+    return observability.counter(
+        _pipeline.LOADER_RETRIES_METRIC,
+        "minibatch fetch attempts retried after a transient failure",
+    )
+
+
+def _loader_skipped_counter():
+    return observability.counter(
+        _pipeline.LOADER_SKIPPED_METRIC,
+        "minibatches dropped after exhausting fetch retries "
+        "(skip_bad_batches=True)",
+    )
 
 
 class Minibatch(NamedTuple):
@@ -49,20 +78,20 @@ class Loader:
         fetch_backoff_s: float = 0.05,
         skip_bad_batches: bool = False,
     ):
-        for on, what in (
-            (balanced, "class-balanced shuffling (balanced=True)"),
-            (fetch_retries != 2 or fetch_backoff_s != 0.05,
-             "the fetch retry ladder (fetch_retries, fetch_backoff_s)"),
-            (skip_bad_batches, "skipping failed fetches (skip_bad_batches=True)"),
-        ):
-            if on:
-                raise NotImplementedError(
-                    f"{what} is not ported to znicz_tpu_torch yet "
-                    "(ROADMAP.md A3, loader/base.py)"
-                )
+        if balanced:
+            raise NotImplementedError(
+                "class-balanced shuffling (balanced=True) is not ported to "
+                "znicz_tpu_torch yet (ROADMAP.md A3, loader/base.py)"
+            )
         self.max_minibatch_size = int(minibatch_size)
         self.shuffle = shuffle
         self.rand_name = rand_name
+        # fill(indices, split) is a pure function of its indices, so a
+        # transient failure is retried; the loader.fetch_flaky fault point
+        # fires before each attempt
+        self.fetch_retries = int(fetch_retries)
+        self.fetch_backoff_s = float(fetch_backoff_s)
+        self.skip_bad_batches = bool(skip_bad_batches)
         self.epoch_number = 0
         self._order: Dict[str, np.ndarray] = {}
 
@@ -125,7 +154,36 @@ class Loader:
                 idx = np.concatenate([idx, np.full(bs - n_valid, idx[0])])
             mask = np.zeros(bs, np.float32)
             mask[:n_valid] = 1.0
-            yield self.fill(idx, split)._replace(mask=mask, indices=idx)
+            mb = self._fill_with_retry(idx, split)
+            if mb is None:  # a skipped bad batch (counted)
+                continue
+            yield mb._replace(mask=mask, indices=idx)
+
+    def _fill_with_retry(self, idx: np.ndarray, split: str) -> Optional[Minibatch]:
+        """``fill`` behind the retry and skip ladder: None for a skipped
+        batch (``skip_bad_batches``), else the batch; raises
+        :class:`LoaderFetchError` once the retry budget is spent."""
+        attempt = 0
+        while True:
+            try:
+                faults.fire("loader.fetch_flaky")
+                return self.fill(idx, split)
+            except Exception as exc:
+                if attempt >= self.fetch_retries:
+                    if self.skip_bad_batches:
+                        _loader_skipped_counter().inc()
+                        logger.warning("skipping bad %s batch after %d attempt(s): %s",
+                                       split, attempt + 1, exc)
+                        return None
+                    raise LoaderFetchError(
+                        f"fetching a {split} minibatch failed {attempt + 1} time(s): {exc}"
+                    ) from exc
+                attempt += 1
+                _loader_retry_counter().inc()
+                logger.warning("%s minibatch fetch failed (attempt %d/%d): %s; retrying",
+                               split, attempt, self.fetch_retries + 1, exc)
+                if self.fetch_backoff_s > 0:
+                    time.sleep(self.fetch_backoff_s * (2 ** (attempt - 1)))
 
     def epoch(self) -> Iterator[tuple]:
         """One full epoch: train batches then valid then test, tagged."""

@@ -28,6 +28,8 @@ from znicz_tpu_torch.utils import faults
 T = TypeVar("T")
 
 _SENTINEL = object()
+# how long closing the generator waits for the producer to finish its item
+JOIN_TIMEOUT_S = 60.0
 
 
 class PrefetchProducerError(RuntimeError):
@@ -59,7 +61,9 @@ def prefetch(
     Exceptions in the producer (fetch or transform) re-raise at the
     consumer's next pull.  If the consumer abandons the iterator
     (exception mid-epoch, interrupt), closing the generator signals the
-    worker to stop — no thread or queued batches leak.
+    worker to stop and joins it (at most ``JOIN_TIMEOUT_S``, then
+    :class:`PrefetchProducerError`): no thread or queued batches leak, and
+    nothing draws from the loader's streams after ``close()`` returns.
     """
     q: queue.Queue = queue.Queue(maxsize=max(depth, 1))
     stop = threading.Event()
@@ -182,3 +186,13 @@ def prefetch(
             # drain-until-empty control flow, not a swallowed failure
             except queue.Empty:  # znicz-check: disable=ZNC008
                 break
+        # a worker inside next(it) finishes that one item (a fill, a
+        # reshuffle), sees the stop and returns: joined here, so a caller
+        # that restores the loader or the streams after closing this
+        # generator never races it
+        if t.is_alive():
+            t.join(JOIN_TIMEOUT_S)
+        if t.is_alive():
+            raise PrefetchProducerError(
+                f"prefetch producer thread did not stop within {JOIN_TIMEOUT_S} s"
+            )

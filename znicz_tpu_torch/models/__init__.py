@@ -51,17 +51,15 @@ def merge_workflow_kwargs(base: dict, overrides: dict) -> dict:
 
 
 def translate_unsupervised_overrides(kwargs: dict, epochs_key: str) -> dict:
-    """Map launcher-style ``decision_config`` overrides onto workflows that
-    take a direct epochs kwarg and a Decision instance.  ``snapshot_dir``
-    raises here: the SOM, the RBM and the LM do not snapshot in the port yet
-    (ROADMAP.md A4); the layer-list models take it through
-    ``StandardWorkflow``."""
+    """Map launcher-style overrides (``snapshot_dir``, ``decision_config``)
+    onto the workflows that take a Snapshotter instance and a direct epochs
+    kwarg (the SOM, the RBM, the LM)."""
     kwargs = dict(kwargs)
-    if kwargs.pop("snapshot_dir", None):
-        raise NotImplementedError(
-            "snapshot_dir: snapshots of the SOM, the RBM and the LM are not "
-            "ported to znicz_tpu_torch yet (ROADMAP.md A4, workflow/snapshotter.py)"
-        )
+    snapshot_dir = kwargs.pop("snapshot_dir", None)
+    if snapshot_dir:
+        from znicz_tpu_torch.workflow.snapshotter import Snapshotter
+
+        kwargs["snapshotter"] = Snapshotter(snapshot_dir, kwargs["name"])
     dc = kwargs.pop("decision_config", None)
     if dc:
         if "max_epochs" in dc:

@@ -127,9 +127,18 @@ class Decision:
         }
 
     def _would_stop(self, epoch: int, epochs_since_best: int) -> bool:
+        """The stop predicate, shared by ``on_epoch_end`` and
+        ``can_stop_next_epoch`` so deferred epoch sync stays exact."""
         return (
             self.max_epochs is not None and epoch + 1 >= self.max_epochs
         ) or (epochs_since_best >= self.fail_iterations)
+
+    def can_stop_next_epoch(self) -> bool:
+        """Whether the next ``on_epoch_end`` could return ``stop=True`` for
+        any metric values (worst case: no improvement).  The workflow's
+        deferred epoch sync flushes such an epoch before dispatching
+        another, so training ends where it would in sync mode."""
+        return self._would_stop(self.epoch, self.epochs_since_best + 1)
 
     # -- checkpointable state (the host side of snapshot and resume) ---------
     def state_dict(self) -> Dict[str, object]:

@@ -5,8 +5,9 @@
 step_seconds)`` observations into typed verdicts: a non-finite loss or
 gradient norm, a loss spike against a rolling baseline, a step-time
 regression.  It keeps a bounded ring of the last steps for post-mortems and
-exports the ``znicz_train_anomal*`` / ``znicz_train_last_*`` series.  Wiring
-it into the train step is a later slice (ROADMAP.md A4 step 3).
+exports the ``znicz_train_anomal*`` / ``znicz_train_last_*`` series.  The
+workflow feeds it each train step's ``[loss, grad_norm]`` two steps late
+(``workflow/workflow.py``), so the watch never waits on the card.
 
 Pure stdlib: the detector consumes plain floats.
 """

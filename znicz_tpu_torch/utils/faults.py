@@ -11,6 +11,10 @@ point                     effect when armed
                           of one batch (arm with ``delay=`` for a
                           deterministic slow producer: the input-bound
                           attribution fixture)
+``loader.fetch_flaky``    fires before each ``Loader.fill`` attempt, behind
+                          the retry ladder (arm with ``times=k`` for k
+                          transient failures; unlimited exhausts the budget:
+                          ``LoaderFetchError``, or a skipped batch)
 ``loader.h2d``            fires inside the H2D probe's measured region (arm
                           with ``delay=`` for a slow host->device link)
 ``snapshot.write``        raises inside the snapshot file write, before the
@@ -21,6 +25,10 @@ point                     effect when armed
                           skips it)
 ``train.crash``           raises at the top of ``Workflow.run_epoch`` (arm
                           with ``after=k`` to crash entering epoch k)
+``train.step_nan``        behavioral (``flag=True``): the anomaly watch reads
+                          the step's loss as NaN without poisoning the state
+                          (the rollback path's fixture; ``after=k`` picks the
+                          (k+1)-th watched step)
 ========================  ==================================================
 
 Arming::

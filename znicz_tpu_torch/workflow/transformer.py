@@ -13,15 +13,16 @@ or, with ``attention="flash"`` (and ``"auto"`` on the card when
 ``max_seq >= 512``, where the JAX package picks its kernel on the TPU), the
 hand-written CUDA flash kernels (:mod:`ops.kernels.attention`).
 
+The base loop's host machinery runs here too: the prefetch thread
+(``prefetch_batches``), the snapshotter and exact resume, ``epoch_sync``,
+the anomaly watch (the gradients' global norm beside the loss) and rollback
+``recovery``.
+
 Not ported here, and refused with ``NotImplementedError`` naming their
 ``ROADMAP.md`` item: MoE blocks (``moe_experts``, ``moe_top_k``,
 ``moe_dispatch``), sequence/tensor/pipeline parallelism
-(``pipeline_microbatches``, ``mesh``) and the ``parallel=`` placement
-policy, the snapshotter, deferred epoch sync, rollback ``recovery`` and
-``generate()``; each JAX keyword is taken at its JAX default.  The base
-loop's prefetch thread (``prefetch_batches``) runs here too.
-The anomaly watch's ``grad_norm`` is not computed (the port's workflow has
-no anomaly watch yet).
+(``pipeline_microbatches``, ``mesh``), the ``parallel=`` placement policy
+and ``generate()``; each JAX keyword is taken at its JAX default.
 """
 
 from __future__ import annotations
@@ -192,8 +193,6 @@ class TransformerLMWorkflow(Workflow):
             (pipeline_microbatches is not None, "pipeline_microbatches (GPipe)",
              "A7, parallel/pipeline.py"),
             (mesh is not None, "a mesh= device mesh", "A6, parallel/mesh.py"),
-            # the LM's resume is not held against the JAX package's yet
-            (snapshotter is not None, "the LM's snapshotter", "A4, workflow/snapshotter.py"),
         ))
         if attention not in ATTENTIONS:
             raise ValueError(f"attention={attention!r}: want one of {ATTENTIONS}")
@@ -205,6 +204,7 @@ class TransformerLMWorkflow(Workflow):
             loss_function="mse",  # metric label only; the LM has its own loss
             target="labels",
             decision=decision or Decision(metric="loss", max_epochs=max_epochs),
+            snapshotter=snapshotter,
             lr_policy=lr_policy,
             parallel=parallel,
             prefetch_batches=prefetch_batches,

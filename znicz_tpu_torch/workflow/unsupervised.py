@@ -10,10 +10,13 @@ plain version; ``impl`` is accepted so JAX call sites load unchanged.
 Per-step host values (Kohonen's lr and sigma, RBM's chain seed) come from
 the host step counter, so a step fetches nothing from the card.
 
-Not ported here, and refused with ``NotImplementedError`` naming their
-``ROADMAP.md`` item: the snapshotter and resuming (the Kohonen map's grid
-is built at initialize), ``parallel=`` and deferred epoch sync.  The base
-loop's prefetch thread (``prefetch_batches``) runs here too.
+The base loop's host machinery runs here too: the prefetch thread
+(``prefetch_batches``), the snapshotter and ``initialize(snapshot=)`` (the
+params come back as a dict, not marked for autograd; the SOM rebuilds its
+grid), ``epoch_sync`` and the anomaly watch.  A step has no gradients, so
+the watch's second entry is the update's norm ``||params' - params||``, as
+in the JAX package; the rules return new tensors, so the delta needs no
+clone.  ``parallel=`` is refused, naming its ``ROADMAP.md`` item.
 """
 
 from __future__ import annotations
@@ -29,7 +32,7 @@ from znicz_tpu_torch.nn.decision import Decision
 from znicz_tpu_torch.nn.train_state import TrainState
 from znicz_tpu_torch.ops import kohonen as kh, rbm as rbm_op
 from znicz_tpu_torch.ops.kernels import kohonen as kh_kernel, rbm as rbm_kernel
-from znicz_tpu_torch.workflow.workflow import Workflow, refuse_unported
+from znicz_tpu_torch.workflow.workflow import Workflow, tensor_norms
 
 METRICS = ["loss", "n_samples", "n_err"]
 IMPLS = ("auto", "pallas", "xla")
@@ -55,12 +58,15 @@ def params_to_numpy(params: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
     return {k: v.detach().cpu().numpy().copy() for k, v in params.items()}
 
 
-def _refuse(snapshotter, impl) -> None:
-    refuse_unported((
-        (snapshotter is not None, "the snapshotter", "A4, workflow/snapshotter.py"),
-    ))
+def _check_impl(impl) -> None:
     if impl not in IMPLS:
         raise ValueError(f"impl={impl!r}: want one of {IMPLS}")
+
+
+def update_norms(old: Dict[str, torch.Tensor], new: Dict[str, torch.Tensor]) -> list:
+    """Each param's ``||new - old||`` in float32; their global norm is the
+    JAX package's ``_global_norm`` of the update."""
+    return tensor_norms(torch._foreach_sub([new[k] for k in old], [old[k] for k in old]))
 
 
 class _Unsupervised(Workflow):
@@ -79,13 +85,6 @@ class _Unsupervised(Workflow):
             **loop,
         )
 
-    def initialize(self, *, snapshot=None, **kwargs) -> None:
-        refuse_unported((
-            (bool(snapshot), "resuming the SOM or the RBM (initialize(snapshot=))",
-             "A4, workflow/snapshotter.py"),
-        ))
-        super().initialize(**kwargs)
-
     def _batch_target(self, mb):
         return np.zeros(len(mb.mask), np.int32)  # unused host-side dummy
 
@@ -99,15 +98,14 @@ class _Unsupervised(Workflow):
         raise NotImplementedError
 
     @torch.no_grad()
-    def train_step(self, x, y, mask, lr_scale: float = 1.0, acc=None) -> torch.Tensor:
-        """One train step on device tensors (the loader's raw payload):
-        the learning rule replaces the autograd update.  Returns ``acc``
-        with this step's metrics folded in."""
+    def _learn(self, x, y, mask, lr_scale: float):
+        """The learning rule in place of the autograd update; returns the
+        step's metrics and, with the anomaly watch on, the update's
+        per-param norms."""
         st = self.state
-        x, _ = self._prep(x, y)
-        st.params, m = self._update(st.params, x.reshape(x.shape[0], -1), mask, lr_scale)
-        st.step += 1
-        return self._combine(self._acc_init() if acc is None else acc, m)
+        old = st.params
+        st.params, m = self._update(old, x.reshape(x.shape[0], -1), mask, lr_scale)
+        return m, (update_norms(old, st.params) if self.anomaly is not None else None)
 
 
 class KohonenWorkflow(_Unsupervised):
@@ -134,12 +132,13 @@ class KohonenWorkflow(_Unsupervised):
         device=None,
         name: str = "KohonenWorkflow",
     ):
-        _refuse(snapshotter, impl)
+        _check_impl(impl)
         super().__init__(
             loader,
             decision=decision or Decision(metric="loss", max_epochs=total_epochs),
             device=device,
             name=name,
+            snapshotter=snapshotter,
             parallel=parallel,
             prefetch_batches=prefetch_batches,
             epoch_sync=epoch_sync,
@@ -155,9 +154,16 @@ class KohonenWorkflow(_Unsupervised):
     def _create_initial_state(self) -> TrainState:
         params = kh.init_params(self.sx, self.sy, self._n_input, rand_name=self.rand_name,
                                 device=self.device)
+        self._build_grid()
+        return self._state(params)
+
+    def _restore_from(self, state, host) -> None:
+        super()._restore_from(state, host)
+        self._build_grid()
+
+    def _build_grid(self) -> None:
         self._coords = kh.grid_coords(self.sx, self.sy, device=self.device)
         self._d2m = kh_kernel.pairwise_d2(self._coords)  # fixed for the map
-        return self._state(params)
 
     def _update(self, params, x, mask, lr_scale):
         lr, sigma = kh.decay_schedule(
@@ -216,12 +222,13 @@ class RBMWorkflow(_Unsupervised):
         device=None,
         name: str = "RBMWorkflow",
     ):
-        _refuse(snapshotter, impl)
+        _check_impl(impl)
         super().__init__(
             loader,
             decision=decision or Decision(metric="loss", max_epochs=max_epochs),
             device=device,
             name=name,
+            snapshotter=snapshotter,
             parallel=parallel,
             prefetch_batches=prefetch_batches,
             epoch_sync=epoch_sync,
