@@ -496,20 +496,62 @@ def test_imagenet_loader_classes_from_labels_without_classes_json(packed, tmp_pa
 @pytest.mark.parametrize(
     "make",
     [
-        lambda tree, packed: ImageNetLoader(packed, crop_size=12, device_resident=True),
         lambda tree, packed: ImageNetLoader(packed, crop_size=12, pool_sharded=True),
-        lambda tree, packed: ImageNetLoader(packed, crop_size=12, balanced=True),
-        lambda tree, packed: FullBatchLoader({"train": np.zeros((4, 2))}, balanced=True),
-        lambda tree, packed: FullBatchLoader({"train": np.zeros((4, 2))}, device_resident=True),
         lambda tree, packed: FullBatchLoader({"train": np.zeros((4, 2))}, pool_sharded=True),
     ],
-    ids=["device_resident", "pool_sharded", "balanced",
-         "fullbatch_balanced", "fullbatch_device_resident", "fullbatch_pool_sharded"],
+    ids=["pool_sharded", "fullbatch_pool_sharded"],
 )
 def test_unported_loader_keywords_name_their_roadmap_item(tree, packed, make):
     with pytest.raises(NotImplementedError, match="not ported") as err:
         make(tree, packed)
     _names_its_item(str(err.value))
+
+
+def _fullbatch_pair(**kw):
+    """The same labelled u8 data in the port's and the JAX package's
+    FullBatch loader (three splits, four classes of unequal sizes)."""
+    rng = np.random.default_rng(3)
+    data = {s: rng.integers(0, 256, (n, 5, 5, 1), dtype=np.uint8)
+            for s, n in (("train", 23), ("valid", 6), ("test", 9))}
+    labels = {s: rng.choice(4, len(v), p=[0.5, 0.25, 0.15, 0.1]).astype(np.int32)
+              for s, v in data.items()}
+    kw = dict(minibatch_size=4, normalization="range", **kw)
+    return FullBatchLoader(data, labels, **kw), JaxFullBatch(data, labels, **kw)
+
+
+@pytest.mark.parametrize(
+    "make",
+    [
+        lambda packed: (ImageNetLoader(packed, crop_size=12, minibatch_size=5,
+                                       device_resident=True),
+                        jimagenet.ImageNetLoader(packed, crop_size=12, minibatch_size=5,
+                                                 device_resident=True)),
+        lambda packed: (ImageNetLoader(packed, crop_size=12, minibatch_size=5, balanced=True),
+                        jimagenet.ImageNetLoader(packed, crop_size=12, minibatch_size=5,
+                                                 balanced=True)),
+        lambda packed: _fullbatch_pair(balanced=True),
+        lambda packed: _fullbatch_pair(device_resident=True),
+    ],
+    ids=["device_resident", "balanced", "fullbatch_balanced", "fullbatch_device_resident"],
+)
+def test_lifted_loader_keywords_match_jax(packed, make):
+    """The keywords refused until the device pool and balanced shuffling
+    were ported: each loader serves the JAX package's batches exactly (the
+    same orders from the same seed, the same index payloads and the same
+    pool), two epochs long."""
+    _seed_both()
+    tl, jl = make(packed)
+    for _ in range(2):
+        got, want = list(tl.epoch()), list(jl.epoch())
+        assert [s for s, _ in got] == [s for s, _ in want]
+        for (_, mt), (_, mj) in zip(got, want):
+            for field in ("data", "labels", "mask", "indices"):
+                np.testing.assert_array_equal(getattr(mt, field), getattr(mj, field))
+    tc, jc = tl.device_context(), jl.device_context()
+    assert (tc is None) == (jc is None)
+    if tc is not None:
+        np.testing.assert_array_equal(tc["pool"], jc["pool"])
+        assert tl.epoch_scan_friendly and jl.epoch_scan_friendly
 
 
 @pytest.mark.parametrize("kwargs", [{"skip_bad_batches": True, "fetch_retries": 0},

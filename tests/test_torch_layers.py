@@ -409,11 +409,14 @@ def test_cifar10_reads_a_pickle_tree_as_jax_does(tmp_path, normalization):
         raw = pickle.load(f, encoding="bytes")[b"data"]
     if normalization is None:
         assert tl.normalizer["kind"] == jl.normalizer["kind"] == "range"
+        # the u8 rows stay u8 on the host; each batch is converted by the
+        # native gather, as in the JAX package
+        np.testing.assert_array_equal(tl.data["test"], jl.data["test"])
         want = raw.reshape(-1, 3, 32, 32).transpose(0, 2, 3, 1) / 255.0 - 0.5
-        np.testing.assert_allclose(tl.data["test"], want, rtol=0, atol=1e-7)
-    # the JAX loader's native u8 gather rounds x/255 - 0.5 one ulp apart
-    # from the numpy formula the port uses
-    _same_batches(tl, jl, atol=1e-7)
+        got = tl.fill(np.arange(4), "test").data
+        np.testing.assert_allclose(got, want, rtol=0, atol=1e-7)
+    # both loaders gather and convert each batch with the same native code
+    _same_batches(tl, jl, atol=0)
 
 
 def test_cifar10_without_files_is_the_synthetic_stand_in(tmp_path):

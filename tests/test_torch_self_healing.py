@@ -810,9 +810,22 @@ def test_skipped_bad_batch_is_counted():
     assert dec.history[0]["train"]["n_samples"] == 128.0
 
 
-def test_balanced_shuffling_stays_refused():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A3"):
-        tdatasets.mnist(n_train=10, n_test=0, balanced=True)
+def test_balanced_shuffling_matches_jax():
+    """Class-balanced shuffling, refused until the device pool slice: the
+    MNIST stand-in's train order equals the JAX package's, epoch by
+    epoch, from the same seed, and every minibatch of 20 holds each
+    class of the 100 samples in proportion within two samples."""
+    _seed_both()
+    tl = tdatasets.mnist(n_train=100, n_test=0, minibatch_size=20, balanced=True)
+    jl = jdatasets.mnist(n_train=100, n_test=0, minibatch_size=20, balanced=True)
+    for _ in range(3):
+        got = [mb.indices for _, mb in tl.epoch()]
+        want = [mb.indices for _, mb in jl.epoch()]
+        np.testing.assert_array_equal(np.concatenate(got), np.concatenate(want))
+    counts = np.bincount(tl.labels["train"], minlength=10)
+    for idx in got:
+        per = np.bincount(tl.labels["train"][idx], minlength=10)
+        assert np.all(np.abs(per - counts / 5) <= 2.0), (per, counts)
 
 
 @pytest.mark.parametrize("name", ["mnist", "wine", "cifar", "mnist_ae", "video_ae", "kanji",

@@ -225,7 +225,8 @@ def test_saturated_cd_steps_match_the_jax_twin():
     ref, ref_err = jrbm.cd_step(params, v0, jax.random.key(1), learning_rate=0.2, cd_k=2,
                                 mask=mask)
     pt = {k: _t(v) for k, v in params.items()}
-    fused, err = rbm_kernel.cd_step(pt, _t(v0), 5, learning_rate=0.2, cd_k=2, mask=_t(mask))
+    fused, err = rbm_kernel.cd_step(pt, _t(v0), rbm_kernel.seed_tensor(5, "cpu"),
+                                    learning_rate=0.2, cd_k=2, mask=_t(mask))
     twin, twin_err = trbm.cd_step(pt, _t(v0), torch.Generator().manual_seed(1),
                                   learning_rate=0.2, cd_k=2, mask=_t(mask))
     for got, got_err in ((fused, err), (twin, twin_err)):
@@ -252,12 +253,13 @@ def test_kohonen_plain_accumulate_matches_pallas(b, side, f, n_valid, lr, sigma,
     tcoords = tkh.grid_coords(side, side, device="cpu")
     td2m = kh_kernel.pairwise_d2(tcoords)
     np.testing.assert_array_equal(td2m.numpy(), np.asarray(d2m))
-    nt, dt = kh_kernel.accumulate(_t(w), _t(x), _t(mask), td2m, sigma)
+    nt, dt = kh_kernel.accumulate(_t(w), _t(x), _t(mask), td2m,
+                                  kh_kernel.sigma_tensor(sigma, "cpu"))
     _near(nt.numpy(), nj, 1e-5)
     _near(dt.numpy(), dj, 1e-5)
     pj = jpkh.train_step({"weights": w}, x, coords, learning_rate=lr, sigma=sigma, mask=mask)
     pt = kh_kernel.train_step({"weights": _t(w)}, _t(x), tcoords, learning_rate=lr,
-                              sigma=sigma, mask=_t(mask))
+                              tss=kh_kernel.sigma_tensor(sigma, "cpu"), mask=_t(mask))
     _near(pt["weights"].numpy(), pj["weights"], 1e-5)
 
 
@@ -286,7 +288,8 @@ def test_rbm_plain_statistics_match_pallas(cd_k):
         _near(g.numpy(), np.asarray(w_).reshape(g.shape), 1e-5)
     # the same through the wrapper's CPU path with the uniforms given
     got2 = rbm_kernel.statistics({k: _t(a) for k, a in params.items()}, _t(v0), _t(mask),
-                                 seed, cd_k=cd_k, uniforms=(_t(uh), _t(uv)))
+                                 rbm_kernel.seed_tensor(seed, "cpu"), cd_k=cd_k,
+                                 uniforms=(_t(uh), _t(uv)))
     for g, g2 in zip(got, got2):
         assert torch.equal(g, g2)
 
@@ -432,7 +435,8 @@ def test_refused_options_name_their_roadmap_item():
     x = torch.zeros((4, 6))
     with pytest.raises(NotImplementedError, match="ROADMAP.md A6"):
         kh_kernel.train_step({"weights": torch.zeros((4, 6))}, x, tkh.grid_coords(2, 2, device="cpu"),
-                             learning_rate=0.1, sigma=1.0, mesh=object())
+                             learning_rate=0.1, tss=kh_kernel.sigma_tensor(1.0, "cpu"),
+                             mesh=object())
     with pytest.raises(NotImplementedError, match="ROADMAP.md A6"):
-        rbm_kernel.cd_step(trbm.init_params(6, 3, device="cpu"), x, 0, learning_rate=0.1,
-                           mesh=object())
+        rbm_kernel.cd_step(trbm.init_params(6, 3, device="cpu"), x,
+                           rbm_kernel.seed_tensor(0, "cpu"), learning_rate=0.1, mesh=object())

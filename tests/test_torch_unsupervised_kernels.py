@@ -120,10 +120,11 @@ def test_kohonen_plain_version_matches_numpy():
     d2 = ((coords.numpy()[win][:, None, :] - coords.numpy()[None, :, :]) ** 2).sum(-1)
     h = np.exp(-d2 / (2 * sigma**2)) * mn[:, None]
     num, den = h.T @ xn, h.sum(0)[:, None]
-    got_num, got_den = khk.accumulate_reference(w, x, mask, d2m, sigma)
+    tss = khk.sigma_tensor(sigma, "cpu")
+    got_num, got_den = khk.accumulate_reference(w, x, mask, d2m, tss)
     _near(got_num.numpy(), num, 1e-5)
     _near(got_den.numpy(), den, 1e-5)
-    new = khk.train_step({"weights": w}, x, coords, learning_rate=lr, sigma=sigma, mask=mask)
+    new = khk.train_step({"weights": w}, x, coords, learning_rate=lr, tss=tss, mask=mask)
     want = np.where(den > 1e-8, wn + lr * (num / np.maximum(den, 1e-12) - wn), wn)
     _near(new["weights"].numpy(), want, 1e-5)
     # the winners are the closest units
@@ -197,10 +198,11 @@ def test_rbm_plain_version_matches_numpy():
     m = mn[:, None]
     want = ((vn * m).T @ h0p - (vp * m).T @ hp, ((vn - vp) * m).sum(0), ((h0p - hp) * m).sum(0),
             np.array([(((vn - vp) ** 2).mean(1) * mn).sum(), mn.sum()]))
-    got = rbk.statistics(params, v0, mask, seed, cd_k=cd_k)
+    got = rbk.statistics(params, v0, mask, rbk.seed_tensor(seed, "cpu"), cd_k=cd_k)
     for g, w_ in zip(got, want):
         _near(g.numpy(), w_, 1e-5)
-    new, err = rbk.cd_step(params, v0, seed, learning_rate=0.3, cd_k=cd_k, mask=mask)
+    new, err = rbk.cd_step(params, v0, rbk.seed_tensor(seed, "cpu"), learning_rate=0.3,
+                           cd_k=cd_k, mask=mask)
     _near(new["weights"].numpy(), w + 0.3 / mn.sum() * want[0], 1e-5)
     np.testing.assert_allclose(float(err), want[3][0] / mn.sum(), rtol=1e-5)
 
@@ -253,7 +255,7 @@ def test_rbm_cpu_path_chain_holds_the_samples():
     b, v, h, cd_k = 12, 20, 7, 3
     params, v0, mask = _rbm_case(b, v, h, b, 4)
     chain = {}
-    rbk.statistics(params, v0, mask, 5, cd_k=cd_k, chain=chain)
+    rbk.statistics(params, v0, mask, rbk.seed_tensor(5, "cpu"), cd_k=cd_k, chain=chain)
     want = {"h0p": (b, h), "vp": (b, v), "hp": (b, h), "hidden_samples": (cd_k, b, h),
             "visible_samples": (cd_k, b, v), "hidden_probs": (cd_k, b, h),
             "visible_probs": (cd_k, b, v)}
@@ -274,9 +276,9 @@ def test_rbm_cpu_path_chain_holds_the_samples():
 def test_cpu_tensors_take_the_plain_versions_and_launch_nothing():
     before = (khk.accumulate.launches, rbk.statistics.launches)
     w, x, mask, d2m, coords = _kohonen_case(20, 2, 8, 20, 3)
-    khk.train_step({"weights": w}, x, coords, learning_rate=0.5, sigma=1.0)
+    khk.train_step({"weights": w}, x, coords, learning_rate=0.5, tss=khk.sigma_tensor(1.0, "cpu"))
     params, v0, mask = _rbm_case(10, 12, 5, 10, 3)
-    rbk.cd_step(params, v0, 0, learning_rate=0.1)
+    rbk.cd_step(params, v0, rbk.seed_tensor(0, "cpu"), learning_rate=0.1)
     assert (khk.accumulate.launches, rbk.statistics.launches) == before
 
 
@@ -284,11 +286,12 @@ def test_other_devices_are_refused():
     x = torch.empty((4, 8), device="meta")
     with pytest.raises(ValueError, match="CUDA"):
         khk.accumulate(torch.empty((4, 8), device="meta"), x, torch.empty(4, device="meta"),
-                       torch.empty((4, 4), device="meta"), 1.0)
+                       torch.empty((4, 4), device="meta"), torch.empty((), device="meta"))
     params = {"weights": torch.empty((8, 3), device="meta"),
               "vbias": torch.empty(8, device="meta"), "hbias": torch.empty(3, device="meta")}
     with pytest.raises(ValueError, match="CUDA"):
-        rbk.statistics(params, x, torch.empty(4, device="meta"), 0, cd_k=1)
+        rbk.statistics(params, x, torch.empty(4, device="meta"),
+                       torch.empty(1, dtype=torch.int32, device="meta"), cd_k=1)
 
 
 @pytest.mark.parametrize("name", ["kohonen", "rbm"])
@@ -328,17 +331,17 @@ KOHONEN_CASES = [  # (B, map side, F, valid rows)
                          ids=[f"b{c[0]}_m{c[1]}x{c[1]}_f{c[2]}" for c in KOHONEN_CASES])
 def test_kohonen_kernel_matches_plain_version(card, b, side, f, n_valid):
     w, x, mask, d2m, coords = _kohonen_case(b, side, f, n_valid, b + f, card)
-    sigma, lr = 1.7, 0.35
+    tss, lr = khk.sigma_tensor(1.7, card), 0.35
     win = torch.empty((b,), dtype=torch.int32, device=card)
     before = khk.accumulate.launches
-    num, den = khk.accumulate(w, x, mask, d2m, sigma, winners_out=win)
-    num2, den2 = khk.accumulate(w, x, mask, d2m, sigma)
+    num, den = khk.accumulate(w, x, mask, d2m, tss, winners_out=win)
+    num2, den2 = khk.accumulate(w, x, mask, d2m, tss)
     torch.cuda.synchronize()
     assert khk.accumulate.launches - before == 2
     assert torch.equal(num, num2) and torch.equal(den, den2)  # no atomics: the same bits
     plain_win = kh.winners({"weights": w}, x)
     assert int((plain_win != win).sum()) <= max(1, b // 1000)  # near-ties only
-    ref_num, ref_den = khk.accumulate_reference(w, x, mask, d2m, sigma, win=win)
+    ref_num, ref_den = khk.accumulate_reference(w, x, mask, d2m, tss, win=win)
     _near(num.cpu(), ref_num.cpu(), 1e-5)
     _near(den.cpu(), ref_den.cpu(), 1e-5)
     new = khk._apply_update(w, num, den, lr)
@@ -349,14 +352,15 @@ def test_kohonen_kernel_matches_plain_version(card, b, side, f, n_valid):
 @pytest.mark.cuda
 def test_kohonen_kernel_refuses_what_it_does_not_take(card):
     w, x, mask, d2m, _ = _kohonen_case(10, 2, 8, 10, 0, card)
+    tss = khk.sigma_tensor(1.0, card)
     with pytest.raises(ValueError, match="float32"):
-        khk.accumulate(w.double(), x.double(), mask, d2m, 1.0)
+        khk.accumulate(w.double(), x.double(), mask, d2m, tss)
     with pytest.raises(ValueError, match="contiguous"):
-        khk.accumulate(w, x.t().contiguous().t(), mask, d2m, 1.0)
+        khk.accumulate(w, x.t().contiguous().t(), mask, d2m, tss)
     with pytest.raises(ValueError, match="d2m"):
-        khk.accumulate(w, x, mask, d2m[:2, :2].contiguous(), 1.0)
+        khk.accumulate(w, x, mask, d2m[:2, :2].contiguous(), tss)
     with pytest.raises(ValueError, match="CUDA"):
-        khk.accumulate(w, x.cpu(), mask, d2m, 1.0)
+        khk.accumulate(w, x.cpu(), mask, d2m, tss)
 
 
 # the 3xTF32 kernel against float64: within this factor of the f32 plain
@@ -377,11 +381,12 @@ def test_kohonen_kernel_takes_the_first_of_duplicated_units(card):
     mask = torch.ones(300, device=card)
     d2m = khk.pairwise_d2(kh.grid_coords(10, 10, device=card))
     win = torch.empty((300,), dtype=torch.int32, device=card)
-    num, den = khk.accumulate(w, x, mask, d2m, 1.5, winners_out=win)
+    tss = khk.sigma_tensor(1.5, card)
+    num, den = khk.accumulate(w, x, mask, d2m, tss, winners_out=win)
     torch.cuda.synchronize()
     assert bool((win[:150] == 5).all()), win[:150].unique()
     assert int((kh.winners({"weights": w}, x) != win).sum()) <= 1
-    ref_num, ref_den = khk.accumulate_reference(w, x, mask, d2m, 1.5, win=win)
+    ref_num, ref_den = khk.accumulate_reference(w, x, mask, d2m, tss, win=win)
     _near(num.cpu(), ref_num.cpu(), 1e-5)
     _near(den.cpu(), ref_den.cpu(), 1e-5)
 
@@ -395,9 +400,10 @@ def test_kohonen_kernel_against_float64(card, b, side, f, n_valid):
     version's error (one TF32 product would be ~1000 times it)."""
     w, x, mask, d2m, _ = _kohonen_case(b, side, f, n_valid, 5, card)
     win = torch.empty((b,), dtype=torch.int32, device=card)
-    got = khk.accumulate(w, x, mask, d2m, 2.0, winners_out=win)
-    plain = khk.accumulate_reference(w, x, mask, d2m, 2.0, win=win)
-    exact = khk.accumulate_reference(w.double(), x.double(), mask.double(), d2m.double(), 2.0,
+    tss = khk.sigma_tensor(2.0, card)
+    got = khk.accumulate(w, x, mask, d2m, tss, winners_out=win)
+    plain = khk.accumulate_reference(w, x, mask, d2m, tss, win=win)
+    exact = khk.accumulate_reference(w.double(), x.double(), mask.double(), d2m.double(), tss,
                                      win=win)
     for g, p, e in zip(got, plain, exact):
         ek = float((g.double() - e).abs().max())
@@ -413,7 +419,8 @@ def test_kohonen_kernel_writes_nothing_past_its_buffers(card, monkeypatch, b, si
     NaN-filled larger one; what lies past it stays NaN, and the results are
     the wrapper's own, bit for bit."""
     w, x, mask, d2m, _ = _kohonen_case(b, side, f, b - 3, 8, card)
-    want = khk.accumulate(w, x, mask, d2m, 1.1)
+    tss = khk.sigma_tensor(1.1, card)
+    want = khk.accumulate(w, x, mask, d2m, tss)
     carved = {}
 
     def canary_buffers(b_, m_, f_, device):
@@ -427,7 +434,7 @@ def test_kohonen_kernel_writes_nothing_past_its_buffers(card, monkeypatch, b, si
                 ptr)
 
     monkeypatch.setattr(khk, "_buffers", canary_buffers)
-    got = khk.accumulate(w, x, mask, d2m, 1.1)
+    got = khk.accumulate(w, x, mask, d2m, tss)
     torch.cuda.synchronize()
     assert set(carved) == set(khk.buffer_shapes(b, side * side, f))
     for name, (full, n) in carved.items():
@@ -440,7 +447,8 @@ def test_kohonen_kernel_refuses_a_grid_past_its_y_extent(card):
     b = khk.MAX_GRID_Y * khk.TILE + 1
     with pytest.raises(ValueError, match="65535"):
         khk.accumulate(torch.zeros((4, 1), device=card), torch.zeros((b, 1), device=card),
-                       torch.ones(b, device=card), torch.zeros((4, 4), device=card), 1.0)
+                       torch.ones(b, device=card), torch.zeros((4, 4), device=card),
+                       khk.sigma_tensor(1.0, card))
 
 RBM_CASES = [  # (B, V, H, cd_k, valid rows)
     (100, 784, 128, 1, 93),  # the model's shape, a masked tail
@@ -454,7 +462,8 @@ def _check_rbm_kernel(params, v0, mask, seed, cd_k, uniforms, uh, uv):
     draw, 1e-4 where none flipped, float64 along the kernel's samples."""
     chain, led = {}, {}
     before = rbk.statistics.launches
-    got = rbk.statistics(params, v0, mask, seed, cd_k=cd_k, uniforms=uniforms, chain=chain)
+    got = rbk.statistics(params, v0, mask, rbk.seed_tensor(seed, v0.device), cd_k=cd_k,
+                         uniforms=uniforms, chain=chain)
     torch.cuda.synchronize()
     assert rbk.statistics.launches - before == 1
     samples = (chain["hidden_samples"], chain["visible_samples"])
@@ -506,7 +515,7 @@ def test_rbm_kernel_writes_nothing_past_its_buffers(card, monkeypatch, b, v, h, 
     NaN-filled larger one; what lies past them stays NaN, and the results
     are the wrapper's own, bit for bit."""
     params, v0, mask = _rbm_case(b, v, h, b - 3, 9, card)
-    want = rbk.statistics(params, v0, mask, 21, cd_k=cd_k)
+    want = rbk.statistics(params, v0, mask, rbk.seed_tensor(21, card), cd_k=cd_k)
     carved = {}
 
     def canary_buffers(b_, v_, h_, k_, device):
@@ -519,7 +528,7 @@ def test_rbm_kernel_writes_nothing_past_its_buffers(card, monkeypatch, b, v, h, 
         return out
 
     monkeypatch.setattr(rbk, "_buffers", canary_buffers)
-    got = rbk.statistics(params, v0, mask, 21, cd_k=cd_k)
+    got = rbk.statistics(params, v0, mask, rbk.seed_tensor(21, card), cd_k=cd_k)
     torch.cuda.synchronize()
     assert set(carved) == set(rbk.buffer_shapes(b, v, h, cd_k))
     for name, (full, n) in carved.items():
@@ -533,8 +542,8 @@ def test_rbm_kernel_refuses_a_grid_past_its_y_extent(card):
     params = {"weights": torch.zeros((1, 1), device=card), "vbias": torch.zeros(1, device=card),
               "hbias": torch.zeros(1, device=card)}
     with pytest.raises(ValueError, match="65535"):
-        rbk.statistics(params, torch.zeros((b, 1), device=card), torch.ones(b, device=card), 0,
-                       cd_k=1)
+        rbk.statistics(params, torch.zeros((b, 1), device=card), torch.ones(b, device=card),
+                       rbk.seed_tensor(0, card), cd_k=1)
 
 
 @pytest.mark.cuda
@@ -547,9 +556,9 @@ def test_rbm_in_kernel_generator_is_the_twin(card):
 @pytest.mark.cuda
 def test_rbm_kernel_seeds(card):
     params, v0, mask = _rbm_case(64, 100, 48, 64, 5, card)
-    a = rbk.statistics(params, v0, mask, 7, cd_k=1)
-    b = rbk.statistics(params, v0, mask, 7, cd_k=1)
-    c = rbk.statistics(params, v0, mask, 8, cd_k=1)
+    a = rbk.statistics(params, v0, mask, rbk.seed_tensor(7, card), cd_k=1)
+    b = rbk.statistics(params, v0, mask, rbk.seed_tensor(7, card), cd_k=1)
+    c = rbk.statistics(params, v0, mask, rbk.seed_tensor(8, card), cd_k=1)
     torch.cuda.synchronize()
     assert all(torch.equal(x, y) for x, y in zip(a, b))
     assert not torch.equal(a[0], c[0])
@@ -564,7 +573,7 @@ def test_rbm_kernel_saturated_regime_is_exact(card):
     v0 = (torch.rand((32, v), generator=torch.Generator().manual_seed(0)) > 0.5).float().to(card)
     mask = (torch.arange(32, device=card) < 30).float()
     for cd_k in (1, 2):
-        got = rbk.statistics(params, v0, mask, 5, cd_k=cd_k)
+        got = rbk.statistics(params, v0, mask, rbk.seed_tensor(5, card), cd_k=cd_k)
         uh, uv = rbk.chain_uniforms(5, 32, v, h, cd_k, card)
         ref = rbk.statistics_reference(params, v0, mask, uh, uv, cd_k=cd_k)
         for g, r in zip(got, ref):
@@ -587,7 +596,7 @@ def bernoulli_probe(p: float, b: int, device):
 def test_bernoulli_probe_on_the_plain_version(p):
     b = 1 << 15
     params, v0, mask = bernoulli_probe(p, b, "cpu")
-    _, dvb, _, _ = rbk.statistics(params, v0, mask, 99, cd_k=1)
+    _, dvb, _, _ = rbk.statistics(params, v0, mask, rbk.seed_tensor(99, "cpu"), cd_k=1)
     assert abs(-float(dvb[0]) / b - p) < 5 * math.sqrt(p * (1 - p) / b)
 
 
@@ -597,7 +606,8 @@ def test_rbm_kernel_bernoulli_frequency(card, p):
     b = 1 << 17
     params, v0, mask = bernoulli_probe(p, b, card)
     chain = {}
-    _, dvb, _, _ = rbk.statistics(params, v0, mask, 99, cd_k=1, chain=chain)
+    _, dvb, _, _ = rbk.statistics(params, v0, mask, rbk.seed_tensor(99, card), cd_k=1,
+                                  chain=chain)
     p_exact = float(chain["h0p"][0, 0])
     freq = -float(dvb[0]) / b
     assert abs(freq - p_exact) < 5 * math.sqrt(p_exact * (1 - p_exact) / b)

@@ -6,8 +6,8 @@ so a JAX call site never gets a ``TypeError``.  At its default each is
 accepted; the snapshotter, the prefetch depth, deferred epoch sync, the
 anomaly watch's switch and rollback recovery are honoured at any value;
 off its default, a keyword whose path the port does not have yet
-(``parallel``, scan dispatch, MoE, pipelines, meshes) raises
-``NotImplementedError`` naming its ``ROADMAP.md`` item.
+(``parallel``, MoE, pipelines, meshes) raises ``NotImplementedError``
+naming its ``ROADMAP.md`` item.
 """
 
 import inspect
@@ -39,15 +39,17 @@ def _keywords(cls):
     }
 
 
-def _standard(**kw):
+def _standard(resident=False, **kw):
     loader = FullBatchLoader({"train": np.zeros((4, 3), np.float32)},
-                             {"train": np.zeros(4, np.int32)}, minibatch_size=2)
+                             {"train": np.zeros(4, np.int32)}, minibatch_size=2,
+                             device_resident=resident)
     return StandardWorkflow(loader, LAYERS, device="cpu", **kw)
 
 
-def _base(**kw):
+def _base(resident=False, **kw):
     loader = FullBatchLoader({"train": np.zeros((4, 3), np.float32)},
-                             {"train": np.zeros(4, np.int32)}, minibatch_size=2)
+                             {"train": np.zeros(4, np.int32)}, minibatch_size=2,
+                             device_resident=resident)
     model = model_lib.build(LAYERS, (3,), device="cpu")
     return Workflow(loader, model, device="cpu", **kw)
 
@@ -82,13 +84,11 @@ def test_jax_keywords_at_their_defaults_are_taken(make, jax_cls):
     "make,kwargs,item",
     [
         (_standard, {"parallel": object()}, "A6"),
-        (_standard, {"epoch_dispatch": "scan"}, "A4"),
         (_lm, {"moe_top_k": 2}, "A7"),
         (_lm, {"moe_dispatch": "capacity"}, "A7"),
         (_lm, {"pipeline_microbatches": 4}, "A7"),
         (_lm, {"mesh": object()}, "A6"),
         (_base, {"parallel": object()}, "A6"),
-        (_base, {"epoch_dispatch": "scan"}, "A4"),
     ],
     ids=lambda v: v.__name__.strip("_") if callable(v) else (next(iter(v)) if isinstance(v, dict) else v),
 )
@@ -105,6 +105,8 @@ def test_jax_keywords_off_their_defaults_are_refused_by_name(make, kwargs, item)
         (_lm, {"prefetch_batches": 0}),
         (_base, {"prefetch_batches": 0}),
         (_base, {"epoch_dispatch": "step"}),
+        (_standard, {"epoch_dispatch": "scan", "resident": True}),
+        (_base, {"epoch_dispatch": "scan", "resident": True}),
     ],
     ids=lambda v: v.__name__.strip("_") if callable(v) else "-".join(f"{k}={w}" for k, w in v.items()),
 )
@@ -113,6 +115,9 @@ def test_loop_keywords_are_honoured(make, kwargs):
     if "prefetch_batches" in kwargs:
         assert wf.prefetch_batches == kwargs["prefetch_batches"]
     wf.initialize()
+    # scan dispatch, refused until the device pool slice, runs the epoch
+    # as one split function over the device-resident pool
+    assert wf._use_epoch_scan() == (kwargs.get("epoch_dispatch") == "scan")
     n = wf.loader.class_lengths["train"]
     assert wf.run_epoch()["summary"]["train"]["n_samples"] == n
 

@@ -62,8 +62,9 @@ def _build(cuda_build, name: str, src: Path, out: Path):
 
 def _load(so: Path) -> ctypes.CDLL:
     lib = ctypes.CDLL(str(so))
-    ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.znicz_kohonen_accumulate.argtypes = [ptr] * 10 + [i32] * 4 + [f32, ptr]
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    # 2 sigma^2 by pointer, as this tree's kernel reads it
+    lib.znicz_kohonen_accumulate.argtypes = [ptr] * 10 + [i32] * 4 + [ptr, ptr]
     lib.znicz_kohonen_accumulate.restype = i32
     lib.znicz_kohonen_error_string.argtypes = [i32]
     lib.znicz_kohonen_error_string.restype = ctypes.c_char_p
@@ -121,6 +122,7 @@ def main() -> int:
         libs[name] = _load(so)
         print(f"ptxas {name} ({sources[name]}): " + " | ".join(ptxas))
     names = list(libs)
+    tss = khk.sigma_tensor(2.0, "cuda")  # 2 sigma^2 on the card, as the workflow's step hands it
 
     def use(name):
         khk._lib = lambda: libs[name]
@@ -132,9 +134,9 @@ def main() -> int:
         for name in names:
             use(name)
             win = torch.empty((b,), dtype=torch.int32, device="cuda")
-            got = khk.accumulate(w, x, mask, d2m, 2.0, winners_out=win)
+            got = khk.accumulate(w, x, mask, d2m, tss, winners_out=win)
             torch.cuda.synchronize()
-            ref = khk.accumulate_reference(w, x, mask, d2m, 2.0, win=win)
+            ref = khk.accumulate_reference(w, x, mask, d2m, tss, win=win)
             differ = int((win != plain_win).sum())
             err = max(float((g - r).abs().max() / r.abs().max()) for g, r in zip(got, ref))
             same = first is None or all(torch.equal(a, c) for a, c in zip(got, first))
@@ -149,9 +151,9 @@ def main() -> int:
             row = []
             for name in order:
                 use(name)
-                ms = _ms(torch, lambda: khk.accumulate(w, x, mask, d2m, 2.0))
+                ms = _ms(torch, lambda: khk.accumulate(w, x, mask, d2m, tss))
                 row.append(f"{name} {ms:.4f}")
-            plain = _ms(torch, lambda: khk.accumulate_reference(w, x, mask, d2m, 2.0))
+            plain = _ms(torch, lambda: khk.accumulate_reference(w, x, mask, d2m, tss))
             print(f"time round {rnd} {tag} (B {b}, {side}x{side}, F {f}) ms a call: "
                   + ", ".join(row) + f"; plain {plain:.4f}")
     for tag in ("model", "large"):
@@ -160,11 +162,11 @@ def main() -> int:
         for name in names:
             use(name)
             for _ in range(3):
-                khk.accumulate(w, x, mask, d2m, 2.0)
+                khk.accumulate(w, x, mask, d2m, tss)
             torch.cuda.synchronize()
             with profile(activities=[ProfilerActivity.CUDA]) as prof:
                 for _ in range(20):
-                    khk.accumulate(w, x, mask, d2m, 2.0)
+                    khk.accumulate(w, x, mask, d2m, tss)
                 torch.cuda.synchronize()
             rows = []
             for e in prof.key_averages():

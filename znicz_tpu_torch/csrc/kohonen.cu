@@ -4,7 +4,8 @@
 // Replaces the pl.pallas_call of znicz_tpu/ops/pallas/kohonen.py:
 //   _accumulate / _accum_kernel (:93, kernel at :36)
 // For x [B, F], the map w [M, F], the row mask [B], the pairwise squared
-// grid distances d2m [M, M] and 2 sigma^2 (a host float):
+// grid distances d2m [M, M] and 2 sigma^2 (a float on the card, read through
+// its pointer, so a step captured into a CUDA graph replays with its own):
 //   win_b  = argmax_j (x_b . w_j - |w_j|^2 / 2)        (first index on ties)
 //   h_bj   = exp(-d2m[win_b, j] / (2 sigma^2)) * mask_b
 //   num    = h^T x  [M, F]          den = sum_b h_b  [M]
@@ -384,8 +385,9 @@ __global__ void __launch_bounds__(32 * WR)
     winners_kernel(const float* __restrict__ part, const float* __restrict__ sq_part,
                    const float* __restrict__ d2m, float* __restrict__ neigh,
                    int* __restrict__ win, int b, int m, int nsplit, int row_blocks,
-                   float two_sigma_sq) {
+                   const float* __restrict__ two_sigma_sq_ptr) {
   if ((int)blockIdx.x >= row_blocks) {
+    const float two_sigma_sq = *two_sigma_sq_ptr;
     const long long n = (long long)m * m;
     for (long long i = (blockIdx.x - row_blocks) * (long long)blockDim.x + threadIdx.x; i < n;
          i += (long long)(gridDim.x - row_blocks) * blockDim.x) {
@@ -473,7 +475,7 @@ cudaError_t allow_smem() {
 template <int COPY>
 cudaError_t run(const float* x, const float* w, const float* mask, const float* d2m,
                 float* part, float* sq_part, float* neigh, int* win, float* num, float* den,
-                int b, int m, int f, int nsplit, float two_sigma_sq, cudaStream_t s) {
+                int b, int m, int f, int nsplit, const float* two_sigma_sq, cudaStream_t s) {
   cudaError_t err = allow_smem<COPY>();
   if (err != cudaSuccess) return err;
   const int cps = (chunks(f) + nsplit - 1) / nsplit;
@@ -502,13 +504,14 @@ extern "C" {
 // part [nsplit, B, M], sq_part [nsplit, M], neigh [M, M] and win [B] (int32)
 // are the wrapper's scratch (ops/kernels/kohonen.py buffer_shapes), each
 // written whole before it is read; win holds the winners after the call;
-// num [M, F] and den [M] are written whole.  B, M, F >= 1; nsplit pieces of
+// num [M, F] and den [M] are written whole; two_sigma_sq points to one float
+// on the card.  B, M, F >= 1; nsplit pieces of
 // ceil(chunks / nsplit) chunks of 64 features, none empty; B and M at most
 // 65535 tiles of 64.
 int znicz_kohonen_accumulate(const float* x, const float* w, const float* mask,
                              const float* d2m, float* part, float* sq_part, float* neigh,
                              int* win, float* num, float* den, int b, int m, int f, int nsplit,
-                             float two_sigma_sq, void* stream) {
+                             const float* two_sigma_sq, void* stream) {
   if (b < 1 || m < 1 || f < 1 || nsplit < 1 || nsplit > chunks(f)) {
     return (int)cudaErrorInvalidValue;
   }

@@ -66,6 +66,7 @@
 
 #include <cuda_runtime.h>
 
+#include <atomic>
 #include <cstdint>
 #include <initializer_list>
 
@@ -346,7 +347,7 @@ struct Chain {
   float* dhb;       // [H]
   float* stats;     // [2]
   int b, v, h, cd_k;
-  uint32_t seed;
+  const uint32_t* seed;  // one uint32 on the card, read by each thread
 };
 
 __host__ __device__ constexpr int tiles(int n) { return (n + TILE - 1) / TILE; }
@@ -385,6 +386,7 @@ __global__ void __launch_bounds__(NT) hidden_kernel(Chain c, const float* a, int
   gemm_tile<COPY, true, true>(g, m0, n0, smem, acc);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const bool last = slot == c.cd_k;
+  const uint32_t seed = *c.seed;
   float col[8][2] = {};
 #pragma unroll
   for (int j = 0; j < 8; ++j)
@@ -401,7 +403,7 @@ __global__ void __launch_bounds__(NT) hidden_kernel(Chain c, const float* a, int
       } else {
         if (slot == 0) c.h0p[idx] = p;
         const size_t at = (size_t)slot * c.b * c.h + idx;
-        const float u = c.uh ? c.uh[at] : uniform_at(at, c.seed, 0u);
+        const float u = c.uh ? c.uh[at] : uniform_at(at, seed, 0u);
         c.hs[at] = u < p ? 1.f : 0.f;
       }
     }
@@ -421,6 +423,7 @@ __global__ void __launch_bounds__(NT) visible_kernel(Chain c, int step) {
   gemm_tile<COPY, true, false>(g, m0, n0, smem, acc);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const bool last = step == c.cd_k - 1;
+  const uint32_t seed = *c.seed;
   float col[8][2] = {}, row[2] = {};
 #pragma unroll
   for (int j = 0; j < 8; ++j)
@@ -431,7 +434,7 @@ __global__ void __launch_bounds__(NT) visible_kernel(Chain c, int step) {
       if (r >= c.b || n >= c.v) continue;
       const float p = sigmoid(acc[j][e] + c.vb[n]);
       const size_t idx = (size_t)r * c.v + n, at = (size_t)step * c.b * c.v + idx;
-      const float u = c.uv ? c.uv[at] : uniform_at(at, c.seed, 1u);
+      const float u = c.uv ? c.uv[at] : uniform_at(at, seed, 1u);
       c.vs[at] = u < p ? 1.f : 0.f;
       if (last) {
         c.vp[idx] = p;
@@ -519,13 +522,30 @@ __global__ void uniforms_kernel(float* out, long long n, uint32_t seed, uint32_t
   }
 }
 
+// the kernels' dynamic shared memory, allowed once on each device (not on
+// every call: a call may be captured into a CUDA graph)
 template <int COPY>
-cudaError_t run_chain(const Chain& c, cudaStream_t s) {
+cudaError_t allow_smem() {
+  static std::atomic<unsigned long long> done{0};  // a bit a device
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const unsigned long long bit = dev < 64 ? 1ull << dev : 0ull;
+  if (done.load() & bit) return cudaSuccess;
   for (const void* k : {reinterpret_cast<const void*>(hidden_kernel<COPY>),
                         reinterpret_cast<const void*>(visible_kernel<COPY>),
                         reinterpret_cast<const void*>(stats_kernel<COPY>)}) {
-    const cudaError_t err =
-        cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+    err = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+    if (err != cudaSuccess) return err;
+  }
+  done.fetch_or(bit);
+  return cudaSuccess;
+}
+
+template <int COPY>
+cudaError_t run_chain(const Chain& c, cudaStream_t s) {
+  {
+    const cudaError_t err = allow_smem<COPY>();
     if (err != cudaSuccess) return err;
   }
   const dim3 hid(tiles(c.h), tiles(c.b)), vis(tiles(c.v), tiles(c.b)), st(tiles(c.h), tiles(c.v));
@@ -552,12 +572,13 @@ extern "C" {
 // Every buffer after uv is the wrapper's (ops/kernels/rbm.py buffer_shapes,
 // in this order) and is written whole before it is read; dw [V, H], dvb [V],
 // dhb [H] and stats [2] are the results.  uh, uv: null to draw in the kernel
-// from `seed`.  B, V, H, cd_k >= 1; B and V at most 65535 tiles of 64.
+// from `seed` (one uint32 on the card, read through the pointer).  B, V, H,
+// cd_k >= 1; B and V at most 65535 tiles of 64.
 int znicz_rbm_cd(const float* v0, const float* mask, const float* w, const float* vb,
                  const float* hb, const float* uh, const float* uv, float* h0p, float* vp,
                  float* hp, float* hs, float* vs, float* err_part, float* dvb_part,
                  float* dhb_part, float* dw, float* dvb, float* dhb, float* stats, int b, int v,
-                 int h, int cd_k, unsigned int seed, void* stream) {
+                 int h, int cd_k, const unsigned int* seed, void* stream) {
   if (b < 1 || v < 1 || h < 1 || cd_k < 1) return (int)cudaErrorInvalidValue;
   if (tiles(b) > 65535 || tiles(v) > 65535) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);

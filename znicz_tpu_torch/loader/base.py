@@ -12,16 +12,18 @@ stream's position, as in the JAX package, so a resumed run draws the same
 permutations.  ``fill`` runs behind the JAX package's retry and skip
 ladder: a failed fetch is retried ``fetch_retries`` times with doubling
 backoff, then the batch is skipped (``skip_bad_batches``) or the typed
-:class:`LoaderFetchError` raises; both are counted.  Not ported yet:
-class-balanced shuffling (``balanced=True`` is refused, naming its
-``ROADMAP.md`` item), multi-host sample shards and the device-resident pool.
+:class:`LoaderFetchError` raises; both are counted.  ``balanced=True``
+spreads the classes evenly over the minibatches, drawing from the shuffle
+stream as the JAX package does.  A device-resident loader lays its splits
+out in one pool on the device by :func:`pool_offsets` and
+:func:`pool_concat`.  Not ported yet: multi-host sample shards.
 """
 
 from __future__ import annotations
 
 import logging
 import time
-from typing import Dict, Iterator, NamedTuple, Optional
+from typing import Any, Dict, Iterator, NamedTuple, Optional
 
 import numpy as np
 
@@ -78,13 +80,9 @@ class Loader:
         fetch_backoff_s: float = 0.05,
         skip_bad_batches: bool = False,
     ):
-        if balanced:
-            raise NotImplementedError(
-                "class-balanced shuffling (balanced=True) is not ported to "
-                "znicz_tpu_torch yet (ROADMAP.md A3, loader/base.py)"
-            )
         self.max_minibatch_size = int(minibatch_size)
         self.shuffle = shuffle
+        self.balanced = balanced  # spread the classes evenly over minibatches
         self.rand_name = rand_name
         # fill(indices, split) is a pure function of its indices, so a
         # transient failure is retried; the loader.fetch_flaky fault point
@@ -109,10 +107,26 @@ class Loader:
         """Materialize the samples at ``indices`` of ``split``."""
         raise NotImplementedError
 
-    def device_preproc(self):
-        """Optional callable ``pre(x)`` the workflow applies to each batch
-        on the device (e.g. u8 -> f32 affine); None = batches arrive ready."""
+    def split_labels(self, split: str) -> Optional[np.ndarray]:
+        """All labels of a split (what ``balanced`` needs); None if unknown."""
         return None
+
+    def device_preproc(self):
+        """Optional callable ``pre(x, ctx)`` the workflow applies to each
+        batch on the device inside the step (a u8 -> f32 affine, a gather
+        from the device-resident pool); ``ctx`` is :meth:`device_context`
+        placed on the workflow's device.  None = batches arrive ready."""
+        return None
+
+    def device_context(self) -> Optional[Dict[str, Any]]:
+        """Host arrays the preprocessing needs on the device (the
+        device-resident pool), or None.  The workflow copies them to its
+        device once, at ``initialize``, and hands them to every step."""
+        return None
+
+    # the per-batch payloads are small (index vectors), so a whole split of
+    # them can be stacked and run as one dispatch (Workflow epoch_dispatch)
+    epoch_scan_friendly = False
 
     # -- serving -----------------------------------------------------------
     def n_minibatches(self, split: str) -> int:
@@ -129,8 +143,24 @@ class Loader:
 
     def reshuffle(self, split: str = TRAIN) -> None:
         n = self.class_lengths.get(split, 0)
-        if n:
-            self._order[split] = prng.get(self.rand_name).permutation(n)
+        if not n:
+            return
+        gen = prng.get(self.rand_name)
+        labels = self.split_labels(split) if self.balanced else None
+        if labels is None:
+            self._order[split] = gen.permutation(n)
+            return
+        # class-balanced: shuffle within each class, then place the sample
+        # ranked r of a class of m at (r + jitter) / m, so that every
+        # minibatch sees a near-proportional mix of the classes
+        labels = np.asarray(labels)
+        keys = np.empty(n, np.float64)
+        for cls in np.unique(labels):
+            idx = np.flatnonzero(labels == cls)
+            perm = idx[gen.permutation(len(idx))]
+            jitter = gen.uniform((len(idx),), 0.0, 1.0)
+            keys[perm] = (np.arange(len(idx)) + jitter) / len(idx)
+        self._order[split] = np.argsort(keys, kind="stable")
 
     def batches(
         self, split: str, *, shuffle: Optional[bool] = None
@@ -206,3 +236,21 @@ class Loader:
         self._order = {k: np.asarray(v) for k, v in state["order"].items()}
         if "prng" in state:
             prng.get(self.rand_name).load_state_dict(state["prng"])
+
+
+def pool_offsets(splits: Dict[str, np.ndarray]) -> Dict[str, int]:
+    """Row offset of each split inside the device-resident pool: the one
+    ordering contract shared with :func:`pool_concat` (splits in sorted
+    order)."""
+    offsets, off = {}, 0
+    for s in sorted(splits):
+        offsets[s] = off
+        off += len(splits[s])
+    return offsets
+
+
+def pool_concat(splits: Dict[str, np.ndarray]) -> np.ndarray:
+    """The split arrays concatenated in :func:`pool_offsets` order (a
+    transient host copy: the workflow copies it to the device and drops
+    it)."""
+    return np.concatenate([np.asarray(splits[s]) for s in sorted(splits)])

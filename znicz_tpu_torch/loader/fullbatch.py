@@ -4,11 +4,20 @@ The whole dataset lives in host arrays; minibatches are gathered by index.
 Normalization (``znicz_tpu_torch/loader/normalizers.py``): ``"none"``,
 ``"linear"``, ``"mean_disp"``, ``"range"`` and ``"external_mean"``; the
 fitted kinds are fitted on the ``train`` split, flattened, as in the JAX
-package, and each split is normalized once on the host.  With
-``device_convert``, uint8 data under "range" stays uint8 and crosses to the
-device as uint8 (a quarter of the bytes), where ``x * (1/scale) + shift``
-runs, as in the JAX package.  The device-resident pool
-(``device_resident=True``) and pool sharding are refused by name.
+package.  uint8 data under ``"range"`` stays uint8 on the host and each
+minibatch is gathered and converted by the native
+:func:`~znicz_tpu_torch.loader.native.gather_rows_u8`; with
+``device_convert`` it crosses to the device as uint8
+(:func:`~znicz_tpu_torch.loader.native.gather_rows_u8_raw`), where ``x *
+(1/scale) + shift`` runs; other data is normalized once, split by split.
+
+``device_resident=True``: the whole dataset (every split, in
+:func:`~znicz_tpu_torch.loader.base.pool_offsets` order, uint8 where it
+stays uint8) goes to the device once as the workflow's device context;
+each minibatch ships only its int32 pool rows, which
+:meth:`FullBatchLoader.device_preproc` gathers (and converts) inside the
+step.  Such a loader is ``epoch_scan_friendly``.  Pool sharding
+(``pool_sharded=True``) is refused by name (ROADMAP.md A6).
 """
 
 from __future__ import annotations
@@ -18,8 +27,8 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from znicz_tpu_torch.loader import normalizers
-from znicz_tpu_torch.loader.base import SPLITS, Loader, Minibatch
+from znicz_tpu_torch.loader import native, normalizers
+from znicz_tpu_torch.loader.base import SPLITS, Loader, Minibatch, pool_concat, pool_offsets
 
 
 class FullBatchLoader(Loader):
@@ -46,11 +55,6 @@ class FullBatchLoader(Loader):
             raise NotImplementedError(
                 "pool sharding (pool_sharded=True) is not ported to znicz_tpu_torch "
                 "yet (ROADMAP.md A6, loader/pool_sharded.py)"
-            )
-        if device_resident:
-            raise NotImplementedError(
-                "the device-resident pool (device_resident=True) is not ported to "
-                "znicz_tpu_torch yet (ROADMAP.md A3, loader/fullbatch.py)"
             )
         super().__init__(**kwargs)
         # zero-length splits are simply absent
@@ -81,13 +85,16 @@ class FullBatchLoader(Loader):
             **(normalization_kwargs or {}),
         )
         self.normalization = normalization
-        # uint8 data under "range" may stay uint8 up to the device
-        self._device_convert = (
-            device_convert
-            and normalization == "range"
-            and all(raw.dtype == np.uint8 for raw in self.data.values())
-        )
-        if normalization != "none" and not self._device_convert:
+        # uint8 data under "range" stays uint8: each minibatch is converted
+        # by the native gather, or on the device (device_convert)
+        self._lazy_u8 = normalization == "range" and all(
+            raw.dtype == np.uint8 for raw in self.data.values())
+        self._device_convert = device_convert and self._lazy_u8
+        self._device_resident = bool(device_resident)
+        self.epoch_scan_friendly = self._device_resident
+        self._pool_offsets: Dict[str, int] = (
+            pool_offsets(self.data) if device_resident else {})
+        if normalization != "none" and not self._lazy_u8:
             self.data = {
                 split: normalizers.apply(
                     self.normalizer, raw.reshape(len(raw), -1).astype(np.float32)
@@ -95,15 +102,42 @@ class FullBatchLoader(Loader):
                 for split, raw in self.data.items()
             }
 
-    def device_preproc(self):
-        if not self._device_convert:
+    def device_context(self):
+        """``{"pool": every split in one array}`` when device-resident, built
+        anew at each call and not kept (the workflow copies it to the
+        device)."""
+        if not self._device_resident:
             return None
-        scale, shift = self.normalizer["scale"], self.normalizer["shift"]
+        return {"pool": pool_concat(self.data)}
 
-        def pre(x: torch.Tensor) -> torch.Tensor:
-            return x.float() * (1.0 / scale) + shift
+    def device_preproc(self):
+        if not (self._device_resident or self._device_convert):
+            return None
+        if self._lazy_u8:
+            scale, shift = self.normalizer["scale"], self.normalizer["shift"]
+
+            def convert(x: torch.Tensor) -> torch.Tensor:
+                return x.float() * (1.0 / scale) + shift
+        else:  # the pool is normalized float32 already: a bare gather
+
+            def convert(x: torch.Tensor) -> torch.Tensor:
+                return x
+
+        if not self._device_resident:
+            def pre(x: torch.Tensor, ctx=None) -> torch.Tensor:
+                return convert(x)
+
+            return pre
+
+        def pre(idx: torch.Tensor, ctx=None) -> torch.Tensor:
+            pool = ctx["pool"]
+            return convert(pool.index_select(0, idx.reshape(-1)).reshape(
+                idx.shape + pool.shape[1:]))
 
         return pre
+
+    def split_labels(self, split: str):
+        return self.labels.get(split)
 
     @property
     def class_lengths(self) -> Dict[str, int]:
@@ -114,7 +148,17 @@ class FullBatchLoader(Loader):
         return next(iter(self.data.values())).shape[1:]
 
     def fill(self, indices: np.ndarray, split: str) -> Minibatch:
-        data = self.data[split][indices]
+        raw = self.data[split]
+        if self._device_resident:
+            # only the pool rows ship; the step gathers them on the device
+            data = np.asarray(indices, np.int32) + np.int32(self._pool_offsets[split])
+        elif self._device_convert:
+            data = native.gather_rows_u8_raw(raw, indices)
+        elif self._lazy_u8:
+            data = native.gather_rows_u8(raw, indices, scale=self.normalizer["scale"],
+                                         shift=self.normalizer["shift"])
+        else:
+            data = raw[indices]
         labels = self.labels[split][indices] if split in self.labels else None
         targets = self.targets[split][indices] if split in self.targets else None
         return Minibatch(

@@ -11,10 +11,17 @@
   ``native/batch_assembler.cc``.
 - **Normalize on the device.**  Batches stay uint8 up to the device, where
   :meth:`ImageNetLoader.device_preproc` gives ``x * (1/255) - mean``.
+- **Or keep the pool on the device** (``device_resident=True``).  The
+  packed u8 splits go to the device once, in
+  :func:`~znicz_tpu_torch.loader.base.pool_offsets` order, as the
+  workflow's device context; each minibatch ships an int32 ``[B, 4]``
+  payload (pool row, ``oy``, ``ox``, flip), the same draws as the host
+  path, and :meth:`~ImageNetLoader.device_preproc` cuts each crop straight
+  out of the pool by indexing over an index grid, reversed along W where
+  the flip bit is set, then normalizes.  The crops are the host native
+  crops' bytes.  Such a loader is ``epoch_scan_friendly``.
 
-Not ported: the device-resident pool (``device_resident=True``, ROADMAP.md
-A3) and pool sharding (``pool_sharded=True``, A6); both are refused by
-name.
+Pool sharding (``pool_sharded=True``, ROADMAP.md A6) is refused by name.
 """
 
 from __future__ import annotations
@@ -28,7 +35,14 @@ import torch
 
 from znicz_tpu_torch.core import prng
 from znicz_tpu_torch.loader import native
-from znicz_tpu_torch.loader.base import SPLITS, TRAIN, Loader, Minibatch
+from znicz_tpu_torch.loader.base import (
+    SPLITS,
+    TRAIN,
+    Loader,
+    Minibatch,
+    pool_concat,
+    pool_offsets,
+)
 from znicz_tpu_torch.loader.image import IMAGE_EXTENSIONS, _read_image
 
 MEAN_FILE = "mean_rgb.json"
@@ -158,12 +172,9 @@ class ImageNetLoader(Loader):
                 "pool sharding (pool_sharded=True) is not ported to znicz_tpu_torch "
                 "yet (ROADMAP.md A6, loader/pool_sharded.py)"
             )
-        if device_resident:
-            raise NotImplementedError(
-                "the device-resident pool (device_resident=True) is not ported to "
-                "znicz_tpu_torch yet (ROADMAP.md A3, loader/imagenet.py)"
-            )
         super().__init__(**kwargs)
+        self._device_resident = bool(device_resident)
+        self.epoch_scan_friendly = self._device_resident
         if not os.path.isdir(data_dir):
             raise FileNotFoundError(f"no such data_dir: {data_dir}")
         if not os.path.exists(os.path.join(data_dir, f"{TRAIN}_images.npy")):
@@ -193,6 +204,7 @@ class ImageNetLoader(Loader):
             mpath = os.path.join(data_dir, MEAN_FILE)
             mean_rgb = tuple(_read_json(mpath)) if os.path.exists(mpath) else (0.5, 0.5, 0.5)
         self.mean_rgb = np.asarray(mean_rgb, np.float32)
+        self._pool_offsets = pool_offsets(self.images)
 
     @property
     def class_lengths(self) -> Dict[str, int]:
@@ -232,7 +244,12 @@ class ImageNetLoader(Loader):
     def fill(self, indices: np.ndarray, split: str) -> Minibatch:
         oy, ox, flip = self._crop_params(indices, split)
         cs = self.crop_size
-        data = native.crop_gather_u8(self.images[split], indices, oy, ox, flip, cs, cs)
+        if self._device_resident:
+            # the whole transfer of the minibatch: pool row, crop, flip bit
+            row = np.asarray(indices, np.int64) + self._pool_offsets[split]
+            data = np.stack([row, oy, ox, flip.astype(np.int64)], axis=1).astype(np.int32)
+        else:
+            data = native.crop_gather_u8(self.images[split], indices, oy, ox, flip, cs, cs)
         return Minibatch(
             data=data,
             labels=self.labels[split][indices],
@@ -241,15 +258,43 @@ class ImageNetLoader(Loader):
             indices=indices,
         )
 
+    def device_context(self):
+        """``{"pool": every packed split in one u8 array}`` when
+        device-resident (read from the memory maps at each call and not
+        kept: the workflow copies it to the device)."""
+        if not self._device_resident:
+            return None
+        return {"pool": pool_concat(self.images)}
+
     def device_preproc(self):
-        """u8 -> float32 in [-mean, 1 - mean], on the batch's device."""
+        """u8 -> float32 in [-mean, 1 - mean], on the batch's device; when
+        device-resident, the crops are cut out of ``ctx["pool"]`` first
+        (:func:`crop_from_pool`)."""
         mean = torch.from_numpy(self.mean_rgb)
         on_device = {}
+        cs = self.crop_size
+        resident = self._device_resident
 
-        def pre(x: torch.Tensor) -> torch.Tensor:
+        def pre(x: torch.Tensor, ctx=None) -> torch.Tensor:
+            if resident:
+                x = crop_from_pool(ctx["pool"], x, cs)
             m = on_device.get(x.device)
             if m is None:
                 m = on_device[x.device] = mean.to(x.device)
             return x.float() * (1.0 / 255.0) - m
 
         return pre
+
+
+def crop_from_pool(pool: torch.Tensor, payload: torch.Tensor, size: int) -> torch.Tensor:
+    """The ``[B, size, size, C]`` crops of the ``[B, 4]`` payload (pool row,
+    ``oy``, ``ox``, flip) out of ``pool [N, H, W, C]``, on the pool's
+    device: one gather over an index grid, W reversed where the flip bit
+    is set (the bytes :func:`native.crop_gather_u8` cuts on the host)."""
+    p = payload.long()
+    ar = torch.arange(size, device=pool.device)
+    rows = p[:, 0, None, None]
+    ys = (p[:, 1, None] + ar)[:, :, None]
+    cols = torch.where(p[:, 3, None] > 0, size - 1 - ar, ar)
+    xs = (p[:, 2, None] + cols)[:, None, :]
+    return pool[rows, ys, xs]

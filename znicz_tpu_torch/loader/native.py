@@ -1,14 +1,24 @@
-"""The native crop gather of the ImageNet loader (port of the part of
-``znicz_tpu/loader/native.py`` that ``loader/imagenet.py`` uses).
+"""The native minibatch assembly of the host loaders (port of
+``znicz_tpu/loader/native.py``).
 
-``crop_gather_u8`` runs ``crop_gather_u8`` of ``native/batch_assembler.cc``
-(a thread-parallel memcpy of each crop window, reversed along W for a
-flip), which is compiled with ``g++`` at first use into ``build/native/``
-at the repository root, under a name keyed by the hash of the source and
-the flags, and loaded with ctypes.  A failed build raises with the
-compiler's output: there is no fallback.  :func:`crop_gather_u8_reference`
-is the plain numpy window copy; the loader uses it only for data that is
-not C-contiguous uint8, as the JAX package does.
+Each function runs its namesake in ``native/batch_assembler.cc``, a
+thread-parallel loop over the batch's rows:
+
+- :func:`gather_rows`: ``out[i] = data[indices[i]]``, float32 rows;
+- :func:`gather_rows_u8`: the same from uint8 rows, fused with the affine
+  ``x * (1 / scale) + shift`` into float32 (the FullBatch loader's
+  ``"range"`` normalization of uint8 data);
+- :func:`gather_rows_u8_raw`: uint8 rows, unconverted (the batch crosses
+  to the device as uint8, where the affine runs);
+- :func:`crop_gather_u8`: a crop window of each image, reversed along W
+  for a flip (the ImageNet loader).
+
+The source is compiled with ``g++`` at first use into ``build/native/`` at
+the repository root, under a name keyed by the hash of the source and the
+flags, and loaded with ctypes.  A failed build raises with the compiler's
+output: there is no fallback.  Each has a plain numpy version
+(``*_reference``), bit for bit the same; the wrappers use it only for data
+that is not C-contiguous in the function's dtype, as the JAX package does.
 """
 
 from __future__ import annotations
@@ -20,7 +30,7 @@ import os
 import subprocess
 import time
 from pathlib import Path
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 
@@ -73,6 +83,15 @@ def load() -> ctypes.CDLL:
         ctypes.c_int64, ctypes.c_int64, u8p,
     ]
     lib.crop_gather_u8.restype = None
+    f32p = np.ctypeslib.ndpointer(np.float32, flags="C_CONTIGUOUS")
+    lib.gather_rows_f32.argtypes = [f32p, ctypes.c_int64, i64p, ctypes.c_int64, f32p]
+    lib.gather_rows_f32.restype = None
+    lib.gather_rows_u8_normalize.argtypes = [
+        u8p, ctypes.c_int64, i64p, ctypes.c_int64, ctypes.c_float, ctypes.c_float, f32p,
+    ]
+    lib.gather_rows_u8_normalize.restype = None
+    lib.gather_rows_u8_raw.argtypes = [u8p, ctypes.c_int64, i64p, ctypes.c_int64, u8p]
+    lib.gather_rows_u8_raw.restype = None
     return lib
 
 
@@ -121,3 +140,62 @@ def crop_gather_u8(data, indices, oy, ox, flip, out_h: int, out_w: int) -> np.nd
         data.reshape(-1), h, w, c, idx, oy, ox, flip, len(idx), out_h, out_w, out.reshape(-1)
     )
     return out
+
+
+def _rows(data: np.ndarray, dtype) -> Optional[np.ndarray]:
+    """``data`` as C-contiguous ``[n, features]`` rows of ``dtype``, or None
+    when it is not that (the plain version serves it)."""
+    flat = data.reshape(len(data), -1)
+    if flat.dtype != dtype or not flat.flags["C_CONTIGUOUS"]:
+        return None
+    return flat
+
+
+def gather_rows_reference(data: np.ndarray, indices) -> np.ndarray:
+    """The plain version of :func:`gather_rows` and :func:`gather_rows_u8_raw`:
+    numpy's row gather (indices checked as the native one checks them)."""
+    return data[_check_indices(indices, len(data))]
+
+
+def gather_rows(data: np.ndarray, indices) -> np.ndarray:
+    """``out[i] = data[indices[i]]`` for float32 rows ``data [n, ...]``."""
+    flat = _rows(data, np.float32)
+    if flat is None:
+        return gather_rows_reference(data, indices)
+    idx = _check_indices(indices, len(data))
+    out = np.empty((len(idx), flat.shape[1]), np.float32)
+    load().gather_rows_f32(flat, flat.shape[1], idx, len(idx), out)
+    return out.reshape((len(idx),) + data.shape[1:])
+
+
+def gather_rows_u8_raw(data: np.ndarray, indices) -> np.ndarray:
+    """``out[i] = data[indices[i]]`` for uint8 rows, kept uint8."""
+    flat = _rows(data, np.uint8)
+    if flat is None:
+        return gather_rows_reference(data, indices)
+    idx = _check_indices(indices, len(data))
+    out = np.empty((len(idx), flat.shape[1]), np.uint8)
+    load().gather_rows_u8_raw(flat, flat.shape[1], idx, len(idx), out)
+    return out.reshape((len(idx),) + data.shape[1:])
+
+
+def gather_rows_u8_reference(data: np.ndarray, indices, *, scale: float = 255.0,
+                             shift: float = 0.0) -> np.ndarray:
+    """The plain version of :func:`gather_rows_u8`, in the C loop's float32
+    arithmetic: ``x * (1 / scale) + shift``, the reciprocal taken in
+    float32."""
+    inv = np.float32(1.0) / np.float32(scale)
+    return gather_rows_reference(data, indices).astype(np.float32) * inv + np.float32(shift)
+
+
+def gather_rows_u8(data: np.ndarray, indices, *, scale: float = 255.0,
+                   shift: float = 0.0) -> np.ndarray:
+    """Gather uint8 rows and convert them to float32 ``x * (1 / scale) +
+    shift`` in one pass."""
+    flat = _rows(data, np.uint8)
+    if flat is None:
+        return gather_rows_u8_reference(data, indices, scale=scale, shift=shift)
+    idx = _check_indices(indices, len(data))
+    out = np.empty((len(idx), flat.shape[1]), np.float32)
+    load().gather_rows_u8_normalize(flat, flat.shape[1], idx, len(idx), scale, shift, out)
+    return out.reshape((len(idx),) + data.shape[1:])

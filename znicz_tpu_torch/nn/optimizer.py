@@ -13,7 +13,7 @@ differs and which has no per-bias knobs.
 
 The JAX package returns new arrays; here the parameters and the momentum
 buffers are updated in place under ``torch.no_grad()``, which keeps one copy
-of each on the card.
+of each on the card (and their pointers, which a captured step holds).
 """
 
 from __future__ import annotations
@@ -60,11 +60,15 @@ def _decay_term(w, wd, l1_vs_l2):
 
 @torch.no_grad()
 def update_param(w: torch.Tensor, grad: torch.Tensor, v: torch.Tensor, name: str, hyper: HyperParams) -> None:
-    """One parameter's momentum-SGD update, in place on ``w`` and ``v``."""
+    """One parameter's momentum-SGD update, in place on ``w`` and ``v``.
+    The learning rate may be a host scalar or a 0-d tensor on ``w``'s
+    device (the workflows' steps pass the latter, so a captured step
+    replays with each step's rate); ``-(lr g)`` is ``(-lr) g`` bit for
+    bit."""
     lr, moment, wd, l1l2 = hyper.for_param(name)
     g = grad + _decay_term(w, wd, l1l2)
     if moment == 0:
-        v.copy_(-lr * g)
+        torch.mul(g, lr, out=v).neg_()
     else:
         v.copy_(moment * v - lr * g)
     w.add_(v)

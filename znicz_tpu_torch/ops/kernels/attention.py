@@ -69,7 +69,11 @@ index.  Beside each kernel is its plain PyTorch version
 :func:`flash_dkv_reference`), which the
 wrappers take for CPU tensors; for CUDA tensors they launch the kernel or
 raise, and count launches in ``flash_fwd.launches``, ``flash_dq.launches``
-and ``flash_dkv.launches``.
+and ``flash_dkv.launches``.  The library is built at the first launch;
+the wrappers launch on the current stream and read no device value on the
+host, so a step that ran once eagerly can be captured into a CUDA graph,
+whose replays launch the kernels without passing through the wrappers or
+their counts.
 """
 
 from __future__ import annotations

@@ -18,7 +18,9 @@ block (:func:`_buffers`, shapes from :func:`buffer_shapes`); every sum
 runs in a fixed order (no atomics), so the result is the same bits from
 run to run.  What bounds it and why it is built so: see the source.  The
 three launches are one logical step: ``accumulate.launches`` counts one
-per call that reaches the card.
+per call that reaches the card.  The kernel reads ``2 sigma^2`` through a
+pointer to a float32 on the card, so a step captured into a CUDA graph
+replays with each step's own value.
 
 Beside it is the plain PyTorch version, :func:`accumulate_reference`, the
 CPU path and the kernel's oracle; :func:`accumulate` takes it for CPU
@@ -49,23 +51,32 @@ def pairwise_d2(coords: torch.Tensor) -> torch.Tensor:
 
 # -- the plain PyTorch version (CPU path and the kernel's oracle) ---------------
 
-def accumulate_reference(w, x, mask, d2m, sigma, *, win=None):
+def sigma_tensor(sigma, device) -> torch.Tensor:
+    """``2 sigma^2`` of a host ``sigma`` as the kernel reads it: a one-value
+    float32 tensor on ``device``."""
+    return torch.tensor(two_sigma_sq(sigma), dtype=torch.float32, device=device)
+
+
+def accumulate_reference(w, x, mask, d2m, tss, *, win=None):
     """``(num [M, F], den [M, 1])`` as ``_accum_kernel`` computes them:
     winners ``argmax(x.w^T - |w|^2 / 2)`` (or ``win``, given), then
-    ``h = exp(-d2m[win] / (2 sigma^2)) * mask`` and its two sums."""
+    ``h = exp(-d2m[win] / tss) * mask`` and its two sums; ``tss`` is ``2
+    sigma^2``, a one-value float32 tensor (:func:`sigma_tensor`)."""
     if win is None:
         scores = x @ w.T - 0.5 * torch.sum(w * w, dim=1)[None, :]
         win = torch.argmax(scores, dim=1)
-    neigh = torch.exp(-d2m / two_sigma_sq(sigma))  # [M, M]
+    neigh = torch.exp(-d2m / tss)  # [M, M]
     h = neigh[win.long()] * mask[:, None]  # [B, M]
     return h.T @ x, torch.sum(h, dim=0)[:, None]
 
 
 def _apply_update(w, num, den, learning_rate):
     """``w + lr (num / den - w)`` where ``den > 1e-8``, else ``w``
-    (``ops/pallas/kohonen.py:119-122``); ``learning_rate`` is a host scalar,
-    taken in float32."""
-    lr = float(np.float32(learning_rate))
+    (``ops/pallas/kohonen.py:119-122``); ``learning_rate`` is a 0-d float32
+    tensor on ``w``'s device or a host scalar, taken in float32."""
+    lr = learning_rate
+    if not isinstance(lr, torch.Tensor):
+        lr = float(np.float32(lr))
     target = num / torch.clamp_min(den, 1e-12)
     return torch.where(den > 1e-8, w + lr * (target - w), w)
 
@@ -134,19 +145,20 @@ def _buffers(b: int, m: int, f: int, device):
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = cuda_build.load("kohonen")
-    ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.znicz_kohonen_accumulate.argtypes = [ptr] * 10 + [i32] * 4 + [f32, ptr]
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.znicz_kohonen_accumulate.argtypes = [ptr] * 10 + [i32] * 4 + [ptr, ptr]
     lib.znicz_kohonen_accumulate.restype = i32
     lib.znicz_kohonen_error_string.argtypes = [i32]
     lib.znicz_kohonen_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def _check(w, x, mask, d2m) -> None:
+def _check(w, x, mask, d2m, tss) -> None:
     """Raise ``ValueError`` on what the kernel does not take."""
     card = x.get_device()  # -1 off the card
     if (card >= 0 and w.get_device() == card and mask.get_device() == card
-            and d2m.get_device() == card
+            and d2m.get_device() == card and tss.get_device() == card
+            and tss.numel() == 1 and tss.dtype == torch.float32
             and x.dtype == w.dtype == mask.dtype == d2m.dtype == torch.float32
             and x.is_contiguous() and w.is_contiguous() and mask.is_contiguous()
             and d2m.is_contiguous() and x.dim() == 2 and w.dim() == 2
@@ -154,7 +166,7 @@ def _check(w, x, mask, d2m) -> None:
             and d2m.shape == (w.shape[0], w.shape[0])
             and _ceil_div(max(x.shape[0], w.shape[0]), TILE) <= MAX_GRID_Y):
         return  # the common case, in few host operations; what fails, by name below
-    for name, t in (("w", w), ("x", x), ("mask", mask), ("d2m", d2m)):
+    for name, t in (("w", w), ("x", x), ("mask", mask), ("d2m", d2m), ("tss", tss)):
         if t.device.type != "cuda" or t.device != x.device:
             raise ValueError(f"kohonen accumulate: kernel needs CUDA tensors on one card, "
                              f"got {name} on {t.device}")
@@ -166,6 +178,8 @@ def _check(w, x, mask, d2m) -> None:
         raise ValueError(f"kohonen accumulate: want x [B, F] and w [M, F], got "
                          f"{tuple(x.shape)} and {tuple(w.shape)}")
     m = w.shape[0]
+    if tss.numel() != 1:
+        raise ValueError(f"kohonen accumulate: tss must hold one value, got {tuple(tss.shape)}")
     if mask.shape != (x.shape[0],) or d2m.shape != (m, m):
         raise ValueError(f"kohonen accumulate: want mask [B] and d2m [M, M], got "
                          f"{tuple(mask.shape)} and {tuple(d2m.shape)}")
@@ -175,14 +189,16 @@ def _check(w, x, mask, d2m) -> None:
                          f"at most {MAX_GRID_Y})")
 
 
-def accumulate(w, x, mask, d2m, sigma, *, winners_out: Optional[torch.Tensor] = None):
+def accumulate(w, x, mask, d2m, tss, *, winners_out: Optional[torch.Tensor] = None):
     """``(num [M, F], den [M, 1])`` of one batch-SOM step: the plain version
     for CPU tensors, else the kernel (counted in ``accumulate.launches``).
-    ``sigma`` is a host scalar.  ``winners_out`` (CUDA int32 ``[B]``), if
-    given, receives the kernel's winners."""
+    ``tss``: ``2 sigma^2`` as a one-value float32 tensor on x's device
+    (:func:`sigma_tensor`), which the kernel reads through its pointer.
+    ``winners_out`` (CUDA int32 ``[B]``), if given, receives the kernel's
+    winners."""
     if w.is_cpu and x.is_cpu and mask.is_cpu and d2m.is_cpu:
-        return accumulate_reference(w, x, mask, d2m, sigma)
-    _check(w, x, mask, d2m)
+        return accumulate_reference(w, x, mask, d2m, tss)
+    _check(w, x, mask, d2m, tss)
     b, f = x.shape
     m = w.shape[0]
     if b == 0:
@@ -199,7 +215,7 @@ def accumulate(w, x, mask, d2m, sigma, *, winners_out: Optional[torch.Tensor] = 
         win = winners_out.data_ptr()
     args = (x.data_ptr(), w.data_ptr(), mask.data_ptr(), d2m.data_ptr(), ptr["scores"],
             ptr["sq"], ptr["neigh"], win, ptr["num"], ptr["den"], b, m, f,
-            _split_count(b, m, f), two_sigma_sq(sigma))
+            _split_count(b, m, f), tss.data_ptr())
     # the current stream's handle, as torch.cuda.current_stream(card).cuda_stream
     # gives it, without building a Stream object a call
     card = x.get_device()
@@ -224,7 +240,7 @@ def train_step(
     coords: torch.Tensor,
     *,
     learning_rate,
-    sigma,
+    tss: torch.Tensor,
     mask: Optional[torch.Tensor] = None,
     mesh=None,
     data_axis: str = "data",
@@ -232,6 +248,8 @@ def train_step(
 ) -> Dict[str, torch.Tensor]:
     """Fused twin of ``ops/kohonen.py::train_step`` (returns only the new
     params; winners are cheap to recompute with ``ops.kohonen.winners``).
+    ``learning_rate``: a host scalar or a 0-d float32 tensor; ``tss``: ``2
+    sigma^2`` as :func:`accumulate` takes it.
     ``d2m``: the map's :func:`pairwise_d2`, computed here when not given.
     ``mesh`` (the JAX package's sharded-batch rule) is not ported."""
     del data_axis
@@ -245,6 +263,6 @@ def train_step(
         mask = torch.ones((x.shape[0],), dtype=x.dtype, device=x.device)
     if d2m is None:
         d2m = pairwise_d2(coords)
-    num, den = accumulate(w, x, mask, d2m, sigma)
+    num, den = accumulate(w, x, mask, d2m, tss)
     return {"weights": _apply_update(w, num, den, learning_rate)}
 

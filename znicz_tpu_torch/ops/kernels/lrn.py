@@ -50,7 +50,11 @@ The wrappers take a CPU tensor to the plain PyTorch versions below
 (:func:`lrn_reference`, :func:`lrn_bwd_reference`) and launch the kernel for
 a CUDA tensor, or raise; they count launches in ``lrn_forward.launches`` and
 ``lrn_backward.launches``.  Triton is imported, and the forward compiled,
-and the backward built, at the first launch, never at module import.
+and the backward built, at the first launch, never at module import.  Both
+launch on the current stream and read no device value on the host, so a
+step that ran once eagerly (that first launch) can be captured into a CUDA
+graph; a replay launches what the capture recorded, without passing
+through the wrappers or their counts.
 """
 
 from __future__ import annotations

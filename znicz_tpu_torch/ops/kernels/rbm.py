@@ -14,8 +14,9 @@ chain's states live between launches in buffers that this wrapper
 allocates (:func:`_buffers`), so any shape that fits the card runs; sums
 run in a fixed order (no atomics, the same bits every run).  One C call
 is one logical step: ``statistics.launches`` counts one per call that
-reaches the card.  What bounds it and why it is built so: see the
-source.
+reaches the card.  The kernel reads its seed through a pointer to a uint32
+on the card, so a step captured into a CUDA graph replays with each step's
+own seed.  What bounds it and why it is built so: see the source.
 
 Random numbers: the TPU kernel samples with the TPU's hardware PRNG, which
 nothing reproduces.  Here each uniform is Philox4x32-10 at key ``(seed,
@@ -152,9 +153,13 @@ def count_flips(chain, led, uh, uv) -> int:
 def _apply_update(params, dw, dvb, dhb, stats, learning_rate):
     """``param + (lr / n_valid) * statistic`` and the mean error
     (``ops/pallas/rbm.py:198-206``); ``n_valid = max(sum mask, 1)`` stays on
-    the device."""
+    the device, and so may ``learning_rate`` (a 0-d float32 tensor; a host
+    scalar is taken in float32).  ``lr / n_valid`` is ``lr * (1 /
+    n_valid)``, as Python's ``float / tensor`` computes it."""
     n_valid = torch.clamp_min(stats[1], 1.0)
-    lr = float(np.float32(learning_rate)) / n_valid
+    if not isinstance(learning_rate, torch.Tensor):
+        learning_rate = float(np.float32(learning_rate))
+    lr = torch.reciprocal(n_valid) * learning_rate
     new = {
         "weights": params["weights"] + lr * dw,
         "vbias": params["vbias"] + lr * dvb,
@@ -197,7 +202,7 @@ def _buffers(b: int, v: int, h: int, cd_k: int, device) -> Dict[str, torch.Tenso
 def _lib() -> ctypes.CDLL:
     lib = cuda_build.load("rbm")
     ptr, i32, u32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
-    lib.znicz_rbm_cd.argtypes = [ptr] * 19 + [i32] * 4 + [u32, ptr]
+    lib.znicz_rbm_cd.argtypes = [ptr] * 19 + [i32] * 4 + [ptr, ptr]
     lib.znicz_rbm_cd.restype = i32
     lib.znicz_rbm_uniforms.argtypes = [ptr, ctypes.c_longlong, u32, u32, ptr]
     lib.znicz_rbm_uniforms.restype = i32
@@ -224,9 +229,20 @@ def uniforms_cuda(seed: int, stream: int, shape, device="cuda") -> torch.Tensor:
     return out
 
 
-def _check(params, v0, mask, cd_k, uniforms) -> None:
+def seed_tensor(seed: int, device) -> torch.Tensor:
+    """A chain seed as the kernel reads it: the low 32 bits of a host int in
+    a one-value int32 tensor on ``device``."""
+    bits = np.array([int(seed) & M32], np.uint32).view(np.int32)
+    return torch.tensor(bits, device=device)
+
+
+def _check(params, v0, mask, cd_k, uniforms, seed) -> None:
     """Raise ``ValueError`` on what the kernel does not take."""
     w = params["weights"]
+    if (seed.device != v0.device or seed.numel() != 1
+            or seed.dtype not in (torch.int32, torch.uint32)):
+        raise ValueError(f"rbm statistics: the seed must be one int32 on v0's card, got "
+                         f"{seed.dtype} {tuple(seed.shape)} on {seed.device}")
     named = [("v0", v0), ("mask", mask), ("weights", w), ("vbias", params["vbias"]),
              ("hbias", params["hbias"])]
     if uniforms is not None:
@@ -257,13 +273,15 @@ def _check(params, v0, mask, cd_k, uniforms) -> None:
                          f"at most {MAX_GRID_Y})")
 
 
-def statistics(params, v0, mask, seed: int, *, cd_k: int, uniforms=None,
+def statistics(params, v0, mask, seed, *, cd_k: int, uniforms=None,
                chain: Optional[dict] = None):
     """``(dW, dvb, dhb, stats)`` of one CD-k chain: the plain version for
     CPU tensors (with :func:`chain_uniforms` of ``seed`` unless
     ``uniforms=(uh, uv)`` is given), else the kernel, which draws from
     ``seed`` itself or reads ``uniforms`` (counted in
-    ``statistics.launches``).  ``chain``, if given, receives the chain's
+    ``statistics.launches``).  ``seed``: a one-value int32 tensor (its
+    bits the uint32 seed, :func:`seed_tensor`) on v0's device, which the
+    kernel reads through its pointer.  ``chain``, if given, receives the chain's
     ``h0p``, ``vp``, ``hp`` and its draws, ``hidden_samples [k, B, H]`` (the
     first hidden draw, then each step's but the last) and
     ``visible_samples [k, B, V]``; the plain version adds the probabilities
@@ -273,9 +291,9 @@ def statistics(params, v0, mask, seed: int, *, cd_k: int, uniforms=None,
     tensors = [v0, mask, *params.values(), *(uniforms or ())]
     if all(t.device.type == "cpu" for t in tensors):
         uh, uv = uniforms if uniforms is not None else chain_uniforms(
-            seed, b, v, h, cd_k, v0.device)
+            int(seed.reshape(-1)[0]) & M32, b, v, h, cd_k, v0.device)
         return statistics_reference(params, v0, mask, uh, uv, cd_k=cd_k, chain=chain)
-    _check(params, v0, mask, cd_k, uniforms)
+    _check(params, v0, mask, cd_k, uniforms, seed)
     out = _buffers(b, v, h, cd_k, v0.device)
     uh, uv = uniforms if uniforms is not None else (None, None)
     ptrs = [v0, mask, params["weights"], params["vbias"], params["hbias"], uh, uv,
@@ -284,7 +302,7 @@ def statistics(params, v0, mask, seed: int, *, cd_k: int, uniforms=None,
         s = torch.cuda.current_stream(v0.device).cuda_stream
         rc = _lib().znicz_rbm_cd(
             *(ctypes.c_void_p(None if t is None else t.data_ptr()) for t in ptrs),
-            b, v, h, cd_k, int(seed) & M32, ctypes.c_void_p(s),
+            b, v, h, cd_k, ctypes.c_void_p(seed.data_ptr()), ctypes.c_void_p(s),
         )
     _raise_on(rc, "rbm statistics")
     statistics.launches += 1
@@ -300,7 +318,7 @@ statistics.launches = 0
 def cd_step(
     params: Dict[str, torch.Tensor],
     v0: torch.Tensor,
-    seed: int,
+    seed,
     *,
     learning_rate,
     cd_k: int = 1,
@@ -309,8 +327,10 @@ def cd_step(
     data_axis: str = "data",
 ):
     """Fused twin of ``ops/rbm.py::cd_step``; returns (new params, mean
-    reconstruction error).  ``seed`` is a host int (the train state's step)
-    that keys the chain's draws.  ``mesh`` (the JAX package's sharded-batch
+    reconstruction error).  ``seed`` (the train state's step, a one-value
+    int32 tensor, as :func:`statistics` takes it) keys the
+    chain's draws; ``learning_rate`` is a host scalar or a 0-d float32
+    tensor.  ``mesh`` (the JAX package's sharded-batch
     rule) is not ported."""
     del data_axis
     if mesh is not None:

@@ -15,8 +15,9 @@ hand-written CUDA flash kernels (:mod:`ops.kernels.attention`).
 
 The base loop's host machinery runs here too: the prefetch thread
 (``prefetch_batches``), the snapshotter and exact resume, ``epoch_sync``,
-the anomaly watch (the gradients' global norm beside the loss) and rollback
-``recovery``.
+the anomaly watch (the gradients' global norm beside the loss), rollback
+``recovery`` and the scan dispatch (``epoch_dispatch``; ``"auto"`` takes
+it for a device-resident token loader).
 
 Not ported here, and refused with ``NotImplementedError`` naming their
 ``ROADMAP.md`` item: MoE blocks (``moe_experts``, ``moe_top_k``,
@@ -177,6 +178,7 @@ class TransformerLMWorkflow(Workflow):
         prefetch_batches: int = 2,
         epoch_sync: str = "sync",
         recovery=None,
+        epoch_dispatch: str = "auto",
         rand_name: str = "default",
         device=None,
         name: str = "TransformerLMWorkflow",
@@ -210,6 +212,7 @@ class TransformerLMWorkflow(Workflow):
             prefetch_batches=prefetch_batches,
             epoch_sync=epoch_sync,
             recovery=recovery,
+            epoch_dispatch=epoch_dispatch,
             device=device,
             metric_names=METRICS,
             name=name,

@@ -7,16 +7,21 @@ and reuses the base loop's preprocessing, on-device metric accumulators and
 Decision.  A CUDA tensor always takes the hand kernel
 (``ops/kernels/kohonen.py``, ``ops/kernels/rbm.py``) and a CPU tensor its
 plain version; ``impl`` is accepted so JAX call sites load unchanged.
-Per-step host values (Kohonen's lr and sigma, RBM's chain seed) come from
-the host step counter, so a step fetches nothing from the card.
+Per-step host values (Kohonen's lr and ``2 sigma^2``, the RBM's lr and
+chain seed) are computed from the host step counter into the step's
+float32 row (:meth:`~Workflow._step_scalars`), which reaches the step on
+the device: the kernels read ``2 sigma^2`` and the seed through a pointer,
+so a captured step replays with each step's own values.  The rules write
+the new params into the state's tensors in place.
 
 The base loop's host machinery runs here too: the prefetch thread
 (``prefetch_batches``), the snapshotter and ``initialize(snapshot=)`` (the
 params come back as a dict, not marked for autograd; the SOM rebuilds its
 grid), ``epoch_sync`` and the anomaly watch.  A step has no gradients, so
 the watch's second entry is the update's norm ``||params' - params||``, as
-in the JAX package; the rules return new tensors, so the delta needs no
-clone.  ``parallel=`` is refused, naming its ``ROADMAP.md`` item.
+in the JAX package, taken before the new params are copied in.  Both
+``epoch_dispatch`` modes run, the scan for a device-resident loader.
+``parallel=`` is refused, naming its ``ROADMAP.md`` item.
 """
 
 from __future__ import annotations
@@ -32,7 +37,7 @@ from znicz_tpu_torch.nn.decision import Decision
 from znicz_tpu_torch.nn.train_state import TrainState
 from znicz_tpu_torch.ops import kohonen as kh, rbm as rbm_op
 from znicz_tpu_torch.ops.kernels import kohonen as kh_kernel, rbm as rbm_kernel
-from znicz_tpu_torch.workflow.workflow import Workflow, tensor_norms
+from znicz_tpu_torch.workflow.workflow import Workflow, int_bits, tensor_norms
 
 METRICS = ["loss", "n_samples", "n_err"]
 IMPLS = ("auto", "pallas", "xla")
@@ -92,20 +97,22 @@ class _Unsupervised(Workflow):
         return TrainState(params=params, velocity=[], step=0,
                           generator=prng.get("workflow").generator(self.device))
 
-    def _update(self, params, x, mask, lr_scale):
-        """One learning-rule step on the flattened batch; returns (new
-        params, the step's metrics)."""
+    def _update(self, params, x, mask, scal):
+        """One learning-rule step on the flattened batch, its host values in
+        the row ``scal``; returns (new params, the step's metrics)."""
         raise NotImplementedError
 
     @torch.no_grad()
-    def _learn(self, x, y, mask, lr_scale: float):
-        """The learning rule in place of the autograd update; returns the
-        step's metrics and, with the anomaly watch on, the update's
-        per-param norms."""
-        st = self.state
-        old = st.params
-        st.params, m = self._update(old, x.reshape(x.shape[0], -1), mask, lr_scale)
-        return m, (update_norms(old, st.params) if self.anomaly is not None else None)
+    def _learn(self, x, y, mask, scal):
+        """The learning rule in place of the autograd update, the new params
+        copied into the state's tensors; returns the step's metrics and,
+        with the anomaly watch on, the update's per-param norms."""
+        params = self.state.params
+        new, m = self._update(params, x.reshape(x.shape[0], -1), mask, scal)
+        norms = update_norms(params, new) if self.anomaly is not None else None
+        for k, v in new.items():
+            params[k].copy_(v)
+        return m, norms
 
 
 class KohonenWorkflow(_Unsupervised):
@@ -129,6 +136,7 @@ class KohonenWorkflow(_Unsupervised):
         epoch_sync: str = "sync",
         rand_name: str = "default",
         impl: str = "auto",
+        epoch_dispatch: str = "auto",
         device=None,
         name: str = "KohonenWorkflow",
     ):
@@ -142,6 +150,7 @@ class KohonenWorkflow(_Unsupervised):
             parallel=parallel,
             prefetch_batches=prefetch_batches,
             epoch_sync=epoch_sync,
+            epoch_dispatch=epoch_dispatch,
         )
         self.sx, self.sy = sx, sy
         self.total_epochs = total_epochs
@@ -165,17 +174,22 @@ class KohonenWorkflow(_Unsupervised):
         self._coords = kh.grid_coords(self.sx, self.sy, device=self.device)
         self._d2m = kh_kernel.pairwise_d2(self._coords)  # fixed for the map
 
-    def _update(self, params, x, mask, lr_scale):
+    def _step_scalars(self, step: int, lr_scale: float) -> np.ndarray:
+        """``[lr, 2 sigma^2]`` of step ``step``: the decay schedule in
+        float32, the lr times the scale in float32."""
         lr, sigma = kh.decay_schedule(
-            self.state.step, self._total_steps, lr0=self.lr0, lr1=self.lr1,
+            step, self._total_steps, lr0=self.lr0, lr1=self.lr1,
             sigma1=self.sigma1, sx=self.sx, sy=self.sy,
         )
+        return np.array([lr * np.float32(lr_scale), kh.two_sigma_sq(sigma)], np.float32)
+
+    def _update(self, params, x, mask, scal):
         # the metric pairs the updated params with the pre-update winners,
         # as the JAX step does
         win = kh.winners(params, x)
         new = kh_kernel.train_step(
-            params, x, self._coords, learning_rate=lr * np.float32(lr_scale), sigma=sigma,
-            mask=mask, d2m=self._d2m,
+            params, x, self._coords, learning_rate=scal[0], tss=scal[1], mask=mask,
+            d2m=self._d2m,
         )
         return new, self._qe(new, x, win, mask)
 
@@ -219,6 +233,7 @@ class RBMWorkflow(_Unsupervised):
         epoch_sync: str = "sync",
         rand_name: str = "default",
         impl: str = "auto",
+        epoch_dispatch: str = "auto",
         device=None,
         name: str = "RBMWorkflow",
     ):
@@ -232,6 +247,7 @@ class RBMWorkflow(_Unsupervised):
             parallel=parallel,
             prefetch_batches=prefetch_batches,
             epoch_sync=epoch_sync,
+            epoch_dispatch=epoch_dispatch,
         )
         self.n_hidden = n_hidden
         self.learning_rate = learning_rate
@@ -245,10 +261,15 @@ class RBMWorkflow(_Unsupervised):
                                     device=self.device)
         return self._state(params)
 
-    def _update(self, params, x, mask, lr_scale):
-        lr = np.float32(self.learning_rate) * np.float32(lr_scale)
-        new, err = rbm_kernel.cd_step(params, x, self.state.step, learning_rate=lr,
-                                      cd_k=self.cd_k, mask=mask)
+    def _step_scalars(self, step: int, lr_scale: float) -> np.ndarray:
+        """``[lr, seed]``: the lr times the scale in float32, and the chain's
+        seed, the step, by its bits (:func:`int_bits`)."""
+        return np.array([np.float32(self.learning_rate) * np.float32(lr_scale),
+                         int_bits(step)], np.float32)
+
+    def _update(self, params, x, mask, scal):
+        new, err = rbm_kernel.cd_step(params, x, scal[1:2].view(torch.int32),
+                                      learning_rate=scal[0], cd_k=self.cd_k, mask=mask)
         return new, {
             "loss": err,
             "n_samples": torch.clamp_min(torch.sum(mask), 1.0),

@@ -5,8 +5,36 @@
 
 Each step folds its metrics into one small per-split accumulator tensor on
 the device, so an epoch costs one device->host fetch per split, as in the
-JAX package.  The step runs eagerly; the learning rate of each step comes
-from the lr policy on the host.
+JAX package.  The per-step values the host decides (the lr policy's scale,
+the SOM's lr and ``2 sigma^2``, the RBM's chain seed: :meth:`Workflow.
+_step_scalars`) reach the step as one float32 row on the device, never as
+host numbers, so one step code serves both dispatches below.
+
+The loader's device context (the device-resident pool) is copied to the
+device once, at ``initialize``, and every family's step hands it to the
+loader's ``device_preproc``, so bare pool indices never reach a model.
+
+Two dispatches (``epoch_dispatch``), as in the JAX package:
+
+- **step**: one dispatch a minibatch, through the host loop below;
+- **scan** (``"auto"`` takes it for an ``epoch_scan_friendly`` loader with a
+  device context): each split's stacked payloads, targets, masks and step
+  rows go to the device in one copy, and one split function runs the
+  split's steps with no host read in between: each step reads its row
+  through a step counter held on the device, folds its metrics into a
+  static accumulator and writes its watch row into a ``[n_steps, 1 +
+  n_norms]`` buffer, which goes to pinned memory by one ``non_blocking``
+  copy after the split and is fed to the detector at the epoch's sync.  On
+  the CPU the function runs eagerly.  On the card its first step runs
+  eagerly (the warm-up that builds the kernels and picks the libraries'
+  algorithms), the step is then captured once into a ``torch.cuda.
+  CUDAGraph`` for each split and shape (the step count included: a skipped
+  batch makes another key, as a jit retraces) and replayed back to back.
+  A capture that fails raises; nothing falls back to the step dispatch.
+  A restore (``initialize``, a rollback) drops the captured graphs, whose
+  pointers it invalidates.  A replay goes through no kernel wrapper, so
+  the wrappers' launch counts hold the warm-up's and the capture's calls
+  only; what the replays launch shows in a device trace.
 
 The host loop around the step is the JAX package's: a prefetch thread
 (``prefetch_batches``, default 2) fills the next batches and stages their
@@ -34,8 +62,7 @@ emergency snapshot and raises :class:`TrainingPreempted`.
 epoch later; an epoch whose verdict could stop training, or that is due for
 an interval snapshot, is read before anything new is dispatched.
 
-Left for later slices, refused by name: the whole-split scan dispatch and
-the parallel placement policies.
+Left for later slices, refused by name: the parallel placement policies.
 """
 
 from __future__ import annotations
@@ -163,16 +190,68 @@ def _fetch_async(tensors) -> tuple:
     return host, event
 
 
+def _torch_dtype(dt) -> torch.dtype:
+    return torch.from_numpy(np.empty(0, dt)).dtype
+
+
+def int_bits(value: int) -> np.float32:
+    """The low 32 bits of ``value`` as the float32 whose bits they are: how
+    an integer rides in a step's float32 row (read back by
+    ``row[i:i+1].view(torch.int32)``, never by arithmetic)."""
+    return np.array([value & 0xFFFFFFFF], np.uint32).view(np.float32)[0]
+
+
 def _pinned(a: np.ndarray) -> torch.Tensor:
     """A copy of ``a`` in page-locked memory (one numpy copy, no torch op).
     The block comes from PyTorch's caching host allocator, which hands it
     out again only after the copies that read it (their recorded events)
     have completed, so a batch's copy to the card never reads a buffer the
     next batch refills."""
-    t = torch.empty(a.shape, dtype=torch.from_numpy(np.empty(0, a.dtype)).dtype,
-                    pin_memory=True)
+    t = torch.empty(a.shape, dtype=_torch_dtype(a.dtype), pin_memory=True)
     np.copyto(t.numpy(), a)
     return t
+
+
+class _SplitRun:
+    """One split function's static state on the device: the stacked inputs
+    (views of one byte buffer, filled by one copy a dispatch), the step
+    counter, the accumulator, the watch rows and, on the card, the captured
+    step."""
+
+    ALIGN = 16  # bytes: every stacked array starts on a 16-byte boundary
+
+    def __init__(self, layout, nbytes: int, acc: torch.Tensor, n_watch: int, device):
+        self.layout = layout  # [(name, offset, shape, numpy dtype)]
+        self.buf = torch.empty(nbytes, dtype=torch.uint8, device=device)
+        self.rows = {
+            name: self.buf[off:off + int(np.prod(shape)) * np.dtype(dt).itemsize]
+            .view(_torch_dtype(dt)).view(shape)
+            for name, off, shape, dt in layout
+        }
+        n = layout[0][2][0]
+        self.counter = torch.zeros((1,), dtype=torch.int64, device=device)
+        self.acc = acc
+        self.watch = (torch.empty((n, n_watch), dtype=torch.float32, device=device)
+                      if n_watch else None)
+        self.graph = None
+
+    @classmethod
+    def pack(cls, arrays: Dict[str, np.ndarray]):
+        """``(layout, host bytes)``: the arrays laid out in one byte buffer."""
+        layout, off = [], 0
+        for name, a in arrays.items():
+            off = -(-off // cls.ALIGN) * cls.ALIGN
+            layout.append((name, off, a.shape, a.dtype))
+            off += a.nbytes
+        host = np.empty(off, np.uint8)
+        for (name, o, _, _), a in zip(layout, arrays.values()):
+            host[o:o + a.nbytes] = np.ascontiguousarray(a).reshape(-1).view(np.uint8)
+        return tuple(layout), host
+
+    def row(self, name: str) -> torch.Tensor:
+        """The current step's row of a stacked input, read through the
+        device counter."""
+        return self.rows[name].index_select(0, self.counter)[0]
 
 
 class Workflow:
@@ -192,9 +271,10 @@ class Workflow:
     last).  ``anomaly``: True for the default :class:`StepAnomalyDetector`,
     an instance to use as given, False or None for no watch (and no work).
     ``recovery``: a :class:`RecoveryPolicy` that acts on the detector's
-    verdicts.  ``parallel`` and ``epoch_dispatch="scan"`` are refused,
-    naming their ``ROADMAP.md`` item (``epoch_dispatch="step"`` is taken:
-    the port dispatches step by step).
+    verdicts.  ``epoch_dispatch``: "step", "scan" (whole splits through
+    the split function; needs an ``epoch_scan_friendly`` loader) or "auto"
+    (scan for such a loader with a device context).  ``parallel`` is
+    refused, naming its ``ROADMAP.md`` item.
     """
 
     def __init__(
@@ -225,9 +305,15 @@ class Workflow:
             raise ValueError(f"epoch_sync={epoch_sync!r}: want 'sync' or 'deferred'")
         refuse_unported((
             (parallel is not None, "a parallel= placement policy", "A6, parallel/data_parallel.py"),
-            (epoch_dispatch == "scan", "scan dispatch (epoch_dispatch='scan')",
-             "A4, workflow/workflow.py"),
         ))
+        self.epoch_dispatch = epoch_dispatch
+        # the loader's device context on the workflow's device (initialize)
+        self._ctx = None
+        # the split functions' static state and graphs, by split and shape
+        self._splits: Dict[tuple, _SplitRun] = {}
+        # scanned train splits' watch rows on their way to the host:
+        # (first step, pinned rows, event), fed at the epoch's sync
+        self._pending_watch: list = []
         self.anomaly: Optional[StepAnomalyDetector] = (
             StepAnomalyDetector() if anomaly is True else (anomaly or None)
         )
@@ -305,6 +391,13 @@ class Workflow:
         else:
             self.state = self._create_initial_state()
         self._add_mask = torch.as_tensor(self._additive, device=self.device)
+        self._acc_start = torch.as_tensor(
+            np.where(self._additive, 0.0, -np.inf).astype(np.float32), device=self.device)
+        # one copy of the loader's device context (the device-resident pool)
+        ctx = self.loader.device_context()
+        self._ctx = None if ctx is None else {
+            k: torch.as_tensor(np.asarray(v), device=self.device) for k, v in ctx.items()}
+        self._splits.clear()
 
     def host_state(self) -> Dict[str, Any]:
         """The host half of a snapshot, in the JAX package's keys."""
@@ -339,6 +432,8 @@ class Workflow:
         if isinstance(key, np.ndarray) and key.dtype == np.uint8:
             gen.set_state(torch.from_numpy(key.copy()))
         trainable = isinstance(params, list)  # the autograd workflows' layers
+        # the captured graphs hold the pointers of the state replaced here
+        self._splits.clear()
         self.state = TrainState(
             params=_on_device(params, self.device, trainable),
             velocity=_on_device(velocity, self.device, False),
@@ -364,10 +459,7 @@ class Workflow:
         return evaluator.mse(out, y, mask=mask)
 
     def _acc_init(self) -> torch.Tensor:
-        return torch.as_tensor(
-            np.where(self._additive, 0.0, -np.inf).astype(np.float32),
-            device=self.device,
-        )
+        return self._acc_start.clone()
 
     def _combine(self, acc: torch.Tensor, m: Dict[str, torch.Tensor]) -> torch.Tensor:
         """Fold one step's metrics into the epoch accumulator, on the
@@ -382,9 +474,12 @@ class Workflow:
         return torch.where(self._add_mask, acc + vec, torch.maximum(acc, vec))
 
     def _prep(self, x: torch.Tensor, y: torch.Tensor):
+        """The loader's device preprocessing with its device context, for
+        every family's steps; an autoencoder's target is the preprocessed
+        input."""
         if self._pre is None:
             return x, y
-        x = self._pre(x)
+        x = self._pre(x, self._ctx)
         return x, (x if self.target == "input" else y)
 
     def _put(self, arr: np.ndarray) -> torch.Tensor:
@@ -410,24 +505,63 @@ class Workflow:
         """The update rule's knobs, one HyperParams per layer of params."""
         return self.model.hyper
 
+    def _lr_scale(self, step: int) -> float:
+        """Train step ``step``'s lr scale: the lr policy's, times the
+        rollback backoff's."""
+        scale = self.lr_policy(1.0, step) if self.lr_policy else 1.0
+        if self.recovery is not None:
+            scale *= self.recovery.lr_scale
+        return scale
+
+    def _step_scalars(self, step: int, lr_scale: float) -> np.ndarray:
+        """The float32 row of the values the host decides for train step
+        ``step`` (here the lr scale; the unsupervised rules add theirs)."""
+        return np.array([lr_scale], np.float32)
+
+    def _put_scalars(self, row: np.ndarray) -> torch.Tensor:
+        """One step's row on the workflow's device (on the card a
+        ``non_blocking`` copy from pinned memory: no wait)."""
+        if self.device.type == "cuda":
+            return _pinned(row).to(self.device, non_blocking=True)
+        return torch.from_numpy(row)
+
+    def _n_watch(self) -> int:
+        """The watch vector's length, ``1 + n_norms`` (0 with the watch
+        off)."""
+        if self.anomaly is None:
+            return 0
+        p = self.state.params
+        return 1 + (len(p) if isinstance(p, dict) else sum(len(layer) for layer in p))
+
     # ------------------------------------------------------------------
     def train_step(self, x, y, mask, lr_scale: float = 1.0, acc=None) -> torch.Tensor:
         """One train step on device tensors (the loader's raw payload:
-        the device preprocessing runs here): the learning rule
-        (:meth:`_learn`), then, with the anomaly watch on, the step's watch
-        vector on its way to the host.  Returns
-        ``acc`` with this step's metrics folded in (a fresh accumulator when
-        ``acc`` is None)."""
-        x, y = self._prep(x, y)
-        m, norms = self._learn(x, y, mask, lr_scale)
+        the device preprocessing runs here): the step's row of host values
+        (:meth:`_step_scalars`) on the device, the step (:meth:`_train_core`)
+        and, with the anomaly watch on, the step's watch vector on its way
+        to the host.  Returns ``acc`` with this step's metrics folded in (a
+        fresh accumulator when ``acc`` is None)."""
+        scal = self._put_scalars(self._step_scalars(self.state.step, lr_scale))
+        acc, self._last_watch = self._train_core(
+            x, y, mask, scal, self._acc_init() if acc is None else acc, self._watch_vector)
         self.state.step += 1
-        self._last_watch = None if norms is None else self._watch_vector(m["loss"], norms)
-        return self._combine(self._acc_init() if acc is None else acc, m)
+        return acc
 
-    def _learn(self, x, y, mask, lr_scale: float):
-        """Forward, loss, autograd and the in-place update.  Returns the
-        step's metrics and, with the anomaly watch on, the gradients'
-        per-tensor norms (else None)."""
+    def _train_core(self, x, y, mask, scal, acc, watch):
+        """The train step's device work, shared by both dispatches: the
+        preprocessing, the learning rule (:meth:`_learn`) and the metrics
+        folded into ``acc``; with the anomaly watch on, ``watch(loss,
+        norms)`` routes the watch vector.  Returns ``(acc, what watch
+        returned or None)``."""
+        x, y = self._prep(x, y)
+        m, norms = self._learn(x, y, mask, scal)
+        return self._combine(acc, m), (None if norms is None else watch(m["loss"], norms))
+
+    def _learn(self, x, y, mask, scal):
+        """Forward, loss, autograd and the in-place update, the lr scale
+        ``scal[0]`` (a tensor on the device).  Returns the step's metrics
+        and, with the anomaly watch on, the gradients' per-tensor norms
+        (else None)."""
         st = self.state
         leaves = [w for layer in st.params for w in layer.values()]
         with torch.enable_grad():
@@ -436,28 +570,38 @@ class Workflow:
         norms = tensor_norms(flat) if self.anomaly is not None else None
         it = iter(flat)
         grads = [{k: next(it) for k in layer} for layer in st.params]
-        # the lr scale multiplies in float32, as in the JAX package's step
-        scale = np.float32(lr_scale)
+        # each distinct lr times the scale in float32 on the device, once,
+        # as the JAX package's step multiplies them
+        scale = scal[0]
+        lrs: Dict[float, torch.Tensor] = {}
+
+        def scaled(lr):
+            if lr is None:
+                return None
+            v = float(np.float32(lr))
+            if v not in lrs:
+                lrs[v] = scale * v
+            return lrs[v]
+
         hyper = [
-            h._replace(
-                learning_rate=float(np.float32(h.learning_rate) * scale),
-                learning_rate_bias=(
-                    None
-                    if h.learning_rate_bias is None
-                    else float(np.float32(h.learning_rate_bias) * scale)
-                ),
-            )
+            h._replace(learning_rate=scaled(h.learning_rate),
+                       learning_rate_bias=scaled(h.learning_rate_bias))
             for h in self._hyper()
         ]
         optimizer.update(st.params, grads, st.velocity, hyper)
         return m, norms
 
+    @staticmethod
+    def _watch_stack(loss, norms) -> torch.Tensor:
+        """``[loss, norm_1, ..., norm_n]`` in float32, on the device."""
+        return torch.stack([torch.as_tensor(loss).detach().float().reshape(()), *norms])
+
     def _watch_vector(self, loss, norms):
-        """``[loss, norm_1, ..., norm_n]`` in float32 on its way to the host
-        (one stack; on the card a ``non_blocking`` copy into pinned memory
-        and an event after it, so reading it later waits for nothing but
-        that copy).  Returns ``(host or CPU tensor, event or None)``."""
-        vec = torch.stack([torch.as_tensor(loss).detach().float().reshape(()), *norms])
+        """The step dispatch's watch vector on its way to the host (one
+        stack; on the card a ``non_blocking`` copy into pinned memory and an
+        event after it, so reading it later waits for nothing but that
+        copy).  Returns ``(host or CPU tensor, event or None)``."""
+        vec = self._watch_stack(loss, norms)
         if not vec.is_cuda:
             return vec, None
         (row,), event = _fetch_async([vec])
@@ -532,13 +676,8 @@ class Workflow:
                     acc = accs.get(split)
                     watch = None
                     if split == TRAIN:
-                        lr_scale = (
-                            self.lr_policy(1.0, self.state.step) if self.lr_policy else 1.0
-                        )
-                        if self.recovery is not None:
-                            # the rollback backoff composes with the policy
-                            lr_scale *= self.recovery.lr_scale
-                        accs[split] = self.train_step(x, y, mask, lr_scale, acc)
+                        accs[split] = self.train_step(x, y, mask, self._lr_scale(self.state.step),
+                                                      acc)
                         watch = self._last_watch
                     else:
                         accs[split] = self.eval_step(x, y, mask, acc)
@@ -557,6 +696,158 @@ class Workflow:
         finally:
             batches.close()
         return accs
+
+    # -- scan dispatch: one split function a split ------------------------------
+    def _use_epoch_scan(self) -> bool:
+        """Scan dispatch: ``"scan"`` needs an ``epoch_scan_friendly``
+        loader (a streaming loader's stacked split would sit whole in host
+        memory); ``"auto"`` takes it for such a loader with a device
+        context."""
+        friendly = getattr(self.loader, "epoch_scan_friendly", False)
+        if self.epoch_dispatch == "scan":
+            if not friendly:
+                raise ValueError(
+                    "epoch_dispatch='scan' needs a scan-friendly loader (per-batch "
+                    "host payloads must be small, e.g. FullBatchLoader("
+                    "device_resident=True)); a streaming loader would materialize "
+                    "the whole epoch in host RAM"
+                )
+            return True
+        return self.epoch_dispatch == "auto" and self._ctx is not None and friendly
+
+    def _put_stacked(self, split: str, arrays: Dict[str, np.ndarray]) -> _SplitRun:
+        """The split's stacked arrays in its :class:`_SplitRun` (made for a
+        new split, kind and shape): one copy, from pinned memory on the
+        card."""
+        layout, host = _SplitRun.pack(arrays)
+        key = (split, layout)
+        run = self._splits.get(key)
+        if run is None:
+            acc = self._acc_init()
+            n_watch = self._n_watch() if split == TRAIN else 0
+            run = self._splits[key] = _SplitRun(layout, host.nbytes, acc, n_watch, self.device)
+        if self.device.type == "cuda":
+            run.buf.copy_(_pinned(host), non_blocking=True)
+        else:
+            run.buf.copy_(torch.from_numpy(host))
+        return run
+
+    def _split_step(self, run: _SplitRun, train: bool) -> None:
+        """One step of the split function: row ``counter`` of every stacked
+        input, the step (the step dispatch's code), the metrics into the
+        static accumulator, the watch vector into its row, the counter on
+        by one.  Nothing here reads the device from the host."""
+        x = run.row("x")
+        y = x if "y" not in run.rows else run.row("y")
+        mask = run.row("mask")
+        if train:
+            def watch(loss, norms):
+                run.watch.index_copy_(0, run.counter, self._watch_stack(loss, norms)[None])
+
+            acc, _ = self._train_core(x, y, mask, run.row("scal"), run.acc, watch)
+        else:
+            acc = self.eval_step(x, y, mask, run.acc)
+        run.acc.copy_(acc)
+        run.counter.add_(1)
+
+    def _run_split(self, split: str, run: _SplitRun, n: int) -> None:
+        """Run the split function over its ``n`` steps: eagerly on the CPU;
+        on the card, replays of the captured step (captured at the key's
+        first dispatch, after its first step ran eagerly as the warm-up)."""
+        train = split == TRAIN
+        run.counter.zero_()
+        run.acc.copy_(self._acc_start)
+        if self.device.type != "cuda":
+            for _ in range(n):
+                self._split_step(run, train)
+            return
+        done = 0
+        if run.graph is None:
+            self._capture(split, run, train)
+            done = 1
+        for _ in range(n - done):
+            run.graph.replay()
+
+    def _capture(self, split: str, run: _SplitRun, train: bool) -> None:
+        """The split's first step, eagerly on a side stream (it builds the
+        kernels, compiles the Triton forward and picks cuDNN's and
+        cuBLAS's algorithms, none of which a capture may do), then the
+        step captured into ``run.graph`` with the train state's generator
+        registered (its draws go on from its offset at each replay, as
+        eager steps' do).  A failed capture raises."""
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(side):
+            self._split_step(run, train)
+        torch.cuda.current_stream(self.device).wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        gen = getattr(self.state, "generator", None)
+        if gen is not None and gen.device.type == "cuda":
+            graph.register_generator_state(gen)
+        try:
+            with torch.cuda.graph(graph, stream=side, capture_error_mode="thread_local"):
+                self._split_step(run, train)
+        except Exception as exc:
+            raise RuntimeError(
+                f"{self.name}: capturing the {split} step into a CUDA graph failed "
+                f"({type(exc).__name__}: {exc}); the step must launch work on its "
+                "stream only, with no host read, host copy or data-sized allocation"
+            ) from exc
+        run.graph = graph
+
+    def _run_epoch_scanned(self) -> Dict[str, torch.Tensor]:
+        """One dispatch a split: the epoch's host payloads stacked (the
+        ``loader_epoch`` and ``stack/<split>`` phases), then the split
+        function (``dispatch/<split>``), in the step dispatch's split
+        order.  Each split's accumulator comes back as a copy, so a later
+        dispatch never overwrites a pending epoch's."""
+        with self.timer.phase("loader_epoch"):
+            per_split: Dict[str, list] = {}
+            for split, mb in self.loader.epoch():
+                per_split.setdefault(split, []).append(mb)
+        accs: Dict[str, torch.Tensor] = {}
+        for split, mbs in per_split.items():
+            train = split == TRAIN
+            with self.timer.phase(f"stack/{split}"):
+                arrays = {"x": np.stack([mb.data for mb in mbs])}
+                if self.target != "input":
+                    arrays["y"] = np.stack([self._batch_target(mb) for mb in mbs])
+                arrays["mask"] = np.stack([mb.mask for mb in mbs])
+                if train:
+                    step0 = self.state.step
+                    arrays["scal"] = np.stack([
+                        self._step_scalars(step0 + i, self._lr_scale(step0 + i))
+                        for i in range(len(mbs))
+                    ])
+                run = self._put_stacked(split, arrays)
+            with self.timer.phase(f"dispatch/{split}"):
+                self._run_split(split, run, len(mbs))
+                if train:
+                    self.state.step += len(mbs)
+                    if run.watch is not None:
+                        rows, event = self._watch_rows(run)
+                        self._pending_watch.append((step0, rows, event))
+                accs[split] = run.acc.clone()
+        return accs
+
+    def _watch_rows(self, run: _SplitRun):
+        """The split's watch rows on their way to the host: one
+        ``non_blocking`` copy into pinned memory and an event (a copy on
+        the CPU)."""
+        if self.device.type != "cuda":
+            return run.watch.clone(), None
+        (rows,), event = _fetch_async([run.watch])
+        return rows, event
+
+    def _drain_watches(self) -> list:
+        """Feed the scanned splits' pending watch rows to the detector, at
+        the epoch's sync; returns the verdicts raised."""
+        pending, self._pending_watch = self._pending_watch, []
+        raised: list = []
+        for start, rows, event in pending:
+            for i, row in enumerate(rows):
+                raised.extend(self._feed_watch(start + i, (row, event)))
+        return raised
 
     def _feed_watch(self, step: int, watch, step_seconds: Optional[float] = None) -> list:
         """Hand one lagged watch vector to the detector as ``(loss,
@@ -615,6 +906,9 @@ class Workflow:
         pinned copies), close the decision's epoch and save by the
         snapshotter's policy: from ``retained``, the epoch's retained end
         state, when ``self.state`` has moved on (deferred sync)."""
+        # the scanned splits' watch rows resolve here; a rollback verdict
+        # aborts before the poisoned metrics reach the decision
+        self._check_recovery(self._drain_watches())
         with self.timer.phase("metrics_sync"):
             if ready is not None:
                 ready.synchronize()
@@ -684,7 +978,7 @@ class Workflow:
             # the one point where (state, loader, streams, decision) agree:
             # the rollback's first source and a mid-epoch stop's snapshot
             self._epoch_start = self._retain_epoch_start()
-        accs = self._run_epoch_stepwise()
+        accs = self._run_epoch_scanned() if self._use_epoch_scan() else self._run_epoch_stepwise()
         if not deferred:
             return self._finish_epoch(accs)
         prev, self._pending_accs = self._pending_accs, self._start_fetch(accs)
@@ -764,6 +1058,7 @@ class Workflow:
         # the aborted epoch's bookkeeping dies with it
         self._pending_accs = None
         self._retained = None
+        self._pending_watch = []
         if not pol.budget_left():
             pol.note_give_up(reason, step=step, why="rollback budget spent")
             raise RollbackExhaustedError(
