@@ -217,7 +217,33 @@ exit, no result line) when any phase fails:
     layers through the graph with flash (its traced launches exact, the losses
     within 1e-4 of the step dispatch's: the embedding's backward adds with
     atomics);
-23. the whole script's seconds, the ``kernels`` JSON line (each flash row
+23. the mixture of experts at the mid LM's width (``bench.py``'s LM_MOE:
+    vocab 8192, d_model 512, 12 layers, 8 heads, 8 experts of d_ff 1024,
+    top-k 2, T 2048, batch 16, flash attention in f32, lr 0.001), dense and
+    capacity dispatch: one epoch (4 train steps, 1 eval step) with the flash
+    counters set to 0 just before and read just after (12 of each kernel a
+    train step), 2 warm-up and 3 timed train steps (tokens/sec beside phase
+    8's dense-FFN mid LM), and a 512-token f32 forward at 2 layers on the
+    card against the CPU from the same weights in both dispatches (within
+    1e-4 of the largest logit);
+24. the MoE LM at that width and 2 layers through the graph dispatch and
+    the step dispatch, dense and capacity, as phase 22's LM: the flash
+    launches of the replayed epoch read from its trace, exact; the losses
+    within 1e-4 (the capacity combine adds with atomics: not bitwise);
+25. KV-cache decoding at the mid LM (``bench.py``'s lm_decode: greedy,
+    prompt 64, 256 new tokens, batch 16): ``generate`` (its decode step
+    captured into a CUDA graph, replayed a position), the served program
+    replayed again and the eager step loop, with generated tokens/sec for
+    the replays and the eager loop and their tokens equal; every decode
+    step's logits within 1e-4 of the largest of ``lm_apply``'s at the same
+    position on the card, the tokens their argmax; then the MoE LM at 2
+    layers, dense and capacity, graph against eager;
+26. a ``generate_serve`` stream of ``bench.py``'s prompt lengths (16, 40,
+    64, 120; 64 new tokens, batch 16 a request), twice over: exactly one
+    program (a captured graph) a prompt bucket (16, 64, 128), the rest hits,
+    each length's tokens equal to ``generate``'s; requests, hits, compiles,
+    capture seconds (the program ledger) and tokens/sec;
+27. the whole script's seconds, the ``kernels`` JSON line (each flash row
     with its bf16 times, bound, launches and error beside the f32 ones under
     ``"bf16"``; the f32 flash, Kohonen and RBM rows also with their f32-FMA
     bound and their float64 errors beside the plain version's; the LRN rows
@@ -225,8 +251,9 @@ exit, no result line) when any phase fails:
     disk path's launches under ``"alexnet_disk"``, the host loop's under
     ``"host_loop"`` and the poisoned run's of phase 21 under
     ``"self_healing"``; every row with the launches that phase 22's traces
-    read from the graph dispatch's replayed epochs under ``"scan"``), then
-    the result line.
+    read from the graph dispatch's replayed epochs under ``"scan"``; each
+    flash row with the MoE epochs' launches of phase 23 and the traced ones
+    of phase 24 under ``"moe"``), then the result line.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``.
 """
@@ -924,11 +951,11 @@ def phase_flash_times(torch, fa):
     return rows
 
 
-def _timed_steps(torch, fa, wf, label):
-    """Median of 10 synchronised train steps after 2 warm-up, on the first
-    train minibatch, with the flash counters set to 0 just before and read
-    just after (one launch of each kernel a layer and step); returns (step
-    ms, tokens/sec, launches)."""
+def _timed_steps(torch, fa, wf, label, steps=12, layers=LM_MID["n_layers"]):
+    """Median of ``steps - 2`` synchronised train steps after 2 warm-up, on
+    the first train minibatch, with the flash counters set to 0 just before
+    and read just after (one launch of each kernel a layer and step);
+    returns (step ms, tokens/sec, launches)."""
     mb = next(iter(wf.loader.batches("train", shuffle=False)))
     x = torch.as_tensor(mb.data, device="cuda")
     y = torch.zeros((x.shape[0],), dtype=torch.int32, device="cuda")
@@ -937,7 +964,7 @@ def _timed_steps(torch, fa, wf, label):
     for name in FLASH:
         getattr(fa, name).launches = 0
     step_s = []
-    for _ in range(12):
+    for _ in range(steps):
         t0 = time.perf_counter()
         acc = wf.train_step(x, y, mask)
         float(acc[0])  # the step's metrics on the host: a full sync
@@ -950,7 +977,7 @@ def _timed_steps(torch, fa, wf, label):
           f"{tokens / med:.1f} tokens/sec; peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
           f"all steps ms {[round(v * 1e3, 2) for v in step_s]}")
-    want = LM_MID["n_layers"] * len(step_s)
+    want = layers * len(step_s)
     print(f"lm: launches over the {len(step_s)} {label} steps {launches}, want {want} of each")
     if launches != dict.fromkeys(FLASH, want):
         fail(f"flash launch counts over the {label} steps {launches} != {want} of each")
@@ -1030,7 +1057,9 @@ def phase_lm(torch, fa, transformer_lm, transformer, model_lib, troot, prng):
     )
     wf16.initialize()
     steps["bf16"] = _timed_steps(torch, fa, wf16, "bf16 attention")
-    return launches, steps
+    del wf16
+    torch.cuda.empty_cache()
+    return launches, steps, loader
 
 
 # -- the unsupervised slice: Kohonen SOM and RBM -------------------------------
@@ -3252,19 +3281,77 @@ def _pool_crops_against_host(torch, imagenet_lib, native_lib, wf, label, smi):
     return {"crop_ms": ms, "crop_bound_ms": bound}
 
 
+def _scan_lm(torch, prng, label, **moe):
+    """The mid LM's width at 2 layers (``moe``: its MoE keywords) from a
+    resident pool, through the graph dispatch and the step dispatch, 2
+    epochs each from one seed: the flash launches of epoch 2 read from its
+    trace (exact in both; the step dispatch's wrappers count both epochs),
+    every loss finite, and the per-epoch losses within 1e-4 relative of
+    each other (the embedding's backward, and the capacity dispatch's
+    combine, add with atomics: the dispatches agree to a float32 sum's
+    order, not bitwise).  Returns ``{dispatch: (workflow, history)}`` and
+    the graph dispatch's traced launches."""
+    import numpy as np
+
+    from znicz_tpu_torch.loader.fullbatch import FullBatchLoader
+    from znicz_tpu_torch.nn.optimizer import HyperParams
+    from znicz_tpu_torch.ops.kernels import attention as fa
+    from znicz_tpu_torch.workflow.transformer import TransformerLMWorkflow
+
+    tokens = np.random.default_rng(7).integers(0, LM_RESUME["vocab"],
+                                              (sum(SCAN_LM_N.values()), LM_T))
+    split_tok = {"train": tokens[:SCAN_LM_N["train"]], "test": tokens[SCAN_LM_N["train"]:]}
+    n_tr, n_ev = SCAN_LM_N["train"] // LM_B, SCAN_LM_N["test"] // LM_B
+    depth = LM_RESUME["n_layers"]
+    lm_counters = [("flash_fwd", fa.flash_fwd, depth * (n_tr + n_ev)),
+                   ("flash_dq", fa.flash_dq, depth * n_tr),
+                   ("flash_dkv", fa.flash_dkv, depth * n_tr)]
+    lm_wfs, scan_traced = {}, {}
+    for dispatch in ("scan", "step"):
+        ld = FullBatchLoader(split_tok, minibatch_size=LM_B, device_resident=True)
+        prng.seed_all(3)
+        wf = TransformerLMWorkflow(ld, **dict(LM_RESUME, **moe), attention="flash",
+                                   max_epochs=10000,
+                                   hyper=HyperParams(learning_rate=0.001, gradient_moment=0.9),
+                                   epoch_dispatch=dispatch, device="cuda")
+        wf.initialize(seed=3)
+        for _, fn, _ in lm_counters:
+            fn.launches = 0
+        out, _, traced = _traced_epochs(torch, wf, 2, [name for name, _, _ in lm_counters])
+        hist = [r["summary"] for r in out]
+        torch.cuda.synchronize()
+        wrapped = {name: fn.launches for name, fn, _ in lm_counters}
+        want = {name: n for name, _, n in lm_counters}
+        print(f"{label}: {dispatch} dispatch, 2 epochs: wrapper counts {wrapped}; traced "
+              f"launches of epoch 2 {traced}, want {want}; " + json.dumps(hist))
+        if (traced != want or (dispatch == "step" and wrapped != {n: 2 * v for n, v in want.items()})
+                or not all(math.isfinite(m["loss"]) for e in hist for m in e.values())):
+            fail(f"{label}: {dispatch} dispatch launched {traced} in epoch 2 (want {want}; "
+                 f"wrapper counts {wrapped}) or lost finiteness")
+        if dispatch == "scan":
+            if not any(r.graph is not None for r in wf._splits.values()):
+                fail(f"{label}: the scan dispatch captured no CUDA graph")
+            scan_traced = traced
+        lm_wfs[dispatch] = (wf, hist)
+    rel = max(abs(a[s]["loss"] - b[s]["loss"]) / abs(b[s]["loss"])
+              for a, b in zip(lm_wfs["scan"][1], lm_wfs["step"][1]) for s in a)
+    print(f"{label}: graph against step dispatch, per-epoch loss rel diff {rel:.2e} (limit 1e-4)")
+    if not rel <= 1e-4:
+        fail(f"{label}: the graph dispatch's losses differ from the step dispatch's")
+    return lm_wfs, scan_traced
+
+
 def phase_scan(torch, models, libs, prng, thread_rate, smi):
     """Phase 22: the device-resident pool and the scan dispatch as CUDA
     graph replays (see the module docstring)."""
     import numpy as np
 
     from znicz_tpu_torch.loader.fullbatch import FullBatchLoader
-    from znicz_tpu_torch.nn.optimizer import HyperParams
-    from znicz_tpu_torch.ops.kernels import attention as fa, kohonen as khk, lrn as lrn_kernel
+    from znicz_tpu_torch.ops.kernels import kohonen as khk, lrn as lrn_kernel
     from znicz_tpu_torch.ops.kernels import rbm as rbk
     from znicz_tpu_torch.utils import faults
     from znicz_tpu_torch.workflow.recovery import RecoveryPolicy
     from znicz_tpu_torch.workflow.standard import StandardWorkflow
-    from znicz_tpu_torch.workflow.transformer import TransformerLMWorkflow
     from znicz_tpu_torch.workflow.unsupervised import KohonenWorkflow, RBMWorkflow
 
     alexnet, imagenet_lib, native_lib = models["alexnet"], libs["imagenet"], libs["native"]
@@ -3401,52 +3488,274 @@ def phase_scan(torch, models, libs, prng, thread_rate, smi):
     torch.cuda.empty_cache()
 
     # the mid LM's width at 2 layers through the graph with flash
-    tokens = np.random.default_rng(7).integers(0, LM_RESUME["vocab"],
-                                              (sum(SCAN_LM_N.values()), LM_T))
-    split_tok = {"train": tokens[:SCAN_LM_N["train"]], "test": tokens[SCAN_LM_N["train"]:]}
-    n_tr, n_ev = SCAN_LM_N["train"] // LM_B, SCAN_LM_N["test"] // LM_B
-    depth = LM_RESUME["n_layers"]
-    lm_counters = [("flash_fwd", fa.flash_fwd, depth * (n_tr + n_ev)),
-                   ("flash_dq", fa.flash_dq, depth * n_tr),
-                   ("flash_dkv", fa.flash_dkv, depth * n_tr)]
-    lm_wfs = {}
-    for dispatch in ("scan", "step"):
-        ld = FullBatchLoader(split_tok, minibatch_size=LM_B, device_resident=True)
-        prng.seed_all(3)
-        wf = TransformerLMWorkflow(ld, **LM_RESUME, attention="flash", max_epochs=10000,
-                                   hyper=HyperParams(learning_rate=0.001, gradient_moment=0.9),
-                                   epoch_dispatch=dispatch, device="cuda")
-        wf.initialize(seed=3)
-        for _, fn, _ in lm_counters:
-            fn.launches = 0
-        out, _, traced = _traced_epochs(torch, wf, 2, [name for name, _, _ in lm_counters])
-        hist = [r["summary"] for r in out]
-        torch.cuda.synchronize()
-        wrapped = {name: fn.launches for name, fn, _ in lm_counters}
-        want = {name: n for name, _, n in lm_counters}
-        print(f"scan lm: {dispatch} dispatch, 2 epochs: wrapper counts {wrapped}; traced "
-              f"launches of epoch 2 {traced}, want {want}; " + json.dumps(hist))
-        if (traced != want or (dispatch == "step" and wrapped != {n: 2 * v for n, v in want.items()})
-                or not all(math.isfinite(m["loss"]) for e in hist for m in e.values())):
-            fail(f"scan lm: {dispatch} dispatch launched {traced} in epoch 2 (want {want}; "
-                 f"wrapper counts {wrapped}) or lost finiteness")
-        if dispatch == "scan":
-            for name in traced:
-                launches[name] += traced[name]
-        lm_wfs[dispatch] = (wf, hist)
-    # the embedding's backward adds with atomics: the two dispatches agree
-    # to a float32 sum's order, not bitwise
-    rel = max(abs(a[s]["loss"] - b[s]["loss"]) / abs(b[s]["loss"])
-              for a, b in zip(lm_wfs["scan"][1], lm_wfs["step"][1]) for s in a)
-    print(f"scan lm: graph against step dispatch, per-epoch loss rel diff {rel:.2e} (limit 1e-4)")
-    if not rel <= 1e-4:
-        fail("scan lm: the graph dispatch's losses differ from the step dispatch's")
+    lm_wfs, traced = _scan_lm(torch, prng, "scan lm")
+    for name in traced:
+        launches[name] += traced[name]
     res["lm"] = _scan_turns(torch, {k: w for k, (w, _) in lm_wfs.items()}, SCAN_LM_N["train"],
                             "scan lm", smi)
     del lm_wfs
     torch.cuda.empty_cache()
     torch.backends.cudnn.deterministic = False
     return launches, res
+
+
+# -- the mixture of experts and KV-cache decoding ------------------------------
+
+LM_MOE = dict(LM_MID, d_ff=1024)  # bench.py's LM_MOE: 8 experts of d_ff 1024, top-k 2
+MOE = dict(moe_experts=8, moe_top_k=2)
+MOE_DISPATCHES = ("dense", "capacity")
+MOE_STEPS = 5  # 2 warm-up and 3 timed train steps
+MOE_CHECK_T = 512  # the card-vs-CPU forward: one sequence, 2 layers
+DECODE_PROMPT, DECODE_NEW = 64, 256  # bench.py's lm_decode: the mid LM, greedy, batch 16
+SERVE_LENS = (16, 40, 64, 120)  # bench.py's LM_SERVE_LENS: buckets 16 / 64 / 64 / 128
+SERVE_NEW = 64  # bench.py's LM_SERVE_NEW
+SERVE_ROUNDS = 2  # passes over SERVE_LENS
+
+
+def _rel(got, want):
+    return float((got.double() - want.double()).abs().max() / want.double().abs().max())
+
+
+def phase_moe(torch, fa, transformer, model_lib, prng, loader, dense_rate, smi):
+    """Phase 23: the MoE LM at the mid width, dense and capacity dispatch:
+    one epoch with the flash counters set to 0 just before and read just
+    after, timed train steps, then one 512-token forward at 2 layers on the
+    card against the CPU from the same weights.  Returns the epochs'
+    launches and the numbers."""
+    from znicz_tpu_torch.nn.optimizer import HyperParams
+
+    layers = LM_MOE["n_layers"]
+    n_train, n_eval = loader.n_minibatches("train"), loader.n_minibatches("test")
+    want = {"flash_fwd": layers * (n_train + n_eval), "flash_dq": layers * n_train,
+            "flash_dkv": layers * n_train}
+    launches, res = {}, {}
+    for dispatch in MOE_DISPATCHES:
+        label = f"moe {dispatch}"
+        prng.seed_all(1234)
+        t0 = time.perf_counter()
+        # lr 0.001: the default 0.1 diverges at this depth (phase 8)
+        wf = transformer.TransformerLMWorkflow(
+            loader, **LM_MOE, **MOE, moe_dispatch=dispatch, attention="flash",
+            hyper=HyperParams(learning_rate=0.001, gradient_moment=0.9), device="cuda")
+        wf.initialize()
+        torch.cuda.synchronize()
+        n_params = sum(w.numel() for layer in wf.state.params for w in layer.values())
+        print(f"{label}: built ({n_params} parameters on the card) in "
+              f"{time.perf_counter() - t0:.1f} s")
+        # the main path: counts set to 0 just before, read just after
+        for name in FLASH:
+            getattr(fa, name).launches = 0
+        t0 = time.perf_counter()
+        summary = wf.run_epoch()["summary"]
+        torch.cuda.synchronize()
+        epoch_s = time.perf_counter() - t0
+        got = {name: getattr(fa, name).launches for name in FLASH}
+        print(f"{label}: epoch 1 {epoch_s:.2f} s: {json.dumps(summary)}; launches {got}, "
+              f"want {want}")
+        if got != want:
+            fail(f"{label}: flash launch counts {got} != {want}")
+        for split, n in (("train", n_train), ("test", n_eval)):
+            m = summary.get(split)
+            if m is None or m["n_samples"] != n * LM_B or not all(
+                    math.isfinite(float(v)) for v in m.values()):
+                fail(f"{label}: {split} metrics {m}")
+        step_ms, rate, _ = _timed_steps(torch, fa, wf, f"MoE {dispatch} dispatch",
+                                        steps=MOE_STEPS)
+        launches[dispatch] = got
+        res[dispatch] = {"epoch_s": epoch_s, "step_ms": step_ms, "tokens_per_s": rate,
+                         "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+        del wf
+        torch.cuda.empty_cache()
+    print(f"moe: train tokens/sec at the mid width (E 8, top-k 2, d_ff 1024, f32 attention): "
+          f"dense {res['dense']['tokens_per_s']:.1f}, capacity "
+          f"{res['capacity']['tokens_per_s']:.1f}, beside phase 8's dense-FFN mid LM "
+          f"{dense_rate:.1f}; {smi}")
+
+    # card vs CPU: one 512-token sequence at 2 layers, f32, TF32 off
+    _f32_exact(torch)
+    prng.seed_all(99)
+    host = model_lib.params_to_numpy(transformer.init_lm_params(
+        LM_MOE["vocab"], LM_MOE["d_model"], 2, LM_MOE["n_heads"], MOE_CHECK_T,
+        d_ff=LM_MOE["d_ff"], moe_experts=MOE["moe_experts"], device="cpu"))
+    tokens = torch.as_tensor(loader.data["test"][:1, :MOE_CHECK_T]).long()
+    for dispatch in MOE_DISPATCHES:
+        kw = dict(n_heads=LM_MOE["n_heads"], attention_fn=fa.flash_attention,
+                  moe_top_k=MOE["moe_top_k"], moe_dispatch=dispatch)
+        with torch.no_grad():
+            lg_card = transformer.lm_apply(
+                model_lib.params_from_jax(host, "cuda"), tokens.cuda(), **kw).cpu()
+            lg_cpu = transformer.lm_apply(model_lib.params_from_jax(host, "cpu"), tokens, **kw)
+        rel = _rel(lg_card, lg_cpu)
+        print(f"moe {dispatch}: {MOE_CHECK_T}-token f32 forward at 2 layers, card (kernels) vs "
+              f"CPU (plain): max |diff| / max |logit| = {rel:.3e} (limit 1e-4)")
+        if not (rel < 1e-4 and bool(torch.isfinite(lg_cpu).all())):
+            fail(f"moe {dispatch}: card and CPU forwards disagree")
+        res[dispatch]["card_vs_cpu_rel"] = rel
+    return launches, res
+
+
+def phase_moe_graph(torch, prng):
+    """Phase 24: the MoE LM at the mid width and 2 layers through the graph
+    dispatch and the step dispatch (:func:`_scan_lm`), dense and capacity.
+    Returns the graph dispatch's traced launches."""
+    torch.backends.cudnn.deterministic = True
+    launches = {}
+    for dispatch in MOE_DISPATCHES:
+        wfs, launches[dispatch] = _scan_lm(torch, prng, f"moe graph {dispatch}",
+                                           d_ff=LM_MOE["d_ff"], moe_dispatch=dispatch, **MOE)
+        del wfs
+        torch.cuda.empty_cache()
+    torch.backends.cudnn.deterministic = False
+    return launches
+
+
+def _decode_eager(G, params, prompt, n_new, **moe):
+    """The eager step loop (no graph) of ``generate``'s greedy program."""
+    return G._generate_impl(
+        params, prompt, None, n_new, 0.0, 1.0, None, n_heads=LM_MID["n_heads"],
+        max_new_tokens=n_new, greedy=True, top_k=0, nucleus=False, eos_id=None,
+        moe_top_k=moe.get("moe_top_k", 1), moe_dispatch=moe.get("moe_dispatch", "dense"),
+        graph=False)
+
+
+def _wall(torch, fn, reps):
+    """The fastest of ``reps`` synchronised calls of ``fn``: (seconds, its
+    result)."""
+    best, out = math.inf, None
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        best = min(best, time.perf_counter() - t0)
+    return best, out
+
+
+def phase_decode(torch, transformer, prng, loader, smi):
+    """Phase 25: greedy KV-cache decoding at the mid LM's width and depth
+    (prompt 64, 256 new tokens, batch 16): ``generate`` (its decode step
+    captured into a CUDA graph and replayed a position), the served program
+    replayed again, and the eager step loop, their tokens equal; every
+    decode step's logits against ``lm_apply``'s at the same position; then
+    the MoE LM at 2 layers, dense and capacity.  Returns the numbers and
+    the mid LM's params (for phase 26)."""
+    from znicz_tpu_torch.workflow import generate as G
+
+    _f32_exact(torch)
+    heads, b = LM_MID["n_heads"], LM_B
+    t_max = DECODE_PROMPT + DECODE_NEW
+    prng.seed_all(97)
+    params = transformer.init_lm_params(LM_MID["vocab"], LM_MID["d_model"], LM_MID["n_layers"],
+                                        heads, t_max, device="cuda")
+    prompt = torch.as_tensor(loader.data["train"][:b, :DECODE_PROMPT], device="cuda").long()
+    kw = dict(n_heads=heads, max_new_tokens=DECODE_NEW)
+    new = b * DECODE_NEW
+    first_s, out = _wall(torch, lambda: G.generate(params, prompt, **kw), 1)
+    G.reset_serve_cache()
+    capture_s, served = _wall(torch, lambda: G.generate_serve(params, prompt, **kw), 1)
+    graph_s, served = _wall(torch, lambda: G.generate_serve(params, prompt, **kw), 3)
+    eager_s, eager = _wall(torch, lambda: _decode_eager(G, params, prompt, DECODE_NEW), 2)
+    res = {"generate_first_s": first_s, "serve_first_s": capture_s,
+           "graph_tokens_per_s": new / graph_s, "eager_tokens_per_s": new / eager_s}
+    print(f"decode: mid LM, greedy, prompt {DECODE_PROMPT}, {DECODE_NEW} new tokens, batch {b}: "
+          f"replayed graph {res['graph_tokens_per_s']:.1f} generated tokens/sec "
+          f"({graph_s * 1e3:.1f} ms a request, {graph_s / DECODE_NEW * 1e6:.1f} µs a step), "
+          f"eager step loop {res['eager_tokens_per_s']:.1f} ({eager_s * 1e3:.1f} ms); "
+          f"generate() with its capture {first_s:.2f} s, the served program's first request "
+          f"{capture_s:.2f} s; {smi}")
+    if not (torch.equal(out, served) and torch.equal(out, eager)):
+        fail("decode: the graph, served and eager tokens differ")
+    # every decode step's logits against lm_apply's at the same position
+    toks = out.long()
+    with torch.no_grad():
+        caches = G.init_kv_cache(params, b, t_max, n_heads=heads)
+        caches, lg = G.prefill(params, toks[:, :DECODE_PROMPT], caches, n_heads=heads)
+        steps = [lg]
+        for p in range(DECODE_PROMPT, t_max - 1):
+            caches, lg = G.decode_step(params, caches, toks[:, p], p, n_heads=heads)
+            steps.append(lg)
+        dec = torch.stack(steps, 1)
+        full = transformer.lm_apply(params, toks[:, :-1], n_heads=heads)[:, DECODE_PROMPT - 1:]
+    rel = _rel(dec, full)
+    same = bool(torch.equal(dec.argmax(-1), toks[:, DECODE_PROMPT:]))
+    print(f"decode: {DECODE_NEW} teacher-forced decode steps against lm_apply on the card: "
+          f"max |diff| / max |logit| = {rel:.3e} (limit 1e-4); the tokens are the steps' "
+          f"argmax: {same}")
+    if not (rel < 1e-4 and same):
+        fail("decode: the decode steps' logits disagree with lm_apply's")
+    res["logits_rel"] = rel
+    del caches, dec, full, steps
+    # the MoE LM at 2 layers, dense and capacity
+    for dispatch in MOE_DISPATCHES:
+        prng.seed_all(98)
+        mp = transformer.init_lm_params(LM_MOE["vocab"], LM_MOE["d_model"], 2, heads, t_max,
+                                        d_ff=LM_MOE["d_ff"], moe_experts=MOE["moe_experts"],
+                                        device="cuda")
+        moe = dict(moe_top_k=MOE["moe_top_k"], moe_dispatch=dispatch)
+        g_first, g_out = _wall(torch, lambda: G.generate(mp, prompt, **kw, **moe), 1)
+        G.generate_serve(mp, prompt, **kw, **moe)
+        g_s, s_out = _wall(torch, lambda: G.generate_serve(mp, prompt, **kw, **moe), 2)
+        e_s, e_out = _wall(torch, lambda: _decode_eager(G, mp, prompt, DECODE_NEW, **moe), 1)
+        print(f"decode moe {dispatch} (2 layers): replayed graph {new / g_s:.1f} generated "
+              f"tokens/sec, eager step loop {new / e_s:.1f}; generate() with its capture "
+              f"{g_first:.2f} s; {smi}")
+        if not (torch.equal(g_out, e_out) and torch.equal(g_out, s_out)):
+            fail(f"decode moe {dispatch}: the graph, served and eager tokens differ")
+        res[f"moe_{dispatch}"] = {"graph_tokens_per_s": new / g_s,
+                                  "eager_tokens_per_s": new / e_s}
+        del mp
+    G.reset_serve_cache()
+    torch.cuda.empty_cache()
+    return res, params
+
+
+def phase_serve(torch, params, smi):
+    """Phase 26: a ``generate_serve`` request stream at the mid LM
+    (``bench.py``'s prompt lengths and budget, batch 16 a request): one
+    program a prompt bucket, the rest hits, each request's tokens equal to
+    ``generate``'s."""
+    import numpy as np
+
+    from znicz_tpu_torch.observability import device as ledger
+    from znicz_tpu_torch.workflow import generate as G
+
+    heads = LM_MID["n_heads"]
+    G.reset_serve_cache()
+    n_ledger = ledger.program_count("serve_cache")
+    reqs = np.random.default_rng(12)
+    walls, checked = [], {}
+    for j in range(SERVE_ROUNDS * len(SERVE_LENS)):
+        length = SERVE_LENS[j % len(SERVE_LENS)]
+        prompt = torch.as_tensor(reqs.integers(1, LM_MID["vocab"], (LM_B, length)),
+                                 device="cuda")
+        wall, out = _wall(torch, lambda: G.generate_serve(params, prompt, n_heads=heads,
+                                                          max_new_tokens=SERVE_NEW), 1)
+        walls.append(wall)
+        if length not in checked:
+            ref = G.generate(params, prompt, n_heads=heads, max_new_tokens=SERVE_NEW)
+            checked[length] = bool(torch.equal(out, ref))
+    st = G.serve_cache_stats()
+    made = ledger.programs("serve_cache")[n_ledger:]
+    n_req = len(walls)
+    tokens = LM_B * SERVE_NEW
+    res = {"requests": st["requests"], "hits": st["hits"], "compiles": st["compiles"],
+           "programs": st["programs"], "capture_s": [e["compile_s"] for e in made],
+           "tokens_per_s": n_req * tokens / sum(walls),
+           "hit_tokens_per_s": (n_req - len(SERVE_LENS)) * tokens / sum(walls[len(SERVE_LENS):]),
+           "keys": st["keys"]}
+    print(f"serve: {n_req} requests of prompt lengths {SERVE_LENS} (batch {LM_B}, "
+          f"{SERVE_NEW} new tokens): {st['programs']} programs ({st['keys']}), "
+          f"{st['compiles']} compiles, {st['hits']} hits; capture seconds "
+          f"{[round(v, 3) for v in res['capture_s']]}; {res['tokens_per_s']:.1f} generated "
+          f"tokens/sec over the stream, {res['hit_tokens_per_s']:.1f} over its second pass; "
+          f"tokens equal generate()'s: {checked}; {smi}")
+    if (st["programs"], st["compiles"], len(made)) != (3, 3, 3) or st["hits"] != n_req - 3:
+        fail(f"serve: want one program a prompt bucket (3), the rest hits; got {st}")
+    if not all(checked.values()):
+        fail(f"serve: generate_serve's tokens differ from generate()'s: {checked}")
+    G.reset_serve_cache()
+    torch.cuda.empty_cache()
+    return res
 
 
 def main() -> int:
@@ -3489,7 +3798,7 @@ def main() -> int:
     flash_err, flash_bf16_err, flash_f64_err = phase_flash_checks(torch, fa)
     phase_flash_inputs(torch, fa)
     flash_rows = phase_flash_times(torch, fa)
-    flash_launches, lm_steps = phase_lm(
+    flash_launches, lm_steps, lm_loader = phase_lm(
         torch, fa, transformer_lm, transformer, model_lib, troot, prng
     )
     print(f"flash phases: {time.perf_counter() - t0:.1f} s")
@@ -3537,6 +3846,16 @@ def main() -> int:
         torch, {"alexnet": alexnet}, {"imagenet": imagenet_lib, "native": native_lib}, prng,
         host_loop["images_per_s"], smi)
     print(f"scan phase: {time.perf_counter() - t0:.1f} s; " + json.dumps(scan))
+    t0 = time.perf_counter()
+    moe_launches, moe = phase_moe(torch, fa, transformer, model_lib, prng, lm_loader,
+                                  lm_steps["f32"][1], smi)
+    moe_graph = phase_moe_graph(torch, prng)
+    print(f"moe phases: {time.perf_counter() - t0:.1f} s; " + json.dumps(moe))
+    t0 = time.perf_counter()
+    decode, lm_params = phase_decode(torch, transformer, prng, lm_loader, smi)
+    decode["serve"] = phase_serve(torch, lm_params, smi)
+    del lm_params
+    print(f"decode phases: {time.perf_counter() - t0:.1f} s; " + json.dumps(decode))
 
     kernels = []
     for kname in ("lrn_fwd", "lrn_bwd"):
@@ -3606,6 +3925,10 @@ def main() -> int:
             # the graph dispatch's LM run (phase 22): its replayed epoch's
             # launches, read from the trace
             "scan": {"launches": scan_launches[kname]},
+            # the MoE LM (phases 23-24): each dispatch's epoch at full
+            # width, and its graph dispatch's replayed epoch at 2 layers
+            "moe": {"launches": {d: moe_launches[d][kname] for d in MOE_DISPATCHES},
+                    "scan_launches": {d: moe_graph[d][kname] for d in MOE_DISPATCHES}},
         })
     for kname in UNSUP_SOURCE:
         kernels.append({

@@ -50,7 +50,7 @@ def test_package_has_the_slice_modules():
         "utils.faults", "utils.profiling", "observability", "observability.registry",
         "observability.tracing", "observability.phases", "observability.pipeline",
         "observability.anomaly", "loader.prefetch", "workflow.snapshotter",
-        "workflow.recovery",
+        "workflow.recovery", "ops.moe", "observability.device", "workflow.generate",
     ):
         assert f"znicz_tpu_torch.{name}" in mods
 

@@ -5,9 +5,9 @@ Each JAX keyword of the base ``Workflow``, ``StandardWorkflow`` and
 so a JAX call site never gets a ``TypeError``.  At its default each is
 accepted; the snapshotter, the prefetch depth, deferred epoch sync, the
 anomaly watch's switch and rollback recovery are honoured at any value;
-off its default, a keyword whose path the port does not have yet
-(``parallel``, MoE, pipelines, meshes) raises ``NotImplementedError``
-naming its ``ROADMAP.md`` item.
+the LM's MoE keywords are honoured; off its default, a keyword whose path
+the port does not have yet (``parallel``, pipelines, meshes) raises
+``NotImplementedError`` naming its ``ROADMAP.md`` item.
 """
 
 import inspect
@@ -84,8 +84,6 @@ def test_jax_keywords_at_their_defaults_are_taken(make, jax_cls):
     "make,kwargs,item",
     [
         (_standard, {"parallel": object()}, "A6"),
-        (_lm, {"moe_top_k": 2}, "A7"),
-        (_lm, {"moe_dispatch": "capacity"}, "A7"),
         (_lm, {"pipeline_microbatches": 4}, "A7"),
         (_lm, {"mesh": object()}, "A6"),
         (_base, {"parallel": object()}, "A6"),
@@ -95,6 +93,22 @@ def test_jax_keywords_at_their_defaults_are_taken(make, jax_cls):
 def test_jax_keywords_off_their_defaults_are_refused_by_name(make, kwargs, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md {item}"):
         make(**kwargs)
+
+
+@pytest.mark.parametrize(
+    "kwargs",
+    [{"moe_experts": 4, "moe_top_k": 2}, {"moe_experts": 4, "moe_dispatch": "capacity"}],
+    ids=["moe_top_k", "moe_dispatch"],
+)
+def test_lm_moe_keywords_are_honoured(kwargs):
+    """Refused until the MoE slice: the blocks carry experts and a step
+    runs through the routing asked for."""
+    wf = _lm(**kwargs)
+    assert (wf.moe_top_k, wf.moe_dispatch) == (kwargs.get("moe_top_k", 1),
+                                                kwargs.get("moe_dispatch", "dense"))
+    wf.initialize()
+    assert wf.state.params[1]["moe_w_up"].shape[0] == 4
+    assert np.isfinite(wf.run_epoch()["summary"]["train"]["loss"])
 
 
 @pytest.mark.parametrize(

@@ -5,8 +5,9 @@ A causal LM trained on synthetic bigram-structured token sequences, whose
 loss floor is the bigram entropy (convergence is measurable without any
 dataset on disk).  The chain and the sequences are drawn from the named
 "datasets" numpy stream exactly as the JAX package draws them, so both
-frameworks train on the same tokens.  Pipeline stages > 1 and MoE blocks are
-not ported yet and raise.
+frameworks train on the same tokens.  ``moe_experts > 1`` makes each block's
+FFN a gated mixture of experts.  Pipeline stages > 1 are not ported yet and
+raise.
 """
 
 import numpy as np
@@ -36,8 +37,8 @@ DEFAULTS = {
     # >1: pipeline the block tower (not ported yet: raises)
     "pipeline_stages": 0,
     "pipeline_microbatches": 0,
-    # >1: each block's FFN becomes a gated mixture of experts (not ported
-    # yet: the workflow raises; top_k and dispatch are read only with it)
+    # >1: each block's FFN becomes a gated mixture of experts (top_k and
+    # dispatch are read only with it)
     "moe_experts": 0,
     "moe_top_k": 1,
     "moe_dispatch": "dense",
@@ -98,6 +99,8 @@ def build_workflow(**overrides) -> TransformerLMWorkflow:
         "remat": bool(cfg.get("remat", False)),
         "attention_dtype": cfg.get("attention_dtype", "f32"),
         "moe_experts": int(cfg.get("moe_experts", 0) or 0),
+        "moe_top_k": int(cfg.get("moe_top_k", 1) or 1),
+        "moe_dispatch": cfg.get("moe_dispatch", "dense"),
         "name": "TransformerLMWorkflow",
     }
     kwargs = merge_workflow_kwargs(defaults, overrides)

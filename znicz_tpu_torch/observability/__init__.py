@@ -11,11 +11,15 @@
   timings, the H2D probe and the step-wall decomposition that the JAX
   package's ``tools/znicz-doctor`` reads.
 * **Step anomaly flight recorder** (:mod:`anomaly`).
+* **Program ledger** (:mod:`device`): each program the serving path makes.
 
 The same public names as the JAX package's, except the fleet half
-(``aggregate``, ``collector``, ``slo``: ROADMAP.md A9) and the device and
-program ledger (``device``: ROADMAP.md A11).  Pure stdlib at import.
+(``aggregate``, ``collector``, ``slo``: ROADMAP.md A9) and the device
+memory gauges and profiler capture of ``device`` (ROADMAP.md A11).  Pure
+stdlib at import.
 """
+
+from znicz_tpu_torch.observability import device  # noqa: F401
 
 from znicz_tpu_torch.observability.anomaly import (  # noqa: F401
     StepAnomalyDetector,

@@ -6,7 +6,8 @@ and the value product accumulate in f32 whatever the input dtype (JAX's
 ``preferred_element_type``).  The products are ``torch.einsum`` /
 ``torch.matmul``, as the JAX package left them to XLA; the blockwise kernel
 twin is :func:`znicz_tpu_torch.ops.kernels.attention.flash_attention`.
-``paged_attention`` comes with the serving slice.
+:func:`paged_attention` is the block-table attention of paged decoding, plain
+torch as the JAX package's is jnp (its Pallas twin was never written).
 """
 
 from __future__ import annotations
@@ -40,6 +41,62 @@ def dot_product_attention(
     p = p / p.sum(dim=-1, keepdim=True)
     out = torch.einsum("bhqk,bkhd->bqhd", p.to(v.dtype).float(), v.float())
     return out.to(q.dtype)
+
+
+def masked_attention(
+    q: torch.Tensor,  # [B, Tq, H, D]
+    k: torch.Tensor,  # [B, Tk, H, D]
+    v: torch.Tensor,
+    q_pos: torch.Tensor,  # [B or 1, Tq] integer absolute query positions
+    *,
+    start: Optional[torch.Tensor] = None,  # [B] first real position
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """Attention over keys at absolute positions ``0..Tk-1``, valid where
+    ``<= q_pos`` and, under left-padding, ``>= start`` (a pad-region query
+    keeps its own position so its softmax stays finite); returns [B, Tq, H,
+    D].  The decode cache's and the paged pools' one attention: f32 scores,
+    stable softmax, f32 value product."""
+    if scale is None:
+        scale = 1.0 / np.sqrt(q.shape[-1])
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    k_idx = torch.arange(k.shape[1], device=q.device)[None, None, None, :]
+    qp = q_pos[:, None, :, None]
+    valid = k_idx <= qp
+    if start is not None:
+        valid = valid & (k_idx >= torch.minimum(start[:, None, None, None], qp))
+    s = torch.where(valid, s, -torch.inf)
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    p = p / p.sum(dim=-1, keepdim=True)
+    out = torch.einsum("bhqk,bkhd->bqhd", p.to(v.dtype).float(), v.float())
+    return out.to(q.dtype)
+
+
+def paged_attention(
+    q: torch.Tensor,  # [B, Tq, H, D]
+    k_pool: torch.Tensor,  # [N_blocks, block_size, H, D]
+    v_pool: torch.Tensor,
+    block_table: torch.Tensor,  # [B, M] integer pool block ids
+    q_pos: torch.Tensor,  # [B, Tq] integer absolute query positions
+    *,
+    block_size: int,
+    start: Optional[torch.Tensor] = None,  # [B] first real position
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """Block-table attention over paged KV pools; returns [B, Tq, H, D].
+
+    Table entry ``j`` of a row covers its absolute positions ``j*block_size
+    .. (j+1)*block_size-1``; the row's window is gathered from the pool
+    (``k_pool[block_table]``), so many tables may reference one block
+    (prefix sharing) and each row reads it through its own table.
+    Validity is by absolute key index (:func:`masked_attention`), so stale
+    or unallocated entries are masked by index, never read through."""
+    b = q.shape[0]
+    m = block_table.shape[1]
+    # [B, M, bs, H, D] -> [B, M*bs, H, D]: the row-ordered KV window
+    k = k_pool[block_table].reshape(b, m * block_size, *k_pool.shape[2:])
+    v = v_pool[block_table].reshape(b, m * block_size, *v_pool.shape[2:])
+    return masked_attention(q, k, v, q_pos, start=start, scale=scale)
 
 
 def init_mha_params(

@@ -28,6 +28,7 @@ from znicz_tpu_torch.ops import (
     cutter,
     deconv,
     dropout as dropout_op,
+    moe as moe_op,
     normalization,
     pooling,
 )
@@ -88,15 +89,15 @@ _POOL = {
     "avg_pooling": pooling.avg_pool,
     "maxabs_pooling": pooling.max_abs_pool,
 }
-# layer types of the JAX package that later slices of the port bring
-_LATER = {
-    "moe": "a later slice (ROADMAP.md A7, ops/moe.py)",
-}
 _INIT_KEYS = ("weights_stddev", "bias_stddev", "weights_filling", "bias_filling")
 
 
 def _init_kwargs(fwd: dict) -> dict:
     return {k: fwd[k] for k in _INIT_KEYS if k in fwd}
+
+
+def _init_kwargs_moe(fwd: dict) -> dict:
+    return {k: fwd[k] for k in ("weights_stddev", "weights_filling") if k in fwd}
 
 
 def build(
@@ -241,6 +242,38 @@ def build(
             def fn(p, x, train, gen, a=a):
                 return a(x)
 
+        elif kind == "moe":
+            # residual mixture-of-experts FFN (ops/moe.py) on [B, F]
+            # activations or per token on [B, T, D] sequences; output dim ==
+            # input dim, combined residually
+            d = shape[-1] if len(shape) == 3 else int(np.prod(shape[1:]))
+            n_experts = int(fwd["n_experts"])
+            n_hidden = int(fwd.get("n_hidden", 4 * d))
+            top_k = int(fwd.get("top_k", 1))
+            residual = bool(fwd.get("residual", True))
+            # dense dispatch through E=16, capacity-bounded above;
+            # "dispatch" overrides either way
+            dispatch = fwd.get("dispatch", "dense" if n_experts <= 16 else "capacity")
+            cap_factor = float(fwd.get("capacity_factor", 1.25))
+            p = moe_op.init_params(
+                d, n_hidden, n_experts, rand_name=rand_name, device=device,
+                **_init_kwargs_moe(fwd),
+            )
+
+            def fn(p, x, train, gen, k=top_k, res=residual, disp=dispatch, cf=cap_factor):
+                if x.ndim == 3:  # per token on sequences
+                    b, t, dd = x.shape
+                    y = moe_op.apply(
+                        p, x.reshape(b * t, dd), top_k=k, dispatch=disp, capacity_factor=cf,
+                    ).reshape(b, t, dd)
+                    return x + y if res else y
+                flat = x.reshape(x.shape[0], -1)
+                y = moe_op.apply(p, flat, top_k=k, dispatch=disp, capacity_factor=cf)
+                return flat + y if res else y
+
+            if len(shape) != 3:  # the flattened-token path emits [B, d]
+                shape = (shape[0], d)
+
         elif kind == "attention":
             # pre-LN residual multi-head self-attention block
             # (ops/attention.py): per-sample input must be [T, D]
@@ -263,14 +296,9 @@ def build(
                 return x + attention_op.mha(p, h, n_heads=nh, causal=c)
 
         else:
-            later = _LATER.get(kind)
-            if later is not None:
-                raise NotImplementedError(
-                    f"layer type {kind!r} (index {i}) is ported in {later}"
-                )
             raise ValueError(
                 f"unknown layer type {kind!r} at index {i}; known: "
-                f"{sorted(_A2A_ACT) + sorted(_CONV_ACT) + sorted(_POOL) + ['softmax', 'stochastic_pooling', 'deconv', 'norm', 'dropout', 'cutter', 'attention', 'activation_*']}"
+                f"{sorted(_A2A_ACT) + sorted(_CONV_ACT) + sorted(_POOL) + ['softmax', 'stochastic_pooling', 'deconv', 'norm', 'dropout', 'cutter', 'moe', 'attention', 'activation_*']}"
             )
 
         params.append(p)

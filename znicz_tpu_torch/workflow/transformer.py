@@ -1,7 +1,8 @@
 """Causal transformer language-model workflow (port of
-``znicz_tpu/workflow/transformer.py``, single device, dense FFN).
+``znicz_tpu/workflow/transformer.py``, single device).
 
-Pre-LN blocks (layer norm, multi-head attention, tanh FFN) over learned
+Pre-LN blocks (layer norm, multi-head attention, a tanh FFN or, with
+``moe_experts > 1``, a gated mixture of experts, :mod:`ops.moe`) over learned
 token and position embeddings, trained with next-token cross-entropy under
 the same momentum-SGD update rule as every other workflow.  Params are a
 list of flat per-layer dicts, ``[embed, block_0, ..., block_{L-1}, head]``,
@@ -19,11 +20,14 @@ the anomaly watch (the gradients' global norm beside the loss), rollback
 ``recovery`` and the scan dispatch (``epoch_dispatch``; ``"auto"`` takes
 it for a device-resident token loader).
 
+``generate()`` decodes from the current params through
+:mod:`workflow.generate` (KV cache; on the card one captured decode step
+replayed a position).
+
 Not ported here, and refused with ``NotImplementedError`` naming their
-``ROADMAP.md`` item: MoE blocks (``moe_experts``, ``moe_top_k``,
-``moe_dispatch``), sequence/tensor/pipeline parallelism
-(``pipeline_microbatches``, ``mesh``), the ``parallel=`` placement policy
-and ``generate()``; each JAX keyword is taken at its JAX default.
+``ROADMAP.md`` item: sequence/tensor/pipeline parallelism
+(``pipeline_microbatches``, ``mesh``) and the ``parallel=`` placement
+policy; each such JAX keyword is taken at its JAX default.
 """
 
 from __future__ import annotations
@@ -40,7 +44,7 @@ from znicz_tpu_torch.loader.base import Loader
 from znicz_tpu_torch.nn import optimizer
 from znicz_tpu_torch.nn.decision import Decision
 from znicz_tpu_torch.nn.train_state import TrainState
-from znicz_tpu_torch.ops import attention as attention_op
+from znicz_tpu_torch.ops import attention as attention_op, moe as moe_op
 from znicz_tpu_torch.ops.filling import fill
 from znicz_tpu_torch.ops.kernels.attention import flash_attention, kernel_head_dim
 from znicz_tpu_torch.ops.normalization import layer_norm
@@ -48,12 +52,6 @@ from znicz_tpu_torch.workflow.workflow import Workflow, refuse_unported
 
 ATTENTIONS = ("dot", "flash", "auto")
 METRICS = ["loss", "n_samples", "n_err", "token_accuracy"]
-
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to znicz_tpu_torch yet (ROADMAP.md {item})"
-    )
 
 
 def init_lm_params(
@@ -70,10 +68,10 @@ def init_lm_params(
 ):
     """``[embed, block_0, ..., block_{L-1}, head]``, flat dicts per layer, on
     ``device`` (None: the card, raising without one).  Draw order: embed,
-    pos, then per block ``w_up``, ``w_down`` and the attention's ``wq, wk,
-    wv, wo``, then the head; layer-norm scales are ones and biases zeros."""
-    if moe_experts > 1:
-        raise _not_ported("moe_experts > 1 (MoE FFN blocks)", "A7, ops/moe.py")
+    pos, then per block the FFN (``w_up``, ``w_down``; or with
+    ``moe_experts > 1`` the experts' ``router``, ``w1``, ``w2`` under
+    :data:`MOE_KEY_MAP`'s names) and the attention's ``wq, wk, wv, wo``,
+    then the head; layer-norm scales are ones and biases zeros."""
     dev = device_lib.resolve(device)
     gen = prng.get(rand_name)
     d_ff = d_ff or 4 * d_model
@@ -96,10 +94,16 @@ def init_lm_params(
             "ln2_scale": ones(d_model),
             "ln2_bias": zeros(d_model),
         }
-        block["w_up"] = draw((d_model, d_ff), std)
-        block["up_bias"] = zeros(d_ff)
-        block["w_down"] = draw((d_ff, d_model), 1.0 / np.sqrt(d_ff))
-        block["down_bias"] = zeros(d_model)
+        if moe_experts > 1:
+            m = moe_op.init_params(d_model, d_ff, moe_experts, rand_name=rand_name, device=dev)
+            # names end in "bias" so HyperParams' *_bias rules classify
+            # them like every other workflow's biases
+            block.update({k: m[v] for k, v in MOE_KEY_MAP.items()})
+        else:
+            block["w_up"] = draw((d_model, d_ff), std)
+            block["up_bias"] = zeros(d_ff)
+            block["w_down"] = draw((d_ff, d_model), 1.0 / np.sqrt(d_ff))
+            block["down_bias"] = zeros(d_model)
         block.update(attention_op.init_mha_params(d_model, n_heads, rand_name=rand_name, device=dev))
         params.append(block)
     params.append({"head": draw((d_model, vocab), std)})
@@ -111,28 +115,52 @@ def _embed_tokens(embed, tokens):
     return embed["embed"][tokens] + embed["pos"][:t][None, :, :]
 
 
-def _block_ffn(block, h):
-    """The block's position-wise FFN: dense two-layer tanh."""
+# MoE param names in the block's flat dict -> ops/moe's schema (the JAX
+# package's names, so params_from_jax carries them across unchanged)
+MOE_KEY_MAP = {
+    "moe_router": "router",
+    "moe_w_up": "w1",  # [E, D, F]
+    "moe_up_bias": "b1",  # [E, F]
+    "moe_w_down": "w2",  # [E, F, D]
+    "moe_down_bias": "b2",  # [E, D]
+}
+
+
+def _block_ffn(block, h, *, moe_top_k=1, moe_dispatch="dense"):
+    """The block's position-wise FFN: dense two-layer tanh, or, when the
+    block carries MoE params, a gated mixture of experts over the
+    flattened token dim."""
+    if "moe_router" in block:
+        b, t, d = h.shape
+        y = moe_op.apply(
+            {v: block[k] for k, v in MOE_KEY_MAP.items()},
+            h.reshape(b * t, d),
+            top_k=moe_top_k,
+            dispatch=moe_dispatch,
+        )
+        return y.reshape(b, t, d)
     h = torch.tanh(h @ block["w_up"] + block["up_bias"])
     return h @ block["w_down"] + block["down_bias"]
 
 
-def _block_forward(block, x, *, n_heads, attention_fn=None):
+def _block_forward(block, x, *, n_heads, attention_fn=None, moe_top_k=1, moe_dispatch="dense"):
     """One pre-LN transformer block."""
     attention_fn = attention_fn or attention_op.dot_product_attention
     h = layer_norm(x, block["ln1_scale"], block["ln1_bias"])
     x = x + attention_op.mha(block, h, n_heads=n_heads, causal=True, attention_fn=attention_fn)
     h = layer_norm(x, block["ln2_scale"], block["ln2_bias"])
-    return x + _block_ffn(block, h)
+    return x + _block_ffn(block, h, moe_top_k=moe_top_k, moe_dispatch=moe_dispatch)
 
 
-def lm_apply(params, tokens, *, n_heads, attention_fn=None, remat=False):
+def lm_apply(params, tokens, *, n_heads, attention_fn=None, remat=False,
+             moe_top_k=1, moe_dispatch="dense"):
     """tokens [B, T] integer -> logits [B, T, vocab].
 
     ``remat``: each block runs under ``torch.utils.checkpoint``, its
     activations recomputed in the backward instead of stored (the JAX
     package's ``jax.checkpoint``); the numbers are unchanged."""
-    blk = partial(_block_forward, n_heads=n_heads, attention_fn=attention_fn)
+    blk = partial(_block_forward, n_heads=n_heads, attention_fn=attention_fn,
+                  moe_top_k=moe_top_k, moe_dispatch=moe_dispatch)
     x = _embed_tokens(params[0], tokens)
     for block in params[1:-1]:
         x = checkpoint(blk, block, x, use_reentrant=False) if remat else blk(block, x)
@@ -184,10 +212,6 @@ class TransformerLMWorkflow(Workflow):
         name: str = "TransformerLMWorkflow",
     ):
         refuse_unported((
-            (moe_experts > 1, "moe_experts > 1 (MoE FFN blocks)", "A7, ops/moe.py"),
-            (moe_top_k != 1, "moe_top_k != 1 (MoE routing)", "A7, ops/moe.py"),
-            (moe_dispatch != "dense", "moe_dispatch != 'dense' (MoE capacity dispatch)",
-             "A7, ops/moe.py"),
             (sequence_parallel, "sequence_parallel (ring attention)",
              "A7, parallel/ring_attention.py"),
             (tensor_parallel, "tensor_parallel", "A6, lm_tp_rules"),
@@ -226,14 +250,49 @@ class TransformerLMWorkflow(Workflow):
         self.attention = attention
         self.attention_dtype = attention_dtype
         self.remat = remat
+        self.moe_experts = moe_experts
+        self.moe_top_k = moe_top_k
+        self.moe_dispatch = moe_dispatch
         self.rand_name = rand_name
         self.max_seq = int(loader.sample_shape[0])
 
     def _batch_target(self, mb):
         return np.zeros(len(mb.mask), np.int32)  # unused host-side dummy
 
-    def generate(self, *args, **kwargs):
-        raise _not_ported("generate() (KV-cache decoding)", "A8, workflow/generate.py")
+    def generate(
+        self,
+        prompt,
+        *,
+        max_new_tokens: int,
+        eos_id: Optional[int] = None,
+        temperature: float = 0.0,
+        top_k: int = 0,
+        top_p: float = 1.0,
+        rng=None,
+    ):
+        """KV-cache decoding from the current params
+        (:func:`workflow.generate.generate`); returns ``[B, Tp +
+        max_new_tokens]`` int32 tokens, the prompt included, on the
+        workflow's device.  Greedy at ``temperature=0``; ``rng`` (a
+        ``torch.Generator`` on that device) draws the sampling noise.  The
+        decode attention is f32 whatever ``attention_dtype`` is."""
+        if self.state is None:
+            self.initialize()
+        from znicz_tpu_torch.workflow.generate import generate as _generate
+
+        return _generate(
+            self.state.params,
+            torch.as_tensor(np.asarray(prompt), device=self.device),
+            n_heads=self.n_heads,
+            max_new_tokens=max_new_tokens,
+            eos_id=eos_id,
+            temperature=temperature,
+            top_k=top_k,
+            top_p=top_p,
+            rng=rng,
+            moe_top_k=self.moe_top_k,
+            moe_dispatch=self.moe_dispatch,
+        )
 
     def _attention_fn_base(self):
         """The flash kernels where the JAX package picks its kernel on the
@@ -271,6 +330,7 @@ class TransformerLMWorkflow(Workflow):
         logits = lm_apply(
             params, tokens, n_heads=self.n_heads,
             attention_fn=self._attention_fn(), remat=self.remat,
+            moe_top_k=self.moe_top_k, moe_dispatch=self.moe_dispatch,
         )
         lg = logits[:, :-1]
         tgt = tokens[:, 1:]
@@ -296,7 +356,8 @@ class TransformerLMWorkflow(Workflow):
     def _create_initial_state(self) -> TrainState:
         params = init_lm_params(
             self.vocab, self.d_model, self.n_layers, self.n_heads, self.max_seq,
-            d_ff=self.d_ff, rand_name=self.rand_name, device=self.device,
+            d_ff=self.d_ff, moe_experts=self.moe_experts, rand_name=self.rand_name,
+            device=self.device,
         )
         for layer in params:
             for w in layer.values():
