@@ -243,7 +243,26 @@ exit, no result line) when any phase fails:
     program (a captured graph) a prompt bucket (16, 64, 128), the rest hits,
     each length's tokens equal to ``generate``'s; requests, hits, compiles,
     capture seconds (the program ledger) and tokens/sec;
-27. the whole script's seconds, the ``kernels`` JSON line (each flash row
+27. the serving engines (``services/engine.py``) at the mid LM with
+    ``bench.py``'s settings (max_seq 256, 16 slots, ``admit_every`` 8, EOS 0,
+    greedy, weights from seed 95), each program a captured CUDA graph: the
+    dense engine over 64 requests of prompts 16/40/64/120 and budget 64, the
+    paged engine (block 32, the pool at the dense footprint) and its
+    concurrency probe (32 slots, the same pool), the prefix cache on against
+    off (a 160-token system prompt, 16/24/32-token tails, max_seq 384) and
+    speculation (``spec_k`` 7 against 0, batch 8, ``bench.py``'s repeat-heavy
+    stream): each warmed by one stream, then a fresh engine's first pass
+    (its captures) and its second pass over the same prompts (timed: it must
+    capture nothing and give the same tokens); each request's tokens against
+    ``generate``'s on the card (equal, or first differing at a near-tie: the
+    top-2 logits within 1e-5 of the largest magnitude); exactly the expected
+    program keys, one graph each; tokens/sec, TTFT and latency percentiles,
+    peak_active, prefix hits, TTFT on against off, the acceptance rate; the
+    host µs to issue a chunk's replay against its device µs; then a 2-layer
+    stream at the mid width on the card and on the CPU from the same weights
+    (dense, paged and speculative engines; the MoE LM's dense and paged
+    engines in both dispatches), equal tokens but for near-ties;
+28. the whole script's seconds, the ``kernels`` JSON line (each flash row
     with its bf16 times, bound, launches and error beside the f32 ones under
     ``"bf16"``; the f32 flash, Kohonen and RBM rows also with their f32-FMA
     bound and their float64 errors beside the plain version's; the LRN rows
@@ -3758,6 +3777,396 @@ def phase_serve(torch, params, smi):
     return res
 
 
+# -- the serving engine --------------------------------------------------------
+
+ENGINE = dict(n_heads=LM_MID["n_heads"], eos_id=0, admit_every=8, max_seq=256)  # bench.py
+ENGINE_B = 16  # bench.py's LM_MID_B: the engine's slots
+ENGINE_T = 384  # the prefix stream's t_max and position table (bench.py)
+SERVE_BLOCK = 32  # bench.py's LM_SERVE_PAGED_BLOCK
+PREFIX_SYS = 160  # bench.py's LM_PREFIX_SYS: 5 full blocks of 32
+SPEC_STREAM = (  # bench.py's LM_SPEC_STREAM: (motif, prompt length)
+    ((2765, 2796, 6653, 2317), 120), ((3347, 4349, 4741), 120), ((4069, 5480, 3836), 120),
+    ((123, 1175, 3860), 16), ((1359, 63), 40), ((1805, 2090, 1511, 2733), 16),
+    ((4069, 5480, 3836), 64), ((2765, 2796, 6653, 2317), 64),
+)
+SPEC_B, SPEC_K = 8, 7  # bench.py's LM_SPEC_B and LM_SPEC_K
+ENGINE_CHECK_LENS, ENGINE_CHECK_NEW, ENGINE_CHECK_B = (16, 40, 64, 120, 21, 33), 16, 4
+REPLAY_REPS = 30
+
+
+def _pct(values, q):
+    s = sorted(values)
+    return s[min(len(s) - 1, int(round(q * (len(s) - 1))))]
+
+
+def _served(eng, prompts, budget):
+    """Submit ``prompts`` and drain the engine: (request ids, wall seconds)."""
+    t0 = time.perf_counter()
+    ids = [eng.submit(p, budget) for p in prompts]
+    eng.run()
+    return ids, time.perf_counter() - t0
+
+
+def _stream_numbers(eng, ids, wall):
+    comps = [eng.completions[i] for i in ids]
+    ttft = [c.ttft_s * 1e3 for c in comps]
+    lat = [c.latency_s * 1e3 for c in comps]
+    return {"requests": len(comps), "tokens": sum(c.n_new for c in comps), "wall_s": wall,
+            "tokens_per_s": sum(c.n_new for c in comps) / wall,
+            "ttft_ms": {"mean": statistics.fmean(ttft), "p50": _pct(ttft, 0.5),
+                        "p99": _pct(ttft, 0.99)},
+            "latency_ms": {"p50": _pct(lat, 0.5), "p99": _pct(lat, 0.99)}}
+
+
+def _trim(row, n_prompt, eos):
+    new = row[n_prompt:]
+    hit = [j for j, t in enumerate(new) if t == eos]
+    return list(row[:n_prompt]) + list(new[: hit[0] + 1] if hit else new)
+
+
+def _tie_gap(torch, transformer, params, tokens, j, **moe):
+    """The top-2 gap of the logits that predict token ``j`` after
+    ``tokens[:j]``, over the largest logit's magnitude."""
+    with torch.no_grad():
+        lg = transformer.lm_apply(params, torch.as_tensor([list(tokens[:j])]).to(
+            params[0]["embed"].device), n_heads=LM_MID["n_heads"], **moe)[0, -1].double()
+    top = lg.topk(2).values
+    return float((top[0] - top[1]) / lg.abs().max())
+
+
+def _first_diff(a, b):
+    n = min(len(a), len(b))
+    return next((j for j in range(n) if a[j] != b[j]), n)
+
+
+def _held_to(torch, transformer, params, label, got, want, **moe):
+    """Token lists ``got`` against ``want``, each pair equal or first
+    differing at a near-tie (of ``params``' logits there); returns the
+    count equal and the near-ties as (index, position, gap)."""
+    equal, ties = 0, []
+    for i, (g, w) in enumerate(zip(got, want)):
+        if list(g) == list(w):
+            equal += 1
+            continue
+        j = _first_diff(list(g), list(w))
+        ties.append((i, j, _tie_gap(torch, transformer, params, g, j, **moe)))
+    if any(gap > NEAR_TIE for _, _, gap in ties):
+        fail(f"{label}: tokens differ beyond near-ties (index, position, top-2 gap / max "
+             f"|logit|): {ties}")
+    return equal, ties
+
+
+def _against_generate(torch, G, transformer, params, label, eng, ids, prompts, budget):
+    """Each request's tokens against ``generate``'s on the card, the
+    prompts grouped by length, trimmed at EOS."""
+    import numpy as np
+
+    groups = {}
+    for rid, p in zip(ids, prompts):
+        groups.setdefault(len(p), []).append((rid, p))
+    got, want = [], []
+    for members in groups.values():
+        batch = torch.as_tensor(np.stack([p for _, p in members]), device="cuda")
+        ref = G.generate(params, batch, n_heads=LM_MID["n_heads"], max_new_tokens=budget,
+                         eos_id=0).cpu().tolist()
+        for (rid, p), row in zip(members, ref):
+            got.append(eng.completions[rid].tokens.tolist())
+            want.append(_trim(row, len(p), 0))
+    equal, ties = _held_to(torch, transformer, params, label, got, want)
+    print(f"{label}: {equal} of {len(got)} requests' tokens equal generate()'s on the card "
+          f"(prompts grouped by length, trimmed at EOS); near-ties {ties}")
+    return equal
+
+
+def _programs_check(label, eng, allowed, must):
+    progs = set(eng.compile_stats()["programs"])
+    if not must <= progs or not progs <= allowed:
+        fail(f"{label}: programs {sorted(progs)}; want every one of {sorted(must)} within "
+             f"{sorted(allowed)}")
+    st = eng.compile_stats()
+    graphs = sum(v for k, v in st.items() if k.endswith("_graph_entries"))
+    if graphs != len(progs) or set(eng.capture_s) != progs:
+        fail(f"{label}: {graphs} graphs and {len(eng.capture_s)} captures for {len(progs)} "
+             f"programs: {st}")
+    return sorted(str(k) for k in progs)
+
+
+def _replay_costs(torch, eng, key):
+    """Host µs to issue one replay of ``key``'s graph, its device µs (CUDA
+    events) and the µs of a whole program call (inputs staged, replay, the
+    one host read), medians of REPLAY_REPS on the idle engine (a replay
+    recomputes the last chunk in place)."""
+    prog = eng._progs[key]
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    host, dev, call = [], [], []
+    inp = prog.io["inp"].cpu().numpy()
+    for _ in range(REPLAY_REPS):
+        torch.cuda.synchronize()
+        start.record()
+        t0 = time.perf_counter()
+        prog.graph.replay()
+        host.append((time.perf_counter() - t0) * 1e6)
+        end.record()
+        end.synchronize()
+        dev.append(start.elapsed_time(end) * 1e3)
+        t0 = time.perf_counter()
+        eng._call(key, None, inp)
+        prog.read()
+        call.append((time.perf_counter() - t0) * 1e6)
+    return {"host_us": statistics.median(host), "device_us": statistics.median(dev),
+            "call_us": statistics.median(call)}
+
+
+def _print_replay(label, res, smi):
+    r = res["chunk_replay"]
+    print(f"{label}: a chunk's graph (8 steps) issued in {r['host_us']:.1f} µs of host time "
+          f"against {r['device_us']:.1f} µs of device time; a whole program call (inputs "
+          f"staged, replay, the one host read) {r['call_us']:.1f} µs; capture seconds of the "
+          f"timed engine {res['capture_s']:.3f}; {smi}")
+
+
+def _timed_twice(torch, G, transformer, params, label, make, prompts, budget, smi, check=True,
+                 between=None):
+    """bench.py's protocol (one stream warms a first engine, a fresh one is
+    timed) and the fresh engine's second pass over the same prompts (after
+    ``between(engine)``): the first pass captures this engine's graphs, the
+    second captures nothing and gives the same tokens."""
+    _served(make(), prompts[: len(SERVE_LENS)], budget)
+    eng = make()
+    ids, wall = _served(eng, prompts, budget)
+    first = _stream_numbers(eng, ids, wall)
+    captured = dict(eng.capture_s)
+    if between is not None:
+        between(eng)
+    ids2, wall2 = _served(eng, prompts, budget)
+    second = _stream_numbers(eng, ids2, wall2)
+    if eng.capture_s != captured or any(
+            p.graph is None for p in eng._progs.values()):
+        fail(f"{label}: the second stream captured graphs: {sorted(eng.capture_s)}")
+    if any(eng.completions[a].tokens.tolist() != eng.completions[b].tokens.tolist()
+           for a, b in zip(ids, ids2)):
+        fail(f"{label}: the second stream's tokens differ from the first's")
+    if check:
+        first["equal_generate"] = _against_generate(torch, G, transformer, params, label, eng,
+                                                    ids, prompts, budget)
+    capture_s = sum(captured.values())
+    st = eng.stats()
+    occ = st["tick_occupancy"]
+    res = {"fresh": first, "warm": second, "capture_s": capture_s,
+           "peak_active": st["peak_active"], "n_programs": st["n_programs"],
+           "tick_occupancy": occ}
+    print(f"{label}: {len(prompts)} requests, {second['tokens']} tokens: warm "
+          f"{second['tokens_per_s']:.1f} generated tokens/sec (TTFT mean "
+          f"{second['ttft_ms']['mean']:.1f} ms, p50 {second['ttft_ms']['p50']:.1f}, p99 "
+          f"{second['ttft_ms']['p99']:.1f}; latency p50 {second['latency_ms']['p50']:.1f} ms, "
+          f"p99 {second['latency_ms']['p99']:.1f}); the fresh engine's first pass "
+          f"{first['tokens_per_s']:.1f} with its {len(captured)} captures "
+          f"({capture_s:.2f} s); peak_active {st['peak_active']}"
+          + (f", preemptions {st['preemptions']}" if "preemptions" in st else "")
+          + f"; the engine's {occ['ticks']} ticks: {occ['frac']} of their wall by phase; {smi}")
+    return eng, res
+
+
+def _engine_card_vs_cpu(torch, TE, transformer, model_lib, prng, smi):
+    """A 2-layer stream at the mid width on the card and on the CPU from the
+    same weights: the dense engine, the paged engine and speculation on the
+    dense-FFN LM, the dense and paged engines on the MoE LM in both
+    dispatches; equal tokens but for near-ties (of the CPU's logits)."""
+    import numpy as np
+
+    _f32_exact(torch)
+    gen = np.random.default_rng(16)
+    prompts = [gen.integers(1, LM_MID["vocab"], (n,)).astype(np.int32)
+               for n in ENGINE_CHECK_LENS]
+    prompts += [np.tile(np.asarray(m, np.int32), n // len(m) + 1)[:n] for m, n in SPEC_STREAM[:3]]
+    cases = [("dense", {}, {}), ("paged", {}, {}), ("spec", {}, {})]
+    cases += [(kind, dict(d_ff=LM_MOE["d_ff"], moe_experts=MOE["moe_experts"]),
+               dict(moe_top_k=MOE["moe_top_k"], moe_dispatch=d))
+              for d in MOE_DISPATCHES for kind in ("dense", "paged")]
+    out = {}
+    for kind, arch, moe in cases:
+        label = f"engine card vs CPU {kind}{' moe ' + moe['moe_dispatch'] if moe else ''}"
+        prng.seed_all(96)
+        host = model_lib.params_to_numpy(transformer.init_lm_params(
+            LM_MID["vocab"], LM_MID["d_model"], 2, LM_MID["n_heads"], 256, device="cpu",
+            **arch))
+        toks = {}
+        for dev in ("cuda", "cpu"):
+            params = model_lib.params_from_jax(host, dev)
+            kw = dict(ENGINE, batch_size=ENGINE_CHECK_B, **moe)
+            if kind == "dense":
+                eng = TE.DecodeEngine(params, **kw)
+            else:
+                eng = TE.PagedDecodeEngine(params, block_size=SERVE_BLOCK, prefix_cache=False,
+                                           spec_k=SPEC_K if kind == "spec" else 0, **kw)
+            ids, _ = _served(eng, prompts, ENGINE_CHECK_NEW)
+            toks[dev] = [eng.completions[i].tokens.tolist() for i in ids]
+        equal, ties = _held_to(torch, transformer, model_lib.params_from_jax(host, "cpu"), label,
+                               toks["cuda"], toks["cpu"], **moe)
+        print(f"{label}: {equal} of {len(prompts)} requests' tokens equal (2 layers, f32, TF32 "
+              f"off); near-ties {ties}")
+        out[label] = {"equal": equal, "requests": len(prompts), "near_ties": len(ties)}
+    print(f"engine card vs CPU: {smi}")
+    return out
+
+
+def phase_engine(torch, transformer, model_lib, prng, smi):
+    """Phase 27: the serving engines at the mid LM (``bench.py``'s
+    lm_serve, lm_serve_paged, lm_serve_prefix and lm_serve_spec: vocab
+    8192, d_model 512, 12 layers, 8 heads, max_seq 256, 16 slots,
+    admit_every 8, EOS 0, greedy, random weights from a seed), their
+    programs replayed CUDA graphs."""
+    import numpy as np
+
+    from znicz_tpu_torch.services import engine as TE
+    from znicz_tpu_torch.workflow import generate as G
+
+    _f32_exact(torch)
+
+    def lm(max_seq):
+        """bench.py's weights: seed 95 at its position table."""
+        prng.seed_all(95)
+        return transformer.init_lm_params(LM_MID["vocab"], LM_MID["d_model"],
+                                          LM_MID["n_layers"], LM_MID["n_heads"], max_seq,
+                                          device="cuda")
+
+    params = lm(ENGINE["max_seq"])
+    greedy = (True, 0, False)
+    reqs = np.random.default_rng(12)
+    res = {}
+
+    # dense: bench.py's lm_serve
+    prompts = [reqs.integers(1, LM_MID["vocab"], (SERVE_LENS[j % len(SERVE_LENS)],)).astype(
+        np.int32) for j in range(4 * ENGINE_B)]
+    eng, res["dense"] = _timed_twice(
+        torch, G, transformer, params, "engine dense",
+        lambda: TE.DecodeEngine(params, batch_size=ENGINE_B, **ENGINE), prompts, SERVE_NEW, smi)
+    want = {("admit", b, greedy) for b in (16, 64, 128)} | {("chunk", 8, ENGINE_B, greedy)}
+    res["dense"]["programs"] = _programs_check("engine dense", eng, want, want)
+    res["dense"]["chunk_replay"] = _replay_costs(torch, eng, ("chunk", 8, ENGINE_B, greedy))
+    _print_replay("engine dense", res["dense"], smi)
+    del eng
+
+    # paged: bench.py's lm_serve_paged (the pool at the dense footprint)
+    n_blocks = ENGINE_B * (256 // SERVE_BLOCK) + 1
+    paged = dict(ENGINE, block_size=SERVE_BLOCK, n_blocks=n_blocks, prefix_cache=False)
+    prompts = [reqs.integers(1, LM_MID["vocab"], (SERVE_LENS[j % len(SERVE_LENS)],)).astype(
+        np.int32) for j in range(4 * ENGINE_B)]
+    eng, res["paged"] = _timed_twice(
+        torch, G, transformer, params, "engine paged",
+        lambda: TE.PagedDecodeEngine(params, batch_size=ENGINE_B, **paged), prompts, SERVE_NEW,
+        smi)
+    windows = {("paged_chunk", 8, ENGINE_B, w, greedy) for w in (1, 2, 4, 8)}
+    res["paged"]["programs"] = _programs_check(
+        "engine paged", eng, windows | {("prefill", SERVE_BLOCK, greedy)},
+        {("prefill", SERVE_BLOCK, greedy)})
+    widest = max(k for k in eng._progs if k[0] == "paged_chunk")
+    res["paged"]["chunk_replay"] = {"window": widest[3], **_replay_costs(torch, eng, widest)}
+    _print_replay(f"engine paged (window {widest[3]})", res["paged"], smi)
+    res["paged"]["preemptions"] = eng.stats()["preemptions"]
+    del eng
+    # the concurrency probe: 2x the slots over the same pool, 16+16 requests
+    probe = TE.PagedDecodeEngine(params, batch_size=2 * ENGINE_B, **paged)
+    _served(probe, [reqs.integers(1, LM_MID["vocab"], (16,)).astype(np.int32)
+                    for _ in range(4 * ENGINE_B)], 16)
+    st = probe.stats()
+    res["paged"]["probe"] = {"peak_active": st["peak_active"], "preemptions": st["preemptions"]}
+    print(f"engine paged: concurrency probe (32 slots, the same {n_blocks - 1}-block pool, "
+          f"16+16-token requests): peak_active {st['peak_active']} (the dense layout holds "
+          f"{ENGINE_B} rows in this memory), preemptions {st['preemptions']}; {smi}")
+    if st["peak_active"] <= ENGINE_B:
+        fail(f"engine paged: the probe decoded at most {st['peak_active']} rows at once")
+    del probe
+
+    # prefix: bench.py's lm_serve_prefix, the cache on against off
+    sys_prompt = np.random.default_rng(14).integers(1, LM_MID["vocab"], (PREFIX_SYS,)).astype(
+        np.int32)
+    tails = np.random.default_rng(15)
+    prompts = [np.concatenate([sys_prompt, tails.integers(1, LM_MID["vocab"], (
+        16 + 8 * (j % 3),)).astype(np.int32)]) for j in range(4 * ENGINE_B)]
+    prefix, prefix_params = {}, lm(ENGINE_T)
+    for on in (True, False):
+        label = f"engine prefix {'on' if on else 'off'}"
+
+        def seed(e):
+            """Only the system prompt cached, as bench.py times it."""
+            e.flush_prefix_cache()
+            _served(e, [sys_prompt], 1)
+
+        def make(on=on):
+            e = TE.PagedDecodeEngine(prefix_params, batch_size=ENGINE_B, **dict(
+                ENGINE, max_seq=ENGINE_T), block_size=SERVE_BLOCK,
+                n_blocks=ENGINE_B * (ENGINE_T // SERVE_BLOCK) + 1, prefix_cache=on)
+            seed(e)
+            return e
+
+        eng, prefix[on] = _timed_twice(torch, G, transformer, prefix_params, label, make,
+                                       prompts, SERVE_NEW, smi, check=on, between=seed)
+        pc = eng.stats()["prefix_cache"]
+        prefix[on]["prefix_cache"] = pc
+        windows = {("paged_chunk", 8, ENGINE_B, w, greedy) for w in (1, 2, 4, 8, 12)}
+        prefix[on]["programs"] = _programs_check(
+            label, eng, windows | {("prefill", SERVE_BLOCK, greedy), ("cow", SERVE_BLOCK)},
+            {("prefill", SERVE_BLOCK, greedy)})
+        del eng
+    del prefix_params
+    ratio = prefix[True]["warm"]["ttft_ms"]["mean"] / prefix[False]["warm"]["ttft_ms"]["mean"]
+    res["prefix"] = {"on": prefix[True], "off": prefix[False], "ttft_on_vs_off": ratio}
+    print(f"engine prefix: {PREFIX_SYS}-token system prompt + 16/24/32-token tails: prefix hits "
+          f"{prefix[True]['prefix_cache']['hits']}, cached tokens "
+          f"{prefix[True]['prefix_cache']['cached_tokens']}; TTFT warm cache against off "
+          f"{ratio:.3f}; tokens/sec {prefix[True]['warm']['tokens_per_s']:.1f} against "
+          f"{prefix[False]['warm']['tokens_per_s']:.1f}; {smi}")
+    if prefix[True]["prefix_cache"]["hits"] < 5 * 4 * ENGINE_B:
+        fail(f"engine prefix: {prefix[True]['prefix_cache']['hits']} block hits, want at least "
+             f"{5 * 4 * ENGINE_B}")
+
+    # spec: bench.py's lm_serve_spec, spec_k 7 against 0
+    prompts = [np.tile(np.asarray(m, np.int32), n // len(m) + 1)[:n]
+               for m, n in (SPEC_STREAM[j % len(SPEC_STREAM)] for j in range(2 * SPEC_B))]
+    spec = {}
+    toks = {}
+    for k in (SPEC_K, 0):
+        label = f"engine spec k={k}"
+        spec_kw = dict(ENGINE, block_size=SERVE_BLOCK, n_blocks=SPEC_B * (256 // SERVE_BLOCK) + 1,
+                       prefix_cache=False, spec_k=k)
+        first = {}
+        eng, spec[k] = _timed_twice(
+            torch, G, transformer, params, label,
+            lambda: TE.PagedDecodeEngine(params, batch_size=SPEC_B, **spec_kw), prompts,
+            SERVE_NEW, smi, check=k == SPEC_K, between=lambda e: first.update(e.spec_stats()))
+        # the second (timed) pass's tallies
+        spec[k]["spec"] = {n: v - first[n] for n, v in eng.spec_stats().items()
+                           if n in ("drafted", "accepted", "rejected", "verify_steps")}
+        spec[k]["spec"]["acceptance_rate"] = (spec[k]["spec"]["accepted"]
+                                              / max(spec[k]["spec"]["drafted"], 1))
+        toks[k] = [c.tokens.tolist() for c in sorted(eng.completions.values(),
+                                                     key=lambda c: c.id)]
+        windows = {("paged_chunk", 8, SPEC_B, w, greedy) for w in (1, 2, 4, 8)}
+        verify = {("spec_verify", wd, SPEC_B, w, greedy) for wd in (2, 4, 8) for w in (1, 2, 4, 8)}
+        spec[k]["programs"] = _programs_check(
+            label, eng, windows | verify | {("prefill", SERVE_BLOCK, greedy)},
+            {("prefill", SERVE_BLOCK, greedy)})
+        del eng
+    sp = spec[SPEC_K]["spec"]
+    res["spec"] = {"on": spec[SPEC_K], "off": spec[0],
+                   "speedup": spec[SPEC_K]["warm"]["tokens_per_s"] / spec[0]["warm"]["tokens_per_s"]}
+    print(f"engine spec: spec_k {SPEC_K} against 0 (batch {SPEC_B}, bench.py's repeat-heavy "
+          f"stream): {spec[SPEC_K]['warm']['tokens_per_s']:.1f} against "
+          f"{spec[0]['warm']['tokens_per_s']:.1f} generated tokens/sec (x{res['spec']['speedup']:.3f});"
+          f" acceptance {sp['acceptance_rate']:.4f} ({sp['accepted']}/{sp['drafted']} drafts, "
+          f"{sp['verify_steps']} verifies, the timed pass); {smi}")
+    equal, ties = _held_to(torch, transformer, params, "engine spec against spec off",
+                           toks[SPEC_K], toks[0])
+    if sp["verify_steps"] == 0 or sp["accepted"] == 0:
+        fail(f"engine spec: no draft was accepted: {sp}")
+    res["spec"]["equal_to_spec_off"] = equal
+    del params
+    torch.cuda.empty_cache()
+    res["card_vs_cpu"] = _engine_card_vs_cpu(torch, TE, transformer, model_lib, prng, smi)
+    return res
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -3856,6 +4265,9 @@ def main() -> int:
     decode["serve"] = phase_serve(torch, lm_params, smi)
     del lm_params
     print(f"decode phases: {time.perf_counter() - t0:.1f} s; " + json.dumps(decode))
+    t0 = time.perf_counter()
+    engine = phase_engine(torch, transformer, model_lib, prng, smi)
+    print(f"engine phase: {time.perf_counter() - t0:.1f} s; " + json.dumps(engine))
 
     kernels = []
     for kname in ("lrn_fwd", "lrn_bwd"):

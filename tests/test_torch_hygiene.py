@@ -51,6 +51,7 @@ def test_package_has_the_slice_modules():
         "observability.tracing", "observability.phases", "observability.pipeline",
         "observability.anomaly", "loader.prefetch", "workflow.snapshotter",
         "workflow.recovery", "ops.moe", "observability.device", "workflow.generate",
+        "services", "services.engine", "services.errors",
     ):
         assert f"znicz_tpu_torch.{name}" in mods
 

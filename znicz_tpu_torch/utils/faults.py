@@ -2,11 +2,19 @@
 environment (port of ``znicz_tpu/utils/faults.py``, the same point names
 and arming API).
 
-Points fired by the port's host loop:
+Points fired by the port's host loop and its serving engines:
 
 ========================  ==================================================
 point                     effect when armed
 ========================  ==================================================
+``engine.decode_step``    raises before a decode (or spec-verify) chunk's
+                          program runs (``services/engine.py``)
+``engine.prefill``        raises before a paged prefill chunk runs
+``pool.alloc``            raises inside the paged engine's block allocator
+``pool.pressure``         behavioral (``flag=True``): the allocator reports
+                          the pool dry (free list and cache), driving the
+                          eviction and preemption ladder without filling
+                          the pool
 ``loader.fetch``          fires inside the prefetch producer's timed fetch
                           of one batch (arm with ``delay=`` for a
                           deterministic slow producer: the input-bound

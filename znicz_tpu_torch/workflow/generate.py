@@ -257,6 +257,27 @@ def copy_paged_block(pools, src, dst):
     return pools
 
 
+def _table_col(pos, block_size: int, tables) -> torch.Tensor:
+    """The table column of each position, clamped to the table's last
+    column as the JAX package's gather clamps: a verify's bucket pad can lie
+    past a row's window; its write is masked to ``NULL_BLOCK`` and its
+    logits are never read."""
+    return (pos // block_size).clamp(max=tables.shape[1] - 1)
+
+
+def _last_writer(blk: torch.Tensor, slot: torch.Tensor) -> torch.Tensor:
+    """For each of the ``[N]`` writes ``(blk, slot)``, the index of the last
+    write to the same place.  Masked writes all land in ``NULL_BLOCK``; each
+    takes the last one's value, so the block ends as a serial scatter leaves
+    it (the JAX package's and the CPU's last write wins) whatever order the
+    card's scatter stores in.  Idle rows read that block, and under capacity
+    routing their states share the experts' slots with live rows."""
+    n = blk.shape[0]
+    same = (blk[:, None] == blk[None, :]) & (slot[:, None] == slot[None, :])
+    order = torch.arange(1, n + 1, device=blk.device)
+    return (same * order[None, :]).argmax(dim=1)
+
+
 def paged_decode_step(
     params, pools, tables, token, pos, *, n_heads, block_size, start=None, write_mask=None,
     moe_top_k=1, moe_dispatch="dense",
@@ -268,14 +289,15 @@ def paged_decode_step(
     b = token.shape[0]
     rows = torch.arange(b, device=token.device)
     pos = pos.long()
-    blk = tables[rows, pos // block_size].long()
+    blk = tables[rows, _table_col(pos, block_size, tables)].long()
     if write_mask is not None:
         blk = torch.where(write_mask, blk, NULL_BLOCK)
     slot = pos % block_size
+    last = _last_writer(blk, slot)
     x = _embed_rows(params[0], token, pos, start)
 
     def write(pool, new):
-        pool.index_put_((blk, slot), new[:, 0])
+        pool.index_put_((blk, slot), new[:, 0][last])
 
     for block, pool in zip(params[1:-1], pools):
         x, _ = _paged_block_step(
@@ -311,14 +333,15 @@ def paged_verify_chunk(
     b, w = tokens.shape
     rows = torch.arange(b, device=tokens.device)[:, None]
     pos_w = pos.long()[:, None] + torch.arange(w, device=tokens.device)[None, :]  # [B, W]
-    blk = tables[rows, pos_w // block_size].long()
+    blk = tables[rows, _table_col(pos_w, block_size, tables)].long()
     if write_mask is not None:
         blk = torch.where(write_mask, blk, NULL_BLOCK)
     slot = pos_w % block_size
+    last = _last_writer(blk.reshape(-1), slot.reshape(-1)).reshape(b, w)
     x = _embed_rows(params[0], tokens, pos_w, start)
 
     def write(pool, new):
-        pool.index_put_((blk, slot), new)
+        pool.index_put_((blk, slot), new.reshape(b * w, *new.shape[2:])[last])
 
     for block, pool in zip(params[1:-1], pools):
         x, _ = _paged_block_step(
