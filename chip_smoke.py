@@ -262,7 +262,28 @@ exit, no result line) when any phase fails:
     stream at the mid width on the card and on the CPU from the same weights
     (dense, paged and speculative engines; the MoE LM's dense and paged
     engines in both dispatches), equal tokens but for near-ties;
-28. the whole script's seconds, the ``kernels`` JSON line (each flash row
+28. the serving front door (``services/frontdoor.py``) behind the HTTP
+    server (``services/serve.py``) at ``bench.py``'s lm_serve_frontdoor
+    settings (the mid LM from seed 95, a paged engine factory of 16 slots,
+    block 32, ``admit_every`` 8, max_seq 256, EOS 0, greedy; ``max_pending``
+    128, ``default_deadline_s`` 300): 4 HTTP clients POST 64 requests of
+    prompts 16/40/64/120 and budget 64 after one warm request, each
+    request's tokens against the engine alone on the same stream (equal, or
+    first differing at a near-tie), the engine alone's programs and no new
+    ledger entry; requests/sec, generated tokens/sec, TTFT p50/p99, queue
+    age p99 and the engine thread's tick share beside the engine alone's and
+    phase 27's; ``/healthz``, ``/metrics``, ``/debug/programs`` (the ledger,
+    ``cuda:0``'s memory), ``/prefix_probe``, ``/slo``; the door's pusher into
+    an in-process aggregator; on the card a cancel and a deadline mid-decode
+    (the pool swept), an engine crash (slot residents typed ``error``, the
+    rest golden on the rebuilt engine, its rebuild and re-capture seconds),
+    ``/debug/profile`` during a stream (CUDA kernel events; a second
+    capture 409; a chunk's replay issue time before and after), and
+    ``close(drain=True)`` with work in flight (finished or typed ``shed``);
+    then the dense engine and speculation (``spec_k`` 7 on phase 27's
+    repeat-heavy stream, the same draft totals as the engine alone)
+    through the door;
+29. the whole script's seconds, the ``kernels`` JSON line (each flash row
     with its bf16 times, bound, launches and error beside the f32 ones under
     ``"bf16"``; the f32 flash, Kohonen and RBM rows also with their f32-FMA
     bound and their float64 errors beside the plain version's; the LRN rows
@@ -2547,7 +2568,7 @@ HEAL_POISON = 5  # the train batch (in fill order) filled with NaN once: epoch 1
 HEAL_STOP = 6  # the train step whose lr asks for the stop: mid epoch 1
 # epochs a window of the watch's cost: AlexNet 300 steps (~3 s), the others 400-1,400
 WATCH_EPOCHS = {"alexnet": 60, "kohonen": 2, "mnist_rbm": 2, "mnist": 16}
-WATCH_TURNS = (True, False, False, True) * 2 + (True, False)  # the watch on / off a window
+WATCH_TURNS = (True, False, False, True, True, False)  # the watch on / off a window
 TRANSPORT_CALLS = 2000  # calls of each watch transport, in turns
 # deferred against sync: a stop driven by fail_iterations after ~20 epochs (~100 steps)
 DEFERRED_DECISION = {"max_epochs": 40, "fail_iterations": 20}
@@ -4167,6 +4188,549 @@ def phase_engine(torch, transformer, model_lib, prng, smi):
     return res
 
 
+# -- the serving front door (phase 28) -----------------------------------------
+
+DOOR_CLIENTS = 4  # bench.py's lm_serve_frontdoor: 4 HTTP clients
+DOOR_PENDING = 128  # bench.py: max_pending 2x the 64 requests
+DOOR_DEADLINE_S = 300.0  # bench.py's default_deadline_s
+DOOR_CRASH_N = 24  # requests in flight when the engine crashes: 16 slots and 8 more
+DOOR_DRAIN_N, DOOR_DRAIN_GRACE_S = 48, 0.5  # requests in flight at close(drain=True)
+DOOR_DENSE_N = 16  # the dense backend's short stream
+DOOR_PROFILE_S = 1.0
+
+
+def _http(port, method, path, body=None, timeout=300):
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+    try:
+        conn.request(method, path, body=None if body is None else json.dumps(body))
+        resp = conn.getresponse()
+        return resp.status, resp.read()
+    finally:
+        conn.close()
+
+
+def _http_generate(port, prompt, budget):
+    """bench.py's client: POST /generate and read the NDJSON stream; the
+    first token's time on the client's clock."""
+    import http.client
+
+    t0 = time.perf_counter()
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
+    try:
+        conn.request("POST", "/generate", body=json.dumps(
+            {"prompt": [int(t) for t in prompt], "max_new_tokens": budget}))
+        resp = conn.getresponse()
+        if resp.status != 200:
+            return {"status": resp.status, "body": resp.read().decode()}
+        out = {"status": 200, "tokens": [], "ttft_s": None, "done": None}
+        while True:
+            line = resp.readline()
+            if not line:
+                break
+            rec = json.loads(line)
+            if "token" in rec:
+                if out["ttft_s"] is None:
+                    out["ttft_s"] = time.perf_counter() - t0
+                out["tokens"].append(rec["token"])
+            elif rec.get("done"):
+                out["done"] = rec
+        out["latency_s"] = time.perf_counter() - t0
+        return out
+    finally:
+        conn.close()
+
+
+def _http_stream(port, prompts, budget, during=None, clients=DOOR_CLIENTS):
+    """``clients`` threads POST ``prompts`` in turn; ``during()`` runs on
+    this thread while they do.  Returns the results in prompt order, the
+    stream's wall seconds and what ``during`` returned."""
+    import threading
+
+    todo, results, lock = list(enumerate(prompts)), {}, threading.Lock()
+
+    def client():
+        while True:
+            with lock:
+                if not todo:
+                    return
+                i, p = todo.pop(0)
+            r = _http_generate(port, p, budget)
+            with lock:
+                results[i] = r
+
+    threads = [threading.Thread(target=client, daemon=True) for _ in range(clients)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    extra = during() if during is not None else None
+    for t in threads:
+        t.join(timeout=600)
+    wall = time.perf_counter() - t0
+    if any(t.is_alive() for t in threads) or len(results) != len(prompts):
+        fail(f"frontdoor: {len(results)} of {len(prompts)} HTTP requests answered")
+    return [results[i] for i in range(len(prompts))], wall, extra
+
+
+def _door_numbers(results, wall):
+    """bench.py's lm_serve_frontdoor numbers of one HTTP stream."""
+    ok = [r for r in results if r.get("status") == 200 and r["done"] is not None
+          and r["done"]["finish_reason"] in ("eos", "budget")]
+    ttft = [r["ttft_s"] * 1e3 for r in ok if r["ttft_s"] is not None]
+    qage = [r["done"]["timings"]["queue_s"] * 1e3 for r in ok]
+    tokens = sum(len(r.get("tokens", ())) for r in results)
+    return {"requests": len(results), "completed": len(ok), "wall_s": wall,
+            "requests_per_s": len(ok) / wall, "tokens": tokens, "tokens_per_s": tokens / wall,
+            "ttft_ms": {"p50": _pct(ttft, 0.5), "p99": _pct(ttft, 0.99)},
+            "queue_age_ms": {"p99": _pct(qage, 0.99)}}
+
+
+def _timed_ticks(door):
+    """Wrap the door's engine-thread tick with a host clock; returns the
+    tally it adds to."""
+    spent = {"s": 0.0, "n": 0}
+    tick = door._tick
+
+    def timed():
+        t0 = time.perf_counter()
+        try:
+            tick()
+        finally:
+            spent["s"] += time.perf_counter() - t0
+            spent["n"] += 1
+
+    door._tick = timed
+    return spent
+
+
+def _busy_share(events, seconds):
+    """The share of a capture window in which the card ran a kernel: the
+    union of the trace's kernel intervals over the window."""
+    spans = sorted((e["ts"], e["ts"] + e.get("dur", 0)) for e in events if e.get("cat") == "kernel")
+    busy, end = 0.0, -math.inf
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return busy / (seconds * 1e6)
+
+
+def _pool_swept(door):
+    st = door.engine.stats()
+    return st["pool_blocks_free"] == st["pool_blocks"]
+
+
+def _until_idle(door, label, timeout=120.0):
+    deadline = time.monotonic() + timeout
+    while door.has_work():
+        if time.monotonic() > deadline:
+            fail(f"{label}: the door still has work after {timeout} s")
+        time.sleep(0.005)
+
+
+def _through_door(door, prompts, budget):
+    handles = [door.submit(p, budget) for p in prompts]
+    return [h.result(timeout=300.0) for h in handles]
+
+
+def phase_frontdoor(torch, transformer, prng, smi, engine_res):
+    """Phase 28: the serving front door (``services/frontdoor.py``) behind
+    the HTTP server (``services/serve.py``) at ``bench.py``'s
+    lm_serve_frontdoor settings: the mid LM (weights from seed 95), a paged
+    engine factory (16 slots, block 32, ``admit_every`` 8, max_seq 256, EOS
+    0, greedy), 4 HTTP clients over 64 requests of prompts 16/40/64/120 and
+    budget 64; the failure paths on the card; ``/debug/profile``; the fleet
+    telemetry; the dense backend and speculation through the door."""
+    import threading
+
+    import numpy as np
+
+    from znicz_tpu_torch.observability import device as ledger
+    from znicz_tpu_torch.observability.aggregate import (
+        MetricsAggregator,
+        build_aggregator_server,
+    )
+    from znicz_tpu_torch.services import engine as TE
+    from znicz_tpu_torch.services import frontdoor as TF
+    from znicz_tpu_torch.services import serve as TS
+    from znicz_tpu_torch.utils import faults
+
+    _f32_exact(torch)
+    prng.seed_all(95)
+    params = transformer.init_lm_params(LM_MID["vocab"], LM_MID["d_model"], LM_MID["n_layers"],
+                                        LM_MID["n_heads"], ENGINE["max_seq"], device="cuda")
+    reqs = np.random.default_rng(12)
+    prompts = [reqs.integers(1, LM_MID["vocab"], (SERVE_LENS[j % len(SERVE_LENS)],)).astype(
+        np.int32) for j in range(4 * ENGINE_B)]
+    res = {}
+
+    def make_paged():
+        return TE.PagedDecodeEngine(params, batch_size=ENGINE_B, block_size=SERVE_BLOCK, **ENGINE)
+
+    # the engine alone on the same stream, as the door will run it: a fresh
+    # engine, one warm request (prompt 0), then the 64 requests at once
+    alone = make_paged()
+    _served(alone, prompts[:1], SERVE_NEW)
+    ids, wall = _served(alone, prompts, SERVE_NEW)
+    res["engine_alone"] = _stream_numbers(alone, ids, wall)
+    golden = [alone.completions[i].tokens.tolist() for i in ids]
+    alone_programs = set(alone.compile_stats()["programs"])
+    # a chunk's replay issue time here and around the door's profile
+    # capture below, on this engine (a replay rewrites its last chunk's
+    # blocks, so never on the door's, whose prefix cache serves on)
+    key = max(k for k in alone._progs if k[0] == "paged_chunk")
+    replay = {"first": _replay_costs(torch, alone, key)}
+
+    # the door behind the server, pushing to an in-process aggregator
+    agg = MetricsAggregator()
+    agg_srv = build_aggregator_server(agg, port=0)
+    threading.Thread(target=agg_srv.serve_forever, daemon=True).start()
+    restarts = []  # seconds of each watchdog rebuild (the factory's call)
+
+    def factory():
+        t0 = time.perf_counter()
+        eng = make_paged()
+        restarts.append(time.perf_counter() - t0)
+        return eng
+
+    n_ledger = ledger.program_count("engine")
+    door = TF.ServingFrontDoor(
+        factory, max_pending=DOOR_PENDING, default_deadline_s=DOOR_DEADLINE_S,
+        aggregator_url=f"http://127.0.0.1:{agg_srv.server_address[1]}", push_interval_s=60.0)
+    restarts.clear()  # the constructor's first build is no restart
+    site = os.path.join(WORK_DIR, "frontdoor")
+    os.makedirs(site, exist_ok=True)
+    # http.server logs a line a request on stderr: keep this run's stderr
+    # for failures
+    TS.StatusRequestHandler.log_message = lambda *args: None
+    srv = TS.build_server(directory=site, port=0, frontdoor=door)
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    port = srv.server_address[1]
+    ticks = _timed_ticks(door)
+    try:
+        # one request warms the programs through HTTP, then the timed stream
+        warm = _http_generate(port, prompts[0], SERVE_NEW)
+        if warm.get("status") != 200:
+            fail(f"frontdoor: the warm request answered {warm}")
+        ticks.update(s=0.0, n=0)
+        occ0 = door.engine.tick_occupancy()
+
+        def healthz():
+            time.sleep(0.05)
+            return _http(port, "GET", "/healthz")
+
+        results, wall, (h_status, h_body) = _http_stream(port, prompts, SERVE_NEW, healthz)
+        num = _door_numbers(results, wall)
+        num["tick_share"] = ticks["s"] / wall
+        num["ticks"] = ticks["n"]
+        occ = door.engine.tick_occupancy()
+        num["tick_occupancy"] = occ
+        res["http"] = num
+        if h_status != 200 or json.loads(h_body)["state"] != "running":
+            fail(f"frontdoor: /healthz answered {h_status} {h_body!r} while running")
+        bad = [r for r in results if r.get("status") != 200 or r["done"] is None]
+        if bad or num["completed"] != len(prompts):
+            fail(f"frontdoor: {len(bad)} requests failed, {num['completed']} of {len(prompts)} "
+                 f"finished eos/budget: {bad[:2]}")
+        got = [list(p) + r["tokens"] for p, r in zip(prompts, results)]
+        equal, ties = _held_to(torch, transformer, params, "frontdoor http", got, golden)
+        num["equal_engine_alone"], num["near_ties"] = equal, len(ties)
+        progs = set(door.engine.compile_stats()["programs"])
+        st = door.engine.compile_stats()
+        graphs = sum(v for k, v in st.items() if k.endswith("_graph_entries"))
+        if progs != alone_programs or graphs != len(progs):
+            fail(f"frontdoor: programs {sorted(progs)} ({graphs} graphs); the engine alone's "
+                 f"{sorted(alone_programs)}")
+        num["programs"] = sorted(str(k) for k in progs)
+        door_stats = door.stats()
+        print(f"frontdoor http: {num['requests']} requests over {DOOR_CLIENTS} HTTP clients: "
+              f"{num['requests_per_s']:.2f} requests/sec, {num['tokens_per_s']:.1f} generated "
+              f"tokens/sec, TTFT p50 {num['ttft_ms']['p50']:.1f} ms, p99 "
+              f"{num['ttft_ms']['p99']:.1f} (client clock), queue age p99 "
+              f"{num['queue_age_ms']['p99']:.1f} ms; beside the engine alone on the same stream "
+              f"{res['engine_alone']['tokens_per_s']:.1f} tokens/sec (TTFT p50 "
+              f"{res['engine_alone']['ttft_ms']['p50']:.1f}, p99 "
+              f"{res['engine_alone']['ttft_ms']['p99']:.1f}) and phase 27's paged engine "
+              f"{engine_res['paged']['warm']['tokens_per_s']:.1f}; shed "
+              f"{sum(door_stats['rejected'].values())}, deadline "
+              f"{door_stats['deadline_exceeded']}, cancelled {door_stats['cancelled']}, restarts "
+              f"{door_stats['watchdog_restarts']}; {equal} of {len(got)} requests' tokens equal "
+              f"the engine alone's (near-ties {ties}); programs {len(progs)} (the engine "
+              f"alone's, one graph each); the engine thread's ticks took {num['tick_share']:.3f} "
+              f"of the stream's wall ({ticks['n']} ticks; the engine's own phases "
+              f"{occ['frac']}, {occ['ticks'] - occ0['ticks']} working ticks); {smi}")
+
+        # the endpoints
+        status, body = _http(port, "GET", "/metrics")
+        text = body.decode()
+        if status != 200 or "znicz_serve_frontdoor_ttft_seconds_bucket" not in text or (
+                "znicz_serve_frontdoor_pending" not in text):
+            fail(f"frontdoor: /metrics answered {status} without the front door's series")
+        status, body = _http(port, "GET", "/debug/programs")
+        body, snap = json.loads(body), ledger.ledger_snapshot()
+        mem = {d["device"]: d["stats"] for d in body["device_memory"]}
+        if status != 200 or [p["key"] for p in body["programs"]] != [
+                p["key"] for p in snap["programs"]] or body["count"] != snap["count"]:
+            fail(f"frontdoor: /debug/programs differs from the ledger ({status})")
+        if not mem.get("cuda:0") or not all(mem["cuda:0"][k] > 0 for k in (
+                "bytes_in_use", "peak_bytes_in_use", "bytes_limit")):
+            fail(f"frontdoor: /debug/programs has no cuda:0 memory: {body['device_memory']}")
+        if ledger.program_count("engine") != n_ledger:
+            fail(f"frontdoor: the door ledgered {ledger.program_count('engine') - n_ledger} new "
+                 f"programs")
+        status, body = _http(port, "POST", "/prefix_probe", {"prompt": prompts[5].tolist()})
+        if status != 200 or json.loads(body) != door.engine.prefix_probe(prompts[5]):
+            fail(f"frontdoor: /prefix_probe answered {status} {body[:200]!r}")
+        status, body = _http(port, "GET", "/slo")
+        slo = json.loads(body)
+        if status != 200 or "ttft" not in slo["targets"]:
+            fail(f"frontdoor: /slo answered {status} {body[:200]!r}")
+        res["endpoints"] = {"device_memory": mem["cuda:0"], "programs": snap["count"],
+                            "slo_breached": slo["breached"]}
+        print(f"frontdoor endpoints: /healthz 200 while running; /metrics carries the "
+              f"znicz_serve_frontdoor_* series; /debug/programs is the ledger ({snap['count']} "
+              f"programs, none new) with cuda:0 in use {mem['cuda:0']['bytes_in_use']}, peak "
+              f"{mem['cuda:0']['peak_bytes_in_use']}, limit {mem['cuda:0']['bytes_limit']} "
+              f"bytes; /prefix_probe equals the engine's; /slo answers (breached "
+              f"{slo['breached']})")
+
+        # the same stream with as many clients as the engine has slots
+        results16, wall16, _ = _http_stream(port, prompts, SERVE_NEW, clients=ENGINE_B)
+        res["http_16_clients"] = _door_numbers(results16, wall16)
+        n16 = res["http_16_clients"]
+        print(f"frontdoor http, {ENGINE_B} clients: {n16['requests_per_s']:.2f} requests/sec, "
+              f"{n16['tokens_per_s']:.1f} generated tokens/sec, TTFT p50 "
+              f"{n16['ttft_ms']['p50']:.1f} ms, p99 {n16['ttft_ms']['p99']:.1f}, queue age p99 "
+              f"{n16['queue_age_ms']['p99']:.1f} ms (the engine alone: "
+              f"{res['engine_alone']['tokens_per_s']:.1f}); {smi}")
+        if n16["completed"] != len(prompts):
+            fail(f"frontdoor http, {ENGINE_B} clients: {n16['completed']} finished")
+
+        # the fleet telemetry: the door's pusher into the aggregator
+        if not door._pusher.push_now():
+            fail("frontdoor: the metrics push to the aggregator failed")
+        agg_port = agg_srv.server_address[1]
+        status, body = _http(agg_port, "GET", f"/metrics?instance={door.instance}")
+        fleet = body.decode()
+        status_i, inst = _http(agg_port, "GET", "/instances")
+        names = [i["instance"] for i in json.loads(inst)["instances"]]
+        if status != 200 or "znicz_serve_frontdoor_latency_seconds_count" not in fleet or (
+                names != [door.instance]):
+            fail(f"frontdoor: the aggregator's /metrics?instance= answered {status} ({names})")
+        print(f"frontdoor fleet: the door's MetricsPusher into an in-process MetricsAggregator: "
+              f"/instances {names}, the fleet /metrics under instance {door.instance} carries "
+              f"the door's series ({len(fleet.splitlines())} lines)")
+
+        # a cancel mid-decode, blocks reclaimed
+        faults.inject("frontdoor.slow_tick", delay=0.02)
+        h = door.submit(prompts[3], SERVE_NEW)
+        next(h.tokens(timeout=300.0))
+        h.cancel()
+        comp = h.result(timeout=300.0)
+        faults.clear("frontdoor.slow_tick")
+        _until_idle(door, "frontdoor cancel")
+        if comp.finish_reason != "cancelled" or not 1 <= comp.n_new < SERVE_NEW or not (
+                _pool_swept(door)):
+            fail(f"frontdoor cancel: {comp.finish_reason}, {comp.n_new} tokens, pool swept "
+                 f"{_pool_swept(door)}")
+        res["cancel"] = {"n_new": comp.n_new}
+        # a deadline expired mid-flight
+        faults.inject("frontdoor.slow_tick", delay=0.05)
+        comp = door.submit(prompts[2], SERVE_NEW, deadline_s=0.25).result(timeout=300.0)
+        faults.clear("frontdoor.slow_tick")
+        _until_idle(door, "frontdoor deadline")
+        if comp.finish_reason != "deadline_exceeded" or not 1 <= comp.n_new < SERVE_NEW or not (
+                _pool_swept(door)):
+            fail(f"frontdoor deadline: {comp.finish_reason}, {comp.n_new} tokens, pool swept "
+                 f"{_pool_swept(door)}")
+        res["deadline"] = {"n_new": comp.n_new}
+        print(f"frontdoor cancel and deadline: a cancel mid-decode after "
+              f"{res['cancel']['n_new']} tokens and a 0.25 s deadline expired after "
+              f"{res['deadline']['n_new']} (slow ticks injected), each typed, the pool swept "
+              f"after each (free == pool)")
+
+        # an engine crash mid-stream: slot residents fail typed, the rest
+        # finish golden on the rebuilt engine, which captures its own graphs
+        dead_engine = door.engine
+        first_ticks = dead_engine.tick_occupancy()["ticks"]
+        del dead_engine
+        handles = [door.submit(prompts[i], SERVE_NEW) for i in range(DOOR_CRASH_N)]
+        next(handles[0].tokens(timeout=300.0))
+        faults.inject("engine.decode_step", exc=RuntimeError("injected engine crash"), times=1)
+        comps = [hd.result(timeout=300.0) for hd in handles]
+        faults.clear("engine.decode_step")
+        errors = [c for c in comps if c.finish_reason == "error"]
+        served = [(i, c) for i, c in enumerate(comps) if c.finish_reason != "error"]
+        if not errors or not served or any("injected engine crash" not in c.error for c in errors):
+            fail(f"frontdoor crash: {len(errors)} typed errors, {len(served)} served: "
+                 f"{[c.finish_reason for c in comps]}")
+        equal_c, ties_c = _held_to(torch, transformer, params, "frontdoor crash",
+                                   [c.tokens.tolist() for _, c in served],
+                                   [golden[i] for i, _ in served])
+        st = door.engine.compile_stats()
+        graphs = sum(v for k, v in st.items() if k.endswith("_graph_entries"))
+        recapture = sum(door.engine.capture_s.values())
+        _until_idle(door, "frontdoor crash")
+        if (door.stats()["watchdog_restarts"] != 1 or len(restarts) != 1 or graphs < 1
+                or graphs != len(st["programs"]) or not _pool_swept(door)):
+            fail(f"frontdoor crash: restarts {door.stats()['watchdog_restarts']}, rebuilds "
+                 f"{restarts}, graphs {graphs} for {len(st['programs'])} programs")
+        if ledger.program_count("engine") != n_ledger:
+            fail("frontdoor crash: the restart ledgered new programs")
+        res["crash"] = {"errors": len(errors), "served": len(served), "equal": equal_c,
+                        "rebuild_s": restarts[0], "recapture_s": recapture,
+                        "graphs": graphs, "dead_engine_ticks": first_ticks}
+        print(f"frontdoor crash: engine.decode_step armed once mid-stream over {DOOR_CRASH_N} "
+              f"requests: {len(errors)} slot residents typed error, {len(served)} re-admitted "
+              f"or finished ({equal_c} equal the engine alone's, near-ties {ties_c}); "
+              f"znicz_serve_watchdog_restarts_total +1; the rebuild {restarts[0]:.3f} s and the "
+              f"new engine's {graphs} captures {recapture:.3f} s; no program ledgered anew; "
+              f"{smi}")
+
+        # /debug/profile under traffic (a process's first capture starts
+        # CUPTI for seconds before its window opens, so the clients keep
+        # posting until it answers); a second capture meanwhile is
+        # refused; a chunk's replay issue time before and after
+        replay["before_capture"] = _replay_costs(torch, alone, key)
+        prof, answered = {}, threading.Event()
+
+        def traffic():
+            while not answered.is_set():
+                _http_generate(port, prompts[1], SERVE_NEW)
+
+        clients = [threading.Thread(target=traffic, daemon=True) for _ in range(DOOR_CLIENTS)]
+        for c in clients:
+            c.start()
+        t = threading.Thread(target=lambda: prof.update(
+            first=_http(port, "POST", f"/debug/profile?seconds={DOOR_PROFILE_S}")))
+        t0 = time.perf_counter()
+        t.start()
+        time.sleep(0.3)
+        prof["second"] = _http(port, "POST", "/debug/profile?seconds=1")
+        t.join(timeout=300)
+        capture_s = time.perf_counter() - t0
+        answered.set()
+        for c in clients:
+            c.join(timeout=300)
+        _until_idle(door, "frontdoor profile")
+        replay["after_capture"] = _replay_costs(torch, alone, key)
+        del alone
+        status, body = prof["first"]
+        out = json.loads(body)
+        with open(os.path.join(out["log_dir"], "trace.json")) as f:
+            events = json.load(f)["traceEvents"]
+        kernels = sum(1 for e in events if e.get("cat") == "kernel")
+        busy = _busy_share(events, out["seconds"])
+        if status != 200 or kernels == 0 or prof["second"][0] != 409:
+            fail(f"frontdoor profile: {status}, {kernels} kernel events, the second capture "
+                 f"answered {prof['second'][0]}")
+        res["profile"] = {"kernel_events": kernels, "events": len(events), "busy_share": busy,
+                          "capture_wall_s": capture_s, "replay": replay}
+        print(f"frontdoor profile: POST /debug/profile?seconds={DOOR_PROFILE_S} during a stream "
+              f"answered 200 with {kernels} CUDA kernel events of {len(events)} (the card ran a "
+              f"kernel in {busy:.3f} of the window); a second capture "
+              f"meanwhile 409; the capture answered after {capture_s:.3f} s; a paged chunk's "
+              f"replay (window {key[3]}) issued in host µs "
+              + ", ".join(f"{k.replace('_', ' ')} {v['host_us']:.1f}" for k, v in replay.items())
+              + " (device µs "
+              + ", ".join(f"{v['device_us']:.1f}" for v in replay.values())
+              + f"); {smi}")
+
+        # close(drain=True) with work in flight
+        handles = [door.submit(prompts[i % len(prompts)], SERVE_NEW)
+                   for i in range(DOOR_DRAIN_N)]
+        next(handles[0].tokens(timeout=300.0))
+        t0 = time.perf_counter()
+        door.close(drain=True, grace_s=DOOR_DRAIN_GRACE_S)
+        close_s = time.perf_counter() - t0
+        comps = [hd.result(timeout=60.0) for hd in handles]
+        reasons = [c.finish_reason for c in comps]
+        finished = [(i, c) for i, c in enumerate(comps) if c.finish_reason in ("eos", "budget")]
+        if any(r not in ("eos", "budget", "shed") for r in reasons):
+            fail(f"frontdoor drain: reasons {reasons}")
+        _held_to(torch, transformer, params, "frontdoor drain",
+                 [c.tokens.tolist() for _, c in finished],
+                 [golden[i % len(prompts)] for i, _ in finished])
+        status, _ = _http(port, "GET", "/healthz")
+        if status != 503:
+            fail(f"frontdoor drain: /healthz answered {status} after close")
+        res["drain"] = {"finished": len(finished), "shed": reasons.count("shed"),
+                        "close_s": close_s}
+        print(f"frontdoor drain: close(drain=True, grace {DOOR_DRAIN_GRACE_S} s) with "
+              f"{DOOR_DRAIN_N} requests in flight returned in {close_s:.3f} s: "
+              f"{len(finished)} finished (their tokens the engine alone's), "
+              f"{reasons.count('shed')} typed shed; /healthz 503 after")
+    finally:
+        faults.clear()
+        TS.shutdown_gracefully(srv, door, grace_s=1.0)
+        srv.server_close()
+        agg_srv.shutdown()
+        agg_srv.server_close()
+    del door
+    torch.cuda.empty_cache()
+
+    # the dense backend through the door
+    def make_dense():
+        return TE.DecodeEngine(params, batch_size=ENGINE_B, **ENGINE)
+
+    short = prompts[:DOOR_DENSE_N]
+    alone = make_dense()
+    ids, _ = _served(alone, short, SERVE_NEW)
+    want = [alone.completions[i].tokens.tolist() for i in ids]
+    del alone
+    with TF.ServingFrontDoor(make_dense, max_pending=DOOR_PENDING) as door:
+        t0 = time.perf_counter()
+        comps = _through_door(door, short, SERVE_NEW)
+        wall = time.perf_counter() - t0
+    equal, ties = _held_to(torch, transformer, params, "frontdoor dense",
+                           [c.tokens.tolist() for c in comps], want)
+    res["dense"] = {"equal": equal, "tokens_per_s": sum(c.n_new for c in comps) / wall}
+    print(f"frontdoor dense: {DOOR_DENSE_N} requests through the door over the dense engine "
+          f"(its first pass, captures included: {res['dense']['tokens_per_s']:.1f} generated "
+          f"tokens/sec): {equal} equal the engine alone's (near-ties {ties})")
+    torch.cuda.empty_cache()
+
+    # speculation through the door on phase 27's repeat-heavy stream
+    spec_prompts = [np.tile(np.asarray(m, np.int32), n // len(m) + 1)[:n]
+                    for m, n in (SPEC_STREAM[j % len(SPEC_STREAM)] for j in range(2 * SPEC_B))]
+
+    def make_spec():
+        return TE.PagedDecodeEngine(params, batch_size=SPEC_B, block_size=SERVE_BLOCK,
+                                    n_blocks=SPEC_B * (256 // SERVE_BLOCK) + 1,
+                                    prefix_cache=False, spec_k=SPEC_K, **ENGINE)
+
+    alone = make_spec()
+    ids, _ = _served(alone, spec_prompts, SERVE_NEW)
+    want = [alone.completions[i].tokens.tolist() for i in ids]
+    alone_spec = alone.spec_stats()
+    del alone
+    # every request queued before the first tick, as in the engine alone
+    with TF.ServingFrontDoor(make_spec, max_pending=DOOR_PENDING, engine_queue_limit=0) as door:
+        handles = [door.submit(p, SERVE_NEW) for p in spec_prompts]
+        door.engine_queue_limit = len(spec_prompts)
+        door._wake.set()
+        comps = [hd.result(timeout=300.0) for hd in handles]
+    drafted = sum(c.timings["spec_drafted"] for c in comps)
+    accepted = sum(c.timings["spec_accepted"] for c in comps)
+    equal, ties = _held_to(torch, transformer, params, "frontdoor spec",
+                           [c.tokens.tolist() for c in comps], want)
+    res["spec"] = {"drafted": drafted, "accepted": accepted,
+                   "acceptance_rate": accepted / max(drafted, 1), "equal": equal,
+                   "engine_alone": {k: alone_spec[k] for k in ("drafted", "accepted")}}
+    print(f"frontdoor spec: spec_k {SPEC_K} on phase 27's repeat-heavy stream through the door: "
+          f"the completions' timings carry {accepted}/{drafted} drafts accepted "
+          f"({res['spec']['acceptance_rate']:.4f}); the engine alone {alone_spec['accepted']}/"
+          f"{alone_spec['drafted']}; {equal} of {len(comps)} requests' tokens equal (near-ties "
+          f"{ties})")
+    if (drafted, accepted) != (alone_spec["drafted"], alone_spec["accepted"]):
+        fail(f"frontdoor spec: the door's drafts {accepted}/{drafted}, the engine alone's "
+             f"{alone_spec['accepted']}/{alone_spec['drafted']}")
+    del params
+    torch.cuda.empty_cache()
+    return res
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -4268,6 +4832,9 @@ def main() -> int:
     t0 = time.perf_counter()
     engine = phase_engine(torch, transformer, model_lib, prng, smi)
     print(f"engine phase: {time.perf_counter() - t0:.1f} s; " + json.dumps(engine))
+    t0 = time.perf_counter()
+    frontdoor = phase_frontdoor(torch, transformer, prng, smi, engine)
+    print(f"frontdoor phase: {time.perf_counter() - t0:.1f} s; " + json.dumps(frontdoor))
 
     kernels = []
     for kname in ("lrn_fwd", "lrn_bwd"):

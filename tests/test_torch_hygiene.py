@@ -52,6 +52,8 @@ def test_package_has_the_slice_modules():
         "observability.anomaly", "loader.prefetch", "workflow.snapshotter",
         "workflow.recovery", "ops.moe", "observability.device", "workflow.generate",
         "services", "services.engine", "services.errors",
+        "observability.aggregate", "observability.collector", "observability.slo",
+        "services.frontdoor", "services.serve",
     ):
         assert f"znicz_tpu_torch.{name}" in mods
 

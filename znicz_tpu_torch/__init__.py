@@ -2,9 +2,10 @@
 
 The JAX package ``znicz_tpu`` is the reference; this package mirrors its
 module paths (``core/``, ``ops/``, ``nn/``, ``loader/``, ``workflow/``,
-``models/``) and keeps its public layouts (NHWC activations, HWIO conv
-weights, ``[n_in, n_out]`` FC weights, a list of per-layer param dicts), so
-the two can be held against each other on the same numpy inputs.
+``models/``, ``services/``, ``observability/``) and keeps its public layouts
+(NHWC activations, HWIO conv weights, ``[n_in, n_out]`` FC weights, a list
+of per-layer param dicts), so the two can be held against each other on the
+same numpy inputs.
 
 It imports ``torch`` and numpy, never ``jax`` nor anything of
 ``znicz_tpu``.  Entry points run on the card unless the caller passes
@@ -12,4 +13,42 @@ It imports ``torch`` and numpy, never ``jax`` nor anything of
 TPU kernels on the ported paths are hand-written for Hopper: wrappers under
 ``ops/kernels/`` (Triton, or CUDA C++ from ``csrc/`` built with nvcc at
 first use), each beside its plain PyTorch version.
+
+The top level exports the JAX package's names, the heavy ones lazily
+(PEP 562), except those of modules still to port: ``Logger`` (ROADMAP.md
+A11), ``DataParallel`` and ``make_mesh`` (A6), ``Ensemble`` and
+``export_model`` (A11).
 """
+
+__version__ = "0.1.0"
+
+from znicz_tpu_torch.core.config import Config, root  # noqa: F401
+
+# Lazy top-level API (PEP 562): keeps torch and the subsystems out of a
+# bare `import znicz_tpu_torch`.
+_LAZY = {
+    "prng": ("znicz_tpu_torch.core", "prng"),
+    "Workflow": ("znicz_tpu_torch.workflow", "Workflow"),
+    "StandardWorkflow": ("znicz_tpu_torch.workflow", "StandardWorkflow"),
+    "KohonenWorkflow": ("znicz_tpu_torch.workflow", "KohonenWorkflow"),
+    "RBMWorkflow": ("znicz_tpu_torch.workflow", "RBMWorkflow"),
+    "TransformerLMWorkflow": ("znicz_tpu_torch.workflow", "TransformerLMWorkflow"),
+    "Snapshotter": ("znicz_tpu_torch.workflow", "Snapshotter"),
+    "FullBatchLoader": ("znicz_tpu_torch.loader", "FullBatchLoader"),
+    "ImageDirectoryLoader": ("znicz_tpu_torch.loader", "ImageDirectoryLoader"),
+}
+
+
+def __getattr__(name):
+    import importlib
+
+    if name in _LAZY:
+        module, attr = _LAZY[name]
+        value = getattr(importlib.import_module(module), attr)
+        globals()[name] = value  # cache: next access is a plain lookup
+        return value
+    raise AttributeError(f"module 'znicz_tpu_torch' has no attribute {name!r}")
+
+
+def __dir__():
+    return sorted(set(list(globals()) + list(_LAZY)))

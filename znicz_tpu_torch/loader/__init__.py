@@ -13,3 +13,5 @@ from znicz_tpu_torch.loader.fullbatch import FullBatchLoader  # noqa: F401
 from znicz_tpu_torch.loader.image import ImageDirectoryLoader  # noqa: F401
 from znicz_tpu_torch.loader.imagenet import ImageNetLoader, pack_image_dir  # noqa: F401
 from znicz_tpu_torch.loader.prefetch import PrefetchProducerError  # noqa: F401
+from znicz_tpu_torch.loader import datasets  # noqa: F401
+from znicz_tpu_torch.loader import normalizers  # noqa: F401

@@ -11,14 +11,29 @@
   timings, the H2D probe and the step-wall decomposition that the JAX
   package's ``tools/znicz-doctor`` reads.
 * **Step anomaly flight recorder** (:mod:`anomaly`).
-* **Program ledger** (:mod:`device`): each program the serving path makes.
+* **Fleet aggregation** (:mod:`aggregate`): a MetricsAggregator that
+  replicas push registry snapshots to, and the MetricsPusher thread.
+* **Fleet tracing** (:mod:`collector`): a TraceCollector that spans push to
+  (TracePusher), merged into one Perfetto-loadable timeline.
+* **Device telemetry** (:mod:`device`): the program ledger behind
+  ``/debug/programs``, the live device memory and on-demand
+  ``torch.profiler`` captures.
+* **SLO monitoring** (:mod:`slo`): rolling-window percentiles and
+  multi-window burn rates over declared targets (``/slo``).
 
-The same public names as the JAX package's, except the fleet half
-(``aggregate``, ``collector``, ``slo``: ROADMAP.md A9) and the device
-memory gauges and profiler capture of ``device`` (ROADMAP.md A11).  Pure
-stdlib at import.
+The same public names as the JAX package's.  Pure stdlib at import.
 """
 
+from znicz_tpu_torch.observability.aggregate import (  # noqa: F401
+    MetricsAggregator,
+    MetricsPusher,
+    build_aggregator_server,
+)
+from znicz_tpu_torch.observability.collector import (  # noqa: F401
+    TraceCollector,
+    TracePusher,
+    build_collector_server,
+)
 from znicz_tpu_torch.observability import device  # noqa: F401
 
 from znicz_tpu_torch.observability.anomaly import (  # noqa: F401
@@ -38,6 +53,11 @@ from znicz_tpu_torch.observability.registry import (  # noqa: F401
     get_registry,
     parse_prometheus_text,
     quantile_from_cumulative,
+)
+from znicz_tpu_torch.observability.slo import (  # noqa: F401
+    DEFAULT_TARGETS,
+    SLOMonitor,
+    SLOTarget,
 )
 from znicz_tpu_torch.observability.tracing import (  # noqa: F401
     Tracer,

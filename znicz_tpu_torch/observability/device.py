@@ -1,8 +1,9 @@
-"""The program ledger: every program the serving path makes, once (the
-ledger half of ``znicz_tpu/observability/device.py``).
+"""Device & compile telemetry: the program ledger behind /debug/programs,
+the live device memory and on-demand profiler captures (port of
+``znicz_tpu/observability/device.py``).
 
-In the port a "program" is what ``workflow.generate.generate_serve`` keeps
-per cache key: on the card a captured CUDA graph of the decode step, on the
+In the port a "program" is what ``workflow.generate.generate_serve`` and
+the serving engines keep per key: on the card a captured CUDA graph, on the
 CPU the same step run eagerly.  Each true first make records one entry:
 its wall time (the capture, or the set-up on the CPU), the optional cost
 and memory figures, and its kind.  The metric names are the JAX package's,
@@ -11,23 +12,51 @@ byte for byte: ``znicz_compile_seconds{kind}`` (histogram),
 ``znicz_program_cost_bytes_total{kind}`` and
 ``znicz_device_memory_bytes{kind,device}``.
 
-The live device-memory gauges (``device_memory``) and the on-demand
-profiler capture (``capture_profile``) are ROADMAP.md A11; so
-:func:`ledger_snapshot` has no ``device_memory`` entry.  Pure stdlib.
+* :func:`device_memory` — one entry a visible CUDA device (``cuda:<i>``)
+  with ``bytes_in_use`` / ``peak_bytes_in_use`` (the caching allocator's
+  ``allocated_bytes.all.current`` / ``.peak``) and ``bytes_limit`` (the
+  card's total memory), which also feed ``znicz_device_memory_bytes
+  {kind=in_use|peak|limit}``; without a card ``{"device": "cpu:0",
+  "stats": null}``, as the JAX package's CPU device answers.
+* :func:`capture_profile` — one bounded ``torch.profiler`` capture (CPU
+  activity, and CUDA activity where a card is present) inside a
+  ``debug/profile`` span, written as a Chrome trace (``trace.json``) into
+  the returned directory, where the JAX package writes a
+  ``jax.profiler`` log directory (``POST /debug/profile``).  On the card
+  a process's first capture spends seconds starting CUPTI before its
+  window opens, and in a process that has captured CUDA graphs torch
+  keeps CUPTI subscribed after the capture (it cannot tear it down safely
+  there): every later graph launch issues slower.
+
+The cost figures (``stage_cost``, ``lowered_cost``, ``compiled_memory``)
+are ROADMAP.md A11.  Pure stdlib at import; torch is imported by the two
+functions above when they run.
 """
 
 from __future__ import annotations
 
+import logging
+import os
+import tempfile
 import threading
 import time
 from collections import OrderedDict
-from typing import Dict, List, Optional
+from typing import Callable, Dict, List, Optional
 
 from znicz_tpu_torch.observability.registry import get_registry
+from znicz_tpu_torch.observability.tracing import span
+
+logger = logging.getLogger(__name__)
 
 _LOCK = threading.Lock()
 # ledger key -> entry dict, insertion (= make) order
 _PROGRAMS: "OrderedDict[str, dict]" = OrderedDict()
+
+# torch.profiler captures are process-global: one at a time
+_PROFILE_LOCK = threading.Lock()
+PROFILE_MAX_SECONDS = 30.0
+# the Chrome trace capture_profile writes into its directory
+PROFILE_TRACE = "trace.json"
 
 
 def _m_compile_seconds():
@@ -130,8 +159,8 @@ def compile_seconds_total() -> float:
 
 
 def ledger_snapshot() -> dict:
-    """The full entry list and the headline counts (the JAX package's
-    ``/debug/programs`` body, without its ``device_memory``)."""
+    """The ``/debug/programs`` body: the full entry list, the headline
+    counts and the live :func:`device_memory`."""
     progs = programs()
     by_kind: Dict[str, int] = {}
     for e in progs:
@@ -142,4 +171,113 @@ def ledger_snapshot() -> dict:
         "engine_count": sum(1 for e in progs if e["source"] == "engine"),
         "by_kind": by_kind,
         "compile_seconds_total": round(sum(e["compile_s"] for e in progs), 6),
+        "device_memory": device_memory(),
     }
+
+
+# -- live device memory -----------------------------------------------------
+
+
+def device_memory() -> List[dict]:
+    """One entry a visible CUDA device, ``{"device": "cuda:<i>", "stats":
+    {...}}``, from the caching allocator's counters and the card's total
+    memory; also refreshes the ``znicz_device_memory_bytes`` gauges.
+    Without a card the list holds ``{"device": "cpu:0", "stats": None}``.
+    Reads host-side counters and one CUDA memory query a device (no stream
+    work), so any thread may call it.  Never raises."""
+    try:
+        import torch
+
+        n = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    except Exception:
+        logger.debug("torch.cuda unavailable", exc_info=True)
+        return [{"device": "cpu:0", "stats": None}]
+    if n == 0:
+        return [{"device": "cpu:0", "stats": None}]
+    out = []
+    gauge = _m_device_memory()
+    for i in range(n):
+        name = f"cuda:{i}"
+        try:
+            ms = torch.cuda.memory_stats(i)
+            stats = {
+                "bytes_in_use": int(ms.get("allocated_bytes.all.current", 0)),
+                "peak_bytes_in_use": int(ms.get("allocated_bytes.all.peak", 0)),
+                "bytes_limit": int(torch.cuda.mem_get_info(i)[1]),
+            }
+        except Exception:
+            logger.debug("memory stats of %s unavailable", name, exc_info=True)
+            stats = None
+        out.append({"device": name, "stats": stats})
+        if stats:
+            for stat_key, gauge_kind in (
+                ("bytes_in_use", "in_use"),
+                ("peak_bytes_in_use", "peak"),
+                ("bytes_limit", "limit"),
+            ):
+                gauge.labels(kind=gauge_kind, device=name).set(float(stats[stat_key]))
+    return out
+
+
+# -- on-demand profiler capture ---------------------------------------------
+
+
+def capture_profile(seconds: float, log_dir: Optional[str] = None, *,
+                    call: Optional[Callable[[Callable[[], object]], object]] = None) -> dict:
+    """One bounded ``torch.profiler`` capture (``POST
+    /debug/profile?seconds=N``): start it (CPU activity, plus CUDA activity
+    where a card is present), sleep ``seconds`` (clamped to
+    ``PROFILE_MAX_SECONDS``), stop, write the Chrome trace
+    (:data:`PROFILE_TRACE`) into the capture directory and return it.  The
+    capture runs inside a ``debug/profile`` host span; the kernels other
+    threads launch meanwhile (the serving engine's) land in the trace.
+    ``call(fn)``, where given, runs the profiler's start and stop where no
+    other thread launches device work (the front door's
+    :meth:`~znicz_tpu_torch.services.frontdoor.ServingFrontDoor.between_ticks`):
+    a process's first start initializes CUPTI for seconds, and hangs if
+    another thread launches CUDA graphs meanwhile.
+
+    Raises ``ValueError`` on a non-finite duration (the HTTP layer answers
+    400), ``RuntimeError`` when a capture is already running (409) or the
+    profiler is unavailable (503)."""
+    s = float(seconds)
+    if s != s or s in (float("inf"), float("-inf")):
+        # NaN slides through min/max clamps (every comparison False)
+        # and time.sleep(nan) raises — reject it at the door
+        raise ValueError(f"want a finite duration; got {seconds!r}")
+    s = min(max(s, 0.01), PROFILE_MAX_SECONDS)
+    if not _PROFILE_LOCK.acquire(blocking=False):
+        raise RuntimeError("a device profile capture is already running")
+    try:
+        try:
+            import torch
+            from torch.profiler import ProfilerActivity, profile
+        except Exception as exc:
+            raise RuntimeError(f"torch profiler unavailable: {exc}") from exc
+        activities = [ProfilerActivity.CPU]
+        if torch.cuda.is_available():
+            activities.append(ProfilerActivity.CUDA)
+        out_dir = log_dir or tempfile.mkdtemp(prefix="znicz-profile-")
+        with span("debug/profile", seconds=s, log_dir=out_dir):
+            prof = profile(activities=activities)
+            try:
+                if call is None:
+                    prof.start()
+                else:
+                    call(prof.start)
+            except Exception as exc:
+                raise RuntimeError(f"torch profiler unavailable: {exc}") from exc
+            try:
+                time.sleep(s)
+            finally:
+                # stopped on the thread that started it: a capture stopped on
+                # another thread crashes the process
+                if call is None:
+                    prof.stop()
+                else:
+                    call(prof.stop)
+        os.makedirs(out_dir, exist_ok=True)
+        prof.export_chrome_trace(os.path.join(out_dir, PROFILE_TRACE))
+        return {"log_dir": out_dir, "seconds": s}
+    finally:
+        _PROFILE_LOCK.release()

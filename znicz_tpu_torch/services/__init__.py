@@ -1,11 +1,14 @@
 """Serving (port of ``znicz_tpu/services``): the continuous-batching decode
-engines over dense and paged KV (:mod:`engine`) and the typed serving
-errors (:mod:`errors`).
+engines over dense and paged KV (:mod:`engine`), the typed serving errors
+(:mod:`errors`), the front door around an engine (:mod:`frontdoor`:
+streaming handles, deadlines, cancellation, load shedding, the watchdog
+restart, graceful shutdown) and the HTTP server (:mod:`serve`:
+``POST /generate``, ``/healthz``, ``/metrics``, ``/slo``, ``/debug/*``,
+``/prefix_probe``).
 
-Not ported yet: the front door, the HTTP server and the fleet telemetry
-around the engine (``frontdoor.py``, ``serve.py``: ROADMAP.md A9), and the
-plotting, image saver, publishing and web status services (ROADMAP.md
-A11).
+Not ported yet: the plotting, image saver, publishing and web status
+services (``StatusWriter``, ``ImageSaver``, ``MarkdownReporter``, the
+plotters: ROADMAP.md A11).
 """
 
 from znicz_tpu_torch.services.engine import (  # noqa: F401
@@ -19,4 +22,8 @@ from znicz_tpu_torch.services.errors import (  # noqa: F401
     RequestTooLargeError,
     SpeculationUnsupportedError,
     retryable,
+)
+from znicz_tpu_torch.services.frontdoor import (  # noqa: F401
+    RequestHandle,
+    ServingFrontDoor,
 )

@@ -2,7 +2,8 @@
 environment (port of ``znicz_tpu/utils/faults.py``, the same point names
 and arming API).
 
-Points fired by the port's host loop and its serving engines:
+Points fired by the port's host loop, its serving engines, the front door
+and the fleet telemetry's pushers:
 
 ========================  ==================================================
 point                     effect when armed
@@ -15,6 +16,15 @@ point                     effect when armed
                           the pool dry (free list and cache), driving the
                           eviction and preemption ladder without filling
                           the pool
+``frontdoor.slow_tick``   sleeps at the top of the engine-thread tick (a
+                          stalled tick: the watchdog-detection path;
+                          also how SLO-breach latency is injected)
+``pusher.push``           raises/sleeps inside a MetricsPusher push (a
+                          dead or slow aggregator: the push failure
+                          path — counted, logged, never propagated)
+``trace_pusher.push``     raises/sleeps inside a TracePusher push (a dead
+                          or slow trace collector: the batch is dropped,
+                          counted and logged, never propagated)
 ``loader.fetch``          fires inside the prefetch producer's timed fetch
                           of one batch (arm with ``delay=`` for a
                           deterministic slow producer: the input-bound
