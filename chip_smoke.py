@@ -283,7 +283,23 @@ exit, no result line) when any phase fails:
     then the dense engine and speculation (``spec_k`` 7 on phase 27's
     repeat-heavy stream, the same draft totals as the engine alone)
     through the door;
-29. the whole script's seconds, the ``kernels`` JSON line (each flash row
+29. the serving cluster (``znicz_tpu_torch/cluster/``) at ``bench.py``'s
+    lm_serve_router settings: two replicas (a front door over a paged engine
+    of the mid LM behind the HTTP server each) and the prefix-affinity
+    router in front of them, in this process; 3 families of a 160-token
+    shared prefix with 16/24/32-token tails, 4 requests each, interleaved,
+    budget 24, greedy, sequential, in three passes on fresh replicas (a warm
+    affinity pass, then affinity and round-robin timed): the fleet's prefix
+    hit rate, the client-clock TTFT, generated tokens/sec, retries, the
+    replicas used and their programs; every request's tokens the engine
+    alone's but for near-ties, each family on one replica under affinity,
+    the affinity hit rate above round-robin's, no program beyond the engine
+    alone's and none ledgered anew; then the failure paths (a refused
+    connect, an engine crash mid-stream spliced golden, a dead replica
+    ejected by the heartbeat and re-admitted, both replicas failing, a
+    saturated fleet), each golden or typed with the pools swept after, and
+    the port's doctor against the router's ``/metrics``;
+30. the whole script's seconds, the ``kernels`` JSON line (each flash row
     with its bf16 times, bound, launches and error beside the f32 ones under
     ``"bf16"``; the f32 flash, Kohonen and RBM rows also with their f32-FMA
     bound and their float64 errors beside the plain version's; the LRN rows
@@ -2566,8 +2582,8 @@ def phase_thread_cost(torch, models, troot, prng, smi):
 HEAL_EPOCHS = 3  # the golden AlexNet runs: 12 train and 3 eval steps
 HEAL_POISON = 5  # the train batch (in fill order) filled with NaN once: epoch 1's second
 HEAL_STOP = 6  # the train step whose lr asks for the stop: mid epoch 1
-# epochs a window of the watch's cost: AlexNet 300 steps (~3 s), the others 400-1,400
-WATCH_EPOCHS = {"alexnet": 60, "kohonen": 2, "mnist_rbm": 2, "mnist": 16}
+# epochs a window of the watch's cost: AlexNet 150 steps (~2 s), the others 200-700
+WATCH_EPOCHS = {"alexnet": 30, "kohonen": 1, "mnist_rbm": 1, "mnist": 8}
 WATCH_TURNS = (True, False, False, True, True, False)  # the watch on / off a window
 TRANSPORT_CALLS = 2000  # calls of each watch transport, in turns
 # deferred against sync: a stop driven by fail_iterations after ~20 epochs (~100 steps)
@@ -3098,7 +3114,7 @@ def phase_self_healing(torch, lrn_kernel, alexnet, models, prng, smi):
 SCAN_IMAGES = 12800  # bench.py's mnist_epoch: 100 train steps of 128
 SCAN_BATCH = 128
 SCAN_EPOCHS = 3  # the runs held bitwise: graph against step dispatch
-SCAN_WINDOW_S = 2.0  # a timed window: whole epochs, at least this long
+SCAN_WINDOW_S = 1.0  # a timed window: whole epochs, at least this long
 SCAN_TURNS = ("graph", "step", "step", "graph", "graph", "step")  # timed windows, in turns
 SCAN_POOL = {"train": 1024, "valid": 128}  # AlexNet's pools: 8 train and 1 eval step
 SCAN_POISON = 150  # the watch row the rollback runs poison: epoch 1's 51st train step
@@ -4731,6 +4747,433 @@ def phase_frontdoor(torch, transformer, prng, smi, engine_res):
     return res
 
 
+# -- the serving cluster (phase 29) ---------------------------------------------
+
+ROUTER_FAMILIES, ROUTER_PER_FAMILY = 3, 4  # bench.py's lm_serve_router
+ROUTER_BUDGET = 24  # bench.py's lm_serve_router budget
+ROUTER_PASSES = ("warm", "prefix_affinity", "round_robin")  # the warm pass is affinity too
+
+
+def _router_prompts():
+    """bench.py's lm_serve_router stream: 3 families of a 160-token shared
+    prefix, tails of 16/24/32 tokens, 4 requests a family, interleaved."""
+    import numpy as np
+
+    gen = np.random.default_rng(14)
+    families = [gen.integers(1, LM_MID["vocab"], (PREFIX_SYS,)).astype(np.int32)
+                for _ in range(ROUTER_FAMILIES)]
+    return [np.concatenate([families[f], gen.integers(1, LM_MID["vocab"], (16 + 8 * f,)).astype(
+        np.int32)]) for _ in range(ROUTER_PER_FAMILY) for f in range(ROUTER_FAMILIES)]
+
+
+class _Cluster:
+    """Two replicas (a front door over its own paged engine behind the HTTP
+    server each) and the router in front of them, in this process, as
+    bench.py's ``run_policy`` builds them; :meth:`close` stops every server,
+    engine thread and the heartbeat.
+
+    Before the router exists each fresh replica serves one request of its
+    own, ``warm``, straight to its server: a replica's programs are CUDA
+    graphs of its own engine, captured at their first call, where the JAX
+    package's compiled programs are shared by the process, so bench.py's
+    warm pass warms JAX's fresh replicas and not these.  Built after it,
+    the router's heartbeat cannot catch a replica inside that request (a
+    probe's load reading stays until the next one, 2 s later)."""
+
+    def __init__(self, make, policy, warm):
+        import threading
+
+        from znicz_tpu_torch.cluster import ServingRouter, build_router_server
+        from znicz_tpu_torch.services import frontdoor as TF, serve as TS
+
+        self._threading, self._TS = threading, TS
+        self.site = os.path.join(WORK_DIR, "cluster")
+        os.makedirs(self.site, exist_ok=True)
+        self.doors, self.srvs, self.router, self.rsrv = [], [], None, None
+        try:
+            for _ in range(2):
+                self.doors.append(TF.ServingFrontDoor(
+                    make, max_pending=2 * ROUTER_FAMILIES * ROUTER_PER_FAMILY))
+                self.srvs.append(self._serve(self.doors[-1]))
+            for srv, door in zip(self.srvs, self.doors):
+                r = _http_generate(srv.server_address[1], warm, ROUTER_BUDGET)
+                if r.get("status") != 200 or r["done"] is None:
+                    fail(f"cluster: a replica's own warm request answered {r}")
+                _until_idle(door, "cluster warm-up")
+            self.router = ServingRouter(block_size=SERVE_BLOCK, policy=policy)
+            for i, srv in enumerate(self.srvs):
+                self.router.register(f"replica-{i}", f"http://127.0.0.1:{srv.server_address[1]}")
+            self.rsrv = build_router_server(self.router, port=0)
+            threading.Thread(target=self.rsrv.serve_forever, daemon=True).start()
+        except BaseException:
+            self.close()
+            raise
+        self.port = self.rsrv.server_address[1]
+
+    def _serve(self, door, port=0):
+        srv = self._TS.build_server(directory=self.site, port=port, frontdoor=door)
+        self._threading.Thread(target=srv.serve_forever, daemon=True).start()
+        return srv
+
+    def kill(self, i):
+        self.srvs[i].shutdown()
+        self.srvs[i].server_close()
+        self.srvs[i] = None
+
+    def revive(self, i, port):
+        """A new server for replica ``i``'s door (the same engine) on ``port``."""
+        self.srvs[i] = self._serve(self.doors[i], port)
+
+    def settle(self, label, timeout=120.0):
+        """Wait until neither door has work nor is between a crashed engine
+        and its rebuilt one, then check both pools swept."""
+        deadline = time.monotonic() + timeout
+        for door in self.doors:
+            while door.engine is None:
+                if time.monotonic() > deadline:
+                    fail(f"{label}: a door has no engine after {timeout} s")
+                time.sleep(0.005)
+            _until_idle(door, label)
+        if not all(_pool_swept(d) for d in self.doors):
+            fail(f"{label}: a pool is not swept: "
+                 f"{[d.engine.stats()['pool_blocks_free'] for d in self.doors]} free")
+
+    def close(self):
+        for srv in self.srvs + [self.rsrv]:
+            if srv is not None:
+                srv.shutdown()
+                srv.server_close()
+        for door in self.doors:
+            door.close(grace_s=10.0)
+        if self.router is not None:
+            self.router.close()
+
+
+def _cluster_pass(torch, transformer, params, cluster, prompts, golden, label):
+    """The stream through the router, one request after another: the
+    numbers of bench.py's run_policy, each request's tokens held to the
+    engine alone's, and the placement; the replicas' own warm requests are
+    taken off their prefix-cache tallies."""
+    base = [door.engine.stats()["prefix_cache"] for door in cluster.doors]
+    t0 = time.perf_counter()
+    results = [_http_generate(cluster.port, p, ROUTER_BUDGET) for p in prompts]
+    wall = time.perf_counter() - t0
+    bad = [r for r in results if r.get("status") != 200 or r["done"] is None
+           or r["done"]["finish_reason"] not in ("eos", "budget")]
+    if bad:
+        fail(f"cluster {label}: {len(bad)} of {len(results)} requests failed: {bad[:2]}")
+    equal, ties = _held_to(torch, transformer, params, f"cluster {label}",
+                           [list(p) + r["tokens"] for p, r in zip(prompts, results)], golden)
+    hits = sum(d.engine.stats()["prefix_cache"]["hits"] - b["hits"]
+               for d, b in zip(cluster.doors, base))
+    misses = sum(d.engine.stats()["prefix_cache"]["misses"] - b["misses"]
+                 for d, b in zip(cluster.doors, base))
+    placed = [r["done"]["router"]["replica"] for r in results]
+    ttft = [r["ttft_s"] * 1e3 for r in results]
+    # a request whose prompt blocks its replica had cached (1 prefill chunk
+    # of 32 tokens) against one that prefilled them all (6)
+    warm = [r["done"]["timings"]["cached_tokens"] > 0 for r in results]
+    split = {k: statistics.fmean([t for t, w in zip(ttft, warm) if w == (k == "warm")])
+             for k in ("cold", "warm") if (k == "warm") in warm}
+    programs = [set(d.engine.compile_stats()["programs"]) for d in cluster.doors]
+    graphs = [sum(v for k, v in d.engine.compile_stats().items() if k.endswith("_graph_entries"))
+              for d in cluster.doors]
+    return {"completed": len(results) - len(bad), "wall_s": wall,
+            "tokens": sum(len(r["tokens"]) for r in results),
+            "tokens_per_s": sum(len(r["tokens"]) for r in results) / wall,
+            "hits": hits, "misses": misses, "hit_rate": hits / max(hits + misses, 1),
+            "ttft_ms": {"mean": statistics.fmean(ttft), "each": ttft, **split,
+                        "n_warm": sum(warm)},
+            "retries": sum(r["done"]["router"]["retries"] for r in results),
+            "placed": placed, "replicas_used": len(set(placed)),
+            "affinity_blocks": [r["done"]["router"]["affinity_blocks"] for r in results],
+            "equal": equal, "near_ties": ties, "programs": programs,
+            "programs_per_replica": [len(p) for p in programs], "graphs": graphs}
+
+
+def phase_cluster(torch, transformer, prng, smi, context):
+    """Phase 29: the serving cluster (``znicz_tpu_torch/cluster/``) at
+    ``bench.py``'s lm_serve_router settings: the mid LM (weights from seed
+    95, a position table of 384), two replicas of a paged engine (16 slots,
+    block 32, ``admit_every`` 8, EOS 0, greedy) behind front doors and HTTP
+    servers, the router in front, bound to port 0; the stream of
+    :func:`_router_prompts` at budget 24, sequential, in three passes on
+    fresh replicas; then the failure paths on the card and the doctor.
+    ``context`` says what ran before in this process (a ``torch.profiler``
+    session leaves CUPTI subscribed, which slows every graph replay's
+    issue)."""
+    import contextlib
+    import io
+
+    import numpy as np
+
+    from znicz_tpu_torch import observability as tobs
+    from znicz_tpu_torch.observability import device as ledger
+    from znicz_tpu_torch.observability import doctor
+    from znicz_tpu_torch.services import engine as TE
+    from znicz_tpu_torch.services import serve as TS
+    from znicz_tpu_torch.utils import faults
+
+    _f32_exact(torch)
+    # the router's /metrics is this process's registry: start it from zero,
+    # as a router process of its own would
+    tobs.get_registry().reset()
+    TS.StatusRequestHandler.log_message = lambda *args: None
+    prng.seed_all(95)
+    params = transformer.init_lm_params(LM_MID["vocab"], LM_MID["d_model"], LM_MID["n_layers"],
+                                        LM_MID["n_heads"], ENGINE_T, device="cuda")
+    prompts = _router_prompts()
+    fam = [j % ROUTER_FAMILIES for j in range(len(prompts))]
+    # each fresh replica's own warm request: the stream's lengths, no block of it
+    warm = np.random.default_rng(15).integers(1, LM_MID["vocab"], (PREFIX_SYS + 16,)).astype(
+        np.int32)
+
+    def make():
+        return TE.PagedDecodeEngine(params, batch_size=ENGINE_B, block_size=SERVE_BLOCK,
+                                    **{**ENGINE, "max_seq": ENGINE_T})
+
+    # the goldens: the engine alone, one request after another, as a
+    # replica serves them
+    alone = make()
+    golden = []
+    for p in prompts:
+        (rid,), _ = _served(alone, [p], ROUTER_BUDGET)
+        golden.append(alone.completions[rid].tokens.tolist())
+    alone_programs = set(alone.compile_stats()["programs"])
+    del alone
+    n_ledger = ledger.program_count("engine")
+    res = {"context": context}
+
+    def owned(label, cluster):
+        for door in cluster.doors:
+            st = door.engine.compile_stats()
+            progs = set(st["programs"])
+            graphs = sum(v for k, v in st.items() if k.endswith("_graph_entries"))
+            if not progs <= alone_programs or graphs != len(progs):
+                fail(f"cluster {label}: programs {sorted(progs)} ({graphs} graphs) beyond the "
+                     f"engine alone's {sorted(alone_programs)}")
+        if ledger.program_count("engine") != n_ledger:
+            fail(f"cluster {label}: {ledger.program_count('engine') - n_ledger} programs "
+                 f"ledgered anew")
+
+    for name in ROUTER_PASSES:
+        cluster = _Cluster(make, "prefix_affinity" if name == "warm" else name, warm)
+        try:
+            num = _cluster_pass(torch, transformer, params, cluster, prompts, golden, name)
+            owned(name, cluster)
+            if name == "prefix_affinity":
+                failures = _cluster_failures(torch, transformer, params, cluster, prompts,
+                                             golden, faults, owned, smi)
+                status, text = _http(cluster.port, "GET", "/metrics")
+                url = f"http://127.0.0.1:{cluster.port}/metrics"
+                rcs, outs = [], []
+                for argv in ([url], [url, "--json"]):
+                    out = io.StringIO()
+                    with contextlib.redirect_stdout(out):
+                        rcs.append(doctor.main(argv))
+                    outs.append(out.getvalue())
+        finally:
+            cluster.close()
+        if name != "warm" and num["retries"]:
+            fail(f"cluster {name}: {num['retries']} retries in a clean pass")
+        res[name] = {k: v for k, v in num.items() if k != "programs"}
+    aff, rr = res["prefix_affinity"], res["round_robin"]
+    for f in range(ROUTER_FAMILIES):
+        where = {aff["placed"][j] for j in range(len(prompts)) if fam[j] == f}
+        if len(where) != 1:
+            fail(f"cluster prefix_affinity: family {f} landed on {sorted(where)}")
+    if not aff["hit_rate"] > rr["hit_rate"]:
+        fail(f"cluster: affinity hit rate {aff['hit_rate']:.4f} not above round-robin's "
+             f"{rr['hit_rate']:.4f}")
+    ratio = aff["ttft_ms"]["mean"] / rr["ttft_ms"]["mean"]
+    res["ttft_vs_roundrobin"] = ratio
+    for name in ROUTER_PASSES:
+        n = res[name]
+        print(f"cluster {name} ({context}): {n['completed']}/{len(prompts)} requests over 2 "
+              f"replicas, one after another: prefix hit rate {n['hit_rate']:.4f} ({n['hits']} "
+              f"of {n['hits'] + n['misses']} blocks), mean TTFT {n['ttft_ms']['mean']:.2f} ms "
+              f"(client clock; each "
+              f"{[round(v, 1) for v in n['ttft_ms']['each']]}; cold "
+              f"{n['ttft_ms'].get('cold', float('nan')):.2f}, warm "
+              f"{n['ttft_ms'].get('warm', float('nan')):.2f} over {n['ttft_ms']['n_warm']} warm), "
+              f"{n['tokens_per_s']:.1f} "
+              f"generated tokens/sec ({n['tokens']} in {n['wall_s']:.3f} s), retries "
+              f"{n['retries']}, replicas used {n['replicas_used']} ({n['placed']}), affinity "
+              f"blocks {n['affinity_blocks']}, programs per replica "
+              f"{n['programs_per_replica']} (graphs {n['graphs']}; the engine alone's "
+              f"{len(alone_programs)}, none ledgered anew); {n['equal']} of {len(prompts)} "
+              f"equal the engine alone's (near-ties {n['near_ties']}); {smi}")
+    print(f"cluster ({context}): affinity hit rate {aff['hit_rate']:.4f} vs round-robin "
+          f"{rr['hit_rate']:.4f}; mean TTFT affinity {aff['ttft_ms']['mean']:.2f} ms vs "
+          f"round-robin {rr['ttft_ms']['mean']:.2f} ms: ratio {ratio:.4f}; {smi}")
+    res["failures"] = failures
+    report = json.loads(outs[1]) if rcs[1] == 0 else None
+    if status != 200 or "znicz_router_requests_total" not in text.decode() or rcs != [0, 0] or (
+            report is None or report["verdict"] != "no-data"):
+        fail(f"cluster doctor: /metrics {status}, the doctor answered {rcs}: {outs}")
+    res["doctor"] = {"rc": rcs, "verdict": report["verdict"]}
+    print(f"cluster doctor: python -m znicz_tpu_torch.observability.doctor {url} answered "
+          f"{rcs[0]} ({outs[0].splitlines()[0]}), with --json {rcs[1]} and a JSON object "
+          f"(verdict {report['verdict']}, anomalies active {report['anomalies']['active']})")
+    del params
+    torch.cuda.empty_cache()
+    return res
+
+
+def _cluster_failures(torch, transformer, params, cluster, prompts, golden, faults, owned, smi):
+    """The failure paths through the router on the card, each ending golden
+    or typed, the pools swept after it."""
+    import gc
+    import http.client
+
+    from znicz_tpu_torch.services.engine import prefix_block_keys
+    from znicz_tpu_torch.services.errors import RejectedError
+
+    out = {}
+    router, reg = cluster.router, cluster.router.registry
+
+    def served(label, j, *, retries, replica=None):
+        t0 = time.perf_counter()
+        r = _http_generate(cluster.port, prompts[j], ROUTER_BUDGET)
+        r["wall_s"] = time.perf_counter() - t0
+        if r.get("status") != 200 or r["done"] is None or (
+                r["done"]["finish_reason"] not in ("eos", "budget")):
+            fail(f"cluster {label}: {r}")
+        if r["done"]["router"]["retries"] != retries or (
+                replica is not None and r["done"]["router"]["replica"] != replica):
+            fail(f"cluster {label}: router {r['done']['router']}, want {retries} retries"
+                 + (f" on {replica}" if replica else ""))
+        equal, ties = _held_to(torch, transformer, params, f"cluster {label}",
+                               [list(prompts[j]) + r["tokens"]], [golden[j]])
+        r["spliced_differs"] = 1 - equal
+        r["near_ties"] = ties
+        cluster.settle(f"cluster {label}")
+        return r
+
+    # a refused connect: the next-best replica serves
+    faults.inject("router.connect", times=1)
+    r = served("connect", 0, retries=1)
+    out["connect"] = {"wall_s": r["wall_s"], "ttft_s": r["ttft_s"]}
+
+    # a replica's engine crashes after its first decode chunk streamed: its
+    # typed error is re-routed, the other replica recomputes the delivered
+    # prefix, which the router skips unread
+    base = served("crash baseline", 1, retries=0)
+    collect, collects = gc.collect, []
+
+    def timed_collect(*args):
+        # the restart's full collection holds the interpreter lock: with
+        # both replicas and the router in this process it stalls them all
+        t0 = time.perf_counter()
+        try:
+            return collect(*args)
+        finally:
+            collects.append((time.perf_counter() - t0) * 1e3)
+
+    faults.inject("engine.decode_step", exc=RuntimeError("injected replica crash"), after=1,
+                  times=1)
+    gc.collect = timed_collect
+    try:
+        r = served("crash", 1, retries=1)
+    finally:
+        gc.collect = collect
+        faults.clear("engine.decode_step")
+    restarts = sorted(d.stats()["watchdog_restarts"] for d in cluster.doors)
+    if restarts != [0, 1]:
+        fail(f"cluster crash: watchdog restarts {restarts}")
+    owned("crash", cluster)
+    out["crash"] = {"wall_s": r["wall_s"], "baseline_wall_s": base["wall_s"],
+                    "spliced_differs": r["spliced_differs"], "near_ties": r["near_ties"],
+                    "replica": r["done"]["router"]["replica"],
+                    "restarts": restarts, "gc_collect_ms": collects}
+
+    # one replica's server shut down: the heartbeat ejects it, its family
+    # routes to the other, a new server on the same engine is re-admitted
+    j = 2
+    home = router.rank(prefix_block_keys(prompts[j], SERVE_BLOCK))[0][0].instance
+    i = int(home.split("-")[1])
+    port = int(reg.get(home).port)
+    cluster.kill(i)
+    states = [reg.probe_all()[home] for _ in range(reg.dead_after)]
+    if states[-1] != "dead" or router.affinity.stats()["keys_per_replica"].get(home):
+        fail(f"cluster eject: {home} went {states}; affinity {router.affinity.stats()}")
+    other = f"replica-{1 - i}"
+    r = served("ejected", j, retries=0, replica=other)
+    cluster.revive(i, port)
+    back = reg.probe_all()[home]
+    if back != "healthy" or reg.get(home).readmissions != 1:
+        fail(f"cluster readmit: {home} {back}, readmissions {reg.get(home).readmissions}")
+    out["eject"] = {"replica": home, "states": states, "served_by": other, "readmitted": back,
+                    "wall_s": r["wall_s"]}
+    served("readmitted", j + ROUTER_FAMILIES, retries=0)
+
+    # both replicas failing mid-stream: a typed error done record, no hang
+    faults.inject("router.stream")
+    t0 = time.perf_counter()
+    r = _http_generate(cluster.port, prompts[3], ROUTER_BUDGET)
+    dead_s = time.perf_counter() - t0
+    faults.clear("router.stream")
+    if r.get("status") != 200 or r["done"] is None or r["done"]["finish_reason"] != "error":
+        fail(f"cluster both failing: {r}")
+    cluster.settle("cluster both failing")
+    out["both_failing"] = {"finish_reason": "error", "wall_s": dead_s,
+                           "error": r["done"]["error"][:120]}
+
+    # a saturated fleet: every replica sheds, the router answers 503
+    for door in cluster.doors:
+        door.max_pending = 1
+    faults.inject("frontdoor.slow_tick", delay=0.5)
+    parked = []  # (stream index, handle): the stream's prompts keep to its programs
+    try:
+        time.sleep(0.1)  # both engine threads inside a sleeping tick
+        for door in cluster.doors:
+            for k in range(3):
+                try:
+                    parked.append((k, door.submit(prompts[k], ROUTER_BUDGET)))
+                except RejectedError:
+                    break
+                if len(door._pending) >= door.max_pending:
+                    break
+        conn = http.client.HTTPConnection("127.0.0.1", cluster.port, timeout=300)
+        try:
+            conn.request("POST", "/generate", body=json.dumps(
+                {"prompt": prompts[4].tolist(), "max_new_tokens": ROUTER_BUDGET}))
+            resp = conn.getresponse()
+            status, retry_after, body = resp.status, resp.getheader("Retry-After"), resp.read()
+        finally:
+            conn.close()
+    finally:
+        faults.clear("frontdoor.slow_tick")
+    comps = [(k, h.result(timeout=300.0)) for k, h in parked]
+    body = json.loads(body)
+    if status != 503 or body.get("reason") != "fleet_saturated" or retry_after is None or any(
+            c.finish_reason not in ("eos", "budget") for _, c in comps):
+        fail(f"cluster saturated: {status} {body} Retry-After {retry_after}; parked "
+             f"{[c.finish_reason for _, c in comps]}")
+    _held_to(torch, transformer, params, "cluster parked", [c.tokens.tolist() for _, c in comps],
+             [golden[k] for k, _ in comps])
+    for door in cluster.doors:
+        door.max_pending = 2 * ROUTER_FAMILIES * ROUTER_PER_FAMILY
+    cluster.settle("cluster saturated")
+    owned("failure paths", cluster)
+    out["saturated"] = {"status": status, "reason": body["reason"], "retry_after": retry_after,
+                        "parked": len(parked)}
+    print(f"cluster failure paths: router.connect armed once: served golden after 1 retry "
+          f"({out['connect']['wall_s'] * 1e3:.1f} ms); engine.decode_step armed after one "
+          f"chunk on the serving replica: re-routed to {out['crash']['replica']}, the delivered "
+          f"prefix skipped, the client's stream "
+          f"{'the golden' if not out['crash']['spliced_differs'] else 'off the golden'} "
+          f"(near-ties {out['crash']['near_ties']}) in {out['crash']['wall_s'] * 1e3:.1f} ms "
+          f"against {out['crash']['baseline_wall_s'] * 1e3:.1f} ms uninterrupted, watchdog "
+          f"restarts {restarts} (the restart's gc.collect "
+          f"{[round(v, 1) for v in collects]} ms, the interpreter lock held); {home}'s server shut down: the heartbeat saw {states}, its "
+          f"family served golden by {other}, a new server on the same engine re-admitted "
+          f"({back}); both replicas failing: a typed error done record in {dead_s:.3f} s; a "
+          f"saturated fleet: {status} fleet_saturated with Retry-After {retry_after}, "
+          f"{len(parked)} parked requests finished golden; the pools swept after each; {smi}")
+    return out
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -4835,6 +5278,10 @@ def main() -> int:
     t0 = time.perf_counter()
     frontdoor = phase_frontdoor(torch, transformer, prng, smi, engine)
     print(f"frontdoor phase: {time.perf_counter() - t0:.1f} s; " + json.dumps(frontdoor))
+    t0 = time.perf_counter()
+    cluster = phase_cluster(torch, transformer, prng, smi,
+                            "after phases 22 and 28's profiler sessions")
+    print(f"cluster phase: {time.perf_counter() - t0:.1f} s; " + json.dumps(cluster))
 
     kernels = []
     for kname in ("lrn_fwd", "lrn_bwd"):

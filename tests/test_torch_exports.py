@@ -45,7 +45,6 @@ WAITING = {
 # the port's sources as they are (ROADMAP.md A11); ``ops/pallas`` holds the
 # TPU kernels, whose Hopper kernels live under ``ops/kernels``.
 WAITING_PACKAGES = {
-    "cluster": "A14",
     "parallel": "A6",
     "ensemble": "A11",
     "genetics": "A11",

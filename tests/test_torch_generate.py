@@ -138,6 +138,18 @@ def test_greedy_generate_matches_full_reforward_and_jax():
     np.testing.assert_array_equal(out, ref)
 
 
+def test_ids_outside_the_vocab_read_the_rows_jax_clamps_to():
+    jp, tp, tokens = _setup()
+    prompt = tokens[:, :6].copy()
+    prompt[0, 1], prompt[1, 0], prompt[1, 4], prompt[2, 2] = 17, -1, 40, -30
+    out = G.generate(tp, prompt, n_heads=HEADS, max_new_tokens=6).numpy()
+    ref = np.asarray(JG.generate(jp, jnp.asarray(prompt), n_heads=HEADS, max_new_tokens=6))
+    np.testing.assert_array_equal(out, ref)
+    logits = lm_apply(tp, _lt(prompt), n_heads=HEADS).numpy()
+    want = np.asarray(japply(jp, jnp.asarray(prompt), n_heads=HEADS))
+    np.testing.assert_allclose(logits, want, rtol=RTOL, atol=ATOL)
+
+
 def test_temperature_sampling_reproducible_and_in_vocab():
     _, tp, tokens = _setup()
     kw = dict(n_heads=HEADS, max_new_tokens=6, temperature=0.8)

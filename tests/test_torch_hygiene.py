@@ -53,7 +53,8 @@ def test_package_has_the_slice_modules():
         "workflow.recovery", "ops.moe", "observability.device", "workflow.generate",
         "services", "services.engine", "services.errors",
         "observability.aggregate", "observability.collector", "observability.slo",
-        "services.frontdoor", "services.serve",
+        "services.frontdoor", "services.serve", "cluster", "cluster.affinity",
+        "cluster.registry", "cluster.router", "cluster.proxy", "observability.doctor",
     ):
         assert f"znicz_tpu_torch.{name}" in mods
 

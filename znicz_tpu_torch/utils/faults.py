@@ -2,8 +2,8 @@
 environment (port of ``znicz_tpu/utils/faults.py``, the same point names
 and arming API).
 
-Points fired by the port's host loop, its serving engines, the front door
-and the fleet telemetry's pushers:
+Points fired by the port's host loop, its serving engines, the front door,
+the fleet telemetry's pushers and the cluster router:
 
 ========================  ==================================================
 point                     effect when armed
@@ -25,6 +25,18 @@ point                     effect when armed
 ``trace_pusher.push``     raises/sleeps inside a TracePusher push (a dead
                           or slow trace collector: the batch is dropped,
                           counted and logged, never propagated)
+``router.connect``        raises as the cluster router opens a replica
+                          connection (replica connect refused: the
+                          route-to-next-best failover path)
+``router.stream``         raises as the router reads one record of a
+                          replica's token stream (mid-stream replica
+                          death: the skip-prefix re-route path; arm
+                          with ``after=k`` to let k records through
+                          first)
+``router.heartbeat``      raises inside a registry heartbeat probe
+                          (heartbeat timeout: the ejection /
+                          re-admission ladder without killing a real
+                          server)
 ``loader.fetch``          fires inside the prefetch producer's timed fetch
                           of one batch (arm with ``delay=`` for a
                           deterministic slow producer: the input-bound

@@ -51,7 +51,7 @@ from znicz_tpu_torch import observability
 from znicz_tpu_torch.observability import device as device_telemetry
 from znicz_tpu_torch.ops.attention import masked_attention, paged_attention
 from znicz_tpu_torch.ops.normalization import layer_norm
-from znicz_tpu_torch.workflow.transformer import _block_ffn
+from znicz_tpu_torch.workflow.transformer import _block_ffn, _token_rows
 from znicz_tpu_torch.workflow.workflow import _fetch_async
 
 # steps between issuing the all-rows-done flag's copy and reading it
@@ -127,9 +127,9 @@ def _embed_at(embed, tokens, offset, start=None):
     if start is None:
         first = _clamp(offset, 0, n_pos - tq)  # as dynamic_slice_in_dim
         pos = embed["pos"].index_select(0, _positions(first, tq, tokens.device))
-        return embed["embed"][tokens] + pos[None, :, :]
+        return _token_rows(embed, tokens) + pos[None, :, :]
     rel = _positions(offset, tq, tokens.device)[None, :] - start[:, None]
-    return embed["embed"][tokens] + embed["pos"][rel.clamp(0, n_pos - 1)]
+    return _token_rows(embed, tokens) + embed["pos"][rel.clamp(0, n_pos - 1)]
 
 
 def prefill(params, tokens, caches, *, n_heads, start=None, moe_top_k=1, moe_dispatch="dense"):
@@ -317,7 +317,7 @@ def _embed_rows(embed, token, pos, start=None):
         pos = pos[:, None]
     rel = pos if start is None else pos - start[:, None]
     rel = rel.long().clamp(0, embed["pos"].shape[0] - 1)
-    return embed["embed"][token.long()] + embed["pos"][rel]
+    return _token_rows(embed, token) + embed["pos"][rel]
 
 
 def paged_verify_chunk(

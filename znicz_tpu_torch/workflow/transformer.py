@@ -110,9 +110,18 @@ def init_lm_params(
     return params
 
 
+def _token_rows(embed, tokens):
+    """Token embedding rows.  An id outside the vocab reads the nearest row
+    (a negative one wraps first, as in numpy), as JAX's gather clamps: a
+    client's bad id must not raise on the engine thread, nor index out of
+    bounds on the card."""
+    v = embed["embed"].shape[0]
+    return embed["embed"][tokens.long().clamp(-v, v - 1)]
+
+
 def _embed_tokens(embed, tokens):
     t = tokens.shape[1]
-    return embed["embed"][tokens] + embed["pos"][:t][None, :, :]
+    return _token_rows(embed, tokens) + embed["pos"][:t][None, :, :]
 
 
 # MoE param names in the block's flat dict -> ops/moe's schema (the JAX
