@@ -299,7 +299,33 @@ exit, no result line) when any phase fails:
     ejected by the heartbeat and re-admitted, both replicas failing, a
     saturated fleet), each golden or typed with the pools swept after, and
     the port's doctor against the router's ``/metrics``;
-30. the whole script's seconds, the ``kernels`` JSON line (each flash row
+30. data parallelism (``znicz_tpu_torch/parallel/``), cuDNN deterministic:
+    30a. one NCCL rank (``multihost.initialize`` at a free localhost port,
+    ``DataParallel(make_mesh())``, the group destroyed after): AlexNet at
+    phase 4's geometry (10 train steps), the SOM and the RBM (configs[4]
+    and configs[2], one epoch of 20 train steps through their kernels and
+    psum rules) and the mid LM at full width (f32 flash, lr 0.001, 3 train
+    steps), each against the same run without the policy from one seed:
+    the params bitwise equal (the LM within 1e-6 of max |param|: its
+    embedding's backward adds with atomics) and the same kernel launches;
+    ms a step with and without the policy in turns (AlexNet median of 10,
+    the LM of 3); MNIST at ``bench.py``'s ``mnist_epoch`` shape through
+    the graph dispatch bitwise its step dispatch under the policy, a
+    fresh run's first and second epoch traced: c10d's all-reduce called 6
+    times in the first (2 in the eager warm-up step, 2 in the capture, 2
+    at the epoch's end) and 2 in the second (its replays call none; a
+    one-rank all-reduce in place launches no device work);
+    30b. two ranks on the one card over gloo (this script started twice
+    with ``--dp-rank``, each wait with its own timeout): the MNIST MLP (784
+    -> 100 -> 10, global batch 100, 3 epochs) against one process on the
+    card (loss within 1e-4 relative, n_err within 1), a snapshot from rank
+    0 only; the SOM's weights within 1e-5 of one process's; the RBM's
+    two-rank update against the one built here from the two shards' kernel
+    statistics with seeds 2s and 2s + 1, summed (within 1e-5); a
+    pool-sharded resident FullBatch pool with half the rows' bytes on each
+    rank's card and an epoch trained; ``epoch_dispatch="scan"`` refused
+    under gloo on the card;
+31. the whole script's seconds, the ``kernels`` JSON line (each flash row
     with its bf16 times, bound, launches and error beside the f32 ones under
     ``"bf16"``; the f32 flash, Kohonen and RBM rows also with their f32-FMA
     bound and their float64 errors beside the plain version's; the LRN rows
@@ -309,7 +335,9 @@ exit, no result line) when any phase fails:
     ``"self_healing"``; every row with the launches that phase 22's traces
     read from the graph dispatch's replayed epochs under ``"scan"``; each
     flash row with the MoE epochs' launches of phase 23 and the traced ones
-    of phase 24 under ``"moe"``), then the result line.
+    of phase 24 under ``"moe"``; every row with phase 30's one-NCCL-rank
+    launches under ``"dp"``, the Kohonen and RBM rows with each gloo
+    rank's), then the result line.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``.
 """
@@ -5174,6 +5202,432 @@ def _cluster_failures(torch, transformer, params, cluster, prompts, golden, faul
     return out
 
 
+# -- phase 30: data parallelism -------------------------------------------------
+
+DP_STEPS = 10  # AlexNet train steps with and without the policy, held bitwise
+DP_LM_STEPS = 3  # the mid LM's train steps, held within DP_LM_TOL
+DP_LM_TOL = 1e-6  # of max |param|: the embedding's backward adds with atomics
+DP_TIMED = 10  # timed steps a turn (after 2 warm-up), AlexNet
+DP_TURNS = ("plain", "dp", "dp", "plain", "plain", "dp")  # timed turns, in this order
+DP_UNSUP = {"train": 2000, "test": 500}  # the SOM's and RBM's data: 20 train steps at 100
+DP_SCAN_EPOCHS = 3
+DP_WAIT_S = 420  # a gloo worker's wait
+DP_GLOO_TOL = {"mnist_loss": 1e-4, "som": 1e-5, "rbm": 1e-5}
+DP_RBM = dict(b=100, valid=90, v=784, h=128, seed=5)  # configs[2]'s step, a masked tail
+DP_POOL = (2560, 128)  # the pool-sharded run: rows, global batch (20 train steps)
+# device copies as the trace names them: a CUDA graph's memcpy nodes run
+# as memcpy32_post kernels, eager ones as DtoD memcpys
+DEVICE_COPY = re.compile(r"^(?:memcpy32_post|Memcpy DtoD)")
+
+
+def _free_port():
+    import socket
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def _dp_steps(torch, wf, n, counters=()):
+    """``n`` synchronised train steps on the first train minibatch, each
+    wrapper of ``counters`` set to 0 just before and read just after;
+    returns (step seconds, launches)."""
+    mb = next(iter(wf.loader.batches("train", shuffle=False)))
+    x = torch.as_tensor(mb.data, device="cuda")
+    y = torch.as_tensor(wf._batch_target(mb), device="cuda")
+    mask = torch.as_tensor(mb.mask, device="cuda")
+    for _, fn in counters:
+        fn.launches = 0
+    step_s = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        wf.train_step(x, y, mask)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+    return step_s, {name: fn.launches for name, fn in counters}
+
+
+def _dp_pair(torch, label, make, counters, steps, tol=0.0):
+    """The same workflow from one seed without and with the policy
+    (``make(parallel)``), ``steps`` train steps each (``None``: one epoch);
+    the params bitwise equal (``tol`` 0) or within ``tol`` of max |param|.
+    Returns the workflows and the policy run's launches."""
+    from znicz_tpu_torch.core import prng
+
+    wfs, launches = {}, {}
+    for key in ("plain", "dp"):
+        prng.seed_all(1234)
+        wf = make(key == "dp")
+        wf.initialize(seed=1234)
+        if steps is None:
+            for _, fn in counters:
+                fn.launches = 0
+            wf.run_epoch()
+            torch.cuda.synchronize()
+            launches[key] = {name: fn.launches for name, fn in counters}
+        else:
+            launches[key] = _dp_steps(torch, wf, steps, counters)[1]
+        wfs[key] = wf
+    n_bad, worst = _differ(torch, wfs["plain"].state.params, wfs["dp"].state.params)
+    scale = max(float(t.detach().abs().max()) for t in _leaves(wfs["plain"].state.params))
+    hist = wfs["plain"].decision.history == wfs["dp"].decision.history
+    print(f"dp {label}: with the policy (one NCCL rank) against without, "
+          f"{'one epoch' if steps is None else f'{steps} train steps'}: {n_bad} tensors differ, "
+          f"largest |diff| {worst:.3e} of max |param| {scale:.3e} (limit {tol} of it), "
+          f"histories {'equal' if hist else 'DIFFER'}; launches {launches}")
+    if worst > tol * scale or not hist or (tol == 0.0 and n_bad):
+        fail(f"dp {label}: the one-rank policy's run is not the run without it")
+    if launches["dp"] != launches["plain"]:
+        fail(f"dp {label}: the policy's run launched {launches['dp']}, the plain "
+             f"{launches['plain']}")
+    return wfs, launches["dp"]
+
+
+def _dp_turns(torch, wfs, n, label, smi, unit):
+    """ms a train step with and without the policy: medians of ``n``
+    synchronised steps after 2 warm-up, in turns (``DP_TURNS``)."""
+    per = {"plain": [], "dp": []}
+    for key in DP_TURNS:
+        per[key].append(statistics.median(_dp_steps(torch, wfs[key], n + 2)[0][2:]) * 1e3)
+    res = {k: statistics.median(v) for k, v in per.items()}
+    res["dp_over_plain"] = res["dp"] / res["plain"]
+    res["turns_ms"] = per
+    print(f"dp {label}: ms a train step ({unit}), median of {n} after 2 warm-up, turns "
+          f"{list(DP_TURNS)}: without the policy {per['plain']}, with it (one NCCL rank) "
+          f"{per['dp']}; ratio {res['dp_over_plain']:.4f}; {smi}")
+    return res
+
+
+def phase_dp_nccl(torch, fa, lrn_kernel, khk, rbk, models, transformer, lm_loader, troot, smi):
+    """Phase 30a: the production backend as a world of one NCCL rank."""
+    import torch.distributed as dist
+
+    from znicz_tpu_torch.parallel import DataParallel, make_mesh, multihost
+    from znicz_tpu_torch.loader.fullbatch import FullBatchLoader
+    from znicz_tpu_torch.workflow.standard import StandardWorkflow
+
+    res, launches = {}, {}
+    info = multihost.initialize(f"127.0.0.1:{_free_port()}", 1, 0)
+    try:
+        if dist.get_backend() != "nccl":
+            fail(f"dp: multihost.initialize made a {dist.get_backend()} group on the card")
+        dp = DataParallel(make_mesh())
+        print(f"dp: one NCCL rank {info}; mesh {dp.mesh}; host collectives "
+              f"{dp.host_collectives}")
+        if dp.host_collectives or dp.group is None:
+            fail("dp: the NCCL group stages through the host or is missing")
+        torch.backends.cudnn.benchmark = False
+        torch.backends.cudnn.deterministic = True
+
+        def policy(on):
+            return {"parallel": dp} if on else {}
+
+        # AlexNet at phase 4's geometry (batch 128, bf16, both LRN kernels)
+        alexnet = models["alexnet"]
+        lrn = (("lrn_fwd", lrn_kernel.lrn_forward), ("lrn_bwd", lrn_kernel.lrn_backward))
+        wfs, got = _dp_pair(torch, "alexnet",
+                            lambda on: alexnet.build_workflow(device="cuda", **policy(on)),
+                            lrn, DP_STEPS)
+        launches.update(got)
+        if got != {"lrn_fwd": 2 * DP_STEPS, "lrn_bwd": 2 * DP_STEPS}:
+            fail(f"dp alexnet: LRN launches {got} over {DP_STEPS} steps")
+        res["alexnet"] = _dp_turns(torch, wfs, DP_TIMED, "alexnet", smi, "batch 128, bf16")
+        del wfs
+        torch.cuda.empty_cache()
+
+        # the SOM (configs[4]) and the RBM (configs[2]) through their kernels
+        for name, key, fn in (("kohonen", "kohonen_accumulate", khk.accumulate),
+                              ("mnist_rbm", "rbm_cd", rbk.statistics)):
+            getattr(troot, name).update({"loader": {"n_train": DP_UNSUP["train"],
+                                                    "n_test": DP_UNSUP["test"]}})
+            mod = models[name]
+            _, got = _dp_pair(torch, name,
+                              lambda on, mod=mod: mod.build_workflow(device="cuda", **policy(on)),
+                              ((key, fn),), None)
+            launches.update(got)
+            if got[key] != DP_UNSUP["train"] // 100:
+                fail(f"dp {name}: {got[key]} kernel launches in the epoch")
+
+        # the mid LM at full width, f32 flash (3xTF32), lr 0.001
+        from znicz_tpu_torch.nn import optimizer
+
+        hyper = optimizer.HyperParams(learning_rate=0.001, gradient_moment=0.9)
+        flash = tuple((n, getattr(fa, n)) for n in FLASH)
+        wfs, got = _dp_pair(
+            torch, "mid lm",
+            lambda on: transformer.TransformerLMWorkflow(
+                lm_loader, **LM_MID, attention="flash", hyper=hyper, device="cuda",
+                **policy(on)),
+            flash, DP_LM_STEPS, tol=DP_LM_TOL)
+        launches.update(got)
+        if got != dict.fromkeys(FLASH, LM_MID["n_layers"] * DP_LM_STEPS):
+            fail(f"dp mid lm: flash launches {got}")
+        res["lm"] = _dp_turns(torch, wfs, DP_LM_STEPS, "mid lm", smi, "batch 16 x T 2048, f32")
+        del wfs
+        torch.cuda.empty_cache()
+
+        # the graph dispatch: MNIST at bench.py's mnist_epoch shape, its
+        # captured step holding the NCCL all-reduces
+        _f32_exact(torch)
+        imgs, labels = _mnist_u8(SCAN_IMAGES, 1)
+        n_steps = SCAN_IMAGES // SCAN_BATCH
+
+        def mnist(dispatch):
+            ld = FullBatchLoader({"train": imgs}, {"train": labels}, minibatch_size=SCAN_BATCH,
+                                 normalization="range",
+                                 normalization_kwargs={"scale": 255.0, "shift": -0.5},
+                                 device_resident=True)
+            return StandardWorkflow(
+                ld, [{"type": "all2all_tanh", "->": {"output_sample_shape": 256}},
+                     {"type": "softmax", "->": {"output_sample_shape": 10}}],
+                decision_config={"max_epochs": 10000},
+                default_hyper={"learning_rate": 0.1, "gradient_moment": 0.9},
+                epoch_dispatch=dispatch, device="cuda", parallel=dp,
+                name=f"MnistDP-{dispatch}")
+
+        from znicz_tpu_torch.core import prng
+
+        wfs, _ = _scan_runs(torch, prng, mnist, "dp mnist", epochs=DP_SCAN_EPOCHS)
+        from torch.profiler import ProfilerActivity, profile
+
+        # a one-rank all-reduce in place launches no device work (NCCL
+        # returns at once), so the collectives show on the host: the
+        # capture calls c10d's all-reduce (the count, the gradients) and a
+        # replay calls nothing; the device copies a replay makes beside the
+        # same graph's without the policy are the flatten's
+        prng.seed_all(3)
+        fresh, plain = mnist("scan"), mnist("scan")
+        plain.parallel = None
+        for wf in (fresh, plain):
+            wf.initialize(seed=3)
+        plain.run_epoch()  # its capture
+        calls, copies = {}, {}
+        for key, wf in (("capture", fresh), ("replays", fresh), ("plain", plain)):
+            # no device tracing across the capture itself
+            acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if key != "capture" else [])
+            with profile(activities=acts) as prof:
+                wf.run_epoch()
+                torch.cuda.synchronize()
+            calls[key] = copies[key] = 0
+            for e in prof.key_averages():
+                if e.key == "c10d::allreduce_":
+                    calls[key] += e.count
+                elif (e.device_type == torch.autograd.DeviceType.CUDA
+                      and DEVICE_COPY.search(e.key)):
+                    copies[key] += e.count
+        print(f"dp mnist: c10d all-reduce calls on the host: {calls['capture']} in the first "
+              f"epoch (2 eager warm-up, 2 captured, 2 at the epoch's end), {calls['replays']} "
+              f"in a replayed one of {n_steps} replays (the epoch's end); device copies "
+              f"(graph memcpy nodes, DtoD memcpys) a replayed epoch {copies['replays']} "
+              f"against {copies['plain']} without the policy")
+        if calls["capture"] != 6 or calls["replays"] != 2:
+            fail(f"dp mnist: c10d all-reduce calls {calls}: the capture must hold the "
+                 "step's two, a replay must call none")
+        res["scan"] = {"c10d_calls": calls, "device_copies": copies}
+        del wfs
+    finally:
+        dist.destroy_process_group()
+    torch.backends.cudnn.deterministic = False
+    return launches, res
+
+
+def _dp_gloo_work(torch, out_dir, rank, parallel):
+    """Phase 30b's runs on one rank (``parallel`` a two-rank gloo policy) or
+    in one process (None), on the card; returns their results and writes
+    the SOM's weights and the RBM's update to ``out_dir``."""
+    import numpy as np
+
+    from znicz_tpu_torch.core import prng
+    from znicz_tpu_torch.core.config import root as troot
+    from znicz_tpu_torch.loader.fullbatch import FullBatchLoader
+    from znicz_tpu_torch.models import kohonen, mnist
+    from znicz_tpu_torch.ops.kernels import kohonen as khk, rbm as rbk
+    from znicz_tpu_torch.parallel import make_mesh
+    from znicz_tpu_torch.workflow.standard import StandardWorkflow
+
+    _f32_exact(torch)
+    torch.backends.cudnn.deterministic = True
+    kw = {} if parallel is None else {"parallel": parallel}
+    tag = "one" if parallel is None else f"rank{rank}"
+    res = {}
+    prng.seed_all(1234)
+    wf = mnist.build_workflow(device="cuda", decision_config={"max_epochs": 3},
+                              snapshot_dir=os.path.join(out_dir, f"snap_{tag}"), **kw)
+    wf.initialize(seed=1234)
+    res["mnist"] = [{s: {k: m[k] for k in ("loss", "n_err")} for s, m in e.items()
+                     if isinstance(m, dict) and "loss" in m} for e in wf.run().history]
+    res["mnist_scan_auto"] = wf._use_epoch_scan()
+    troot.kohonen.update({"loader": {"n_train": DP_UNSUP["train"], "n_test": DP_UNSUP["test"]}})
+    prng.seed_all(1234)
+    wf = kohonen.build_workflow(device="cuda", **kw)
+    wf.initialize(seed=1234)
+    khk.accumulate.launches = 0
+    wf.run_epoch()
+    res["kohonen_launches"] = khk.accumulate.launches
+    np.save(os.path.join(out_dir, f"som_{tag}.npy"), wf.state.params["weights"].cpu().numpy())
+    if parallel is not None:
+        case = np.load(os.path.join(out_dir, "rbm_case.npz"))
+        rows = slice(rank * DP_RBM["b"] // 2, (rank + 1) * DP_RBM["b"] // 2)
+        params = {k: torch.as_tensor(case[k], device="cuda") for k in ("weights", "vbias",
+                                                                       "hbias")}
+        rbk.statistics.launches = 0
+        new, err = rbk.cd_step(params, torch.as_tensor(case["v0"][rows], device="cuda"),
+                               rbk.seed_tensor(DP_RBM["seed"], "cuda"), learning_rate=0.1,
+                               mask=torch.as_tensor(case["mask"][rows], device="cuda"),
+                               mesh=make_mesh())
+        res["rbm_launches"] = rbk.statistics.launches
+        np.savez(os.path.join(out_dir, f"rbm_{tag}.npz"), err=err.cpu().numpy(),
+                 **{k: v.cpu().numpy() for k, v in new.items()})
+        # the pool-sharded resident pool: this rank's device holds half the rows
+        imgs, labels = _mnist_u8(DP_POOL[0], 2)
+        ld = FullBatchLoader({"train": imgs}, {"train": labels}, minibatch_size=DP_POOL[1],
+                             normalization="range",
+                             normalization_kwargs={"scale": 255.0, "shift": -0.5},
+                             device_resident=True, pool_sharded=True)
+        layers = [{"type": "all2all_tanh", "->": {"output_sample_shape": 256}},
+                  {"type": "softmax", "->": {"output_sample_shape": 10}}]
+        wf = StandardWorkflow(ld, layers, device="cuda", parallel=parallel)
+        wf.initialize(seed=1)
+        pool = wf._ctx["pool"]
+        res["pool"] = {"device": str(pool.device), "bytes": pool.numel() * pool.element_size(),
+                       "bytes_all": int(imgs.nbytes),
+                       "equal_shard": bool(torch.equal(pool.cpu(), torch.from_numpy(
+                           imgs[rank * DP_POOL[0] // 2:(rank + 1) * DP_POOL[0] // 2]))),
+                       "scan": wf._use_epoch_scan(),
+                       "loss": wf.run_epoch()["summary"]["train"]["loss"]}
+        try:
+            wf = StandardWorkflow(ld, layers, device="cuda", parallel=parallel,
+                                  epoch_dispatch="scan")
+            wf.initialize(seed=1)
+            wf.run_epoch()
+            res["scan_refused"] = None
+        except ValueError as exc:
+            res["scan_refused"] = str(exc)
+    return res
+
+
+def dp_worker(rank, addr, out_dir):
+    """A phase 30b rank: a gloo group of two ranks on this process's card."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    from znicz_tpu_torch.parallel import DataParallel, make_mesh
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"tcp://{addr}", world_size=2, rank=rank,
+                            timeout=datetime.timedelta(seconds=DP_WAIT_S))
+    try:
+        dp = DataParallel(make_mesh())
+        res = {"host_collectives": dp.host_collectives, "device": str(dp.device),
+               **_dp_gloo_work(torch, out_dir, rank, dp)}
+    finally:
+        dist.destroy_process_group()
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+    return 0
+
+
+def phase_dp_gloo(torch, smi):
+    """Phase 30b: two ranks on the one card over gloo, against one process
+    on the card."""
+    import numpy as np
+
+    from znicz_tpu_torch.ops.kernels import rbm as rbk
+
+    out_dir = os.path.join(WORK_DIR, "dp")
+    os.makedirs(out_dir, exist_ok=True)
+    gen = np.random.default_rng(DP_RBM["seed"])
+    b, v, h = DP_RBM["b"], DP_RBM["v"], DP_RBM["h"]
+    case = {"v0": (gen.random((b, v)) > 0.5).astype(np.float32),
+            "mask": (np.arange(b) < DP_RBM["valid"]).astype(np.float32),
+            "weights": gen.normal(0.0, 0.01, (v, h)).astype(np.float32),
+            "vbias": np.zeros(v, np.float32), "hbias": np.zeros(h, np.float32)}
+    np.savez(os.path.join(out_dir, "rbm_case.npz"), **case)
+    t0 = time.perf_counter()
+    addr = f"127.0.0.1:{_free_port()}"
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--dp-rank", str(r),
+                               addr, out_dir], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True) for r in (0, 1)]
+    try:
+        outs = [p.communicate(timeout=DP_WAIT_S)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    ranks_s = time.perf_counter() - t0
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            print(out[-6000:])
+            fail(f"dp gloo: rank {r} exited with {p.returncode}")
+    ranks = []
+    for r in (0, 1):
+        with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    one = _dp_gloo_work(torch, out_dir, 0, None)
+    print(f"dp gloo: two ranks on the card over gloo in {ranks_s:.1f} s "
+          f"(their start included); {smi}")
+    if not all(r["host_collectives"] for r in ranks) or ranks[0]["mnist"] != ranks[1]["mnist"]:
+        fail("dp gloo: the ranks are not one gloo job with one history")
+    worst_loss, worst_err = 0.0, 0
+    for e, (got, want) in enumerate(zip(ranks[0]["mnist"], one["mnist"])):
+        for s in want:
+            worst_loss = max(worst_loss, abs(got[s]["loss"] - want[s]["loss"]) / want[s]["loss"])
+            worst_err = max(worst_err, abs(got[s]["n_err"] - want[s]["n_err"]))
+    print(f"dp gloo mnist: 3 epochs, two ranks against one process: largest relative loss "
+          f"difference {worst_loss:.3e} (limit {DP_GLOO_TOL['mnist_loss']}), largest n_err "
+          f"difference {worst_err} (limit 1); the step dispatch taken: "
+          f"{not ranks[0]['mnist_scan_auto']}")
+    if (len(ranks[0]["mnist"]) != len(one["mnist"]) or worst_loss > DP_GLOO_TOL["mnist_loss"]
+            or worst_err > 1):
+        fail("dp gloo: the two-rank MNIST run is not the one-process run")
+    snaps = [os.listdir(os.path.join(out_dir, f"snap_rank{r}")) for r in (0, 1)]
+    print(f"dp gloo mnist: snapshots by rank {snaps}")
+    if not snaps[0] or snaps[1]:
+        fail("dp gloo: a snapshot written by a rank other than the coordinator, or none")
+    som = [np.load(os.path.join(out_dir, f"som_{t}.npy")) for t in ("rank0", "rank1", "one")]
+    if not np.array_equal(som[0], som[1]):
+        fail("dp gloo som: the ranks' maps differ")
+    _rel_err("dp gloo som: two ranks against one process, weights", torch.from_numpy(som[0]),
+             torch.from_numpy(som[2]), DP_GLOO_TOL["som"])
+    # the RBM: the ranks' update against one built here from the two shards'
+    # kernel statistics with seeds 2s and 2s + 1, summed
+    params = {k: torch.as_tensor(case[k], device="cuda") for k in ("weights", "vbias", "hbias")}
+    parts = [rbk.statistics(params, torch.as_tensor(case["v0"][r * b // 2:(r + 1) * b // 2],
+                                                    device="cuda"),
+                            torch.as_tensor(case["mask"][r * b // 2:(r + 1) * b // 2],
+                                            device="cuda"),
+                            rbk.seed_tensor(2 * DP_RBM["seed"] + r, "cuda"), cd_k=1)
+             for r in (0, 1)]
+    want, want_err = rbk._apply_update(params, *[x + y for x, y in zip(*parts)], 0.1)
+    got = [np.load(os.path.join(out_dir, f"rbm_rank{r}.npz")) for r in (0, 1)]
+    for k in want:
+        if not np.array_equal(got[0][k], got[1][k]):
+            fail(f"dp gloo rbm: the ranks' {k} differ")
+        _rel_err(f"dp gloo rbm: two ranks against the summed shards, {k}",
+                 torch.from_numpy(got[0][k]), want[k].cpu(), DP_GLOO_TOL["rbm"])
+    _rel_err("dp gloo rbm: reconstruction error", torch.from_numpy(got[0]["err"]),
+             want_err.cpu(), DP_GLOO_TOL["rbm"])
+    pools = [r["pool"] for r in ranks]
+    print(f"dp gloo pool: {pools}; scan refused under gloo: {ranks[0]['scan_refused']!r}")
+    for p in pools:
+        if (p["bytes"] * 2 != p["bytes_all"] or not p["equal_shard"] or p["scan"]
+                or not p["device"].startswith("cuda") or not math.isfinite(p["loss"])):
+            fail("dp gloo pool: a rank's pool is not its half on the card, or its epoch failed")
+    if not ranks[0]["scan_refused"] or "gloo" not in ranks[0]["scan_refused"]:
+        fail("dp gloo: epoch_dispatch='scan' under gloo on the card was not refused")
+    launches = {"kohonen_accumulate": [r["kohonen_launches"] for r in ranks],
+                "rbm_cd": [r["rbm_launches"] for r in ranks]}
+    print(f"dp gloo: kernel launches by rank {launches}")
+    if launches != {"kohonen_accumulate": [DP_UNSUP["train"] // 100] * 2, "rbm_cd": [1, 1]}:
+        fail(f"dp gloo: kernel launches {launches}")
+    return launches, {"seconds": ranks_s, "mnist_loss_rel": worst_loss, "pool": pools}
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -5181,6 +5635,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script needs one card", file=sys.stderr)
         return 1
+    if sys.argv[1:2] == ["--dp-rank"]:  # a phase 30b rank, started by phase_dp_gloo
+        return dp_worker(int(sys.argv[2]), sys.argv[3], sys.argv[4])
     from znicz_tpu_torch.core import prng
     from znicz_tpu_torch.core.config import root as troot
     from znicz_tpu_torch.loader import datasets
@@ -5282,6 +5738,13 @@ def main() -> int:
     cluster = phase_cluster(torch, transformer, prng, smi,
                             "after phases 22 and 28's profiler sessions")
     print(f"cluster phase: {time.perf_counter() - t0:.1f} s; " + json.dumps(cluster))
+    t0 = time.perf_counter()
+    dp_launches, dp = phase_dp_nccl(
+        torch, fa, lrn_kernel, khk, rbk,
+        {"alexnet": alexnet, "kohonen": kohonen, "mnist_rbm": mnist_rbm}, transformer,
+        lm_loader, troot, smi)
+    dp_gloo_launches, dp["gloo"] = phase_dp_gloo(torch, smi)
+    print(f"data-parallel phase: {time.perf_counter() - t0:.1f} s; " + json.dumps(dp))
 
     kernels = []
     for kname in ("lrn_fwd", "lrn_bwd"):
@@ -5328,6 +5791,8 @@ def main() -> int:
         # the graph dispatch's AlexNet runs (phase 22), both resident pools:
         # their replayed epochs' launches, read from the trace
         entry["scan"] = {"launches": scan_launches[kname]}
+        # phase 30's one-NCCL-rank AlexNet run: its train steps' launches
+        entry["dp"] = {"launches": dp_launches[kname]}
         kernels.append(entry)
     for kname in FLASH:
         row = flash_rows[(kname, "float32")]  # the counted epoch's dtype
@@ -5355,6 +5820,8 @@ def main() -> int:
             # width, and its graph dispatch's replayed epoch at 2 layers
             "moe": {"launches": {d: moe_launches[d][kname] for d in MOE_DISPATCHES},
                     "scan_launches": {d: moe_graph[d][kname] for d in MOE_DISPATCHES}},
+            # phase 30's one-NCCL-rank mid LM: its train steps' launches
+            "dp": {"launches": dp_launches[kname]},
         })
     for kname in UNSUP_SOURCE:
         kernels.append({
@@ -5375,6 +5842,9 @@ def main() -> int:
             # the graph dispatch's resident, deferred run (phase 22): its
             # replayed epochs' launches, read from the trace
             "scan": {"launches": scan_launches[kname]},
+            # phase 30: the one-NCCL-rank epoch's launches, and each gloo
+            # rank's (30b)
+            "dp": {"launches": dp_launches[kname], "gloo_ranks": dp_gloo_launches[kname]},
         })
     print(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

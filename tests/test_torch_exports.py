@@ -26,8 +26,6 @@ ROADMAP = open(os.path.join(REPO, "ROADMAP.md")).read()
 # (package, name) -> the ROADMAP.md item that ports it
 WAITING = {
     ("", "Logger"): "A11",
-    ("", "DataParallel"): "A6",
-    ("", "make_mesh"): "A6",
     ("", "Ensemble"): "A11",
     ("", "export_model"): "A11",
     ("core", "Logger"): "A11",
@@ -45,7 +43,6 @@ WAITING = {
 # the port's sources as they are (ROADMAP.md A11); ``ops/pallas`` holds the
 # TPU kernels, whose Hopper kernels live under ``ops/kernels``.
 WAITING_PACKAGES = {
-    "parallel": "A6",
     "ensemble": "A11",
     "genetics": "A11",
 }

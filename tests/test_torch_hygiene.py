@@ -55,6 +55,8 @@ def test_package_has_the_slice_modules():
         "observability.aggregate", "observability.collector", "observability.slo",
         "services.frontdoor", "services.serve", "cluster", "cluster.affinity",
         "cluster.registry", "cluster.router", "cluster.proxy", "observability.doctor",
+        "parallel", "parallel.mesh", "parallel.multihost", "parallel.data_parallel",
+        "loader.pool_sharded",
     ):
         assert f"znicz_tpu_torch.{name}" in mods
 

@@ -27,7 +27,6 @@ import pytest
 import torch
 from PIL import Image
 
-from test_torch_slice import _names_its_item
 from znicz_tpu.core import prng as jprng
 from znicz_tpu.core.config import root as jroot
 from znicz_tpu.loader import image as jimage, imagenet as jimagenet, native as jnative
@@ -496,15 +495,37 @@ def test_imagenet_loader_classes_from_labels_without_classes_json(packed, tmp_pa
 @pytest.mark.parametrize(
     "make",
     [
-        lambda tree, packed: ImageNetLoader(packed, crop_size=12, pool_sharded=True),
-        lambda tree, packed: FullBatchLoader({"train": np.zeros((4, 2))}, pool_sharded=True),
+        lambda mod, packed, **kw: mod.ImageNetLoader(packed, crop_size=12, pool_sharded=True,
+                                                     minibatch_size=2, **kw),
+        lambda mod, packed, **kw: mod.FullBatchLoader(
+            {"train": np.arange(16.0).reshape(8, 2), "test": np.arange(8.0).reshape(4, 2)},
+            pool_sharded=True, minibatch_size=2, **kw),
     ],
     ids=["pool_sharded", "fullbatch_pool_sharded"],
 )
 def test_unported_loader_keywords_name_their_roadmap_item(tree, packed, make):
-    with pytest.raises(NotImplementedError, match="not ported") as err:
-        make(tree, packed)
-    _names_its_item(str(err.value))
+    """Refused until the data-parallel slice (ROADMAP.md A6): now the pool
+    shards as in the JAX package (``tests/test_torch_parallel.py`` holds
+    the orders): it needs ``device_resident``, and each process's pool
+    block and local addresses equal the JAX package's."""
+    from znicz_tpu import loader as jloader
+    from znicz_tpu_torch import loader as tloader
+
+    for mod in (jloader, tloader):
+        with pytest.raises(ValueError, match="pool_sharded=True requires device_resident"):
+            make(mod, packed)
+    for p in range(2):
+        _seed_both()
+        pair = [make(mod, packed, device_resident=True) for mod in (jloader, tloader)]
+        for loader in pair:
+            assert loader.wants_data_shards
+            loader.set_data_shards(2)
+            loader.set_process_shard(p, 2)
+        np.testing.assert_array_equal(pair[1].device_context()["pool"],
+                                      pair[0].device_context()["pool"])
+        for (_, mj), (_, mt) in zip(pair[0].epoch(), pair[1].epoch()):
+            np.testing.assert_array_equal(mt.data, mj.data)
+            np.testing.assert_array_equal(mt.indices, mj.indices)
 
 
 def _fullbatch_pair(**kw):

@@ -244,12 +244,19 @@ def test_auto_resolves_to_dot_on_the_cpu(t):
         {"sequence_parallel": True},
         {"tensor_parallel": True},
         {"pipeline_parallel": True},
-        {"parallel": object()},
+        {"parallel": "tp"},
     ],
     ids=lambda kw: next(iter(kw)),
 )
 def test_paths_not_ported_raise(kwargs):
+    """``parallel="tp"`` stands for a tensor-parallel policy
+    (``DataParallel(tp=True)``, ROADMAP.md A6); the LM trains under a
+    data-parallel one (``tests/test_torch_multihost_models.py``)."""
     with pytest.raises(NotImplementedError, match="ROADMAP.md A"):
+        if kwargs.get("parallel") == "tp":
+            from znicz_tpu_torch.parallel import DataParallel
+
+            kwargs = {"parallel": DataParallel(tp=True)}
         ttf.TransformerLMWorkflow(_loader(8), vocab=8, device="cpu", **kwargs)
 
 

@@ -424,19 +424,32 @@ def test_lifted_options_are_honoured(cls, option, tmp_path):
 
 
 def test_refused_options_name_their_roadmap_item():
+    """A tensor-parallel policy is refused naming ROADMAP.md A6; a
+    data-parallel one is taken, and the kernels' psum rules over a world of
+    one process (``mesh=``) give the step without a mesh bitwise (two
+    processes: ``tests/test_torch_multihost_models.py``)."""
+    from znicz_tpu_torch.parallel import DataParallel, make_mesh
+
     loader = tdatasets.mnist(n_train=10, n_test=0, minibatch_size=5)
     for cls in (KohonenWorkflow, RBMWorkflow):
         with pytest.raises(NotImplementedError, match="ROADMAP.md A6"):
-            cls(loader, parallel=object(), device="cpu")
+            cls(loader, parallel=DataParallel(tp=True), device="cpu")
+        dp = DataParallel(make_mesh())
+        assert cls(loader, parallel=dp, device="cpu").parallel is dp
         # the base loop's prefetch depth is honoured, not refused
         assert cls(loader, prefetch_batches=0, device="cpu").prefetch_batches == 0
         with pytest.raises(ValueError, match="impl"):
             cls(loader, impl="cudnn", device="cpu")
-    x = torch.zeros((4, 6))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A6"):
-        kh_kernel.train_step({"weights": torch.zeros((4, 6))}, x, tkh.grid_coords(2, 2, device="cpu"),
-                             learning_rate=0.1, tss=kh_kernel.sigma_tensor(1.0, "cpu"),
-                             mesh=object())
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A6"):
-        rbm_kernel.cd_step(trbm.init_params(6, 3, device="cpu"), x,
-                           rbm_kernel.seed_tensor(0, "cpu"), learning_rate=0.1, mesh=object())
+    x = (torch.arange(24.0).reshape(4, 6) % 5) / 5
+    args = ({"weights": torch.rand((4, 6), generator=torch.Generator().manual_seed(1))}, x,
+            tkh.grid_coords(2, 2, device="cpu"))
+    kw = dict(learning_rate=0.1, tss=kh_kernel.sigma_tensor(1.0, "cpu"))
+    assert torch.equal(kh_kernel.train_step(*args, **kw, mesh=make_mesh())["weights"],
+                       kh_kernel.train_step(*args, **kw)["weights"])
+    params = trbm.init_params(6, 3, device="cpu")
+    got = rbm_kernel.cd_step(params, x, rbm_kernel.seed_tensor(7, "cpu"), learning_rate=0.1,
+                             mesh=make_mesh())
+    want = rbm_kernel.cd_step(params, x, rbm_kernel.seed_tensor(7, "cpu"), learning_rate=0.1)
+    assert torch.equal(got[1], want[1])
+    for k in params:
+        assert torch.equal(got[0][k], want[0][k])

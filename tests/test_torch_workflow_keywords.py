@@ -6,8 +6,9 @@ so a JAX call site never gets a ``TypeError``.  At its default each is
 accepted; the snapshotter, the prefetch depth, deferred epoch sync, the
 anomaly watch's switch and rollback recovery are honoured at any value;
 the LM's MoE keywords are honoured; off its default, a keyword whose path
-the port does not have yet (``parallel``, pipelines, meshes) raises
-``NotImplementedError`` naming its ``ROADMAP.md`` item.
+the port does not have yet (tensor-parallel placement, pipelines, the LM's
+sequence-parallel mesh) raises ``NotImplementedError`` naming its
+``ROADMAP.md`` item.
 """
 
 import inspect
@@ -20,6 +21,7 @@ from znicz_tpu.workflow import StandardWorkflow as JaxStandard
 from znicz_tpu.workflow.transformer import TransformerLMWorkflow as JaxLM
 from znicz_tpu.workflow.workflow import Workflow as JaxWorkflow
 from znicz_tpu_torch.loader.fullbatch import FullBatchLoader
+from znicz_tpu_torch.parallel import DataParallel, make_mesh
 from znicz_tpu_torch.workflow import model as model_lib
 from znicz_tpu_torch.workflow.recovery import RecoveryPolicy
 from znicz_tpu_torch.workflow.snapshotter import Snapshotter
@@ -83,16 +85,34 @@ def test_jax_keywords_at_their_defaults_are_taken(make, jax_cls):
 @pytest.mark.parametrize(
     "make,kwargs,item",
     [
-        (_standard, {"parallel": object()}, "A6"),
+        (_standard, {"parallel": "tp"}, "A6"),
         (_lm, {"pipeline_microbatches": 4}, "A7"),
-        (_lm, {"mesh": object()}, "A6"),
-        (_base, {"parallel": object()}, "A6"),
+        (_lm, {"mesh": object()}, "A7"),
+        (_base, {"parallel": "tp"}, "A6"),
     ],
     ids=lambda v: v.__name__.strip("_") if callable(v) else (next(iter(v)) if isinstance(v, dict) else v),
 )
 def test_jax_keywords_off_their_defaults_are_refused_by_name(make, kwargs, item):
+    """``parallel="tp"`` stands for a tensor-parallel placement policy
+    (``DataParallel(tp=True)``); a data-parallel one is taken (below)."""
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md {item}"):
+        if kwargs.get("parallel") == "tp":
+            kwargs = dict(kwargs, parallel=DataParallel(tp=True))
         make(**kwargs)
+
+
+@pytest.mark.parametrize("make", [_standard, _lm, _base], ids=["standard", "lm", "base"])
+def test_a_data_parallel_policy_is_taken(make):
+    """``parallel=DataParallel(make_mesh())`` over a world of one process:
+    taken at construction or assigned before ``initialize``, as the JAX
+    package's tests assign it."""
+    dp = DataParallel(make_mesh())
+    wf = make(parallel=dp)
+    assert wf.parallel is dp
+    wf = make()
+    wf.parallel = dp
+    wf.initialize(seed=3)
+    assert wf.state is not None and np.isfinite(wf.run_epoch()["summary"]["train"]["loss"])
 
 
 @pytest.mark.parametrize(

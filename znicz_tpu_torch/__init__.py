@@ -16,8 +16,7 @@ first use), each beside its plain PyTorch version.
 
 The top level exports the JAX package's names, the heavy ones lazily
 (PEP 562), except those of modules still to port: ``Logger`` (ROADMAP.md
-A11), ``DataParallel`` and ``make_mesh`` (A6), ``Ensemble`` and
-``export_model`` (A11).
+A11), ``Ensemble`` and ``export_model`` (A11).
 """
 
 __version__ = "0.1.0"
@@ -36,6 +35,8 @@ _LAZY = {
     "Snapshotter": ("znicz_tpu_torch.workflow", "Snapshotter"),
     "FullBatchLoader": ("znicz_tpu_torch.loader", "FullBatchLoader"),
     "ImageDirectoryLoader": ("znicz_tpu_torch.loader", "ImageDirectoryLoader"),
+    "DataParallel": ("znicz_tpu_torch.parallel", "DataParallel"),
+    "make_mesh": ("znicz_tpu_torch.parallel", "make_mesh"),
 }
 
 

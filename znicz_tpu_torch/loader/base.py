@@ -16,16 +16,23 @@ backoff, then the batch is skipped (``skip_bad_batches``) or the typed
 spreads the classes evenly over the minibatches, drawing from the shuffle
 stream as the JAX package does.  A device-resident loader lays its splits
 out in one pool on the device by :func:`pool_offsets` and
-:func:`pool_concat`.  Not ported yet: multi-host sample shards.
+:func:`pool_concat`.
+
+Multi-process sample shards (:meth:`Loader.set_process_shard`): every
+process computes the same global epoch order and serves only its
+contiguous rows of each global minibatch, the mask computed globally and
+then sliced, as in the JAX package.  Data-axis pool sharding is
+``loader/pool_sharded.py``'s.
 """
 
 from __future__ import annotations
 
 import logging
 import time
-from typing import Any, Dict, Iterator, NamedTuple, Optional
+from typing import Any, Dict, Iterator, NamedTuple, Optional, Sequence
 
 import numpy as np
+import torch
 
 from znicz_tpu_torch import observability
 from znicz_tpu_torch.core import prng
@@ -92,6 +99,10 @@ class Loader:
         self.skip_bad_batches = bool(skip_bad_batches)
         self.epoch_number = 0
         self._order: Dict[str, np.ndarray] = {}
+        # the multi-process sample shard (set_process_shard): this process
+        # serves only its contiguous row range of every global minibatch
+        self.process_index = 0
+        self.process_count = 1
 
     # -- subclass interface ------------------------------------------------
     @property
@@ -127,6 +138,49 @@ class Loader:
     # the per-batch payloads are small (index vectors), so a whole split of
     # them can be stacked and run as one dispatch (Workflow epoch_dispatch)
     epoch_scan_friendly = False
+
+    # data-axis pool sharding (loaders that support it set this True and
+    # implement set_data_shards; Workflow.initialize calls it with the
+    # mesh's data-axis size before placing the device context)
+    wants_data_shards = False
+
+    def set_data_shards(self, n: int) -> None:
+        raise NotImplementedError
+
+    def place_device_context(self, parallel, device=None):
+        """:meth:`device_context` on the device (None when there is none):
+        through ``parallel.put_replicated`` (the same arrays on every
+        rank), or onto ``device`` without a placement policy.  Loaders
+        whose context is sharded (the data-axis pool) override this."""
+        ctx = self.device_context()
+        if ctx is None:
+            return None
+        if parallel is not None:
+            return {k: parallel.put_replicated(v) for k, v in ctx.items()}
+        return {k: torch.as_tensor(np.asarray(v), device=device) for k, v in ctx.items()}
+
+    def set_process_shard(self, index: int, count: int) -> None:
+        """Multi-process sample sharding: every process computes the same
+        global epoch order (the named stream is seeded alike everywhere)
+        and serves only rows ``[index*B/count, (index+1)*B/count)`` of
+        every global minibatch, the rows its data-axis position owns."""
+        if not 0 <= index < count:
+            raise ValueError(f"process {index} outside [0, {count})")
+        if self.max_minibatch_size % count:
+            raise ValueError(
+                f"minibatch_size {self.max_minibatch_size} not divisible "
+                f"by process_count {count}"
+            )
+        if count > 1 and self.skip_bad_batches:
+            # a skip is per-process: one process dropping a batch while
+            # its peers dispatch the step desynchronizes the collective
+            raise ValueError(
+                "skip_bad_batches=True cannot combine with multi-host "
+                "training (a per-process skip desynchronizes step "
+                "counts across processes); use fetch_retries instead"
+            )
+        self.process_index = int(index)
+        self.process_count = int(count)
 
     # -- serving -----------------------------------------------------------
     def n_minibatches(self, split: str) -> int:
@@ -177,6 +231,11 @@ class Loader:
             self.reshuffle(split)
         order = self._split_order(split)
         bs = self.max_minibatch_size
+        # multi-process: this process fills only its rows of each global
+        # minibatch (the mask is computed globally, then sliced, so padding
+        # rows stay masked whichever process holds them)
+        lo = self.process_index * bs // self.process_count
+        hi = (self.process_index + 1) * bs // self.process_count
         for start in range(0, n, bs):
             idx = order[start : start + bs]
             n_valid = len(idx)
@@ -184,6 +243,9 @@ class Loader:
                 idx = np.concatenate([idx, np.full(bs - n_valid, idx[0])])
             mask = np.zeros(bs, np.float32)
             mask[:n_valid] = 1.0
+            self._validate_batch_indices(idx, split)
+            if self.process_count > 1:
+                idx, mask = idx[lo:hi], mask[lo:hi]
             mb = self._fill_with_retry(idx, split)
             if mb is None:  # a skipped bad batch (counted)
                 continue
@@ -214,6 +276,11 @@ class Loader:
                                split, attempt, self.fetch_retries + 1, exc)
                 if self.fetch_backoff_s > 0:
                     time.sleep(self.fetch_backoff_s * (2 ** (attempt - 1)))
+
+    def _validate_batch_indices(self, idx: np.ndarray, split: str) -> None:
+        """Hook: loaders with placement invariants on the whole batch's
+        indices (before the process slice) check them here (the
+        pool-sharded alignment of batch blocks to data-axis shards)."""
 
     def epoch(self) -> Iterator[tuple]:
         """One full epoch: train batches then valid then test, tagged."""
@@ -254,3 +321,11 @@ def pool_concat(splits: Dict[str, np.ndarray]) -> np.ndarray:
     transient host copy: the workflow copies it to the device and drops
     it)."""
     return np.concatenate([np.asarray(splits[s]) for s in sorted(splits)])
+
+
+def split_sizes(n: int, fractions: Sequence[float]) -> Dict[str, int]:
+    """Partition ``n`` samples into train/valid/test by fractions (train
+    gets the remainder)."""
+    valid = int(n * fractions[0]) if len(fractions) > 0 else 0
+    test = int(n * fractions[1]) if len(fractions) > 1 else 0
+    return {TRAIN: n - valid - test, VALID: valid, TEST: test}

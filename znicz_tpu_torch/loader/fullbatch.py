@@ -16,8 +16,10 @@ minibatch is gathered and converted by the native
 stays uint8) goes to the device once as the workflow's device context;
 each minibatch ships only its int32 pool rows, which
 :meth:`FullBatchLoader.device_preproc` gathers (and converts) inside the
-step.  Such a loader is ``epoch_scan_friendly``.  Pool sharding
-(``pool_sharded=True``) is refused by name (ROADMAP.md A6).
+step.  Such a loader is ``epoch_scan_friendly``.  ``pool_sharded=True``
+(with ``device_resident``) shards the pool over the mesh's data axis:
+each rank's device holds its shard's rows and each minibatch ships local
+addresses into them (``loader/pool_sharded.py``).
 """
 
 from __future__ import annotations
@@ -29,9 +31,10 @@ import torch
 
 from znicz_tpu_torch.loader import native, normalizers
 from znicz_tpu_torch.loader.base import SPLITS, Loader, Minibatch, pool_concat, pool_offsets
+from znicz_tpu_torch.loader.pool_sharded import PoolShardedMixin
 
 
-class FullBatchLoader(Loader):
+class FullBatchLoader(PoolShardedMixin, Loader):
     """Serve minibatches from per-split in-memory arrays.
 
     ``data[split]``: [n, ...] array; ``labels[split]``: [n] ints or None;
@@ -51,11 +54,6 @@ class FullBatchLoader(Loader):
         pool_sharded: bool = False,
         **kwargs,
     ):
-        if pool_sharded:
-            raise NotImplementedError(
-                "pool sharding (pool_sharded=True) is not ported to znicz_tpu_torch "
-                "yet (ROADMAP.md A6, loader/pool_sharded.py)"
-            )
         super().__init__(**kwargs)
         # zero-length splits are simply absent
         self.data = {
@@ -94,6 +92,9 @@ class FullBatchLoader(Loader):
         self.epoch_scan_friendly = self._device_resident
         self._pool_offsets: Dict[str, int] = (
             pool_offsets(self.data) if device_resident else {})
+        if pool_sharded and not device_resident:
+            raise ValueError("pool_sharded=True requires device_resident")
+        self.wants_data_shards = bool(pool_sharded)
         if normalization != "none" and not self._lazy_u8:
             self.data = {
                 split: normalizers.apply(
@@ -102,12 +103,17 @@ class FullBatchLoader(Loader):
                 for split, raw in self.data.items()
             }
 
+    def _pool_split_arrays(self):
+        return self.data
+
     def device_context(self):
-        """``{"pool": every split in one array}`` when device-resident, built
-        anew at each call and not kept (the workflow copies it to the
-        device)."""
+        """``{"pool": every split in one array}`` when device-resident (this
+        process's shard's rows when pool-sharded), built anew at each call
+        and not kept (the workflow copies it to the device)."""
         if not self._device_resident:
             return None
+        if self.wants_data_shards:
+            return {"pool": self._local_pool()}
         return {"pool": pool_concat(self.data)}
 
     def device_preproc(self):
@@ -150,8 +156,12 @@ class FullBatchLoader(Loader):
     def fill(self, indices: np.ndarray, split: str) -> Minibatch:
         raw = self.data[split]
         if self._device_resident:
-            # only the pool rows ship; the step gathers them on the device
-            data = np.asarray(indices, np.int32) + np.int32(self._pool_offsets[split])
+            # only the pool rows ship (local addresses when pool-sharded);
+            # the step gathers them on the device
+            if self.data_shards > 1:
+                data = self._local_addr(indices, split)
+            else:
+                data = np.asarray(indices, np.int32) + np.int32(self._pool_offsets[split])
         elif self._device_convert:
             data = native.gather_rows_u8_raw(raw, indices)
         elif self._lazy_u8:

@@ -21,7 +21,9 @@
   the flip bit is set, then normalizes.  The crops are the host native
   crops' bytes.  Such a loader is ``epoch_scan_friendly``.
 
-Pool sharding (``pool_sharded=True``, ROADMAP.md A6) is refused by name.
+``pool_sharded=True`` (with ``device_resident``) shards the pool over the
+mesh's data axis: each rank's device holds its shard's rows, and a
+payload's row is a local address into them (``loader/pool_sharded.py``).
 """
 
 from __future__ import annotations
@@ -44,6 +46,7 @@ from znicz_tpu_torch.loader.base import (
     pool_offsets,
 )
 from znicz_tpu_torch.loader.image import IMAGE_EXTENSIONS, _read_image
+from znicz_tpu_torch.loader.pool_sharded import PoolShardedMixin
 
 MEAN_FILE = "mean_rgb.json"
 CLASSES_FILE = "classes.json"
@@ -143,7 +146,7 @@ def _read_json(path: str):
         return json.load(f)
 
 
-class ImageNetLoader(Loader):
+class ImageNetLoader(PoolShardedMixin, Loader):
     """Packed-u8 image loader with the reference's augmentation.
 
     ``data_dir`` holds ``pack_image_dir``'s output, or a raw image tree,
@@ -167,13 +170,11 @@ class ImageNetLoader(Loader):
         pool_sharded: bool = False,
         **kwargs,
     ):
-        if pool_sharded:
-            raise NotImplementedError(
-                "pool sharding (pool_sharded=True) is not ported to znicz_tpu_torch "
-                "yet (ROADMAP.md A6, loader/pool_sharded.py)"
-            )
         super().__init__(**kwargs)
         self._device_resident = bool(device_resident)
+        if pool_sharded and not device_resident:
+            raise ValueError("pool_sharded=True requires device_resident")
+        self.wants_data_shards = bool(pool_sharded)
         self.epoch_scan_friendly = self._device_resident
         if not os.path.isdir(data_dir):
             raise FileNotFoundError(f"no such data_dir: {data_dir}")
@@ -246,7 +247,9 @@ class ImageNetLoader(Loader):
         cs = self.crop_size
         if self._device_resident:
             # the whole transfer of the minibatch: pool row, crop, flip bit
-            row = np.asarray(indices, np.int64) + self._pool_offsets[split]
+            # (pool-sharded: the row is a local address into the rank's block)
+            row = (self._local_addr(indices, split).astype(np.int64) if self.data_shards > 1
+                   else np.asarray(indices, np.int64) + self._pool_offsets[split])
             data = np.stack([row, oy, ox, flip.astype(np.int64)], axis=1).astype(np.int32)
         else:
             data = native.crop_gather_u8(self.images[split], indices, oy, ox, flip, cs, cs)
@@ -258,12 +261,18 @@ class ImageNetLoader(Loader):
             indices=indices,
         )
 
+    def _pool_split_arrays(self):
+        return self.images
+
     def device_context(self):
         """``{"pool": every packed split in one u8 array}`` when
-        device-resident (read from the memory maps at each call and not
-        kept: the workflow copies it to the device)."""
+        device-resident (this process's shard's rows when pool-sharded;
+        read from the memory maps at each call and not kept: the workflow
+        copies it to the device)."""
         if not self._device_resident:
             return None
+        if self.wants_data_shards:
+            return {"pool": self._local_pool()}
         return {"pool": pool_concat(self.images)}
 
     def device_preproc(self):

@@ -3,7 +3,10 @@
 Inverted dropout: kept activations are scaled by ``1/keep`` so eval is the
 identity.  The keep mask is a Bernoulli draw from a ``torch.Generator``; it
 cannot equal the JAX package's threefry mask from the same seed, so the two
-frameworks agree in distribution, not mask for mask.
+frameworks agree in distribution, not mask for mask.  Under data
+parallelism the mask is drawn for the global batch and the rank takes its
+rows (:func:`~znicz_tpu_torch.parallel.data_parallel.batch_rand`), so R
+ranks draw what one process draws.
 """
 
 from __future__ import annotations
@@ -11,6 +14,8 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+
+from znicz_tpu_torch.parallel.data_parallel import batch_rand
 
 
 def dropout(
@@ -25,5 +30,5 @@ def dropout(
     if generator is None:
         raise ValueError("dropout(train=True) needs a torch.Generator")
     keep = 1.0 - dropout_ratio
-    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    mask = batch_rand(x.shape, generator=generator, device=x.device) < keep
     return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))

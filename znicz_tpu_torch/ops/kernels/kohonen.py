@@ -251,18 +251,19 @@ def train_step(
     ``learning_rate``: a host scalar or a 0-d float32 tensor; ``tss``: ``2
     sigma^2`` as :func:`accumulate` takes it.
     ``d2m``: the map's :func:`pairwise_d2`, computed here when not given.
-    ``mesh`` (the JAX package's sharded-batch rule) is not ported."""
-    del data_axis
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh= (the sharded-batch Kohonen step) is not ported to znicz_tpu_torch "
-            "yet (ROADMAP.md A6, parallel/)"
-        )
+    ``mesh``: ``x`` and ``mask`` are this rank's shard of a batch split
+    over the mesh's ``data_axis``; the rank's ``(num, den)`` are summed
+    over the axis (one all-reduce, the JAX package's psum rule) before the
+    update, so every rank applies the full batch's update."""
     w = params["weights"]
     if mask is None:
         mask = torch.ones((x.shape[0],), dtype=x.dtype, device=x.device)
     if d2m is None:
         d2m = pairwise_d2(coords)
     num, den = accumulate(w, x, mask, d2m, tss)
+    if mesh is not None:
+        from znicz_tpu_torch.parallel.data_parallel import psum
+
+        num, den = psum([num, den], mesh, data_axis)
     return {"weights": _apply_update(w, num, den, learning_rate)}
 

@@ -330,15 +330,21 @@ def cd_step(
     reconstruction error).  ``seed`` (the train state's step, a one-value
     int32 tensor, as :func:`statistics` takes it) keys the
     chain's draws; ``learning_rate`` is a host scalar or a 0-d float32
-    tensor.  ``mesh`` (the JAX package's sharded-batch
-    rule) is not ported."""
-    del data_axis
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh= (the sharded-batch CD-k step) is not ported to znicz_tpu_torch "
-            "yet (ROADMAP.md A6, parallel/)"
-        )
+    tensor.  ``mesh``: ``v0`` and ``mask`` are this rank's shard of a batch
+    split over the mesh's ``data_axis`` (the JAX package's psum rule): the
+    rank's chain draws from ``seed * n_shards + rank`` (``seed + rank``
+    would make step s's shard d replay step s+1's shard d-1 when the
+    caller passes seed = step), and ``(dW, dvb, dhb, stats)`` are summed
+    over the axis (one all-reduce) before the update, which every rank
+    then applies alike."""
     if mask is None:
         mask = torch.ones((v0.shape[0],), dtype=v0.dtype, device=v0.device)
+    if mesh is not None:
+        from znicz_tpu_torch.parallel.data_parallel import data_index, psum
+        from znicz_tpu_torch.parallel.mesh import axis_size
+
+        seed = seed * axis_size(mesh, data_axis) + data_index(mesh)
     dw, dvb, dhb, stats = statistics(params, v0, mask, seed, cd_k=cd_k)
+    if mesh is not None:
+        dw, dvb, dhb, stats = psum([dw, dvb, dhb, stats], mesh, data_axis)
     return _apply_update(params, dw, dvb, dhb, stats, learning_rate)

@@ -19,6 +19,8 @@ from typing import Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
+from znicz_tpu_torch.parallel.data_parallel import batch_rand
+
 
 def _window(kx: int, ky: int, sliding) -> Tuple[Tuple[int, int], Tuple[int, int]]:
     if sliding is None:
@@ -109,7 +111,8 @@ def stochastic_pool(
     if noise is None:
         if generator is None:
             raise ValueError("stochastic_pool(train=True) needs a torch.Generator")
-        u = torch.rand(probs.shape, generator=generator, device=p.device, dtype=p.dtype)
+        # drawn for the global batch under data parallelism (batch_rand)
+        u = batch_rand(probs.shape, generator=generator, device=p.device, dtype=p.dtype)
         noise = -torch.log(-torch.log(u.clamp_min(torch.finfo(p.dtype).tiny)))
     logp = torch.where(probs > 0, torch.log(torch.clamp_min(probs, 1e-30)), -math.inf)
     scores = torch.where(total > 0, logp + noise.to(p.dtype), p.abs())

@@ -352,6 +352,10 @@ class Snapshotter:
         self.interval = interval
         self.keep = keep
         self.save_best = save_best  # False: interval-only snapshots
+        # multi-process: the Workflow sets writer=False on every process
+        # but the coordinator; they still gather a save's state to the host
+        # but never touch the filesystem
+        self.writer = True
         self._m_failures = observability.counter(
             _pipeline.SNAPSHOT_FAILURES_METRIC,
             "snapshot writes that failed (previous snapshot left intact)",
@@ -400,6 +404,8 @@ class Snapshotter:
                     "host_state": host_state or {},
                 }
             path = self._path(tag)
+            if not self.writer:
+                return path  # bookkeeping stays identical across processes
             opener = gzip.open if self.compress else open
             tmp = path + ".tmp"
             with observability.span("snapshot/write", path=path):
@@ -504,7 +510,7 @@ class Snapshotter:
         budget; an unresumable run is a lost run)."""
         while len(self._kept) > self.keep:
             old = self._kept[0]
-            if os.path.exists(old):
+            if self.writer and os.path.exists(old):
                 # newest first: the just-written (in-_verified) path
                 # short-circuits the sweep, so a restart-recovered
                 # ledger never re-hashes old multi-GB files per save
@@ -521,6 +527,9 @@ class Snapshotter:
                     return
             self._kept.pop(0)
             self._verified.discard(old)
-            for victim in (old, _sidecar_path(old)):
-                if os.path.exists(victim):
-                    os.remove(victim)
+            # only the writer touches the filesystem (processes share the
+            # bookkeeping but must not race on removes)
+            if self.writer:
+                for victim in (old, _sidecar_path(old)):
+                    if os.path.exists(victim):
+                        os.remove(victim)

@@ -24,10 +24,18 @@ it for a device-resident token loader).
 :mod:`workflow.generate` (KV cache; on the card one captured decode step
 replayed a position).
 
+``parallel=DataParallel(mesh)`` trains over the data axis (each rank its
+shard of every batch, the gradients all-reduced; the flash kernels run on
+every rank).  Under more than one rank ``moe_dispatch="capacity"`` is
+refused: the JAX package computes the capacity and its stable sort over
+the global batch, which per-rank routing would not reproduce (dense
+dispatch is per token and runs).
+
 Not ported here, and refused with ``NotImplementedError`` naming their
 ``ROADMAP.md`` item: sequence/tensor/pipeline parallelism
-(``pipeline_microbatches``, ``mesh``) and the ``parallel=`` placement
-policy; each such JAX keyword is taken at its JAX default.
+(``sequence_parallel``, ``tensor_parallel``, ``pipeline_parallel``,
+``pipeline_microbatches``, ``mesh``); each such JAX keyword is taken at
+its JAX default.
 """
 
 from __future__ import annotations
@@ -227,7 +235,8 @@ class TransformerLMWorkflow(Workflow):
             (pipeline_parallel, "pipeline_parallel", "A7, parallel/pipeline.py"),
             (pipeline_microbatches is not None, "pipeline_microbatches (GPipe)",
              "A7, parallel/pipeline.py"),
-            (mesh is not None, "a mesh= device mesh", "A6, parallel/mesh.py"),
+            (mesh is not None, "a mesh= device mesh (sequence and pipeline parallelism)",
+             "A7, parallel/ring_attention.py"),
         ))
         if attention not in ATTENTIONS:
             raise ValueError(f"attention={attention!r}: want one of {ATTENTIONS}")
@@ -267,6 +276,14 @@ class TransformerLMWorkflow(Workflow):
 
     def _batch_target(self, mb):
         return np.zeros(len(mb.mask), np.int32)  # unused host-side dummy
+
+    def _check_parallel(self) -> None:
+        super()._check_parallel()
+        refuse_unported((
+            (self.moe_dispatch == "capacity" and self.parallel.n_data > 1,
+             "moe_dispatch='capacity' under data parallelism (capacity over the "
+             "global batch)", "A6, ops/moe.py"),
+        ))
 
     def generate(
         self,

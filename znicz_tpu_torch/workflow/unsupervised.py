@@ -21,7 +21,12 @@ grid), ``epoch_sync`` and the anomaly watch.  A step has no gradients, so
 the watch's second entry is the update's norm ``||params' - params||``, as
 in the JAX package, taken before the new params are copied in.  Both
 ``epoch_dispatch`` modes run, the scan for a device-resident loader.
-``parallel=`` is refused, naming its ``ROADMAP.md`` item.
+
+Under ``parallel=`` each rank runs the kernel on its shard of the batch
+and the kernels' psum rules sum the rank's statistics over the data axis
+before the update (the SOM's ``(num, den)``; the RBM's ``(dW, dvb, dhb,
+stats)``, its chain drawn from ``seed * n_shards + rank``), so every rank
+applies the full batch's update.
 """
 
 from __future__ import annotations
@@ -101,6 +106,11 @@ class _Unsupervised(Workflow):
         """One learning-rule step on the flattened batch, its host values in
         the row ``scal``; returns (new params, the step's metrics)."""
         raise NotImplementedError
+
+    def _mesh(self):
+        """The mesh the kernels' psum rules reduce over (None without data
+        parallelism)."""
+        return None if self.parallel is None else self.parallel.mesh
 
     @torch.no_grad()
     def _learn(self, x, y, mask, scal):
@@ -189,7 +199,7 @@ class KohonenWorkflow(_Unsupervised):
         win = kh.winners(params, x)
         new = kh_kernel.train_step(
             params, x, self._coords, learning_rate=scal[0], tss=scal[1], mask=mask,
-            d2m=self._d2m,
+            d2m=self._d2m, mesh=self._mesh(),
         )
         return new, self._qe(new, x, win, mask)
 
@@ -269,7 +279,8 @@ class RBMWorkflow(_Unsupervised):
 
     def _update(self, params, x, mask, scal):
         new, err = rbm_kernel.cd_step(params, x, scal[1:2].view(torch.int32),
-                                      learning_rate=scal[0], cd_k=self.cd_k, mask=mask)
+                                      learning_rate=scal[0], cd_k=self.cd_k, mask=mask,
+                                      mesh=self._mesh())
         return new, {
             "loss": err,
             "n_samples": torch.clamp_min(torch.sum(mask), 1.0),

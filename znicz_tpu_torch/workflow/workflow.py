@@ -62,11 +62,26 @@ emergency snapshot and raises :class:`TrainingPreempted`.
 epoch later; an epoch whose verdict could stop training, or that is due for
 an interval snapshot, is read before anything new is dispatched.
 
-Left for later slices, refused by name: the parallel placement policies.
+Data parallelism (``parallel=DataParallel(mesh)``, ``parallel/``): one
+process a device, each rank serving its contiguous ``1/R`` of every global
+minibatch (the loader's process shard).  A train step all-reduces the
+count of valid rows first, scales the rank's loss by its share of them
+(so the summed gradient is the global batch's: the loss's denominator is
+the global count) and then sums the gradients, flattened into one buffer
+a dtype, with one all-reduce; the watch's loss and the gradient norms are
+the reduced ones, so every rank's detector decides alike and a rollback
+happens on all ranks.  The epoch's accumulators are reduced once, at the
+epoch's end (counts and sample-weighted sums add, ``max_*`` take the
+maximum).  Only the coordinator writes snapshots; every rank gathers
+them.  Under NCCL the scan dispatch's captured step holds the
+collectives; a gloo group on the card stages them through the host,
+which no CUDA graph can capture, so there ``"scan"`` raises and ``"auto"``
+takes the step dispatch.
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import logging
 import time
@@ -102,6 +117,9 @@ logger = logging.getLogger(__name__)
 
 # train steps between a watch vector's dispatch and its read by the detector
 WATCH_LAG = 2
+# the metrics key under which a data-parallel step hands the watch its
+# global loss (never reaches the accumulator)
+WATCH_LOSS = "_watch_loss"
 
 
 class _RollbackSignal(Exception):
@@ -273,8 +291,9 @@ class Workflow:
     ``recovery``: a :class:`RecoveryPolicy` that acts on the detector's
     verdicts.  ``epoch_dispatch``: "step", "scan" (whole splits through
     the split function; needs an ``epoch_scan_friendly`` loader) or "auto"
-    (scan for such a loader with a device context).  ``parallel`` is
-    refused, naming its ``ROADMAP.md`` item.
+    (scan for such a loader with a device context).  ``parallel``: a
+    :class:`~znicz_tpu_torch.parallel.DataParallel` placement policy, or
+    None (it may also be assigned before ``initialize``).
     """
 
     def __init__(
@@ -303,9 +322,7 @@ class Workflow:
             )
         if epoch_sync not in ("sync", "deferred"):
             raise ValueError(f"epoch_sync={epoch_sync!r}: want 'sync' or 'deferred'")
-        refuse_unported((
-            (parallel is not None, "a parallel= placement policy", "A6, parallel/data_parallel.py"),
-        ))
+        self.parallel = parallel  # DataParallel placement policy, or None
         self.epoch_dispatch = epoch_dispatch
         # the loader's device context on the workflow's device (initialize)
         self._ctx = None
@@ -390,14 +407,56 @@ class Workflow:
                         self.decision.epoch)
         else:
             self.state = self._create_initial_state()
+        if self.parallel is not None:
+            self._check_parallel()
+            self.state = self.parallel.shard_state(self.state)
         self._add_mask = torch.as_tensor(self._additive, device=self.device)
         self._acc_start = torch.as_tensor(
             np.where(self._additive, 0.0, -np.inf).astype(np.float32), device=self.device)
+        # multi-process: every process runs this same loop; the loader
+        # serves per-process sample shards, and snapshots are written on
+        # exactly one process (the reference's master-does-bookkeeping role)
+        from znicz_tpu_torch.parallel import multihost
+
+        self._coordinator = multihost.is_coordinator()
+        if multihost.process_count() > 1:
+            if self.parallel is None:
+                raise ValueError(
+                    "multi-host training needs a DataParallel placement "
+                    "policy (parallel=...) so batches span the global mesh"
+                )
+            if self.parallel.n_data % multihost.process_count():
+                raise ValueError(
+                    f"data axis size {self.parallel.n_data} not divisible "
+                    f"by process count {multihost.process_count()}; "
+                    "multi-host training shards the batch over processes, "
+                    "so give every process an equal data-axis share "
+                    "(e.g. --mesh data=<n_processes*k>)"
+                )
+            self.loader.set_process_shard(multihost.process_index(), multihost.process_count())
+        if self.snapshotter is not None:
+            self.snapshotter.writer = self._coordinator
+        # data-axis pool sharding: each rank's device holds 1/D of the rows
+        if self.loader.wants_data_shards:
+            if self.parallel is None:
+                raise ValueError(
+                    "this loader shards its device pool over the data "
+                    "axis; pass parallel=DataParallel(mesh)"
+                )
+            self.loader.set_data_shards(self.parallel.n_data)
         # one copy of the loader's device context (the device-resident pool)
-        ctx = self.loader.device_context()
-        self._ctx = None if ctx is None else {
-            k: torch.as_tensor(np.asarray(v), device=self.device) for k, v in ctx.items()}
+        self._ctx = self.loader.place_device_context(self.parallel, self.device)
         self._splits.clear()
+
+    def _check_parallel(self) -> None:
+        """The placement policy fits this workflow: it places on the
+        workflow's device type (subclasses refuse what they cannot run
+        under data parallelism)."""
+        if self.parallel.device.type != self.device.type:
+            raise ValueError(
+                f"parallel= places on {self.parallel.device} but the workflow runs on "
+                f"{self.device}: build the mesh on the workflow's device"
+            )
 
     def host_state(self) -> Dict[str, Any]:
         """The host half of a snapshot, in the JAX package's keys."""
@@ -440,6 +499,8 @@ class Workflow:
             step=int(np.asarray(step)),
             generator=gen,
         )
+        if self.parallel is not None:
+            self.state = self.parallel.shard_state(self.state)
 
     def _create_initial_state(self) -> TrainState:
         """A fresh train state on the workflow's device (subclasses that
@@ -555,18 +616,81 @@ class Workflow:
         returned or None)``."""
         x, y = self._prep(x, y)
         m, norms = self._learn(x, y, mask, scal)
-        return self._combine(acc, m), (None if norms is None else watch(m["loss"], norms))
+        m = self._rank_counts(m, mask)
+        watch_loss = m.pop(WATCH_LOSS, None)
+        if norms is None:
+            return self._combine(acc, m), None
+        if watch_loss is None:
+            watch_loss = self._global_loss(m)
+        return self._combine(acc, m), watch(watch_loss, norms)
+
+    # -- data parallelism: the collectives of a step --------------------------
+    def _rank_counts(self, m: Dict[str, Any], mask) -> Dict[str, Any]:
+        """Under data parallelism a rank's ``n_samples`` is its count of
+        valid rows, unclamped (a rank may hold only a padded batch's
+        padding), so the ranks' accumulators add up to the global batch's."""
+        if self.parallel is None:
+            return m
+        return dict(m, n_samples=mask.float().sum())
+
+    def _global_loss(self, m: Dict[str, Any]):
+        """The step's loss over the global batch (one all-reduce of the
+        rank's sample-weighted loss and its count); the rank's own without
+        data parallelism."""
+        if self.parallel is None:
+            return m["loss"]
+        n = m["n_samples"]
+        total, count = self.parallel.all_reduce(
+            [torch.as_tensor(m["loss"]).detach().float().reshape(1) * n, n.reshape(1)])
+        return (total / count.clamp_min(1.0))[0]
+
+    def _reduce_accs(self, accs: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """The ranks' epoch accumulators combined over the data axis, split
+        by split in name order on every rank: additive entries summed,
+        ``max_*`` ones maximized."""
+        if self.parallel is None or self.parallel.group is None or not accs:
+            return accs
+        names = sorted(accs)
+        stacked = torch.stack([accs[k] for k in names])
+        (total,) = self.parallel.all_reduce([stacked], "sum")
+        (peak,) = self.parallel.all_reduce([stacked], "max")
+        reduced = torch.where(self._add_mask, total, peak)
+        return {k: reduced[i] for i, k in enumerate(names)}
+
+    def _draws(self):
+        """The block in which the step's per-sample draws (dropout,
+        stochastic pooling) are made for the global batch, this rank
+        taking its rows, so R ranks draw what one process draws."""
+        if self.parallel is None:
+            return contextlib.nullcontext()
+        from znicz_tpu_torch.parallel.data_parallel import batch_shard
+
+        return batch_shard(self.parallel.index, self.parallel.n_data)
 
     def _learn(self, x, y, mask, scal):
         """Forward, loss, autograd and the in-place update, the lr scale
         ``scal[0]`` (a tensor on the device).  Returns the step's metrics
         and, with the anomaly watch on, the gradients' per-tensor norms
-        (else None)."""
+        (else None).  Under data parallelism the gradients are the global
+        batch's (the class docstring says how) and the metrics carry the
+        global loss for the watch under :data:`WATCH_LOSS`."""
         st = self.state
+        dp = self.parallel
         leaves = [w for layer in st.params for w in layer.values()]
-        with torch.enable_grad():
+        with torch.enable_grad(), self._draws():
             m = self._forward_metrics(st.params, x, y, mask, train=True)
-            flat = torch.autograd.grad(m["loss"], leaves)
+            objective = m["loss"]
+            if dp is not None:
+                # the loss's denominator becomes the global count of valid
+                # rows: exactly 1.0 a factor on one rank
+                n_rank = mask.float().sum()
+                (n_all,) = dp.all_reduce([n_rank.reshape(1)])
+                objective = objective * (n_rank.clamp_min(1.0) / n_all[0].clamp_min(1.0))
+            flat = torch.autograd.grad(objective, leaves)
+        if dp is not None:
+            weighted = (m["loss"].detach().float() * n_rank).reshape(1)
+            *flat, total = dp.all_reduce([*flat, weighted])
+            m = dict(m, **{WATCH_LOSS: total[0] / n_all[0].clamp_min(1.0)})
         norms = tensor_norms(flat) if self.anomaly is not None else None
         it = iter(flat)
         grads = [{k: next(it) for k in layer} for layer in st.params]
@@ -612,7 +736,7 @@ class Workflow:
         """One evaluation step; returns the updated accumulator."""
         x, y = self._prep(x, y)
         m = self._forward_metrics(self.state.params, x, y, mask, train=False)
-        return self._combine(self._acc_init() if acc is None else acc, m)
+        return self._combine(self._acc_init() if acc is None else acc, self._rank_counts(m, mask))
 
     def _stage(self, item):
         """One batch's arrays staged for the step, inside the H2D probe:
@@ -704,7 +828,16 @@ class Workflow:
         memory); ``"auto"`` takes it for such a loader with a device
         context."""
         friendly = getattr(self.loader, "epoch_scan_friendly", False)
+        host_collectives = (self.parallel is not None and self.device.type == "cuda"
+                            and self.parallel.host_collectives)
         if self.epoch_dispatch == "scan":
+            if host_collectives:
+                raise ValueError(
+                    "epoch_dispatch='scan' captures the step into a CUDA graph, but this "
+                    "process group's collectives stage the card's tensors through the "
+                    "host (gloo), which no graph can capture; use an NCCL group or "
+                    "epoch_dispatch='step'"
+                )
             if not friendly:
                 raise ValueError(
                     "epoch_dispatch='scan' needs a scan-friendly loader (per-batch "
@@ -713,7 +846,8 @@ class Workflow:
                     "the whole epoch in host RAM"
                 )
             return True
-        return self.epoch_dispatch == "auto" and self._ctx is not None and friendly
+        return (self.epoch_dispatch == "auto" and self._ctx is not None and friendly
+                and not host_collectives)
 
     def _put_stacked(self, split: str, arrays: Dict[str, np.ndarray]) -> _SplitRun:
         """The split's stacked arrays in its :class:`_SplitRun` (made for a
@@ -979,6 +1113,7 @@ class Workflow:
             # the rollback's first source and a mid-epoch stop's snapshot
             self._epoch_start = self._retain_epoch_start()
         accs = self._run_epoch_scanned() if self._use_epoch_scan() else self._run_epoch_stepwise()
+        accs = self._reduce_accs(accs)
         if not deferred:
             return self._finish_epoch(accs)
         prev, self._pending_accs = self._pending_accs, self._start_fetch(accs)
@@ -1141,7 +1276,8 @@ class Workflow:
         x, y = self._prep(x, y)
         out = self.model.apply(self.state.params, x, train=False)
         m = evaluator.softmax(out, y, mask=mask, compute_confusion=True)
-        return self._combine(acc, m), conf + m.pop("confusion")
+        conf = conf + m.pop("confusion")
+        return self._combine(acc, self._rank_counts(m, mask)), conf
 
     def evaluate(self, split: str = "test", *, confusion: bool = False) -> Dict[str, Any]:
         """One evaluation pass over ``split``, read in its stored order (the
@@ -1173,6 +1309,9 @@ class Workflow:
                 acc, conf = self._eval_conf_step(x, y, mask, acc, conf)
             else:
                 acc = self.eval_step(x, y, mask, acc)
+        acc = self._reduce_accs({split: acc})[split]
+        if conf is not None and self.parallel is not None:
+            (conf,) = self.parallel.all_reduce([conf])
         m = _decode_metrics(acc.cpu().numpy(), self._metric_names)
         n = m.get("n_samples", 0.0)
         n_err = m.get("n_err", 0.0)
