@@ -38,9 +38,10 @@ exit, no result line) when any phase fails:
 6. each flash kernel (forward, dQ, dK/dV) against its plain version on the
    same CUDA tensors, with O(1) ``dout`` and ``dlse``: the LM slice's shape
    (B 16, T 2048, H 8, D 64, causal), D 32 and 128, a non-causal and a
-   ragged (T 2000) case, each in f32 and bf16; at the slice shape a second
-   launch of the forward, dQ and dK/dV must be bitwise equal to the first,
-   in both dtypes; the f32 forward's ``out`` and ``lse`` (at the slice
+   ragged (T 2000) case, and phase 31's tensor-parallel shape on each rank
+   (B 2, T 2048, 4 local heads, D 64, causal), each in f32 and bf16; at
+   the slice shape a second launch of the forward, dQ and dK/dV must be
+   bitwise equal to the first, in both dtypes; the f32 forward's ``out`` and ``lse`` (at the slice
    shape, D 128 and without the mask) and dQ and dK/dV (at the slice shape)
    against a float64 plain version, within 10 times the f32 plain
    version's error;
@@ -325,7 +326,31 @@ exit, no result line) when any phase fails:
     pool-sharded resident FullBatch pool with half the rows' bytes on each
     rank's card and an epoch trained; ``epoch_dispatch="scan"`` refused
     under gloo on the card;
-31. the whole script's seconds, the ``kernels`` JSON line (each flash row
+31. tensor and expert parallelism (``parallel/tensor_parallel.py``), gloo
+    ranks on the one card (this script started with ``--tp-rank``, each
+    wait with its own timeout; cuDNN deterministic, TF32 off), each against
+    one process on the card: two ranks as ``(data=1, model=2)``: AlexNet
+    at full width (``tp=True``, so ``cnn_tp_rules``: conv1/3/5 and fc6/7
+    column, conv2/4 row; batch cut to 32, 2 epochs; losses within 1e-3
+    relative in bf16, each rank's LRN launches those of one process; the
+    same run in f32: losses within 1e-4 and each leaf's change over the
+    2 epochs within 10 times (+1e-5) the difference between one process's
+    with cuDNN on and off, in norm, bf16's change read; the
+    LRN pair against its plain version at that batch's norm1 and norm2
+    shapes, f32 and bf16), the
+    mid LM with ``tensor_parallel`` and f32 flash (batch cut to 2, one
+    epoch of 3 steps; within 1e-4; each rank's flash kernels over its 4
+    local heads), ``generate()`` on the gathered params against one
+    process decoding the same params, and the MoE LM at 2 layers (4 of 8
+    experts a rank) in both dispatches; ms a train step of a rank and of
+    one process, and the collectives' wall share of a rank's step (each
+    collective timed between two synchronisations); four ranks as ``(2,
+    2)``: ``tests/test_multihost.py``'s TP conv net (losses within 1e-4,
+    the coordinator's snapshot holding the whole ``(5, 5, 1, 8)`` kernel
+    and loading into a run without TP), the SOM (params whole, psum over
+    the data column; within 1e-5) and one RBM step through its psum rule
+    (the two data rows' summed shards, within 1e-5);
+32. the whole script's seconds, the ``kernels`` JSON line (each flash row
     with its bf16 times, bound, launches and error beside the f32 ones under
     ``"bf16"``; the f32 flash, Kohonen and RBM rows also with their f32-FMA
     bound and their float64 errors beside the plain version's; the LRN rows
@@ -337,7 +362,8 @@ exit, no result line) when any phase fails:
     flash row with the MoE epochs' launches of phase 23 and the traced ones
     of phase 24 under ``"moe"``; every row with phase 30's one-NCCL-rank
     launches under ``"dp"``, the Kohonen and RBM rows with each gloo
-    rank's), then the result line.
+    rank's; every row with phase 31's gloo ranks' launches under
+    ``"tp"``), then the result line.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``.
 """
@@ -385,6 +411,8 @@ FLASH_CASES = [  # (tag, B, T, H, D, causal)
     ("d128", 2, 1024, 8, 128, True),
     ("full", 2, 1024, 8, 64, False),
     ("ragged", 2, 2000, 8, 64, True),
+    # phase 31's on each of two tensor-parallel ranks: batch 2, 4 local heads
+    ("tp", 2, LM_T, LM_MID["n_heads"] // 2, 64, True),
 ]
 # of the reference's largest magnitude: f32 sums run in another order; bf16
 # rounds p and ds before their products at other places (running maxima)
@@ -2612,11 +2640,12 @@ HEAL_POISON = 5  # the train batch (in fill order) filled with NaN once: epoch 1
 HEAL_STOP = 6  # the train step whose lr asks for the stop: mid epoch 1
 # epochs a window of the watch's cost: AlexNet 150 steps (~2 s), the others 200-700
 WATCH_EPOCHS = {"alexnet": 30, "kohonen": 1, "mnist_rbm": 1, "mnist": 8}
-WATCH_TURNS = (True, False, False, True, True, False)  # the watch on / off a window
+# the watch on / off a window, two a side (the script's time limit)
+WATCH_TURNS = (True, False, False, True)
 TRANSPORT_CALLS = 2000  # calls of each watch transport, in turns
 # deferred against sync: a stop driven by fail_iterations after ~20 epochs (~100 steps)
 DEFERRED_DECISION = {"max_epochs": 40, "fail_iterations": 20}
-DEFERRED_RUNS = ("sync", "deferred", "deferred", "sync", "sync", "deferred")
+DEFERRED_RUNS = ("sync", "deferred", "deferred", "sync")  # two a side (the time limit)
 RESUME_EPOCHS = 3  # SOM, RBM and LM: uninterrupted against 1 + snapshot + 2 resumed
 LM_RESUME = dict(LM_MID, n_layers=2)  # the mid LM's width at a smaller depth
 LM_RESUME_N = 48  # 3 train steps an epoch at batch 16, T 2048
@@ -3317,7 +3346,7 @@ def _replay_profile(torch, wf, label, smi):
     return out
 
 
-def _alexnet_resident(alexnet, loader, dispatch, n_classes, **kw):
+def _alexnet_resident(alexnet, loader, dispatch, n_classes, compute_dtype=None, **kw):
     import copy
 
     from znicz_tpu_torch.workflow.standard import StandardWorkflow
@@ -3326,7 +3355,8 @@ def _alexnet_resident(alexnet, loader, dispatch, n_classes, **kw):
     layers[-1]["->"]["output_sample_shape"] = n_classes
     return StandardWorkflow(
         loader, layers, decision_config={"max_epochs": 10000},
-        lr_policy=alexnet.DEFAULTS["lr_policy"], compute_dtype=alexnet.DEFAULTS["compute_dtype"],
+        lr_policy=alexnet.DEFAULTS["lr_policy"],
+        compute_dtype=compute_dtype or alexnet.DEFAULTS["compute_dtype"],
         epoch_dispatch=dispatch, device="cuda", name=f"AlexNetResident-{dispatch}", **kw)
 
 
@@ -5628,6 +5658,521 @@ def phase_dp_gloo(torch, smi):
     return launches, {"seconds": ranks_s, "mnist_loss_rel": worst_loss, "pool": pools}
 
 
+# -- phase 31: tensor and expert parallelism ------------------------------------
+
+TP_WAIT_S = 600  # a gloo rank's wait
+# cuts of phase 31 (gloo stages every collective through the host; widths
+# are never cut): AlexNet's batch 128 -> 32 (2 epochs of 2 train steps); the
+# mid LM's batch 16 -> 2 (1 epoch of 3 train steps); the MoE LM's depth 12 -> 2
+TP_ALEXNET = dict(n=64, batch=32, epochs=2)
+TP_LM = dict(n=6, batch=2)
+TP_MOE_LAYERS = 2
+TP_TIMED = 3  # timed train steps a run (after 1 warm-up), and as many with the collectives timed
+# relative limits against one process.  AlexNet's epoch-mean losses in
+# bf16 within 1e-3 (~30x the 3.4e-5 measured), in f32 within 1e-4; in f32
+# each leaf's change over the run, ||d_tp - d_one|| / ||d_one||, within
+# TP_CHANGE_FACTOR times the same for one process with cuDNN off, plus
+# 1e-5 (f32 sums in other orders grow from ~1e-7 at the head to ~3e-3 at
+# conv1 through the pooling windows' near-ties; a partial sum missed or
+# doubled moves it by O(1); bf16's is read, not held); the LMs and the
+# conv net within 1e-4, the SOM's and the RBM's params 1e-5
+TP_TOL = {"alexnet": 1e-3, "alexnet_f32": 1e-4, "alexnet_change": 1e-5, "lm": 1e-4,
+          "moe": 1e-4, "conv": 1e-4, "som": 1e-5, "rbm": 1e-5}
+TP_CHANGE_FACTOR = 10
+TP_PROMPT = (2, 16, 8)  # generate(): rows, prompt length, new tokens
+# tests/test_multihost.py's two-host TP conv net, on a (data=2, model=2) mesh
+TP_CONV = [
+    {"type": "conv_relu", "->": {"n_kernels": 8, "kx": 5, "ky": 5}},
+    {"type": "max_pooling", "->": {"kx": 2, "ky": 2}},
+    {"type": "conv_relu", "->": {"n_kernels": 16, "kx": 5, "ky": 5}},
+    {"type": "max_pooling", "->": {"kx": 2, "ky": 2}},
+    {"type": "softmax", "->": {"output_sample_shape": 10}},
+]
+
+
+def _collective_seconds(torch):
+    """Wrap ``torch.distributed``'s ``all_reduce`` and ``all_gather`` so that
+    each call is timed between two synchronisations; returns ``(acc,
+    restore)``, ``acc["s"]`` the seconds summed, ``acc["n"]`` the calls."""
+    import torch.distributed as dist
+
+    acc = {"s": 0.0, "n": 0}
+    orig = {name: getattr(dist, name) for name in ("all_reduce", "all_gather")}
+
+    def timed(fn):
+        def call(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            acc["s"] += time.perf_counter() - t0
+            acc["n"] += 1
+            return out
+        return call
+
+    for name, fn in orig.items():
+        setattr(dist, name, timed(fn))
+
+    def restore():
+        for name, fn in orig.items():
+            setattr(dist, name, fn)
+
+    return acc, restore
+
+
+def _tp_timed(torch, wf, parallel):
+    """ms a train step: the median of ``TP_TIMED`` synchronised steps after
+    a warm-up; under a policy, as many again with every collective timed
+    (its wall share of those steps)."""
+    step_s, _ = _dp_steps(torch, wf, TP_TIMED + 1)
+    out = {"step_ms": statistics.median(step_s[1:]) * 1e3}
+    if parallel is not None:
+        acc, restore = _collective_seconds(torch)
+        try:
+            timed_s, _ = _dp_steps(torch, wf, TP_TIMED)
+        finally:
+            restore()
+        out["collective_share"] = acc["s"] / sum(timed_s)
+        out["collectives_a_step"] = acc["n"] / TP_TIMED
+    return out
+
+
+def _tp_runs(torch, out_dir, parallel):
+    """Phase 31's (data=1, model=2) runs on one rank (``parallel`` its
+    policy) or in one process (None), on the card: AlexNet (cnn_tp_rules),
+    the mid LM (flash, then generate()) and the MoE LM in both dispatches.
+    Returns each run's losses, launches and times; the rank at model
+    position 0 writes the LM's gathered params for the generate check."""
+    import numpy as np
+
+    from znicz_tpu_torch.core import prng
+    from znicz_tpu_torch.loader.fullbatch import FullBatchLoader
+    from znicz_tpu_torch.models import alexnet
+    from znicz_tpu_torch.nn import optimizer
+    from znicz_tpu_torch.ops.kernels import attention as fa, lrn as lrn_kernel
+    from znicz_tpu_torch.parallel import DataParallel
+    from znicz_tpu_torch.workflow import transformer
+
+    torch.backends.cudnn.benchmark = False
+    torch.backends.cudnn.deterministic = True
+    _f32_exact(torch)
+    kw = {} if parallel is None else {"parallel": parallel}
+    res = {}
+    # AlexNet at full width (1000 classes), both norms' LRN kernels; its
+    # policy has tp=True, so the workflow picks cnn_tp_rules on its own.  In
+    # bf16 (its main path: launches, times) and in f32, whose changes of
+    # each leaf are held to one process's; one process also runs f32 with
+    # cuDNN off (im2col products: another summation order), the floor the
+    # change's difference is held to
+    gen = np.random.default_rng(31)
+    imgs = gen.integers(0, 256, (TP_ALEXNET["n"], 227, 227, 3), dtype=np.uint8)
+    labels = gen.integers(0, 1000, TP_ALEXNET["n"]).astype(np.int32)
+    lrn = (("lrn_fwd", lrn_kernel.lrn_forward), ("lrn_bwd", lrn_kernel.lrn_backward))
+    runs = ["bfloat16", "float32"] + (["floor"] if parallel is None else [])
+    for run in runs:
+        dtype = "float32" if run == "floor" else run
+        torch.backends.cudnn.enabled = run != "floor"
+        prng.seed_all(1234)
+        ld = FullBatchLoader({"train": imgs}, {"train": labels},
+                             minibatch_size=TP_ALEXNET["batch"], normalization="range",
+                             normalization_kwargs={"scale": 255.0, "shift": -0.5},
+                             device_convert=True)
+        wf = _alexnet_resident(alexnet, ld, "step", 1000, compute_dtype=dtype, **(
+            {} if parallel is None else {"parallel": DataParallel(parallel.mesh, tp=True)}))
+        wf.initialize(seed=1234)
+        start = [{k: v.detach().clone() for k, v in layer.items()} for layer in wf.state.params]
+        for _, fn in lrn:
+            fn.launches = 0
+        losses = [wf.run_epoch()["summary"]["train"]["loss"]
+                  for _ in range(TP_ALEXNET["epochs"])]
+        torch.cuda.synchronize()
+        launches = {n: fn.launches for n, fn in lrn}
+        # each leaf's change over the epochs, whole (every rank takes part)
+        change = [{k: v.detach() - start[i][k] for k, v in layer.items()}
+                  for i, layer in enumerate(wf.state.params)]
+        if parallel is not None:
+            change = wf.parallel.gather_state(change)
+        if parallel is None or parallel.model_index == 0:
+            who = "floor" if run == "floor" else "one" if parallel is None else "tp"
+            np.savez(os.path.join(out_dir, f"alexnet_change_{dtype}_{who}.npz"),
+                     **{f"{i}.{k}": v.float().cpu().numpy() for i, layer in enumerate(change)
+                        for k, v in layer.items()})
+        del start, change
+        key = {"bfloat16": "alexnet", "float32": "alexnet_f32", "floor": "alexnet_floor"}[run]
+        res[key] = {"loss": losses, "launches": launches,
+                    "sharded": sorted(wf.parallel.sharded) if parallel is not None else []}
+        if dtype == "bfloat16":
+            res[key].update(_tp_timed(torch, wf, parallel))
+        del wf
+        torch.cuda.empty_cache()
+    torch.backends.cudnn.enabled = True
+    # the mid LM at full width, f32 flash (3xTF32), lr 0.001
+    hyper = optimizer.HyperParams(learning_rate=0.001, gradient_moment=0.9)
+    tokens = np.random.default_rng(32).integers(0, LM_MID["vocab"], (TP_LM["n"], 2048))
+    flash = tuple((n, getattr(fa, n)) for n in FLASH)
+
+    def lm(label, cfg, **extra):
+        prng.seed_all(1234)
+        ld = FullBatchLoader({"train": tokens.astype(np.int32)}, minibatch_size=TP_LM["batch"])
+        wf = transformer.TransformerLMWorkflow(
+            ld, **cfg, attention="flash", hyper=hyper, device="cuda",
+            tensor_parallel=parallel is not None, **kw, **extra)
+        wf.initialize(seed=1234)
+        for _, fn in flash:
+            fn.launches = 0
+        loss = wf.run_epoch()["summary"]["train"]["loss"]
+        torch.cuda.synchronize()
+        res[label] = {"loss": [loss], "launches": {n: fn.launches for n, fn in flash},
+                      "flash_shape": list(fa.flash_fwd.last_shape or ()),
+                      "wq": list(wf.state.params[1]["wq"].shape), **_tp_timed(torch, wf, parallel)}
+        return wf
+
+    wf = lm("lm", LM_MID)
+    prompt = tokens[:TP_PROMPT[0], :TP_PROMPT[1]].astype(np.int32)
+    res["lm"]["generate"] = wf.generate(prompt, max_new_tokens=TP_PROMPT[2]).cpu().tolist()
+    if parallel is not None:
+        whole = wf.parallel.gather_state(wf.state.params)  # every rank takes part
+        if parallel.model_index == 0:
+            np.savez(os.path.join(out_dir, "lm_params.npz"),
+                     **{f"{i}.{k}": v.detach().cpu().numpy() for i, layer in enumerate(whole)
+                        for k, v in layer.items()})
+    res["lm_wf"] = wf if parallel is None else None
+    del wf
+    torch.cuda.empty_cache()
+    for dispatch in MOE_DISPATCHES:
+        lm(f"moe_{dispatch}", dict(LM_MOE, n_layers=TP_MOE_LAYERS), **MOE, moe_dispatch=dispatch)
+    torch.cuda.empty_cache()
+    return res
+
+
+def _tp_mesh_work(torch, out_dir, rank):
+    """Phase 31's (data=2, model=2) runs on one of four ranks: the TP conv
+    net with the coordinator's snapshots, the SOM's epoch (params whole,
+    psum over the data column) and one RBM CD step through the psum rule."""
+    import numpy as np
+
+    from znicz_tpu_torch.core import prng
+    from znicz_tpu_torch.core.config import root as troot
+    from znicz_tpu_torch.loader import datasets
+    from znicz_tpu_torch.models import kohonen
+    from znicz_tpu_torch.ops.kernels import kohonen as khk, rbm as rbk
+    from znicz_tpu_torch.parallel import DataParallel, make_mesh
+    from znicz_tpu_torch.workflow.snapshotter import Snapshotter
+    from znicz_tpu_torch.workflow.standard import StandardWorkflow
+
+    _f32_exact(torch)
+    torch.backends.cudnn.deterministic = True
+    mesh = make_mesh(2, 2)
+    res = {}
+    prng.seed_all(55)
+    wf = StandardWorkflow(datasets.mnist(n_train=128, n_test=0, minibatch_size=32, flat=False),
+                          TP_CONV, decision_config={"max_epochs": 3},
+                          default_hyper={"learning_rate": 0.05, "gradient_moment": 0.9},
+                          device="cuda", parallel=DataParallel(mesh, tp=True))
+    wf.snapshotter = Snapshotter(os.path.join(out_dir, "tp_snaps"), interval=1)
+    wf.initialize(seed=55)
+    res["conv_w0"] = list(wf.state.params[0]["weights"].shape)
+    res["conv"] = [e["train"]["loss"] for e in wf.run().history]
+    res["index"] = [wf.parallel.index, wf.parallel.model_index]
+    troot.kohonen.update({"loader": {"n_train": DP_UNSUP["train"], "n_test": DP_UNSUP["test"]}})
+    prng.seed_all(1234)
+    wf = kohonen.build_workflow(device="cuda", parallel=DataParallel(mesh, tp=True))
+    wf.initialize(seed=1234)
+    khk.accumulate.launches = 0
+    wf.run_epoch()
+    res["kohonen_launches"] = khk.accumulate.launches
+    res["som_sharded"] = sorted(wf.parallel.sharded)
+    np.save(os.path.join(out_dir, f"tp_som_rank{rank}.npy"), wf.state.params["weights"].cpu().numpy())
+    case = np.load(os.path.join(out_dir, "rbm_case.npz"))
+    d = res["index"][0]
+    rows = slice(d * DP_RBM["b"] // 2, (d + 1) * DP_RBM["b"] // 2)
+    params = {k: torch.as_tensor(case[k], device="cuda") for k in ("weights", "vbias", "hbias")}
+    rbk.statistics.launches = 0
+    new, err = rbk.cd_step(params, torch.as_tensor(case["v0"][rows], device="cuda"),
+                           rbk.seed_tensor(DP_RBM["seed"], "cuda"), learning_rate=0.1,
+                           mask=torch.as_tensor(case["mask"][rows], device="cuda"), mesh=mesh)
+    res["rbm_launches"] = rbk.statistics.launches
+    np.savez(os.path.join(out_dir, f"tp_rbm_rank{rank}.npz"), err=err.cpu().numpy(),
+             **{k: v.cpu().numpy() for k, v in new.items()})
+    return res
+
+
+def tp_worker(rank, world, addr, out_dir):
+    """A phase 31 rank: a gloo group of ``world`` ranks on this process's
+    card, the (1, 2) runs for two ranks, the (2, 2) runs for four."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    from znicz_tpu_torch.parallel import DataParallel, make_mesh
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"tcp://{addr}", world_size=world, rank=rank,
+                            timeout=datetime.timedelta(seconds=TP_WAIT_S))
+    try:
+        if world == 2:
+            dp = DataParallel(make_mesh(1, 2))
+            res = {"host_collectives": dp.host_collectives, **_tp_runs(torch, out_dir, dp)}
+            res.pop("lm_wf")
+        else:
+            res = _tp_mesh_work(torch, out_dir, rank)
+    finally:
+        dist.destroy_process_group()
+    with open(os.path.join(out_dir, f"tp{world}_rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+    return 0
+
+
+def _tp_ranks(world, out_dir):
+    """Start ``world`` phase 31 ranks (this script with ``--tp-rank``) and
+    wait for them; any rank's failure fails the phase.  Returns their
+    results and the seconds they took."""
+    t0 = time.perf_counter()
+    addr = f"127.0.0.1:{_free_port()}"
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--tp-rank", str(r),
+                               str(world), addr, out_dir], stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True) for r in range(world)]
+    try:
+        outs = [p.communicate(timeout=TP_WAIT_S)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            print(out[-6000:])
+            fail(f"tp: rank {r} of {world} exited with {p.returncode}")
+    ranks = []
+    for r in range(world):
+        with open(os.path.join(out_dir, f"tp{world}_rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    return ranks, time.perf_counter() - t0
+
+
+def _rel_list(got, want):
+    return max(abs(g - w) / max(abs(w), 1e-30) for g, w in zip(got, want))
+
+
+def _tp_lrn_checks(torch):
+    """The LRN pair against its plain version at the shapes AlexNet's two
+    norms have at phase 31's batch (conv1's gathered output and conv2's
+    summed one: whole channels), f32 and bf16."""
+    from znicz_tpu_torch.ops.kernels import lrn as lrn_kernel
+
+    args = (LRN["alpha"], LRN["beta"], LRN["k"], LRN["n"])
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(31)
+    for tag, shape in ALEXNET_NORMS.items():
+        shape = (TP_ALEXNET["batch"],) + shape[1:]
+        for dtype in (torch.float32, torch.bfloat16):
+            dname = str(dtype).split(".")[-1]
+            x, g = _lrn_inputs(torch, gen, shape, dtype)
+            y = lrn_kernel.lrn_forward(x, *args)
+            dx = lrn_kernel.lrn_backward(x, g, *args)
+            torch.cuda.synchronize()
+            compare(f"tp lrn_fwd {tag} {list(shape)}", y, lrn_kernel.lrn_reference(x, *args), dname)
+            compare(f"tp lrn_bwd {tag} {list(shape)}", dx,
+                    lrn_kernel.lrn_bwd_reference(x, g, *args), dname)
+
+
+def phase_tp(torch, smi):
+    """Phase 31: tensor and expert parallelism, two gloo ranks as (data=1,
+    model=2) and four as (2, 2) on the one card, against one process on the
+    card."""
+    import numpy as np
+
+    from znicz_tpu_torch.core import prng
+    from znicz_tpu_torch.ops.kernels import rbm as rbk
+    from znicz_tpu_torch.workflow.snapshotter import load_snapshot
+    from znicz_tpu_torch.workflow.standard import StandardWorkflow
+
+    out_dir = os.path.join(WORK_DIR, "tp")
+    os.makedirs(out_dir, exist_ok=True)
+    _tp_lrn_checks(torch)
+    print(f"tp: cuts: AlexNet batch 128 -> {TP_ALEXNET['batch']} ({TP_ALEXNET['n']} images, "
+          f"{TP_ALEXNET['epochs']} epochs); mid LM batch 16 -> {TP_LM['batch']} "
+          f"({TP_LM['n']} sequences of 2048, one epoch); MoE LM depth 12 -> {TP_MOE_LAYERS}; "
+          f"widths uncut")
+    ranks, ranks_s = _tp_ranks(2, out_dir)
+    one = _tp_runs(torch, out_dir, None)
+    print(f"tp: two ranks (data=1, model=2) over gloo on the card in {ranks_s:.1f} s "
+          f"(their start included); {smi}")
+    if not all(r["host_collectives"] for r in ranks):
+        fail("tp: the ranks are not one gloo job")
+    res, launches = {"seconds": ranks_s}, {}
+    for key in ("alexnet", "alexnet_f32", "lm", "moe_dense", "moe_capacity"):
+        got = [r[key] for r in ranks]
+        if got[0]["loss"] != got[1]["loss"]:
+            fail(f"tp {key}: the ranks' losses differ: {got[0]['loss']} {got[1]['loss']}")
+        tol = TP_TOL[key if key.startswith("alexnet") else key.split("_")[0]]
+        rel = _rel_list(got[0]["loss"], one[key]["loss"])
+        per = [g["launches"] for g in got]
+        timed = "step_ms" in one[key]
+        print(f"tp {key}: losses two ranks {got[0]['loss']} against one process "
+              f"{one[key]['loss']}: largest relative difference {rel:.3e} (limit {tol}); "
+              f"launches by rank {per}, one process {one[key]['launches']}" + (
+                  f"; ms a train step one process {one[key]['step_ms']:.2f}, a rank "
+                  f"{[g['step_ms'] for g in got]} (collectives "
+                  f"{[round(g['collectives_a_step']) for g in got]} a step, their wall share "
+                  f"{[round(g['collective_share'], 4) for g in got]})" if timed else "")
+              + f"; {smi}")
+        if rel > tol or not all(math.isfinite(x) for x in got[0]["loss"]):
+            fail(f"tp {key}: two TP ranks are not one process")
+        if any(p != one[key]["launches"] for p in per) or not all(all(p.values()) for p in per):
+            fail(f"tp {key}: a rank's kernel launches {per} differ from one process's "
+                 f"{one[key]['launches']} or are zero")
+        res[key] = {"loss_rel": rel}
+        if timed:
+            res[key].update({"one_step_ms": one[key]["step_ms"],
+                             "rank_step_ms": [g["step_ms"] for g in got],
+                             "collective_share": [g["collective_share"] for g in got],
+                             "collectives_a_step": [g["collectives_a_step"] for g in got]})
+        if key != "alexnet_f32":  # the main path's launches (AlexNet's in bf16)
+            for name, n in got[0]["launches"].items():
+                launches.setdefault(name, {})[key] = [p[name] for p in per]
+    print(f"tp alexnet: sharded leaves {ranks[0]['alexnet']['sharded']}")
+    # conv1, conv3, conv5, fc6, fc7 column (weights and bias), conv2, conv4 row
+    want_sharded = ["[0]['bias']", "[0]['weights']", "[10]['bias']", "[10]['weights']",
+                    "[12]['bias']", "[12]['weights']", "[3]['weights']", "[6]['bias']",
+                    "[6]['weights']", "[7]['weights']", "[8]['bias']", "[8]['weights']"]
+    if ranks[0]["alexnet"]["sharded"] != want_sharded:
+        fail("tp alexnet: cnn_tp_rules did not place conv1/3/5, fc6/7 column and conv2/4 row")
+    # each leaf's change over the epochs, the ranks' gathered against one
+    # process's, ||d_tp - d_one|| / ||d_one||; in f32 held to the floor, one
+    # process's change with cuDNN off against with it; read in bf16
+    def change_rel(a_name, b_name):
+        a = np.load(os.path.join(out_dir, f"alexnet_change_{a_name}.npz"))
+        b = np.load(os.path.join(out_dir, f"alexnet_change_{b_name}.npz"))
+        out = {}
+        for leaf in b.files:
+            want, got = b[leaf].astype(np.float64), a[leaf].astype(np.float64)
+            if got.shape != want.shape:
+                fail(f"tp alexnet: leaf {leaf} {a_name} {got.shape}, {b_name} {want.shape}")
+            out[leaf] = float(np.linalg.norm(got - want) / max(np.linalg.norm(want), 1e-30))
+        return out
+
+    def fmt(rel):
+        return {k: float(f"{v:.3e}") for k, v in rel.items()}
+
+    tp32, floor32 = change_rel("float32_tp", "float32_one"), change_rel("float32_floor",
+                                                                      "float32_one")
+    tp16 = change_rel("bfloat16_tp", "bfloat16_one")
+    limit = {k: TP_CHANGE_FACTOR * floor32[k] + TP_TOL["alexnet_change"] for k in floor32}
+    print(f"tp alexnet_f32: each leaf's change over {TP_ALEXNET['epochs']} epochs, two ranks "
+          f"against one process: {fmt(tp32)}; one process with cuDNN off against on (the "
+          f"floor): {fmt(floor32)}; limit {TP_CHANGE_FACTOR} x the floor + "
+          f"{TP_TOL['alexnet_change']}; largest ratio to the floor "
+          f"{max(tp32[k] / max(floor32[k], 1e-30) for k in tp32):.3f}")
+    print(f"tp alexnet: bf16 each leaf's change, two ranks against one process (read, not "
+          f"held): {fmt(tp16)}")
+    if (not all(math.isfinite(v) for v in [*tp32.values(), *floor32.values(), *tp16.values()])
+            or any(tp32[k] > limit[k] for k in tp32)):
+        fail("tp alexnet_f32: a leaf's change under TP is not one process's")
+    res["alexnet_f32"]["change_rel"] = tp32
+    res["alexnet_f32"]["change_floor"] = floor32
+    res["alexnet"]["change_rel"] = tp16
+    for key in ("lm", "moe_dense", "moe_capacity"):
+        shapes = [r[key]["flash_shape"] for r in ranks]
+        print(f"tp {key}: flash's last shape by rank {shapes} (one process "
+              f"{one[key]['flash_shape']}), wq {ranks[0][key]['wq']}")
+        if (any(s != [TP_LM["batch"], LM_T, LM_MID["n_heads"] // 2, 64] for s in shapes)
+                or one[key]["flash_shape"][2:3] != [LM_MID["n_heads"]]):
+            fail(f"tp {key}: the ranks' flash kernels did not run over the local heads at "
+                 "phase 6's tp shape")
+    # generate(): the ranks' tokens, against one process decoding the
+    # gathered params the rank wrote
+    wf = one.pop("lm_wf")
+    saved = np.load(os.path.join(out_dir, "lm_params.npz"))
+    with torch.no_grad():
+        for i, layer in enumerate(wf.state.params):
+            for k, v in layer.items():
+                v.copy_(torch.from_numpy(saved[f"{i}.{k}"]))
+    prompt = np.asarray(ranks[0]["lm"]["generate"], np.int32)[:, :TP_PROMPT[1]]
+    want = wf.generate(prompt, max_new_tokens=TP_PROMPT[2]).cpu().tolist()
+    differ = sum(a != b for ra, rb in zip(want, one["lm"]["generate"]) for a, b in zip(ra, rb))
+    print(f"tp lm generate: the ranks' tokens {ranks[0]['lm']['generate']}; one process on the "
+          f"gathered params {'equal' if want == ranks[0]['lm']['generate'] else want}; "
+          f"{differ} tokens differ from the one-process-trained run's")
+    if ranks[0]["lm"]["generate"] != ranks[1]["lm"]["generate"] or want != ranks[0]["lm"]["generate"]:
+        fail("tp lm: generate() after TP training is not one process's decode")
+    del wf, one
+    torch.cuda.empty_cache()
+    # the (data=2, model=2) mesh of four ranks
+    gen = np.random.default_rng(DP_RBM["seed"])
+    b, v, h = DP_RBM["b"], DP_RBM["v"], DP_RBM["h"]
+    case = {"v0": (gen.random((b, v)) > 0.5).astype(np.float32),
+            "mask": (np.arange(b) < DP_RBM["valid"]).astype(np.float32),
+            "weights": gen.normal(0.0, 0.01, (v, h)).astype(np.float32),
+            "vbias": np.zeros(v, np.float32), "hbias": np.zeros(h, np.float32)}
+    np.savez(os.path.join(out_dir, "rbm_case.npz"), **case)
+    four, four_s = _tp_ranks(4, out_dir)
+    _f32_exact(torch)
+    prng.seed_all(55)
+    from znicz_tpu_torch.loader import datasets
+
+    wf = StandardWorkflow(datasets.mnist(n_train=128, n_test=0, minibatch_size=32, flat=False),
+                          TP_CONV, decision_config={"max_epochs": 3},
+                          default_hyper={"learning_rate": 0.05, "gradient_moment": 0.9},
+                          device="cuda")
+    wf.initialize(seed=55)
+    base = [e["train"]["loss"] for e in wf.run().history]
+    rel = _rel_list(four[0]["conv"], base)
+    snap = os.path.join(out_dir, "tp_snaps", "workflow_epoch2.pickle.gz")
+    state, _ = load_snapshot(snap)
+    kernel = list(np.asarray(state[0][0]["weights"]).shape)
+    print(f"tp mesh (2, 2): four ranks in {four_s:.1f} s; conv losses {four[0]['conv']} against "
+          f"one process {base}: largest relative difference {rel:.3e} (limit {TP_TOL['conv']}); "
+          f"a rank's conv1 kernel {four[0]['conv_w0']}, the snapshot's {kernel}; "
+          f"positions {[r['index'] for r in four]}")
+    if (any(r["conv"] != four[0]["conv"] for r in four) or rel > TP_TOL["conv"]
+            or four[0]["conv_w0"] != [5, 5, 1, 4] or kernel != [5, 5, 1, 8]
+            or [r["index"] for r in four] != [[0, 0], [0, 1], [1, 0], [1, 1]]):
+        fail("tp mesh: the four-rank TP conv run is not one process's, or its snapshot not whole")
+    resumed = StandardWorkflow(datasets.mnist(n_train=128, n_test=0, minibatch_size=32,
+                                              flat=False), TP_CONV, device="cuda")
+    resumed.initialize(snapshot=snap)
+    if list(resumed.state.params[0]["weights"].shape) != [5, 5, 1, 8]:
+        fail("tp mesh: the TP snapshot does not load into a run without TP")
+    som = [np.load(os.path.join(out_dir, f"tp_som_rank{r}.npy")) for r in range(4)]
+    from znicz_tpu_torch.core.config import root as troot
+    from znicz_tpu_torch.models import kohonen
+
+    troot.kohonen.update({"loader": {"n_train": DP_UNSUP["train"], "n_test": DP_UNSUP["test"]}})
+    prng.seed_all(1234)
+    wf = kohonen.build_workflow(device="cuda")
+    wf.initialize(seed=1234)
+    wf.run_epoch()
+    ref = wf.state.params["weights"].cpu().numpy()
+    if any(not np.array_equal(s, som[0]) for s in som) or any(r["som_sharded"] for r in four):
+        fail("tp mesh som: the ranks' maps differ or were sharded")
+    _rel_err("tp mesh som: four ranks against one process, weights", torch.from_numpy(som[0]),
+             torch.from_numpy(ref), TP_TOL["som"])
+    params = {k: torch.as_tensor(case[k], device="cuda") for k in ("weights", "vbias", "hbias")}
+    parts = [rbk.statistics(params, torch.as_tensor(case["v0"][d * b // 2:(d + 1) * b // 2],
+                                                    device="cuda"),
+                            torch.as_tensor(case["mask"][d * b // 2:(d + 1) * b // 2],
+                                            device="cuda"),
+                            rbk.seed_tensor(2 * DP_RBM["seed"] + d, "cuda"), cd_k=1)
+             for d in (0, 1)]
+    want, want_err = rbk._apply_update(params, *[x + y for x, y in zip(*parts)], 0.1)
+    got = [np.load(os.path.join(out_dir, f"tp_rbm_rank{r}.npz")) for r in range(4)]
+    for k in want:
+        if any(not np.array_equal(g[k], got[0][k]) for g in got):
+            fail(f"tp mesh rbm: the ranks' {k} differ")
+        _rel_err(f"tp mesh rbm: four ranks against the two data rows' summed shards, {k}",
+                 torch.from_numpy(got[0][k]), want[k].cpu(), TP_TOL["rbm"])
+    unsup = {"kohonen_accumulate": [r["kohonen_launches"] for r in four],
+             "rbm_cd": [r["rbm_launches"] for r in four]}
+    print(f"tp mesh: unsupervised kernel launches by rank {unsup}")
+    if unsup != {"kohonen_accumulate": [DP_UNSUP["train"] // 100] * 4, "rbm_cd": [1] * 4}:
+        fail(f"tp mesh: unsupervised kernel launches {unsup}")
+    launches.update(unsup)
+    res["mesh"] = {"seconds": four_s, "conv_loss_rel": rel}
+    return launches, res
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -5637,6 +6182,8 @@ def main() -> int:
         return 1
     if sys.argv[1:2] == ["--dp-rank"]:  # a phase 30b rank, started by phase_dp_gloo
         return dp_worker(int(sys.argv[2]), sys.argv[3], sys.argv[4])
+    if sys.argv[1:2] == ["--tp-rank"]:  # a phase 31 rank, started by phase_tp
+        return tp_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], sys.argv[5])
     from znicz_tpu_torch.core import prng
     from znicz_tpu_torch.core.config import root as troot
     from znicz_tpu_torch.loader import datasets
@@ -5745,6 +6292,9 @@ def main() -> int:
         lm_loader, troot, smi)
     dp_gloo_launches, dp["gloo"] = phase_dp_gloo(torch, smi)
     print(f"data-parallel phase: {time.perf_counter() - t0:.1f} s; " + json.dumps(dp))
+    t0 = time.perf_counter()
+    tp_launches, tp = phase_tp(torch, smi)
+    print(f"tensor-parallel phase: {time.perf_counter() - t0:.1f} s; " + json.dumps(tp))
 
     kernels = []
     for kname in ("lrn_fwd", "lrn_bwd"):
@@ -5793,6 +6343,8 @@ def main() -> int:
         entry["scan"] = {"launches": scan_launches[kname]}
         # phase 30's one-NCCL-rank AlexNet run: its train steps' launches
         entry["dp"] = {"launches": dp_launches[kname]}
+        # phase 31: each (data=1, model=2) gloo rank's AlexNet epochs
+        entry["tp"] = {"gloo_ranks": tp_launches[kname]}
         kernels.append(entry)
     for kname in FLASH:
         row = flash_rows[(kname, "float32")]  # the counted epoch's dtype
@@ -5822,6 +6374,9 @@ def main() -> int:
                     "scan_launches": {d: moe_graph[d][kname] for d in MOE_DISPATCHES}},
             # phase 30's one-NCCL-rank mid LM: its train steps' launches
             "dp": {"launches": dp_launches[kname]},
+            # phase 31: each (data=1, model=2) gloo rank's epoch of the mid
+            # LM and of the MoE LM in each dispatch, over its local heads
+            "tp": {"gloo_ranks": tp_launches[kname]},
         })
     for kname in UNSUP_SOURCE:
         kernels.append({
@@ -5845,6 +6400,8 @@ def main() -> int:
             # phase 30: the one-NCCL-rank epoch's launches, and each gloo
             # rank's (30b)
             "dp": {"launches": dp_launches[kname], "gloo_ranks": dp_gloo_launches[kname]},
+            # phase 31: each rank's of the (data=2, model=2) mesh
+            "tp": {"gloo_ranks": tp_launches[kname]},
         })
     print(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -245,11 +245,35 @@ def test_workflow_generate_decodes_moe_with_its_routing():
                                          ({"pipeline_parallel": True}, "A7")],
                          ids=["tensor_parallel", "pipeline_parallel"])
 def test_sharded_and_pipelined_decode_is_refused_by_name(kwargs, item):
-    """The JAX package decodes TP-sharded params and refuses pipelined ones;
-    the port refuses both layouts where they are made."""
-    loader = FullBatchLoader({"train": np.zeros((2, 8), np.int32)}, minibatch_size=2)
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md {item}"):
-        TransformerLMWorkflow(loader, vocab=8, device="cpu", **kwargs)
+    """The JAX package decodes TP-sharded params and refuses pipelined ones.
+    The port refuses the pipelined layout where it is made (ROADMAP.md
+    A7).  It decodes a tensor-parallel run on the whole params gathered
+    over the model axis (``tests/test_torch_multihost_tp.py``), so its
+    tokens are those of the JAX package's decode on ``lm_tp_rules``-sharded
+    params (a (2, 4) mesh of its virtual devices)."""
+    if item == "A7":
+        loader = FullBatchLoader({"train": np.zeros((2, 8), np.int32)}, minibatch_size=2)
+        with pytest.raises(NotImplementedError, match=f"ROADMAP.md {item}"):
+            TransformerLMWorkflow(loader, vocab=8, device="cpu", **kwargs)
+        return
+    import jax.tree_util as jtu
+    from jax.sharding import NamedSharding
+
+    from znicz_tpu.parallel import make_mesh as jmake_mesh
+    from znicz_tpu.workflow.transformer import lm_tp_rules
+
+    jprng.seed_all(27)
+    jp = jinit(16, 32, 2, HEADS, max_seq=24)
+    tp = model_lib.params_from_jax(jax.device_get(jp), "cpu")
+    prompt = np.random.default_rng(7).integers(0, 16, (3, 6)).astype(np.int32)
+    mesh = jmake_mesh(2, 4)
+    sharded = jtu.tree_map_with_path(
+        lambda path, leaf: jax.device_put(leaf, NamedSharding(mesh, lm_tp_rules(jtu.keystr(path),
+                                                                                leaf))), jp)
+    assert not sharded[1]["wq"].is_fully_replicated
+    want = np.asarray(JG.generate(sharded, jnp.asarray(prompt), n_heads=HEADS, max_new_tokens=10))
+    got = G.generate(tp, _lt(prompt), n_heads=HEADS, max_new_tokens=10).numpy()
+    np.testing.assert_array_equal(got, want)
 
 
 def test_temperature_without_rng_raises():

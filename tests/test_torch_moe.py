@@ -154,8 +154,34 @@ def test_expert_capacity_equals_jax(args):
 
 @pytest.mark.parametrize("name", ["apply_local_shard", "expert_sharding"])
 def test_expert_parallelism_is_refused_by_name(name):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A6, ops/moe.py"):
-        getattr(tmoe, name)(None)
+    """Expert parallelism is ported (ROADMAP.md A6 is done): four shards'
+    contributions, each from its block of two experts (``expert_sharding``'s
+    placement, the router whole), sum to the dense dispatch within rtol
+    1e-5 and atol 1e-6, as JAX's ``apply_local_shard`` does; in a world of
+    one process the placement is the whole params."""
+    jp, tp = _params(8, seed=11)
+    x = _x(12)
+    ref = np.asarray(jmoe.apply(jp, jnp.asarray(x), top_k=2))
+    total = torch.zeros(12, 8)
+    for s in range(4):
+        if name == "apply_local_shard":
+            local = {"router": tp["router"],
+                     **{k: tp[k][2 * s:2 * s + 2] for k in ("w1", "b1", "w2", "b2")}}
+        else:
+            mesh = type("Mesh", (), {"mesh_dim_names": ("data", "model"),
+                                     "mesh": torch.zeros(1, 4), "get_coordinate": lambda _, s=s: [0, s]})()
+            local = tmoe.expert_sharding(mesh)(tp)
+            assert local["router"] is tp["router"] and local["w1"].shape[0] == 2
+        jlocal = {k: jnp.asarray(v.numpy()) for k, v in local.items()}
+        got = tmoe.apply_local_shard(local, torch.from_numpy(x), top_k=2, shard_index=s)
+        want = np.asarray(jmoe.apply_local_shard(jlocal, jnp.asarray(x), top_k=2, shard_index=s))
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-6)
+        total += got
+    np.testing.assert_allclose(total.numpy(), ref, rtol=1e-5, atol=1e-6)
+    from znicz_tpu_torch.parallel import make_mesh
+
+    whole = tmoe.expert_sharding(make_mesh())(tp)
+    assert all(whole[k] is tp[k] or torch.equal(whole[k], tp[k]) for k in tp)
 
 
 # -- the moe layer type --------------------------------------------------------

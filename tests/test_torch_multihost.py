@@ -162,26 +162,26 @@ dist.all_reduce(local)
 mesh = make_mesh()
 dp = DataParallel(mesh)
 errors = []
-for bad in ((3,), (1, 2)):
-    try:
-        make_mesh(*bad)
-    except (ValueError, NotImplementedError) as exc:
-        errors.append(str(exc))
+try:
+    make_mesh(3)
+except (ValueError, NotImplementedError) as exc:
+    errors.append(str(exc))
+tp = DataParallel(make_mesh(1, 2), tp=True)
 from znicz_tpu_torch.loader import FullBatchLoader
 from znicz_tpu_torch.workflow import TransformerLMWorkflow
 lm = TransformerLMWorkflow(FullBatchLoader({"train": np.zeros((8, 6), np.int32)}, minibatch_size=4),
                            vocab=8, d_model=8, n_layers=1, n_heads=2, moe_experts=2,
                            moe_dispatch="capacity", parallel=dp, device="cpu")
-try:
-    lm.initialize(seed=1)
-except NotImplementedError as exc:
-    errors.append(str(exc))
+lm.initialize(seed=1)
+lm_loss = lm.run_epoch()["summary"]["train"]["loss"]
 (summed,) = dp.all_reduce([torch.arange(3.0) * (RANK + 1)])
 (peak,) = dp.all_reduce([torch.arange(3.0) * (RANK + 1)], "max")
 report(info=INFO, flags=float(flags[0]), total=float(local.sum()), shape=list(mesh.mesh.shape),
        n_data=dp.n_data, index=dp.index, coordinate=list(mesh.get_coordinate()),
        summed=summed.tolist(), peak=peak.tolist(), errors=errors,
-       shard=list(dp.shard_batch(np.zeros((3, 2))).shape))
+       shard=list(dp.shard_batch(np.zeros((3, 2))).shape),
+       tp=[list(tp.mesh.mesh.shape), tp.n_data, tp.n_model, tp.tp, tp.index, tp.model_index,
+           tp.group is None], lm_loss=lm_loss)
 '''
 
 
@@ -196,9 +196,13 @@ def test_two_process_rendezvous_and_one_coordinator():
         assert r["index"] == rank and r["coordinate"] == [rank, 0]
         assert r["summed"] == [0.0, 3.0, 6.0] and r["peak"] == [0.0, 2.0, 4.0]
         assert r["shard"] == [3, 2]
-        assert r["errors"][0] == "mesh 3x1x1 needs 3 devices, have 2"
-        assert "ROADMAP.md A6, cnn_tp_rules" in r["errors"][1]
-        assert "ROADMAP.md A6, ops/moe.py" in r["errors"][2]
+        assert r["errors"] == ["mesh 3x1x1 needs 3 devices, have 2"]
+        # a model axis of 2 (ROADMAP.md A6 is done): both ranks on data row
+        # 0, model positions 0 and 1, no data group to reduce over
+        assert r["tp"] == [[1, 2], 1, 2, True, 0, rank, True]
+        # capacity dispatch over two data ranks: slots from the global batch
+        assert np.isfinite(r["lm_loss"])
+    assert reports[0]["lm_loss"] == reports[1]["lm_loss"]
 
 
 MNIST_WORKER = r'''

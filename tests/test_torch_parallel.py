@@ -5,7 +5,7 @@ The mesh's spec parser, its errors and the row-ownership check give the JAX
 package's outputs and messages; ``make_mesh`` in a world of one process
 builds a 1x1 mesh and refuses what needs more ranks (one process a device:
 the JAX package's 8-device single-process meshes have no counterpart) or a
-model or pipe axis (ROADMAP.md A6, A7).  The loader's process shards
+pipe axis (ROADMAP.md A7).  The loader's process shards
 (R = 2, 4) and pool shards (D = 2, 4) serve the JAX loader's indices,
 masks, orders and local addresses exactly, padded last batch included, and
 the ranks' batches put together are the unsharded loader's.  A
@@ -72,7 +72,7 @@ def test_make_mesh_in_a_world_of_one():
     ((8,), ValueError, "mesh 8x1x1 needs 8 devices, have 1"),
     ((2, 1), ValueError, "mesh 2x1x1 needs 2 devices, have 1"),
     ((0,), ValueError, "mesh 0x1x1 needs 0 devices"),
-    ((1, 2), NotImplementedError, "ROADMAP.md A6, cnn_tp_rules"),
+    ((1, 2), ValueError, "mesh 1x2x1 needs 2 devices, have 1"),
     ((1, 1, 2), NotImplementedError, "ROADMAP.md A7, parallel/pipeline.py"),
 ])
 def test_make_mesh_errors(args, err, match):
@@ -99,24 +99,54 @@ class _Proc:
 ])
 def test_row_ownership_check_is_jax(grid, names):
     """One process a device: a rank is a process, so the check runs on the
-    mesh's rank tensor where the JAX package reads each device's process."""
+    mesh's rank tensor where the JAX package reads each device's process.
+    With one rank a data row the contract is the JAX package's; under a
+    model axis a data row's ranks (its model peers, which the loader
+    serves the same rows) must be one contiguous block of ranks, the rows
+    in rank order, where the JAX package wants one process a row."""
     ours = DeviceMesh("cpu", torch.tensor(grid), mesh_dim_names=names, _init_backend=False,
                       _rank=0)
-    procs = np.vectorize(_Proc)(np.asarray(grid))
-    fake = type("FakeMesh", (), {"axis_names": names, "devices": procs})()
     a = _outcome(tmesh.verify_process_contiguous_data_axis, ours)
-    b = _outcome(jmesh.verify_process_contiguous_data_axis, fake)
-    assert a[0] == b[0]
-    if a[0] == "ValueError":
-        assert a[1].split("; order")[0] == b[1].split("; order")[0]
+    dev = np.asarray(grid)
+    if dev.ndim == 1 or dev.shape[names.index("model")] == 1:
+        procs = np.vectorize(_Proc)(dev)
+        fake = type("FakeMesh", (), {"axis_names": names, "devices": procs})()
+        b = _outcome(jmesh.verify_process_contiguous_data_axis, fake)
+        assert a[0] == b[0]
+        if a[0] == "ValueError":
+            assert a[1].split("; order")[0] == b[1].split("; order")[0]
+        return
+    rows = np.moveaxis(dev, names.index("data"), 0)
+    contiguous = all(sorted(r) == list(range(min(r), min(r) + len(r))) for r in rows.tolist())
+    assert a[0] == ("ok" if contiguous and rows[0].min() < rows[1].min() else "ValueError"), a
 
 
 def test_data_parallel_refuses_tensor_parallelism_by_name():
-    for kw in ({"tp": True}, {"param_rules": lambda path, leaf: None}):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md A6, cnn_tp_rules"):
-            DataParallel(**kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A6, cnn_tp_rules"):
-        tdp.cnn_tp_rules(None, 2)
+    """The tensor-parallel knobs are taken now (ROADMAP.md A6 is done): in a
+    world of one the model axis is 1, so ``tp`` is off as in the JAX
+    package, the rules are kept and asked first, and every leaf stays
+    whole; ``cnn_tp_rules`` gives the JAX package's specs
+    (``tests/test_torch_tensor_parallel.py`` holds them for more layers)."""
+    from znicz_tpu.parallel import data_parallel as jdp
+    from znicz_tpu_torch.parallel.tensor_parallel import P
+
+    asked = []
+
+    def rules(path, leaf):
+        asked.append(path)
+        return P()
+
+    for kw in ({"tp": True}, {"param_rules": rules}):
+        dp = DataParallel(**kw)
+        assert dp.tp is False and dp.param_rules is kw.get("param_rules")
+        assert dp.n_model == 1 and dp.model_group is None
+        assert dp.specs([{"weights": torch.zeros(4, 2048)}]) == {"[0]['weights']": None}
+    assert asked == ["[0]['weights']"]
+    model = type("M", (), {"params": [{"weights": np.zeros((5, 5, 1, 8)), "bias": np.zeros(8)},
+                                      {}, {"weights": np.zeros((3, 3, 8, 16))}]})()
+    ours, theirs = tdp.cnn_tp_rules(model, 2), jdp.cnn_tp_rules(model, 2)
+    for path in ("[0]['weights']", "[0]['bias']", "[2]['weights']", "[1]['x']", "x"):
+        assert tuple(ours(path, None)) == tuple(theirs(path, None)), path
 
 
 def test_data_parallel_in_a_world_of_one():

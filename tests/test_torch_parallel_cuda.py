@@ -14,6 +14,12 @@ every test is ``cuda``-marked and skips without a card.
   the card, the SOM's weights within 1e-5 of max |w|, and
   ``epoch_dispatch="scan"`` refused (a gloo collective on the card cannot
   be captured).
+- Two ranks on the one card over gloo as a ``(data=1, model=2)`` mesh:
+  Megatron's four operators on the card's tensors give the unsharded
+  function's outputs and gradients; a small LM with ``tensor_parallel``
+  through the flash kernels (each rank over its 2 local heads) and a conv
+  net under ``cnn_tp_rules`` give one process's losses on the card within
+  rtol 1e-4.
 """
 
 import json
@@ -199,3 +205,126 @@ def test_two_gloo_ranks_on_the_card():
                                rtol=1e-4)
     ref = _som()
     assert np.abs(np.asarray(got["som"]) - ref).max() <= 1e-5 * np.abs(ref).max()
+
+
+TP_WORKER = r'''
+import datetime, json, sys
+sys.path.insert(0, sys.argv[1])
+import torch
+import torch.distributed as dist
+torch.backends.cudnn.allow_tf32 = False
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.deterministic = True
+torch.cuda.set_device(0)
+dist.init_process_group("gloo", init_method="tcp://" + sys.argv[2], world_size=2,
+                        rank=int(sys.argv[3]), timeout=datetime.timedelta(seconds=120))
+sys.path.insert(0, sys.argv[1] + "/tests")
+from test_torch_parallel_cuda import _tp_conv, _tp_lm, _tp_operators
+from znicz_tpu_torch.parallel import DataParallel, make_mesh
+from znicz_tpu_torch.ops.kernels import attention as fa
+dp = DataParallel(make_mesh(1, 2))
+out = {"ops": _tp_operators(dp)}
+fa.flash_fwd.launches = 0
+out["lm"] = _tp_lm(dp)
+out["flash"] = [fa.flash_fwd.launches, list(fa.flash_fwd.last_shape)]
+out["conv"] = _tp_conv(dp)
+dist.destroy_process_group()
+print("OUT=" + json.dumps(out))
+'''
+
+
+def _tp_operators(dp):
+    """Each conjugate operator's forward and its input's gradient, on this
+    rank's block where the operator shards, against the unsharded function
+    on the card: the largest absolute differences."""
+    from znicz_tpu_torch.parallel import tensor_parallel as tp_ops
+
+    g, m = dp.model_group, dp.model_index
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    x = torch.randn(4, 6, device="cuda", generator=gen)
+    w = torch.randn(6, 8, device="cuda", generator=gen)
+    errs = {}
+    # column then row: copy, local product, reduce; against x @ w @ w.T
+    xa = x.clone().requires_grad_(True)
+    wl = w[:, 4 * m:4 * m + 4]
+    y = tp_ops.reduce_from_model(tp_ops.copy_to_model(xa, g) @ wl @ wl.t(), g)
+    y.sum().backward()
+    xb = x.clone().requires_grad_(True)
+    (xb @ w @ w.t()).sum().backward()
+    errs["copy_reduce"] = [float((y - xb @ w @ w.t()).abs().max()),
+                           float((xa.grad - xb.grad).abs().max())]
+    xa = x.clone().requires_grad_(True)
+    z = tp_ops.gather_from_model(tp_ops.scatter_to_model(xa, -1, g) * (m + 1.0), -1, g)
+    (z * z).sum().backward()
+    scale = torch.tensor([1.0] * 3 + [2.0] * 3, device="cuda")
+    xb = x.clone().requires_grad_(True)
+    ((xb * scale) ** 2).sum().backward()
+    errs["scatter_gather"] = [float((z - x * scale).abs().max()),
+                              float((xa.grad - xb.grad).abs().max())]
+    return errs
+
+
+def _tp_lm(parallel=None):
+    from znicz_tpu_torch.core import prng
+    from znicz_tpu_torch.loader import FullBatchLoader
+    from znicz_tpu_torch.workflow import TransformerLMWorkflow
+
+    tokens = np.random.default_rng(7).integers(0, 64, (16, 128)).astype(np.int32)
+    prng.reset()
+    prng.seed_all(12)
+    wf = TransformerLMWorkflow(FullBatchLoader({"train": tokens}, minibatch_size=8), vocab=64,
+                               d_model=128, n_layers=2, n_heads=4, max_epochs=2,
+                               attention="flash", device="cuda", parallel=parallel,
+                               tensor_parallel=parallel is not None)
+    wf.initialize(seed=12)
+    return [e["train"]["loss"] for e in wf.run().history]
+
+
+def _tp_conv(parallel=None):
+    from znicz_tpu_torch.core import prng
+    from znicz_tpu_torch.loader import datasets
+    from znicz_tpu_torch.parallel import DataParallel
+    from znicz_tpu_torch.workflow import StandardWorkflow
+
+    prng.reset()
+    prng.seed_all(77)
+    wf = StandardWorkflow(
+        datasets.mnist(n_train=128, n_test=0, minibatch_size=32, flat=False),
+        [{"type": "conv_relu", "->": {"n_kernels": 8, "kx": 5, "ky": 5}},
+         {"type": "max_pooling", "->": {"kx": 2, "ky": 2}},
+         {"type": "conv_relu", "->": {"n_kernels": 16, "kx": 3, "ky": 3}},
+         {"type": "all2all_relu", "->": {"output_sample_shape": 64}},
+         {"type": "softmax", "->": {"output_sample_shape": 10}}],
+        decision_config={"max_epochs": 2},
+        default_hyper={"learning_rate": 0.05, "gradient_moment": 0.9}, device="cuda",
+        parallel=None if parallel is None else DataParallel(parallel.mesh, tp=True))
+    wf.initialize(seed=77)
+    return [e["train"]["loss"] for e in wf.run().history]
+
+
+@pytest.mark.cuda
+def test_two_gloo_tensor_parallel_ranks_on_the_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    addr = f"127.0.0.1:{_free_port()}"
+    procs = [subprocess.Popen([sys.executable, "-c", TP_WORKER, REPO, addr, str(r)],
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for r in (0, 1)]
+    try:
+        outs = [p.communicate(timeout=WAIT_S) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    reports = []
+    for p, (out, err) in zip(procs, outs):
+        assert p.returncode == 0, err[-4000:]
+        reports.append(json.loads([ln for ln in out.splitlines() if ln.startswith("OUT=")][-1][4:]))
+    for r in reports:
+        for name, (fwd, grad) in r["ops"].items():
+            assert fwd <= 1e-5 and grad <= 1e-5, (name, fwd, grad)
+        assert r["flash"][0] == 2 * 2 * 2 and r["flash"][1][2] == 2  # 2 local heads
+    assert reports[0]["lm"] == reports[1]["lm"] and reports[0]["conv"] == reports[1]["conv"]
+    np.testing.assert_allclose(reports[0]["lm"], _tp_lm(), rtol=1e-4)
+    np.testing.assert_allclose(reports[0]["conv"], _tp_conv(), rtol=1e-4)

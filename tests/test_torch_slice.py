@@ -285,11 +285,26 @@ def _names_its_item(message: str) -> None:
 
 @pytest.mark.parametrize("kind", ["moe"])
 def test_later_layer_types_name_their_roadmap_item(kind):
-    """What the ``moe`` layer's op still refuses, expert parallelism, names
-    its queue-A item."""
-    for fn in (moe_op.apply_local_shard, moe_op.expert_sharding):
+    """The ``moe`` layer's op refuses nothing now: its expert parallelism
+    (``apply_local_shard``, ``expert_sharding``) runs.  What the port
+    still refuses, the pipe axis and sequence and pipeline parallelism,
+    names a queue-A item whose entry mentions the module named."""
+    from znicz_tpu_torch.parallel import make_mesh
+    from znicz_tpu_torch.workflow import TransformerLMWorkflow
+
+    params = moe_op.init_params(4, 6, 2, device="cpu")
+    x = torch.randn(3, 4, generator=torch.Generator().manual_seed(0))
+    part = moe_op.apply_local_shard(moe_op.expert_sharding(make_mesh())(params), x, top_k=1,
+                                    shard_index=0)
+    assert torch.allclose(part, moe_op.apply(params, x, top_k=1))
+    loader = FullBatchLoader({"train": np.zeros((4, 8), np.int32)}, minibatch_size=2)
+    refusals = [lambda: make_mesh(1, 1, 2)] + [
+        lambda kw=kw: TransformerLMWorkflow(loader, vocab=8, device="cpu", **kw)
+        for kw in ({"sequence_parallel": True}, {"pipeline_parallel": True},
+                   {"pipeline_microbatches": 2}, {"mesh": object()})]
+    for refuse in refusals:
         with pytest.raises(NotImplementedError, match="not ported") as err:
-            fn({}, None)
+            refuse()
         _names_its_item(str(err.value))
 
 

@@ -249,14 +249,30 @@ def test_auto_resolves_to_dot_on_the_cpu(t):
     ids=lambda kw: next(iter(kw)),
 )
 def test_paths_not_ported_raise(kwargs):
-    """``parallel="tp"`` stands for a tensor-parallel policy
-    (``DataParallel(tp=True)``, ROADMAP.md A6); the LM trains under a
-    data-parallel one (``tests/test_torch_multihost_models.py``)."""
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A"):
-        if kwargs.get("parallel") == "tp":
-            from znicz_tpu_torch.parallel import DataParallel
+    """Sequence and pipeline parallelism raise naming ROADMAP.md A7.
+    Tensor parallelism is ported: ``tensor_parallel=True`` raises the JAX
+    package's checks (a policy with a model axis above 1 is needed; the
+    runs are in ``tests/test_torch_multihost_tp.py``), and
+    ``parallel="tp"``, a ``DataParallel(tp=True)`` in a world of one (its
+    model axis 1, so ``tp`` is off), is taken and trains."""
+    from znicz_tpu_torch.parallel import DataParallel, make_mesh
 
-            kwargs = {"parallel": DataParallel(tp=True)}
+    if "tensor_parallel" in kwargs:
+        with pytest.raises(ValueError, match="needs parallel=DataParallel"):
+            ttf.TransformerLMWorkflow(_loader(8), vocab=8, device="cpu", **kwargs)
+        with pytest.raises(ValueError, match="model axis is 1"):
+            ttf.TransformerLMWorkflow(_loader(8), vocab=8, device="cpu",
+                                      parallel=DataParallel(make_mesh()), **kwargs)
+        return
+    if kwargs.get("parallel") == "tp":
+        wf = ttf.TransformerLMWorkflow(_loader(8), vocab=8, d_model=8, n_heads=2, n_layers=1,
+                                       max_epochs=1, device="cpu",
+                                       parallel=DataParallel(tp=True))
+        wf.initialize(seed=1)
+        assert wf.parallel.tp is False and not wf.parallel.sharded
+        assert np.isfinite(wf.run_epoch()["summary"]["train"]["loss"])
+        return
+    with pytest.raises(NotImplementedError, match="ROADMAP.md A7"):
         ttf.TransformerLMWorkflow(_loader(8), vocab=8, device="cpu", **kwargs)
 
 

@@ -424,16 +424,24 @@ def test_lifted_options_are_honoured(cls, option, tmp_path):
 
 
 def test_refused_options_name_their_roadmap_item():
-    """A tensor-parallel policy is refused naming ROADMAP.md A6; a
+    """A tensor-parallel policy is taken now (ROADMAP.md A6 is done): the
+    SOM's and the RBM's params stay whole on every rank whatever the
+    policy's ``tp`` and ``param_rules`` say, as the JAX package's kernel
+    ``in_specs`` keep them (the caller's policy is left as it was); a
     data-parallel one is taken, and the kernels' psum rules over a world of
     one process (``mesh=``) give the step without a mesh bitwise (two
-    processes: ``tests/test_torch_multihost_models.py``)."""
+    processes: ``tests/test_torch_multihost_models.py``; a model axis:
+    ``tests/test_torch_multihost_tp.py``)."""
     from znicz_tpu_torch.parallel import DataParallel, make_mesh
+    from znicz_tpu_torch.parallel.tensor_parallel import P
 
     loader = tdatasets.mnist(n_train=10, n_test=0, minibatch_size=5)
     for cls in (KohonenWorkflow, RBMWorkflow):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md A6"):
-            cls(loader, parallel=DataParallel(tp=True), device="cpu")
+        given = DataParallel(tp=True, param_rules=lambda path, leaf: P("model"))
+        wf = cls(loader, parallel=given, device="cpu")
+        wf.initialize(seed=3)
+        assert wf.parallel is not given and not wf.parallel.sharded
+        assert given.param_rules is not None and wf.parallel.param_rules is None
         dp = DataParallel(make_mesh())
         assert cls(loader, parallel=dp, device="cpu").parallel is dp
         # the base loop's prefetch depth is honoured, not refused

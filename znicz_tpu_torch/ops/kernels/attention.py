@@ -69,7 +69,8 @@ index.  Beside each kernel is its plain PyTorch version
 :func:`flash_dkv_reference`), which the
 wrappers take for CPU tensors; for CUDA tensors they launch the kernel or
 raise, and count launches in ``flash_fwd.launches``, ``flash_dq.launches``
-and ``flash_dkv.launches``.  The library is built at the first launch;
+and ``flash_dkv.launches`` (``last_shape``: the ``[B, T, H, D]`` of the
+last call that launched).  The library is built at the first launch;
 the wrappers launch on the current stream and read no device value on the
 host, so a step that ran once eagerly can be captured into a CUDA graph,
 whose replays launch the kernels without passing through the wrappers or
@@ -241,6 +242,7 @@ def flash_fwd(q, k, v, *, causal: bool, scale: float):
         _launch("flash_fwd", _lib().znicz_flash_fwd, q[sl],
                 (q[sl], k[sl], v[sl], out[sl], lse[sl]), causal, scale)
         flash_fwd.launches += 1
+    flash_fwd.last_shape = tuple(q.shape)
     return out, lse
 
 
@@ -257,6 +259,7 @@ def flash_dq(q, k, v, dout, lse, delta, *, causal: bool, scale: float):
         _launch("flash_dq", _lib().znicz_flash_dq, q[sl],
                 (q[sl], k[sl], v[sl], dout[sl], lse[sl], delta[sl], dq[sl]), causal, scale)
         flash_dq.launches += 1
+    flash_dq.last_shape = tuple(q.shape)
     return dq
 
 
@@ -274,12 +277,14 @@ def flash_dkv(q, k, v, dout, lse, delta, *, causal: bool, scale: float):
                 (q[sl], k[sl], v[sl], dout[sl], lse[sl], delta[sl], dk[sl], dv[sl]),
                 causal, scale)
         flash_dkv.launches += 1
+    flash_dkv.last_shape = tuple(q.shape)
     return dk, dv
 
 
 flash_fwd.launches = 0
 flash_dq.launches = 0
 flash_dkv.launches = 0
+flash_fwd.last_shape = flash_dq.last_shape = flash_dkv.last_shape = None
 
 
 def kernel_head_dim(d: int) -> Optional[int]:

@@ -22,8 +22,18 @@ card, so a capacity step agrees with another to a float32 sum's order,
 not bitwise.  The products are ``torch.matmul`` (cuBLAS on the card), as
 the JAX package left its einsums to XLA.
 
-Expert parallelism (``apply_local_shard``, ``expert_sharding``) is not
-ported and raises, naming its ROADMAP.md item.
+Expert parallelism: :func:`expert_sharding` places each rank's
+contiguous block of ``E / n_model`` experts (the router whole), and
+:func:`apply_local_shard` (dense) and :func:`apply_parallel` (both
+dispatches) give one shard's contribution; summed over the model axis
+they are :func:`apply`.  Every rank routes over all ``E`` experts with the
+whole router, so the gates and the capacity slots are the same on every
+shard, and each shard computes its own experts' slots only.  Capacity
+over a batch split on the data axis (``data_group``) takes its slots from
+the global batch, as the JAX package's sort over the global batch does:
+the ranks' top-k expert ids are all-gathered (integers, no gradient) in
+the global choice-major order, each choice's slot is its rank within its
+expert over the global order, and ``C`` is the global batch's.
 """
 
 from __future__ import annotations
@@ -36,6 +46,7 @@ import torch
 
 from znicz_tpu_torch.core import device as device_lib, prng
 from znicz_tpu_torch.ops.filling import fill, to_param
+from znicz_tpu_torch.parallel import tensor_parallel as tp_ops
 
 DISPATCHES = ("dense", "capacity")
 
@@ -84,22 +95,8 @@ def apply(
     zero elsewhere.  ``dispatch``: "dense" or "capacity" (see the module
     docstring); "capacity" with ``top_k >= E`` warns and runs the dense
     path, as the JAX package does."""
-    logits = x @ params["router"]  # [B, E]
-    e = logits.shape[-1]
-    if dispatch == "capacity" and top_k < e:
-        return _capacity_apply(params, x, logits, top_k=top_k, capacity_factor=capacity_factor)
-    if dispatch not in DISPATCHES:
-        raise ValueError(f"unknown dispatch mode {dispatch!r}")
-    if dispatch == "capacity":  # top_k >= e: capacity has no meaning
-        warnings.warn(
-            f"dispatch='capacity' with top_k={top_k} >= n_experts={e} "
-            "degrades to the dense path (full softmax gates, no token "
-            "drop); lower top_k for capacity semantics",
-            stacklevel=2,
-        )
-    gates = _dense_gates(logits, top_k)
-    out = torch.einsum("be,ebf->bf", gates, _dense_expert_outputs(params, x))
-    return out.to(x.dtype)
+    return apply_parallel(params, x, top_k=top_k, dispatch=dispatch,
+                          capacity_factor=capacity_factor)
 
 
 def _top_k(logits: torch.Tensor, k: int):
@@ -132,55 +129,139 @@ def expert_capacity(batch: int, n_experts: int, top_k: int, capacity_factor: flo
     return max(1, int(np.ceil(top_k * batch / n_experts * capacity_factor)))
 
 
-def _capacity_apply(params, x, logits, *, top_k, capacity_factor):
-    """Sort/segment dispatch, working set O(B*k*F + E*C*F): no ``[B, E,
-    C]`` one-hot tensors.  Gradients flow through the gates, the
-    dispatched activations and the expert outputs (the routing indices
-    carry none), as in the JAX package."""
-    b, e = logits.shape
-    f = x.shape[1]
-    kb = top_k * b
-    cap = expert_capacity(b, e, top_k, capacity_factor)
-    top_vals, top_idx = _top_k(logits, top_k)  # [B, k]
-    g = torch.softmax(top_vals, dim=-1)
-    # choice-major flattening (flat index = rank*B + token), so the stable
-    # sort keeps (choice rank, token index) slot priority
-    eid = top_idx.t().reshape(-1)  # [kB] expert of each choice
-    tok = torch.arange(b, device=x.device).repeat(top_k)  # [kB]
-    gate = g.t().reshape(-1)
-    order = torch.argsort(eid, stable=True)
-    eid_s = eid[order]
-    # the slot inside the expert's buffer: the rank within its segment
-    first = torch.searchsorted(eid_s, eid_s, side="left")
-    pos_s = torch.arange(kb, device=x.device) - first
-    # over-capacity choices go to the trailing drop slot (row e*cap)
-    dest_s = torch.where(pos_s < cap, eid_s * cap + pos_s, torch.full_like(pos_s, e * cap))
-    tok_s = tok[order]
-    xe = torch.zeros((e * cap + 1, f), dtype=x.dtype, device=x.device)
-    xe = xe.index_add(0, dest_s, x.index_select(0, tok_s))  # unique slots but the drop slot
-    xe = xe[:-1].reshape(e, cap, f)
-    h = torch.tanh(torch.matmul(xe, params["w1"]) + params["b1"][:, None, :])
-    y = torch.matmul(h, params["w2"]) + params["b2"][:, None, :]
-    y_flat = torch.cat([y.reshape(e * cap, f), y.new_zeros((1, f))])
-    contrib = y_flat.index_select(0, dest_s) * gate[order].to(y.dtype)[:, None]
-    out = torch.zeros((b, f), dtype=y.dtype, device=x.device).index_add(0, tok_s, contrib)
+def apply_local_shard(
+    params_local: Dict[str, torch.Tensor],
+    x: torch.Tensor,  # [B, F]
+    *,
+    top_k: int,
+    shard_index,
+) -> torch.Tensor:
+    """ONE expert shard's dense-dispatch contribution: ``params_local``'s
+    expert leaves (w1/b1/w2/b2) hold shard ``shard_index``'s ``E_local``
+    contiguous experts and the router is whole, so the top-k gate over all
+    ``E`` experts is the same on every shard and this shard weights only
+    its own gate columns.  The shards' contributions sum to :func:`apply`'s
+    dense dispatch (b2 is gate-weighted per expert, so its partials sum
+    too)."""
+    logits = x @ params_local["router"]  # [B, E], router whole
+    e_local = params_local["w1"].shape[0]
+    lo = int(shard_index) * e_local
+    gates_local = _dense_gates(logits, top_k)[:, lo:lo + e_local]
+    out = torch.einsum("be,ebf->bf", gates_local, _dense_expert_outputs(params_local, x))
     return out.to(x.dtype)
 
 
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} (expert parallelism) is not ported to znicz_tpu_torch yet "
-        "(ROADMAP.md A6, ops/moe.py)"
-    )
+def apply_parallel(
+    params_local: Dict[str, torch.Tensor],
+    x: torch.Tensor,  # [B, F]: this rank's rows of the batch
+    *,
+    top_k: int = 1,
+    dispatch: str = "dense",
+    capacity_factor: float = 1.25,
+    shard_index: int = 0,
+    data_group=None,
+) -> torch.Tensor:
+    """One expert shard's contribution (:func:`apply_local_shard`'s
+    ``params_local`` and ``shard_index``) in either dispatch, for this
+    rank's rows of a batch split over ``data_group`` (None: the batch is
+    whole here).  Summed over the shards, the rows are :func:`apply`'s on
+    the global batch (capacity's slots and ``C`` are the global batch's)."""
+    e = params_local["router"].shape[-1]
+    if dispatch not in DISPATCHES:
+        raise ValueError(f"unknown dispatch mode {dispatch!r}")
+    if dispatch == "dense" or top_k >= e:
+        if dispatch == "capacity":
+            warnings.warn(
+                f"dispatch='capacity' with top_k={top_k} >= n_experts={e} "
+                "degrades to the dense path (full softmax gates, no token "
+                "drop); lower top_k for capacity semantics",
+                stacklevel=2,
+            )
+        return apply_local_shard(params_local, x, top_k=top_k, shard_index=shard_index)
+    return _capacity_apply(params_local, x, x @ params_local["router"], top_k=top_k,
+                           capacity_factor=capacity_factor, shard_index=shard_index,
+                           data_group=data_group)
 
 
-def apply_local_shard(*args, **kwargs):
-    """One expert shard's dense-dispatch contribution under manual expert
-    parallelism: not ported (ROADMAP.md A6)."""
-    raise _not_ported("moe.apply_local_shard")
+def _global_slots(eid: torch.Tensor, data_group):
+    """``(slot of each of this rank's choices, the global batch)``: ``eid``
+    is the rank's ``[k, B]`` expert ids (choice-major); the slot
+    is the choice's rank within its expert over the global choice-major
+    order (choice rank, then global token ``d * B + i``), the stable
+    sort's segment rank."""
+    k, b = eid.shape
+    n = tp_ops.group_size(data_group)
+    if n > 1:
+        eid_all = tp_ops.all_gather(eid, 1, data_group)  # [k, n*B]
+        d = tp_ops.group_rank(data_group)
+    else:
+        eid_all, d = eid, 0
+    flat = eid_all.reshape(-1)
+    order = torch.argsort(flat, stable=True)
+    sorted_ids = flat[order]
+    first = torch.searchsorted(sorted_ids, sorted_ids, side="left")
+    slot = torch.empty_like(flat)
+    slot[order] = torch.arange(flat.numel(), device=flat.device) - first
+    mine = slot.view(k, n * b)[:, d * b:(d + 1) * b].reshape(-1)
+    return mine, n * b
 
 
-def expert_sharding(*args, **kwargs):
-    """Expert-dim placement over a device mesh: not ported (ROADMAP.md
-    A6)."""
-    raise _not_ported("moe.expert_sharding")
+def _capacity_apply(params, x, logits, *, top_k, capacity_factor, shard_index=0,
+                    data_group=None):
+    """Sort/segment dispatch, working set O(B*k*F + E*C*F): no ``[B, E,
+    C]`` one-hot tensors.  Each choice's slot inside its expert is its rank
+    within the expert over the (global) choice-major order
+    (:func:`_global_slots`); ``params``' experts are shard
+    ``shard_index``'s block (all of them by default), and choices of other
+    experts or over capacity go to the trailing drop slot.  Gradients flow
+    through the gates, the dispatched activations and the expert outputs
+    (the routing indices carry none), as in the JAX package."""
+    b, e = logits.shape
+    f = x.shape[1]
+    e_local = params["w1"].shape[0]
+    lo = int(shard_index) * e_local
+    top_vals, top_idx = _top_k(logits, top_k)  # [B, k]
+    g = torch.softmax(top_vals, dim=-1)
+    eid = top_idx.t().contiguous()  # [k, B], choice-major
+    slot, global_b = _global_slots(eid, data_group)
+    cap = expert_capacity(global_b, e, top_k, capacity_factor)
+    eid = eid.reshape(-1)
+    tok = torch.arange(b, device=x.device).repeat(top_k)
+    gate = g.t().reshape(-1)
+    drop = e_local * cap
+    keep = (slot < cap) & (eid >= lo) & (eid < lo + e_local)
+    dest = torch.where(keep, (eid - lo) * cap + slot, torch.full_like(slot, drop))
+    xe = torch.zeros((drop + 1, f), dtype=x.dtype, device=x.device)
+    xe = xe.index_add(0, dest, x.index_select(0, tok))  # unique slots but the drop slot
+    xe = xe[:-1].reshape(e_local, cap, f)
+    h = torch.tanh(torch.matmul(xe, params["w1"]) + params["b1"][:, None, :])
+    y = torch.matmul(h, params["w2"]) + params["b2"][:, None, :]
+    y_flat = torch.cat([y.reshape(drop, f), y.new_zeros((1, f))])
+    contrib = y_flat.index_select(0, dest) * gate.to(y.dtype)[:, None]
+    out = torch.zeros((b, f), dtype=y.dtype, device=x.device).index_add(0, tok, contrib)
+    return out.to(x.dtype)
+
+
+def expert_sharding(mesh, axis: str = "model"):
+    """Expert-dim placement over a mesh axis (EP): returns ``place(params)``
+    giving this rank's contiguous block of every expert leaf (dim 0) and
+    the router whole."""
+    from znicz_tpu_torch.parallel.mesh import axis_size
+
+    names = list(mesh.mesh_dim_names)
+    n = axis_size(mesh, axis)
+    m = int(mesh.get_coordinate()[names.index(axis)]) if axis in names else 0
+
+    def place(params):
+        def put(name, leaf):
+            if name == "router":
+                return leaf
+            if leaf.shape[0] % n:
+                raise ValueError(f"{name}: {leaf.shape[0]} experts do not divide by the "
+                                 f"{axis} axis {n}")
+            step = leaf.shape[0] // n
+            return leaf[m * step:(m + 1) * step]
+
+        return {name: put(name, leaf) for name, leaf in params.items()}
+
+    return place

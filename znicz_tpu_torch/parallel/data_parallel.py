@@ -1,34 +1,47 @@
-"""Data-parallel placement policy and collectives for workflows (port of
-``znicz_tpu/parallel/data_parallel.py``).
+"""Data (+ optional tensor) parallel placement policy and collectives for
+workflows (port of ``znicz_tpu/parallel/data_parallel.py``).
 
-One process runs one device and holds a full replica of the train state;
-each rank trains on its contiguous ``1/R`` of every global minibatch (the
-loader's process shard), and the step sums the ranks' gradients with one
-all-reduce over the data axis: the torch counterpart of the all-reduce XLA
-inserts into the JAX package's jitted step.  The loss's denominator is
-the global count of valid rows, so the summed gradient is the global
-batch's, equal to one process's.  Synchronous by construction, as in the
-JAX package.
+One process runs one device.  Each rank of data row ``d`` trains on the
+row's contiguous ``1/D`` of every global minibatch (the loader's process
+shard), and the step sums the gradients with one all-reduce over the data
+axis: the torch counterpart of the all-reduce XLA inserts into the JAX
+package's jitted step.  The loss's denominator is the global count of
+valid rows, so the summed gradient is the global batch's, equal to one
+process's.  Synchronous by construction, as in the JAX package.
 
-The collectives run over the default process group.  With no group (one
-process) they are the identity; a group of one rank still runs them, so
-a one-rank NCCL group exercises the production path.  NCCL collectives
+Tensor parallelism (``tp=True``, absent in the reference): a leaf whose
+placement spec names the ``model`` axis lives on rank ``(d, m)`` as its
+``m``-th contiguous block along that dim (params and velocity alike);
+every other leaf is whole on every rank.  The placement is the JAX
+package's: ``param_rules`` first (:func:`cnn_tp_rules` for conv models,
+``lm_tp_rules`` for the LM), then the size heuristic (a leaf whose last
+dim is at least ``tp_min_features`` and divides the model axis is
+column-sharded).  Where GSPMD propagates shardings and inserts the
+collectives for the JAX package, the port's forwards call Megatron's
+conjugate operators themselves (``parallel/tensor_parallel.py``).
+:meth:`DataParallel.gather_state` rebuilds whole tensors (snapshots,
+decoding).
+
+The collectives run over this rank's data column (:func:`data_group`)
+and model row (:func:`model_group`): the default process group when the
+model axis is 1, else the mesh's per-axis groups.  With no group
+(one process) they are the identity; a group of one rank still runs them,
+so a one-rank NCCL group exercises the production path.  NCCL collectives
 are captured into the scan dispatch's CUDA graphs; gloo's stage a card's
 tensors through the host inside the call, which no graph can capture
 (``host_collectives``).
 
 Random draws per sample (dropout's masks, stochastic pooling's noise) are
 drawn for the global batch and the rank takes its rows
-(:func:`batch_rand`), so R ranks draw what one process draws.
-
-Tensor parallelism (``tp=True``, ``param_rules``, :func:`cnn_tp_rules`) is
-not ported yet and is refused by name (ROADMAP.md A6).
+(:func:`batch_rand`), so R ranks draw what one process draws, and model
+peers, which hold the same rows and the same generator, draw alike.
 """
 
 from __future__ import annotations
 
 import contextlib
-from typing import List, Optional, Sequence
+import re
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -43,37 +56,92 @@ from znicz_tpu_torch.parallel.mesh import (
     verify_process_contiguous_data_axis,
     world,
 )
-
-_TP = "A6, cnn_tp_rules"
+from znicz_tpu_torch.parallel.tensor_parallel import P, all_gather, local_slice, sharded_dim
 
 # (this rank's position, ranks) on the data axis while a train step runs
 _BATCH_SHARD = (0, 1)
 
 
 def cnn_tp_rules(model, n_model: int, *, tp_min_features: int = 1024):
-    """Tensor-parallel placement rules for conv/FC models: not ported."""
-    from znicz_tpu_torch.workflow.workflow import refuse_unported
+    """Channel-aware tensor-parallel placement for conv/FC models.
 
-    refuse_unported(((True, "cnn_tp_rules (tensor parallelism)", _TP),))
+    Megatron-style alternation over the model's weighted layers: a layer
+    whose output channels/features divide the ``model`` axis is COLUMN
+    sharded (conv ``[ky, kx, in, out]`` on ``out``, FC ``[in, out]`` on
+    ``out``, bias along); the NEXT weighted layer is ROW sharded on its
+    input dim, so each rank contracts its block and the partial products
+    are summed.  FC layers additionally honor ``tp_min_features`` (the
+    size heuristic's threshold) so small heads stay whole; conv layers
+    shard on divisibility alone.  Returns a ``param_rules`` callable for
+    :class:`DataParallel`, over the JAX package's ``keystr`` paths
+    (``"[1]['weights']"``).
+    """
+    specs = {}
+    col_prev = False
+    for i, params in enumerate(model.params):
+        w = params.get("weights") if isinstance(params, dict) else None
+        if w is None or w.ndim < 2:
+            continue
+        is_conv = w.ndim == 4
+        out_dim = w.shape[-1]
+        in_dim = w.shape[-2] if is_conv else w.shape[0]
+        if col_prev and is_conv and in_dim % n_model == 0:
+            # row-parallel follower: shard the input/contraction dim.
+            # Conv only: an FC after a flatten sees the channel-sharded
+            # activations INTERLEAVED through its h*w*c input dim
+            # (channel-minor flatten), so a contiguous dim-0 block would
+            # not be the rank's channels
+            specs[(i, "weights")] = P(None, None, MODEL_AXIS, None)
+            specs[(i, "bias")] = P()
+            col_prev = False
+        elif out_dim % n_model == 0 and (is_conv or out_dim >= tp_min_features):
+            specs[(i, "weights")] = P(*([None] * (w.ndim - 1)), MODEL_AXIS)
+            specs[(i, "bias")] = P(MODEL_AXIS)
+            col_prev = True
+        else:
+            col_prev = False
+
+    pat = re.compile(r"\[(\d+)\]\['(\w+)'\]")
+
+    def rules(path: str, leaf):
+        m = pat.search(path)
+        if not m:
+            return P()
+        return specs.get((int(m.group(1)), m.group(2)), P())
+
+    return rules
 
 
 def data_group(mesh):
-    """The process group the mesh's data axis reduces over: the default
-    group, which the axis must span; None without a group (one process:
-    every collective is the identity)."""
+    """The process group this rank's data column reduces over: the
+    default group when the model axis is 1 (the data axis must then span
+    every process), else the mesh's data group; None without a group, or
+    for a data axis of 1 under a model axis (every collective over it is
+    the identity)."""
     _, size = world()
     n = axis_size(mesh, DATA_AXIS) * axis_size(mesh, MODEL_AXIS)
     if not dist.is_initialized():
         if n != 1:
-            raise ValueError(f"a data axis of {n} needs a process group of {n} ranks; "
+            raise ValueError(f"a mesh of {n} ranks needs a process group of {n} ranks; "
                              "call multihost.initialize first")
         return None
     if n != size:
         raise ValueError(
-            f"the mesh holds {n} ranks but the process group {size}: the data "
-            "axis must span every process (one process a device)"
+            f"the mesh holds {n} ranks but the process group {size}: the mesh "
+            "must span every process (one process a device)"
         )
-    return dist.group.WORLD
+    if axis_size(mesh, MODEL_AXIS) == 1:
+        return dist.group.WORLD
+    return mesh.get_group(DATA_AXIS) if axis_size(mesh, DATA_AXIS) > 1 else None
+
+
+def model_group(mesh):
+    """The process group of this rank's model row (its model peers, which
+    hold the other blocks of every sharded leaf); None for a model axis of
+    1."""
+    if axis_size(mesh, MODEL_AXIS) == 1 or not dist.is_initialized():
+        return None
+    return mesh.get_group(MODEL_AXIS)
 
 
 def data_index(mesh) -> int:
@@ -142,12 +210,14 @@ def batch_rand(shape, *, generator, device, dtype=None) -> torch.Tensor:
 
 class DataParallel:
     """Placement policy: how batches and params land on the rank's device,
-    and the collectives over the data axis.
+    and the collectives over the data and model axes.
 
     ``mesh``: a :func:`make_mesh` mesh (default: every rank of the default
-    group).  ``tp``, ``tp_min_features`` and ``param_rules`` are the JAX
-    package's tensor-parallel knobs: taken at their defaults, refused
-    otherwise."""
+    group on the data axis).  ``tp``: shard weights over the ``model``
+    axis (on when the axis is above 1).  ``param_rules``: a callable
+    ``(path, leaf) -> spec or None`` (a :class:`~znicz_tpu_torch.parallel.
+    tensor_parallel.PartitionSpec`), asked first for every leaf; None
+    falls through to the size heuristic (``tp_min_features``)."""
 
     def __init__(
         self,
@@ -157,30 +227,38 @@ class DataParallel:
         tp_min_features: int = 1024,
         param_rules=None,
     ):
-        from znicz_tpu_torch.workflow.workflow import refuse_unported
-
-        refuse_unported((
-            (tp, "tensor parallelism (tp=True)", _TP),
-            (param_rules is not None, "param_rules (tensor-parallel placement)", _TP),
-        ))
         self.mesh = mesh if mesh is not None else make_mesh()
         if multihost.process_count() > 1:
-            # the loader's per-process row contract only holds when each
-            # process owns one contiguous block of the data axis
+            # the loader's per-rank row contract only holds when each data
+            # row's ranks are one contiguous block
             verify_process_contiguous_data_axis(self.mesh)
         self.group = data_group(self.mesh)
-        self.tp = False
+        self.model_group = model_group(self.mesh)
+        self.tp = tp and self.n_model > 1
         self.tp_min_features = tp_min_features
-        self.param_rules = None
+        self.param_rules = param_rules
+        # path -> sharded dim of every model-sharded leaf (shard_state)
+        self.sharded: Dict[str, int] = {}
 
     @property
     def n_data(self) -> int:
         return axis_size(self.mesh, DATA_AXIS)
 
     @property
+    def n_model(self) -> int:
+        return axis_size(self.mesh, MODEL_AXIS)
+
+    @property
     def index(self) -> int:
         """This rank's position on the data axis."""
         return data_index(self.mesh)
+
+    @property
+    def model_index(self) -> int:
+        """This rank's position on the model axis: the block of every
+        sharded leaf it holds."""
+        coord = self.mesh.get_coordinate()
+        return int(coord[list(self.mesh.mesh_dim_names).index(MODEL_AXIS)])
 
     @property
     def device(self) -> torch.device:
@@ -194,23 +272,18 @@ class DataParallel:
         """True where a collective stages a card's tensors through the host
         (a gloo group on the card): nothing in it can be captured into a
         CUDA graph."""
-        return (self.group is not None and self.mesh.device_type == "cuda"
+        return (dist.is_initialized() and self.mesh.device_type == "cuda"
                 and dist.get_backend() != "nccl")
 
     # -- batches -----------------------------------------------------------
     def shard_batch(self, arr, *, batch_dim: int = 0) -> torch.Tensor:
         """This rank's rows of a global batch on its device.  ``arr`` is
         the rank's slice, as the loader's process shard serves it (rows
-        ``[p*B/P, (p+1)*B/P)``); the global batch must divide by the data
-        axis.  ``batch_dim=1`` serves epoch-stacked ``[n_steps, B, ...]``
-        payloads."""
+        ``[d*B/D, (d+1)*B/D)`` for data row ``d``); in one process the
+        batch must divide by the data axis.  ``batch_dim=1`` serves
+        epoch-stacked ``[n_steps, B, ...]`` payloads."""
         arr = arr if isinstance(arr, torch.Tensor) else np.asarray(arr)
-        nproc = multihost.process_count()
-        if nproc > 1:
-            n = arr.shape[batch_dim] * nproc
-            if n % self.n_data:
-                raise ValueError(f"global batch {n} not divisible by data axis {self.n_data}")
-        elif arr.shape[batch_dim] % self.n_data:
+        if multihost.process_count() == 1 and arr.shape[batch_dim] % self.n_data:
             raise ValueError(
                 f"batch {arr.shape[batch_dim]} not divisible by data axis "
                 f"{self.n_data}; choose minibatch_size as a multiple"
@@ -224,23 +297,98 @@ class DataParallel:
                                device=self.device)
 
     # -- params ------------------------------------------------------------
-    def shard_state(self, state):
-        """The train state's params and velocity on this rank's device
-        (every rank holds a full replica; identical seeds give identical
-        values); a tensor already there is kept as it is."""
-        def put(tree):
-            if isinstance(tree, dict):
-                return {k: put(v) for k, v in tree.items()}
-            if isinstance(tree, (list, tuple)):
-                return [put(v) for v in tree]
-            if tree.device == self.device:
-                return tree
-            return tree.detach().to(self.device).requires_grad_(tree.requires_grad)
+    def _param_spec(self, path: str, leaf):
+        if self.param_rules is not None:
+            spec = self.param_rules(path, leaf)
+            if spec is not None:
+                return spec
+        if (
+            self.tp
+            and hasattr(leaf, "ndim")
+            and leaf.ndim >= 1
+            and leaf.shape[-1] >= self.tp_min_features
+            and leaf.shape[-1] % self.n_model == 0
+        ):
+            # shard the output-features dim: column-parallel FC / conv
+            return P(*([None] * (leaf.ndim - 1)), MODEL_AXIS)
+        return P()
 
-        state.params = put(state.params)
-        state.velocity = put(state.velocity)
+    def specs(self, tree) -> Dict[str, Optional[int]]:
+        """``{path: sharded dim or None}`` of a tree of whole leaves, the
+        paths the JAX package's ``keystr`` (``"[1]['wq']"``)."""
+        out: Dict[str, Optional[int]] = {}
+        for path, leaf in _leaves(tree):
+            dim = sharded_dim(self._param_spec(path, leaf))
+            if self.n_model == 1:
+                dim = None  # a model axis of 1: every block is the whole leaf
+            if dim is not None and leaf.shape[dim] % self.n_model:
+                raise ValueError(
+                    f"{path}: dim {dim} of shape {tuple(leaf.shape)} does not divide by the "
+                    f"model axis {self.n_model}"
+                )
+            out[path] = dim
+        return out
+
+    def shard_state(self, state):
+        """The train state's params and velocity on this rank's device, a
+        model-sharded leaf as this rank's block, from a state of whole
+        leaves (identical seeds give every rank identical values).  The
+        placement is decided from the params and kept (:attr:`sharded`);
+        a velocity leaf shards as the param at its path."""
+        specs = self.specs(state.params)
+        self.sharded = {p: d for p, d in specs.items() if d is not None}
+
+        def put(path, leaf):
+            grad = leaf.requires_grad
+            dim = self.sharded.get(path)
+            if dim is not None:
+                leaf = local_slice(leaf.detach(), dim, self.model_group).clone()
+            elif leaf.device == self.device:
+                return leaf
+            return leaf.detach().to(self.device).requires_grad_(grad)
+
+        state.params = _map(put, state.params)
+        state.velocity = _map(put, state.velocity)
         return state
+
+    def gather_state(self, tree):
+        """A tree of this rank's leaves with every model-sharded leaf made
+        whole (an all-gather over the model group; every rank of the mesh
+        takes part); whole leaves are returned as they are."""
+        if not self.sharded:
+            return tree
+
+        def whole(path, leaf):
+            dim = self.sharded.get(path)
+            if dim is None:
+                return leaf
+            return all_gather(leaf.detach(), dim, self.model_group)
+
+        return _map(whole, tree)
 
     # -- collectives ---------------------------------------------------------
     def all_reduce(self, tensors: Sequence[torch.Tensor], op: str = "sum") -> List[torch.Tensor]:
         return all_reduce(tensors, self.mesh, op)
+
+
+def _leaves(tree, prefix: str = ""):
+    """``(keystr path, leaf)`` pairs of a tree of lists and dicts, in the
+    JAX package's ``tree_leaves_with_path`` order (dict keys sorted)."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _leaves(tree[k], f"{prefix}[{k!r}]")
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from _leaves(v, f"{prefix}[{i}]")
+    else:
+        yield prefix, tree
+
+
+def _map(fn, tree, prefix: str = ""):
+    """``fn(path, leaf)`` over a tree of lists and dicts, the containers
+    kept (a tuple becomes a list)."""
+    if isinstance(tree, dict):
+        return {k: _map(fn, v, f"{prefix}[{k!r}]") for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_map(fn, v, f"{prefix}[{i}]") for i, v in enumerate(tree)]
+    return fn(prefix, tree)

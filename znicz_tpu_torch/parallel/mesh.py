@@ -1,18 +1,20 @@
 """Mesh construction and placement helpers (port of
 ``znicz_tpu/parallel/mesh.py``).
 
-One process runs one device, so a rank is both a process and a position
-on the mesh's ``data`` axis: a world of R ranks is the counterpart of the
-JAX package's ``make_mesh(R, 1)``, and every rank serves its contiguous
-``1/R`` of each global minibatch.  The mesh is a
+One process runs one device, so a rank is both a process and one point
+``(d, m)`` of the ``(data, model)`` mesh: rank ``d * n_model + m``, the
+JAX package's ``reshape(n_data, n_model)`` order, so a data row's model
+peers are adjacent ranks.  Every rank of data row ``d`` serves that row's
+contiguous ``1/n_data`` of each global minibatch; the model axis shards
+weights (``parallel/tensor_parallel.py``).  The mesh is a
 ``torch.distributed.device_mesh.DeviceMesh`` over the ranks of the default
-process group, with the JAX package's axis names; it creates no process
-group of its own (the data axis spans the whole default group, the
-``model`` axis is 1).  With no process group it is a mesh of this one
-process.
+process group, with the JAX package's axis names.  With a model axis
+above 1 the mesh makes its per-axis process groups (a data column's and a
+model row's: ``mesh.get_group(name)``; every rank makes them alike); with
+a model axis of 1 it makes none and the data axis reduces over the
+default group.  With no process group it is a mesh of this one process.
 
-The ``model`` and ``pipe`` axes shard weights, which nothing ported yet
-does: ``n_model > 1`` and ``n_pipe > 1`` are refused by name.
+The ``pipe`` axis (pipeline stages) is refused by name.
 """
 
 from __future__ import annotations
@@ -54,13 +56,14 @@ def make_mesh(
     ``n_data=None`` puts every remaining rank on the data axis.  More
     ranks than the world holds raise the JAX package's "needs N devices,
     have M": the JAX package's single-process many-device meshes have no
-    counterpart here, where one process runs one device."""
+    counterpart here, where one process runs one device.  With
+    ``n_model > 1`` every rank of the default group must call this alike:
+    the mesh makes its per-axis process groups."""
     from torch.distributed.device_mesh import DeviceMesh
 
     from znicz_tpu_torch.workflow.workflow import refuse_unported
 
     refuse_unported((
-        (n_model > 1, "tensor parallelism (a model axis > 1)", "A6, cnn_tp_rules"),
         (n_pipe > 1, "pipeline parallelism (a pipe axis > 1)", "A7, parallel/pipeline.py"),
     ))
     rank, size = world()
@@ -74,10 +77,9 @@ def make_mesh(
             f"have {len(ranks)}"
         )
     grid = torch.tensor(ranks[:need], dtype=torch.int).reshape(n_data, n_model)
-    # the mesh names the ranks; collectives run over the default group
-    # (parallel/data_parallel.py), so it builds no sub-group
+    # a model axis of 1 reduces over the default group: no sub-group
     return DeviceMesh(device_type(), grid, mesh_dim_names=(DATA_AXIS, MODEL_AXIS),
-                      _init_backend=False, _rank=rank)
+                      _init_backend=n_model > 1, _rank=rank)
 
 
 def parse_mesh_spec(spec: str) -> dict:
@@ -123,14 +125,14 @@ def axis_size(mesh, name: str) -> int:
 
 
 def verify_process_contiguous_data_axis(mesh) -> None:
-    """Check the row-ownership contract: each process's ranks occupy one
-    contiguous, process-pure block of the ``data`` axis, in process order,
-    with equal shares.  ``Loader.set_process_shard`` serves process ``p``
-    rows ``[p*B/P, (p+1)*B/P)`` of every global minibatch, so a mesh whose
-    rank order interleaves processes would hand each process's rows other
-    global positions than the loader contract states.  Here a process is a
-    rank; ``make_mesh`` orders them, so this only trips hand-built
-    meshes."""
+    """Check the row-ownership contract: each data row's ranks are one
+    contiguous block of ranks, the rows in rank order, with equal shares.
+    ``Loader.set_process_shard`` serves every rank of data row ``d`` rows
+    ``[d*B/D, (d+1)*B/D)`` of every global minibatch (its model peers
+    serve the same rows), so a mesh whose rank order interleaves the data
+    rows would hand each rank's rows other global positions than the
+    loader contract states.  Here a process is a rank; ``make_mesh``
+    orders them, so this only trips hand-built meshes."""
     axes = list(mesh.mesh_dim_names or ())
     if DATA_AXIS not in axes:
         return
@@ -138,11 +140,11 @@ def verify_process_contiguous_data_axis(mesh) -> None:
     dev = dev.reshape(dev.shape[0], -1)  # 1-D (data-only) meshes included
     rows = [sorted({int(r) for r in row}) for row in dev]
     procs = [r[0] for r in rows]
-    counts = [procs.count(p) for p in sorted(set(procs))]
+    counts = [len(r) for r in rows]
     if (
-        any(len(r) != 1 for r in rows)
+        any(r != list(range(r[0], r[0] + len(r))) for r in rows)
         or procs != sorted(procs)
-        # the loader serves EQUAL 1/P row blocks
+        # the loader serves EQUAL 1/D row blocks
         or len(set(counts)) > 1
     ):
         raise ValueError(

@@ -8,7 +8,26 @@ build time and every parameter is drawn eagerly from the named numpy stream
 in the JAX package's order, so the same seed gives the same weights.
 
 A model is ``params`` (a list of per-layer dicts of tensors, in the JAX
-package's layouts) plus a function ``apply(params, x, *, train, generator)``.
+package's layouts) plus a function ``apply(params, x, *, train, generator,
+placement)``.
+
+``placement=(group, dims)`` runs the forward over tensor-parallel params
+(``parallel/data_parallel.py``): ``dims[i][name]`` is the dim leaf
+``name`` of layer ``i`` is sharded along over the model ``group`` (None:
+whole).  The forward tracks whether the activation is whole or holds
+this rank's block of its channels (last dim) and calls Megatron's
+operators (``parallel/tensor_parallel.py``): a column layer (FC or conv
+weights sharded on the output dim) takes a whole input through
+``copy_to_model`` and gives its block of the output channels, its bias
+block added; a row layer (sharded on the input dim) takes a block of its
+input channels (a whole one through ``scatter_to_model``), its partial
+product summed by ``reduce_from_model``, then its whole bias and its
+activation; the layers that work on each channel alone (activations, max,
+max-abs and average pooling, the cutter) pass a block through; every
+other layer (``norm``, whose window crosses the blocks, ``dropout``,
+stochastic pooling, a flatten into a non-row FC) first gathers the
+channels with ``gather_from_model``, and a layer whose own params a rule
+sharded otherwise uses them gathered.
 """
 
 from __future__ import annotations
@@ -20,6 +39,7 @@ import torch
 
 from znicz_tpu_torch.core import device as device_lib
 from znicz_tpu_torch.nn import optimizer
+from znicz_tpu_torch.parallel import tensor_parallel as tp_ops
 from znicz_tpu_torch.ops import (
     activation as act_op,
     all2all,
@@ -36,7 +56,7 @@ from znicz_tpu_torch.ops import (
 
 class Model(NamedTuple):
     params: List[Dict[str, torch.Tensor]]
-    apply: Callable  # (params, x, *, train=False, generator=None) -> output
+    apply: Callable  # (params, x, *, train=False, generator=None, placement=None) -> output
     hyper: List[optimizer.HyperParams]
     layer_types: Tuple[str, ...]
     input_shape: Tuple[int, ...]  # per-sample shape (no batch dim)
@@ -125,6 +145,7 @@ def build(
     params: List[Dict[str, torch.Tensor]] = []
     hyper: List[optimizer.HyperParams] = []
     fns: List[Callable] = []  # (params, x, train, generator) -> x
+    roles: List[tuple] = []  # how each layer runs over sharded params (_tp_forward)
     types: List[str] = []
     shapes: List[Tuple[int, ...]] = []
     shape = (1,) + tuple(int(s) for s in input_shape)  # batch placeholder
@@ -134,6 +155,7 @@ def build(
         kind, fwd, bwd = _split_spec(spec)
         h = default_hyper._replace(**bwd) if bwd else default_hyper
         returns_logits = False
+        role: tuple = ("gather",)
 
         if kind in _A2A_ACT or kind == "softmax":
             n_in = int(np.prod(shape[1:]))
@@ -149,6 +171,7 @@ def build(
 
             shape = (shape[0], n_out)
             returns_logits = kind == "softmax"
+            role = ("fc", activation, include_bias)
 
         elif kind in _CONV_ACT:
             if len(shape) != 4:
@@ -169,6 +192,7 @@ def build(
                 return conv.apply(p, x, sliding=s, padding=pad, activation=a)
 
             shape = conv.output_shape(shape, n_kernels, kx, ky, sliding, padding)
+            role = ("conv", sliding, padding, activation)
 
         elif kind in _POOL or kind == "stochastic_pooling":
             kx, ky = int(fwd["kx"]), int(fwd["ky"])
@@ -185,6 +209,7 @@ def build(
 
             else:
                 pool_fn = _POOL[kind]
+                role = ("channelwise",)
 
                 def fn(p, x, train, gen, f=pool_fn, kx=kx, ky=ky, s=sliding):
                     return f(x, kx, ky, s)
@@ -234,10 +259,12 @@ def build(
                 return cutter.cut(x, pad)
 
             shape = cutter.output_shape(shape, padding)
+            role = ("channelwise",)
 
         elif kind.startswith("activation_"):
             p = {}
             a = act_op.get(kind[len("activation_"):])
+            role = ("channelwise",)
 
             def fn(p, x, train, gen, a=a):
                 return a(x)
@@ -304,12 +331,14 @@ def build(
         params.append(p)
         hyper.append(h)
         fns.append(fn)
+        roles.append(role)
         types.append(kind)
         shapes.append(tuple(shape[1:]))
 
     needs_rng = any(t in ("dropout", "stochastic_pooling") for t in types)
 
-    def apply(params, x, *, train: bool = False, generator: Optional[torch.Generator] = None):
+    def apply(params, x, *, train: bool = False, generator: Optional[torch.Generator] = None,
+              placement=None):
         if train and needs_rng and generator is None:
             raise ValueError(
                 "model has dropout/stochastic layers: apply(train=True) "
@@ -321,8 +350,11 @@ def build(
                 {k: w.to(compute_dtype) for k, w in layer.items()}
                 for layer in params
             ]
-        for fn, p in zip(fns, params):
-            x = fn(p, x, train, generator)
+        if placement is None:
+            for fn, p in zip(fns, params):
+                x = fn(p, x, train, generator)
+        else:
+            x = _tp_forward(fns, roles, params, x, train, generator, *placement)
         if compute_dtype is not None:
             x = x.float()
         return x
@@ -341,6 +373,75 @@ def build(
             {"type": t, **_split_spec(s)[1]} for t, s in zip(types, layers)
         ),
     )
+
+
+def _column(p, dims, group):
+    """A column layer's params as this rank's blocks: the weights' (the
+    placement's), the bias's (sliced where a rule left it whole)."""
+    if "bias" not in p or dims.get("bias") is not None:
+        return p
+    return dict(p, bias=tp_ops.scatter_to_model(p["bias"], 0, group))
+
+
+def _row(role, p, dims, x, group):
+    """A row layer on this rank's block of its input channels: the partial
+    product summed over the model group, then the whole bias and the
+    activation."""
+    w = p["weights"]
+    if role[0] == "fc":
+        y = torch.matmul(x.reshape(x.shape[0], w.shape[0]), w)
+        _, activation, include_bias = role
+    else:
+        _, sliding, padding, activation = role
+        y = conv.apply({"weights": w, "bias": w.new_zeros(())}, x, sliding=sliding,
+                       padding=padding)
+        include_bias = True
+    y = tp_ops.reduce_from_model(y, group)
+    if include_bias:
+        b = p["bias"]
+        if dims.get("bias") is not None:
+            b = tp_ops.gather_from_model(b, dims["bias"], group)
+        y = y + b
+    return act_op.get(activation)(y).to(x.dtype)
+
+
+def _tp_forward(fns, roles, params, x, train, gen, group, dims):
+    """The forward over tensor-parallel params (the module docstring says
+    how); returns the whole output."""
+    block = False  # x holds this rank's block of its last dim
+    for fn, role, p, d in zip(fns, roles, params, dims):
+        wdim = d.get("weights")
+        if role[0] in ("fc", "conv") and wdim is not None:
+            nd = p["weights"].ndim
+            if wdim == nd - 1:  # column
+                if block:
+                    x = tp_ops.gather_from_model(x, -1, group)
+                x = fn(_column(p, d, group), tp_ops.copy_to_model(x, group), train, gen)
+                block = True
+                continue
+            if wdim == nd - 2:  # row
+                if block and role[0] == "fc" and x.ndim > 2:
+                    # channel-minor flatten: the rank's channels are not a
+                    # contiguous block of the flattened features
+                    x = tp_ops.gather_from_model(x, -1, group)
+                    block = False
+                if not block:
+                    if role[0] == "fc":
+                        x = x.reshape(x.shape[0], -1)
+                    x = tp_ops.scatter_to_model(x, -1, group)
+                x = _row(role, p, d, x, group)
+                block = False
+                continue
+        if role[0] == "channelwise":
+            x = fn(p, x, train, gen)
+            continue
+        if block:
+            x = tp_ops.gather_from_model(x, -1, group)
+            block = False
+        p = {k: v if d.get(k) is None else tp_ops.gather_from_model(v, d[k], group)
+             for k, v in p.items()}
+        x = fn(p, x, train, gen)
+    return tp_ops.gather_from_model(x, -1, group) if block else x
 
 
 def params_from_jax(params_np, device) -> List[Dict[str, torch.Tensor]]:

@@ -108,3 +108,17 @@ class StandardWorkflow(Workflow):
             device=dev,
             name=name,
         )
+
+    def _default_param_rules(self):
+        """Conv models get channel-aware TP rules (Megatron column/row
+        alternation, ``parallel.data_parallel.cnn_tp_rules``) instead of
+        the last-dim size heuristic: conv kernels carry the FLOPs, so
+        keeping them whole wastes the model axis.  Pure-FC models keep the
+        heuristic."""
+        if not any(isinstance(p, dict) and getattr(p.get("weights"), "ndim", 0) == 4
+                   for p in self.model.params):
+            return None
+        from znicz_tpu_torch.parallel.data_parallel import cnn_tp_rules
+
+        return cnn_tp_rules(self.model, self.parallel.n_model,
+                            tp_min_features=self.parallel.tp_min_features)

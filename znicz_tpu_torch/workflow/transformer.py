@@ -26,22 +26,34 @@ replayed a position).
 
 ``parallel=DataParallel(mesh)`` trains over the data axis (each rank its
 shard of every batch, the gradients all-reduced; the flash kernels run on
-every rank).  Under more than one rank ``moe_dispatch="capacity"`` is
-refused: the JAX package computes the capacity and its stable sort over
-the global batch, which per-rank routing would not reproduce (dense
-dispatch is per token and runs).
+every rank).  ``moe_dispatch="capacity"`` takes its slots and its capacity
+from the global batch, as the JAX package's sort over the global batch
+does (``ops/moe.py::apply_parallel``).
+
+``tensor_parallel=True`` (with a ``(data, model)`` mesh, model axis > 1)
+places the params by :func:`lm_tp_rules` and runs Megatron's forward, the
+JAX package's ``_block_forward_tp``: each rank's attention runs over its
+``n_heads // n_model`` local heads (the flash kernels on the card), ``wo``
+and ``w_down`` give partial products summed over the model axis, their
+biases added once; an MoE block holds ``E / n_model`` experts with the
+router whole.  The vocab-sharded ``head`` feeds a vocab-parallel
+cross-entropy (the max and the sum of exponentials reduced over the model
+axis, the target's logit from the rank that owns it: what GSPMD inserts
+for the JAX package), so no rank holds the whole logits.  ``generate()``
+decodes on the gathered whole params.  Without ``tensor_parallel`` the
+params stay whole on every rank, whatever the policy's ``tp`` (the JAX
+package lets GSPMD gather leaves its size heuristic shards).
 
 Not ported here, and refused with ``NotImplementedError`` naming their
-``ROADMAP.md`` item: sequence/tensor/pipeline parallelism
-(``sequence_parallel``, ``tensor_parallel``, ``pipeline_parallel``,
-``pipeline_microbatches``, ``mesh``); each such JAX keyword is taken at
-its JAX default.
+``ROADMAP.md`` item: sequence and pipeline parallelism
+(``sequence_parallel``, ``pipeline_parallel``, ``pipeline_microbatches``,
+``mesh``); each such JAX keyword is taken at its JAX default.
 """
 
 from __future__ import annotations
 
 from functools import partial
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -56,6 +68,9 @@ from znicz_tpu_torch.ops import attention as attention_op, moe as moe_op
 from znicz_tpu_torch.ops.filling import fill
 from znicz_tpu_torch.ops.kernels.attention import flash_attention, kernel_head_dim
 from znicz_tpu_torch.ops.normalization import layer_norm
+from znicz_tpu_torch.parallel import tensor_parallel as tp_ops
+from znicz_tpu_torch.parallel.mesh import MODEL_AXIS
+from znicz_tpu_torch.parallel.tensor_parallel import P
 from znicz_tpu_torch.workflow.workflow import Workflow, refuse_unported
 
 ATTENTIONS = ("dot", "flash", "auto")
@@ -141,47 +156,155 @@ MOE_KEY_MAP = {
     "moe_w_down": "w2",  # [E, F, D]
     "moe_down_bias": "b2",  # [E, D]
 }
+# every non-router leaf carries a leading expert dim (EP shards it)
+_MOE_EXPERT_SHARDED = tuple(k for k in MOE_KEY_MAP if k != "moe_router")
 
 
-def _block_ffn(block, h, *, moe_top_k=1, moe_dispatch="dense"):
+class Shards(NamedTuple):
+    """Where a sharded LM step runs: this rank's model ``group`` and
+    ``index`` on it (None and 0 without tensor parallelism) and its data
+    ``data_group`` (None where the batch is whole here)."""
+
+    group: object = None
+    index: int = 0
+    n_model: int = 1
+    data_group: object = None
+
+
+def _block_ffn(block, h, *, moe_top_k=1, moe_dispatch="dense", data_group=None):
     """The block's position-wise FFN: dense two-layer tanh, or, when the
     block carries MoE params, a gated mixture of experts over the
-    flattened token dim."""
+    flattened token dim (capacity's slots over the batch split on
+    ``data_group``, if any)."""
     if "moe_router" in block:
         b, t, d = h.shape
-        y = moe_op.apply(
-            {v: block[k] for k, v in MOE_KEY_MAP.items()},
-            h.reshape(b * t, d),
-            top_k=moe_top_k,
-            dispatch=moe_dispatch,
-        )
+        moe_params = {v: block[k] for k, v in MOE_KEY_MAP.items()}
+        y = moe_op.apply_parallel(moe_params, h.reshape(b * t, d), top_k=moe_top_k,
+                                  dispatch=moe_dispatch, data_group=data_group)
         return y.reshape(b, t, d)
     h = torch.tanh(h @ block["w_up"] + block["up_bias"])
     return h @ block["w_down"] + block["down_bias"]
 
 
-def _block_forward(block, x, *, n_heads, attention_fn=None, moe_top_k=1, moe_dispatch="dense"):
+def _block_forward(block, x, *, n_heads, attention_fn=None, moe_top_k=1, moe_dispatch="dense",
+                   data_group=None):
     """One pre-LN transformer block."""
     attention_fn = attention_fn or attention_op.dot_product_attention
     h = layer_norm(x, block["ln1_scale"], block["ln1_bias"])
     x = x + attention_op.mha(block, h, n_heads=n_heads, causal=True, attention_fn=attention_fn)
     h = layer_norm(x, block["ln2_scale"], block["ln2_bias"])
-    return x + _block_ffn(block, h, moe_top_k=moe_top_k, moe_dispatch=moe_dispatch)
+    return x + _block_ffn(block, h, moe_top_k=moe_top_k, moe_dispatch=moe_dispatch,
+                          data_group=data_group)
+
+
+def _block_forward_tp(block, x, *, n_heads_local, shards, attention_fn=None, moe_top_k=1,
+                      moe_dispatch="dense"):
+    """:func:`_block_forward` over this rank's blocks of a
+    :func:`lm_tp_rules` placement (the JAX package's
+    ``_block_forward_tp``): column ``wq``/``wk``/``wv``/``w_up`` (so
+    ``n_heads_local`` heads and a slice of the FFN), row ``wo``/``w_down``,
+    whose partial products are summed over the model group; an MoE block
+    holds its expert block with the router whole.  Activations enter and
+    leave whole; the same math up to summation order."""
+    attention_fn = attention_fn or attention_op.dot_product_attention
+    group = shards.group
+    h = tp_ops.copy_to_model(layer_norm(x, block["ln1_scale"], block["ln1_bias"]), group)
+    # mha over the local heads computes exactly the partial product
+    # o @ wo_local this rank owes the sum
+    att = attention_op.mha(block, h, n_heads=n_heads_local, causal=True,
+                           attention_fn=attention_fn)
+    x = x + tp_ops.reduce_from_model(att, group)
+    h = tp_ops.copy_to_model(layer_norm(x, block["ln2_scale"], block["ln2_bias"]), group)
+    if "moe_router" in block:
+        b, t, d = h.shape
+        local = {v: block[k] for k, v in MOE_KEY_MAP.items()}
+        # every rank's gates reach the router: its gradient sums them
+        local["router"] = tp_ops.copy_to_model(local["router"], group)
+        y = moe_op.apply_parallel(local, h.reshape(b * t, d), top_k=moe_top_k,
+                                  dispatch=moe_dispatch, shard_index=shards.index,
+                                  data_group=shards.data_group)
+        return x + tp_ops.reduce_from_model(y.reshape(b, t, d), group)
+    h = torch.tanh(h @ block["w_up"] + block["up_bias"])
+    return x + tp_ops.reduce_from_model(h @ block["w_down"], group) + block["down_bias"]
 
 
 def lm_apply(params, tokens, *, n_heads, attention_fn=None, remat=False,
-             moe_top_k=1, moe_dispatch="dense"):
+             moe_top_k=1, moe_dispatch="dense", shards: Optional[Shards] = None):
     """tokens [B, T] integer -> logits [B, T, vocab].
 
     ``remat``: each block runs under ``torch.utils.checkpoint``, its
     activations recomputed in the backward instead of stored (the JAX
-    package's ``jax.checkpoint``); the numbers are unchanged."""
-    blk = partial(_block_forward, n_heads=n_heads, attention_fn=attention_fn,
-                  moe_top_k=moe_top_k, moe_dispatch=moe_dispatch)
+    package's ``jax.checkpoint``); the numbers are unchanged.  ``shards``:
+    the step's placement; with a model group the params are this rank's
+    :func:`lm_tp_rules` blocks and the logits its vocab block [B, T,
+    vocab / n_model]."""
+    if shards is not None and shards.group is not None:
+        blk = partial(_block_forward_tp, n_heads_local=n_heads // shards.n_model, shards=shards,
+                      attention_fn=attention_fn, moe_top_k=moe_top_k, moe_dispatch=moe_dispatch)
+    else:
+        blk = partial(_block_forward, n_heads=n_heads, attention_fn=attention_fn,
+                      moe_top_k=moe_top_k, moe_dispatch=moe_dispatch,
+                      data_group=None if shards is None else shards.data_group)
     x = _embed_tokens(params[0], tokens)
     for block in params[1:-1]:
         x = checkpoint(blk, block, x, use_reentrant=False) if remat else blk(block, x)
+    if shards is not None:
+        x = tp_ops.copy_to_model(x, shards.group)
     return x @ params[-1]["head"]
+
+
+def lm_tp_rules(path: str, leaf):
+    """Head/row-column-aware tensor-parallel placement for the LM params
+    (plugs into ``DataParallel(param_rules=...)``).
+
+    Column-parallel (shard the output-features dim over ``model``): the QKV
+    projections (the inner dim is heads*head_dim, so this IS head sharding
+    when n_heads divides the axis), ``w_up`` and the vocab dim of the
+    ``head`` (the loss's log-softmax reduces over it across the ranks).
+    Row-parallel (shard the input dim; the partial products are summed):
+    ``wo`` and ``w_down``.  The MoE expert leaves shard their leading
+    expert dim.  Everything else (embeddings, layer norms, the router,
+    biases except up_bias) is whole.
+    """
+    if any(f"'{k}'" in path for k in _MOE_EXPERT_SHARDED):
+        # expert parallelism: the leading expert dim shards over model
+        # (ops/moe.expert_sharding's placement)
+        return P(MODEL_AXIS, *([None] * (leaf.ndim - 1)))
+    if any(k in path for k in ("'wq'", "'wk'", "'wv'", "'w_up'", "'head'")):
+        return P(None, MODEL_AXIS)
+    if any(k in path for k in ("'wo'", "'w_down'")):
+        return P(MODEL_AXIS, None)
+    if "'up_bias'" in path:
+        return P(MODEL_AXIS)
+    return P()
+
+
+def _vocab_parallel_nll(lg, tgt, group, index: int):
+    """``logsumexp(logits) - logits[target]`` over logits split on the vocab
+    dim: ``lg`` [..., V / n] this rank's block (block ``index``); the max
+    and the sum of exponentials are reduced over the model group and the
+    target's logit comes from the rank that owns it."""
+    vl = lg.shape[-1]
+    lo = index * vl
+    mx = tp_ops.all_reduce(lg.detach().amax(dim=-1), group, "max")
+    sumexp = tp_ops.reduce_from_model(torch.exp(lg - mx[..., None]).sum(dim=-1), group)
+    owned = (tgt >= lo) & (tgt < lo + vl)
+    mine = lg.gather(-1, (tgt - lo).clamp(0, vl - 1)[..., None])[..., 0]
+    tgt_logit = tp_ops.reduce_from_model(torch.where(owned, mine, torch.zeros_like(mine)), group)
+    return mx + torch.log(sumexp) - tgt_logit
+
+
+def _vocab_parallel_argmax(lg, group, index: int):
+    """The global argmax of logits split on the vocab dim, the lowest global
+    index on a tie (``argmax``'s rule): the first rank whose block holds
+    the maximum, at its first position."""
+    lg = lg.detach()
+    val = lg.amax(dim=-1)
+    idx = lg.argmax(dim=-1) + index * lg.shape[-1]
+    vals = tp_ops.all_gather(val[None], 0, group)
+    idxs = tp_ops.all_gather(idx[None], 0, group)
+    best = vals.argmax(dim=0)
+    return idxs.gather(0, best[None])[0]
 
 
 class TransformerLMWorkflow(Workflow):
@@ -231,7 +354,6 @@ class TransformerLMWorkflow(Workflow):
         refuse_unported((
             (sequence_parallel, "sequence_parallel (ring attention)",
              "A7, parallel/ring_attention.py"),
-            (tensor_parallel, "tensor_parallel", "A6, lm_tp_rules"),
             (pipeline_parallel, "pipeline_parallel", "A7, parallel/pipeline.py"),
             (pipeline_microbatches is not None, "pipeline_microbatches (GPipe)",
              "A7, parallel/pipeline.py"),
@@ -273,17 +395,58 @@ class TransformerLMWorkflow(Workflow):
         self.moe_dispatch = moe_dispatch
         self.rand_name = rand_name
         self.max_seq = int(loader.sample_shape[0])
+        self.tensor_parallel = tensor_parallel
+        if tensor_parallel:
+            from znicz_tpu_torch.parallel import DataParallel
+
+            if not isinstance(self.parallel, DataParallel):
+                raise ValueError(
+                    "tensor_parallel=True needs parallel=DataParallel(mesh) "
+                    "with a model axis"
+                )
+            n_model = self.parallel.n_model
+            if n_model <= 1:
+                raise ValueError("tensor_parallel=True but the mesh's model axis is 1")
+            if n_heads % n_model:
+                raise ValueError(f"n_heads={n_heads} not divisible by model axis {n_model}")
+            if moe_experts > 1 and moe_experts % n_model:
+                raise ValueError(
+                    f"moe_experts={moe_experts} not divisible by model axis {n_model} "
+                    "(experts shard over it under tensor parallel)"
+                )
+            if self.parallel.param_rules is None:
+                # never change the caller's DataParallel (it may be shared
+                # with workflows whose params want the size heuristic)
+                self.parallel = DataParallel(
+                    self.parallel.mesh,
+                    tp=self.parallel.tp,
+                    tp_min_features=self.parallel.tp_min_features,
+                    param_rules=lm_tp_rules,
+                )
 
     def _batch_target(self, mb):
         return np.zeros(len(mb.mask), np.int32)  # unused host-side dummy
 
-    def _check_parallel(self) -> None:
-        super()._check_parallel()
-        refuse_unported((
-            (self.moe_dispatch == "capacity" and self.parallel.n_data > 1,
-             "moe_dispatch='capacity' under data parallelism (capacity over the "
-             "global batch)", "A6, ops/moe.py"),
-        ))
+    def _shards(self) -> Optional[Shards]:
+        """The step's placement: None in one process without a policy."""
+        dp = self.parallel
+        if dp is None:
+            return None
+        data_group = dp.group if dp.n_data > 1 else None
+        if not (dp.sharded and self.tensor_parallel):
+            return None if data_group is None else Shards(data_group=data_group)
+        return Shards(dp.model_group, dp.model_index, dp.n_model, data_group)
+
+    def _setup_parallel(self) -> None:
+        """Without ``tensor_parallel`` the params stay whole on every rank
+        of the mesh: a policy that would shard them is replaced by a copy
+        that does not (the caller's is never changed)."""
+        super()._setup_parallel()
+        dp = self.parallel
+        if not self.tensor_parallel and (dp.tp or dp.param_rules is not None):
+            from znicz_tpu_torch.parallel import DataParallel
+
+            self.parallel = DataParallel(dp.mesh, tp_min_features=dp.tp_min_features)
 
     def generate(
         self,
@@ -301,13 +464,18 @@ class TransformerLMWorkflow(Workflow):
         max_new_tokens]`` int32 tokens, the prompt included, on the
         workflow's device.  Greedy at ``temperature=0``; ``rng`` (a
         ``torch.Generator`` on that device) draws the sampling noise.  The
-        decode attention is f32 whatever ``attention_dtype`` is."""
+        decode attention is f32 whatever ``attention_dtype`` is.  Under
+        tensor parallelism every rank calls this alike: it decodes on the
+        whole params, gathered over the model axis."""
         if self.state is None:
             self.initialize()
         from znicz_tpu_torch.workflow.generate import generate as _generate
 
+        params = self.state.params
+        if self.parallel is not None:
+            params = self.parallel.gather_state(params)
         return _generate(
-            self.state.params,
+            params,
             torch.as_tensor(np.asarray(prompt), device=self.device),
             n_heads=self.n_heads,
             max_new_tokens=max_new_tokens,
@@ -353,18 +521,24 @@ class TransformerLMWorkflow(Workflow):
         over T-1, then the masked mean over samples.  Returns ``(loss,
         metrics)`` with ``token_accuracy`` from the argmax."""
         tokens = tokens.long()
+        shards = self._shards()
         logits = lm_apply(
             params, tokens, n_heads=self.n_heads,
             attention_fn=self._attention_fn(), remat=self.remat,
-            moe_top_k=self.moe_top_k, moe_dispatch=self.moe_dispatch,
+            moe_top_k=self.moe_top_k, moe_dispatch=self.moe_dispatch, shards=shards,
         )
         lg = logits[:, :-1]
         tgt = tokens[:, 1:]
-        nll = torch.logsumexp(lg, dim=-1) - lg.gather(-1, tgt[..., None])[..., 0]
+        if shards is not None and shards.group is not None:
+            nll = _vocab_parallel_nll(lg, tgt, shards.group, shards.index)
+            pred = _vocab_parallel_argmax(lg, shards.group, shards.index)
+        else:
+            nll = torch.logsumexp(lg, dim=-1) - lg.gather(-1, tgt[..., None])[..., 0]
+            pred = lg.argmax(dim=-1)
         mask = mask.float()
         n_valid = mask.sum().clamp_min(1.0)
         loss = (nll.mean(dim=1) * mask).sum() / n_valid
-        hit = (lg.argmax(dim=-1) == tgt).float()
+        hit = (pred == tgt).float()
         acc = (hit.mean(dim=1) * mask).sum() / n_valid
         return loss, {
             "loss": loss,

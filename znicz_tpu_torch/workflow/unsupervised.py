@@ -26,7 +26,11 @@ Under ``parallel=`` each rank runs the kernel on its shard of the batch
 and the kernels' psum rules sum the rank's statistics over the data axis
 before the update (the SOM's ``(num, den)``; the RBM's ``(dW, dvb, dhb,
 stats)``, its chain drawn from ``seed * n_shards + rank``), so every rank
-applies the full batch's update.
+applies the full batch's update.  On a ``(data, model)`` mesh the params
+stay whole on every rank, as the JAX package's kernel ``in_specs`` keep
+them (whatever ``tp`` and ``param_rules`` say), the psum rules reduce
+over the rank's data column, and model peers, which hold the same rows,
+run the same step.
 """
 
 from __future__ import annotations
@@ -97,6 +101,17 @@ class _Unsupervised(Workflow):
 
     def _batch_target(self, mb):
         return np.zeros(len(mb.mask), np.int32)  # unused host-side dummy
+
+    def _setup_parallel(self) -> None:
+        """The params stay whole on every rank of the mesh: a policy that
+        would shard them is replaced by a copy that does not (the caller's
+        is never changed)."""
+        self._check_parallel()
+        dp = self.parallel
+        if dp.tp or dp.param_rules is not None:
+            from znicz_tpu_torch.parallel import DataParallel
+
+            self.parallel = DataParallel(dp.mesh, tp_min_features=dp.tp_min_features)
 
     def _state(self, params) -> TrainState:
         return TrainState(params=params, velocity=[], step=0,

@@ -77,6 +77,17 @@ them.  Under NCCL the scan dispatch's captured step holds the
 collectives; a gloo group on the card stages them through the host,
 which no CUDA graph can capture, so there ``"scan"`` raises and ``"auto"``
 takes the step dispatch.
+
+Tensor parallelism (a policy whose mesh has a ``model`` axis above 1):
+``initialize`` gives a ``tp=True`` policy without rules the workflow's
+:meth:`Workflow._default_param_rules` (on a copy; the caller's is kept),
+and the train state holds each model-sharded leaf as this rank's block.
+Every rank of a data row serves the row's block of each batch; the
+collectives above reduce over the rank's data column only, the forward's
+over its model row (``workflow/model.py``), and a sharded leaf's gradient
+norm is summed over the model row.  :meth:`Workflow.snapshot_state`
+gathers the whole tensors (every rank takes part; the coordinator
+writes) and a restore slices them again.
 """
 
 from __future__ import annotations
@@ -401,15 +412,17 @@ class Workflow:
             prng.seed_all(seed)
         if device is not None:
             self.device = device_lib.resolve(device)
+        if self.parallel is not None:
+            self._setup_parallel()
         if snapshot:
+            # placed (and sharded) by _restore_from
             self._restore_from(*load_snapshot(snapshot))
             logger.info("%s resumed from %s at epoch %d", self.name, snapshot,
                         self.decision.epoch)
         else:
             self.state = self._create_initial_state()
-        if self.parallel is not None:
-            self._check_parallel()
-            self.state = self.parallel.shard_state(self.state)
+            if self.parallel is not None:
+                self.state = self.parallel.shard_state(self.state)
         self._add_mask = torch.as_tensor(self._additive, device=self.device)
         self._acc_start = torch.as_tensor(
             np.where(self._additive, 0.0, -np.inf).astype(np.float32), device=self.device)
@@ -425,15 +438,9 @@ class Workflow:
                     "multi-host training needs a DataParallel placement "
                     "policy (parallel=...) so batches span the global mesh"
                 )
-            if self.parallel.n_data % multihost.process_count():
-                raise ValueError(
-                    f"data axis size {self.parallel.n_data} not divisible "
-                    f"by process count {multihost.process_count()}; "
-                    "multi-host training shards the batch over processes, "
-                    "so give every process an equal data-axis share "
-                    "(e.g. --mesh data=<n_processes*k>)"
-                )
-            self.loader.set_process_shard(multihost.process_index(), multihost.process_count())
+            # every rank of a data row serves the row's block of each
+            # global minibatch (its model peers serve the same rows)
+            self.loader.set_process_shard(self.parallel.index, self.parallel.n_data)
         if self.snapshotter is not None:
             self.snapshotter.writer = self._coordinator
         # data-axis pool sharding: each rank's device holds 1/D of the rows
@@ -447,6 +454,26 @@ class Workflow:
         # one copy of the loader's device context (the device-resident pool)
         self._ctx = self.loader.place_device_context(self.parallel, self.device)
         self._splits.clear()
+
+    def _default_param_rules(self):
+        """Template hook: model-aware tensor-parallel placement rules used
+        when the placement policy has ``tp=True`` but no explicit
+        ``param_rules`` (None keeps DataParallel's size heuristic)."""
+        return None
+
+    def _setup_parallel(self) -> None:
+        """Check the placement policy and, under ``tp=True`` with no
+        ``param_rules``, replace it with a copy carrying
+        :meth:`_default_param_rules` (the caller's policy may be shared,
+        so it is never changed)."""
+        self._check_parallel()
+        dp = self.parallel
+        rules = self._default_param_rules() if dp.tp and dp.param_rules is None else None
+        if rules is not None:
+            from znicz_tpu_torch.parallel import DataParallel
+
+            self.parallel = DataParallel(dp.mesh, tp=True, tp_min_features=dp.tp_min_features,
+                                         param_rules=rules)
 
     def _check_parallel(self) -> None:
         """The placement policy fits this workflow: it places on the
@@ -469,16 +496,25 @@ class Workflow:
     def snapshot_state(self) -> tuple:
         """The train half of a snapshot, ``(params, velocity, step,
         key)`` as the JAX package orders its ``TrainState``; ``key`` is the
-        train state's generator state (uint8)."""
+        train state's generator state (uint8).  Model-sharded leaves are
+        gathered whole (a collective: every rank calls this alike)."""
         st = self.state
-        return (st.params, st.velocity, np.asarray(st.step, np.int32),
+        params, velocity = st.params, st.velocity
+        if self.parallel is not None:
+            # whole tensors in the JAX package's layout (every rank takes
+            # part in the gather; the coordinator writes)
+            params = self.parallel.gather_state(params)
+            velocity = self.parallel.gather_state(velocity)
+        return (params, velocity, np.asarray(st.step, np.int32),
                 st.generator.get_state().numpy().copy())
 
     def _restore_from(self, state, host: Optional[Dict[str, Any]]) -> None:
         """The exact-resume contract: the host state first (the decision,
         the loader, every named stream), then the train state on the
-        workflow's device.  A JAX snapshot's threefry key stays data: the
-        train state's generator restarts from its stream's seed."""
+        workflow's device (whole tensors, each rank then keeping its blocks
+        of the model-sharded ones).  A JAX snapshot's threefry key stays
+        data: the train state's generator restarts from its stream's
+        seed."""
         params, velocity, step, key = state
         host = host or {}
         if "decision" in host:
@@ -559,8 +595,22 @@ class Workflow:
         """The step's forward: the metrics dict, whose ``"loss"`` the train
         step differentiates (subclasses with their own loss override this)."""
         gen = self.state.generator if train else None
-        out = self.model.apply(params, x, train=train, generator=gen)
-        return self._metrics(out, y, mask)
+        return self._metrics(self._apply(params, x, train=train, generator=gen), y, mask)
+
+    def _apply(self, params, x, *, train: bool, generator=None):
+        """The model's forward, over this rank's blocks under tensor
+        parallelism."""
+        return self.model.apply(params, x, train=train, generator=generator,
+                                placement=self._placement(params))
+
+    def _placement(self, params):
+        """``(model group, per-layer dims)`` of the sharded params, or None
+        when nothing is sharded."""
+        dp = self.parallel
+        if dp is None or not dp.sharded:
+            return None
+        return dp.model_group, [{k: dp.sharded.get(f"[{i}][{k!r}]") for k in layer}
+                                for i, layer in enumerate(params)]
 
     def _hyper(self):
         """The update rule's knobs, one HyperParams per layer of params."""
@@ -691,7 +741,7 @@ class Workflow:
             weighted = (m["loss"].detach().float() * n_rank).reshape(1)
             *flat, total = dp.all_reduce([*flat, weighted])
             m = dict(m, **{WATCH_LOSS: total[0] / n_all[0].clamp_min(1.0)})
-        norms = tensor_norms(flat) if self.anomaly is not None else None
+        norms = self._norms(flat) if self.anomaly is not None else None
         it = iter(flat)
         grads = [{k: next(it) for k in layer} for layer in st.params]
         # each distinct lr times the scale in float32 on the device, once,
@@ -714,6 +764,24 @@ class Workflow:
         ]
         optimizer.update(st.params, grads, st.velocity, hyper)
         return m, norms
+
+    def _norms(self, grads) -> list:
+        """The gradients' per-tensor norms, a model-sharded leaf's over all
+        its blocks (its squared norm summed over the model group, in one
+        all-reduce); in the order of the params' leaves."""
+        norms = tensor_norms(grads)
+        dp = self.parallel
+        if dp is None or not dp.sharded:
+            return norms
+        from znicz_tpu_torch.parallel.tensor_parallel import all_reduce
+
+        paths = [f"[{i}][{k!r}]" for i, layer in enumerate(self.state.params) for k in layer]
+        idx = [i for i, path in enumerate(paths) if path in dp.sharded]
+        sq = all_reduce(torch.stack([norms[i] for i in idx]) ** 2, dp.model_group)
+        norms = list(norms)
+        for j, i in enumerate(idx):
+            norms[i] = sq[j].sqrt()
+        return norms
 
     @staticmethod
     def _watch_stack(loss, norms) -> torch.Tensor:
@@ -1274,7 +1342,7 @@ class Workflow:
         """One evaluation step that also adds the minibatch's confusion
         counts into ``conf`` (the softmax loss only)."""
         x, y = self._prep(x, y)
-        out = self.model.apply(self.state.params, x, train=False)
+        out = self._apply(self.state.params, x, train=False)
         m = evaluator.softmax(out, y, mask=mask, compute_confusion=True)
         conf = conf + m.pop("confusion")
         return self._combine(acc, self._rank_counts(m, mask)), conf
