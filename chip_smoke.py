@@ -38,8 +38,11 @@ exit, no result line) when any phase fails:
 6. each flash kernel (forward, dQ, dK/dV) against its plain version on the
    same CUDA tensors, with O(1) ``dout`` and ``dlse``: the LM slice's shape
    (B 16, T 2048, H 8, D 64, causal), D 32 and 128, a non-causal and a
-   ragged (T 2000) case, and phase 31's tensor-parallel shape on each rank
-   (B 2, T 2048, 4 local heads, D 64, causal), each in f32 and bf16; at
+   ragged (T 2000) case, phase 31's tensor-parallel shape on each rank
+   (B 2, T 2048, 4 local heads, D 64, causal), and phase 32's: the ring's
+   blocks (B 4, T 1024, causal and full), a pipeline stage's microbatch
+   (B 1, T 2048, causal) and the same over 4 local heads, each in f32 and
+   bf16; at
    the slice shape a second launch of the forward, dQ and dK/dV must be
    bitwise equal to the first, in both dtypes; the f32 forward's ``out`` and ``lse`` (at the slice
    shape, D 128 and without the mask) and dQ and dK/dV (at the slice shape)
@@ -350,7 +353,27 @@ exit, no result line) when any phase fails:
     and loading into a run without TP), the SOM (params whole, psum over
     the data column; within 1e-5) and one RBM step through its psum rule
     (the two data rows' summed shards, within 1e-5);
-32. the whole script's seconds, the ``kernels`` JSON line (each flash row
+32. sequence and pipeline parallelism (``parallel/ring_attention.py``,
+    ``parallel/pipeline.py``), the mid LM at full width (f32 flash, TF32
+    off, lr 0.001): 32a. one NCCL rank, batch 16 with
+    ``sequence_parallel`` over ``make_mesh(1)`` (a ring of one) against
+    the run without it, 3 train steps: the loss and every param within
+    1e-6 (the same bits predicted: the merge's weights are 1 and 0 and the
+    lse cotangent cancels), the same launches; then gloo ranks on the one
+    card (this script started with ``--sp-pp-rank``, each wait with its
+    own timeout), batch cut to 4, one epoch of 3 train steps, each against
+    one process on the card (loss within 1e-4 relative, every rank's the
+    same): 32b. two as ``make_mesh(2)`` with ``DataParallel`` and
+    ``sequence_parallel`` (blocks of T 1024: rank 0 runs the diagonal
+    block, rank 1 the diagonal and the past one, a layer a step); 32c. two
+    as ``make_mesh(1, 1, 2)`` with ``pipeline_parallel`` (2 stages of 6
+    layers, 4 microbatches of 1); 32d. four as ``make_mesh(1, 2, 2)`` with
+    pipeline and tensor parallelism (flash over 4 local heads), the
+    coordinator's snapshot holding the stage leaves whole and resumed on
+    every rank; each rank's flash launches exactly as predicted and the
+    (shape, causal) of every launch logged; ms a train step of a rank
+    beside one process's, and the exchanges' wall share of it;
+33. the whole script's seconds, the ``kernels`` JSON line (each flash row
     with its bf16 times, bound, launches and error beside the f32 ones under
     ``"bf16"``; the f32 flash, Kohonen and RBM rows also with their f32-FMA
     bound and their float64 errors beside the plain version's; the LRN rows
@@ -363,7 +386,8 @@ exit, no result line) when any phase fails:
     of phase 24 under ``"moe"``; every row with phase 30's one-NCCL-rank
     launches under ``"dp"``, the Kohonen and RBM rows with each gloo
     rank's; every row with phase 31's gloo ranks' launches under
-    ``"tp"``), then the result line.
+    ``"tp"``; each flash row with phase 32's gloo ranks' launches and the
+    ring of one's under ``"sp_pp"``), then the result line.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``.
 """
@@ -413,6 +437,13 @@ FLASH_CASES = [  # (tag, B, T, H, D, causal)
     ("ragged", 2, 2000, 8, 64, True),
     # phase 31's on each of two tensor-parallel ranks: batch 2, 4 local heads
     ("tp", 2, LM_T, LM_MID["n_heads"] // 2, 64, True),
+    # phase 32's: the two-rank ring's blocks (batch 4, T 1024: the diagonal
+    # causal, the past block whole), a pipeline stage's microbatch, and the
+    # same over a tensor-parallel rank's 4 local heads
+    ("ring", 4, LM_T // 2, 8, 64, True),
+    ("ring_full", 4, LM_T // 2, 8, 64, False),
+    ("stage", 1, LM_T, 8, 64, True),
+    ("stage_tp", 1, LM_T, LM_MID["n_heads"] // 2, 64, True),
 ]
 # of the reference's largest magnitude: f32 sums run in another order; bf16
 # rounds p and ds before their products at other places (running maxima)
@@ -5691,13 +5722,17 @@ TP_CONV = [
 
 
 def _collective_seconds(torch):
-    """Wrap ``torch.distributed``'s ``all_reduce`` and ``all_gather`` so that
-    each call is timed between two synchronisations; returns ``(acc,
+    """Wrap ``torch.distributed``'s ``all_reduce``, ``all_gather``,
+    ``all_gather_into_tensor`` and ``all_to_all_single`` (the ring's and the
+    pipeline's exchanges) so that each call is timed between two
+    synchronisations; returns ``(acc,
     restore)``, ``acc["s"]`` the seconds summed, ``acc["n"]`` the calls."""
     import torch.distributed as dist
 
     acc = {"s": 0.0, "n": 0}
-    orig = {name: getattr(dist, name) for name in ("all_reduce", "all_gather")}
+    orig = {name: getattr(dist, name) for name in ("all_reduce", "all_gather",
+                                                    "all_gather_into_tensor",
+                                                    "all_to_all_single")}
 
     def timed(fn):
         def call(*a, **kw):
@@ -5720,20 +5755,20 @@ def _collective_seconds(torch):
     return acc, restore
 
 
-def _tp_timed(torch, wf, parallel):
-    """ms a train step: the median of ``TP_TIMED`` synchronised steps after
-    a warm-up; under a policy, as many again with every collective timed
+def _tp_timed(torch, wf, parallel, n=TP_TIMED):
+    """ms a train step: the median of ``n`` synchronised steps after a
+    warm-up; under a policy, as many again with every collective timed
     (its wall share of those steps)."""
-    step_s, _ = _dp_steps(torch, wf, TP_TIMED + 1)
+    step_s, _ = _dp_steps(torch, wf, n + 1)
     out = {"step_ms": statistics.median(step_s[1:]) * 1e3}
     if parallel is not None:
         acc, restore = _collective_seconds(torch)
         try:
-            timed_s, _ = _dp_steps(torch, wf, TP_TIMED)
+            timed_s, _ = _dp_steps(torch, wf, n)
         finally:
             restore()
         out["collective_share"] = acc["s"] / sum(timed_s)
-        out["collectives_a_step"] = acc["n"] / TP_TIMED
+        out["collectives_a_step"] = acc["n"] / n
     return out
 
 
@@ -6173,6 +6208,337 @@ def phase_tp(torch, smi):
     return launches, res
 
 
+SP_PP = dict(batch=4, steps=3, micro=4)  # phase 32's ranks: batch 16 -> 4, 3 train steps
+SP_ONE_STEPS = 3  # 32a's train steps at batch 16
+SP_PP_WAIT_S = 600  # a gloo rank's wait
+# "change": each param leaf's change over the epoch, a rank's gathered
+# against one process's, ||p_rank - p_one|| / ||p_one - p_init||; a wrong
+# backward exchange (swapped dK/dV, a mispaired hop) moves a leaf by O(1)
+SP_PP_TOL = {"ring_of_one": 1e-6, "ranks": 1e-4, "change": 1e-3}
+SP_PP_WORLD = {"sp": 2, "pp": 2, "pptp": 4}
+SP_PP_TIMED = 2  # timed train steps a run (after 1 warm-up), and as many with the exchanges timed
+
+
+def _sp_pp_tokens(n):
+    import numpy as np
+
+    return np.random.default_rng(32).integers(0, LM_MID["vocab"], (n, LM_T)).astype(np.int32)
+
+
+def _cpu_params(torch, tree):
+    """``{keystr path: a CPU copy}`` of a params tree's leaves."""
+    from znicz_tpu_torch.workflow.workflow import param_paths
+
+    return {path: t.detach().to("cpu", copy=True) for path, t in param_paths(tree)}
+
+
+def _sp_pp_lm(torch, label, batch, steps, keep_init=False, **kw):
+    """The mid LM (f32 flash, lr 0.001) for one epoch of ``steps`` train
+    steps of ``batch`` sequences, each flash wrapper's count set to 0 just
+    before and read just after, and the (shape, causal) of every forward
+    launch; with ``keep_init`` the initial params' tree on the CPU under
+    ``"init"``.  Returns (workflow, results)."""
+    from znicz_tpu_torch.core import prng
+    from znicz_tpu_torch.loader.fullbatch import FullBatchLoader
+    from znicz_tpu_torch.nn import optimizer
+    from znicz_tpu_torch.ops.kernels import attention as fa
+    from znicz_tpu_torch.workflow import transformer
+
+    _f32_exact(torch)
+    prng.seed_all(1234)
+    ld = FullBatchLoader({"train": _sp_pp_tokens(batch * steps)}, minibatch_size=batch)
+    wf = transformer.TransformerLMWorkflow(
+        ld, **LM_MID, attention="flash", device="cuda",
+        hyper=optimizer.HyperParams(learning_rate=0.001, gradient_moment=0.9), **kw)
+    wf.initialize(seed=1234)
+    init = ([{k: v.detach().to("cpu", copy=True) for k, v in layer.items()}
+             for layer in wf.state.params] if keep_init else None)
+    shapes = set()
+    orig = fa._launch
+
+    def logged(name, fn, x, tensors, causal, scale):  # every launch passes here
+        if name == "flash_fwd":
+            shapes.add((tuple(x.shape), bool(causal)))
+        return orig(name, fn, x, tensors, causal, scale)
+
+    for name in FLASH:
+        getattr(fa, name).launches = 0
+    fa._launch = logged
+    try:
+        loss = wf.run_epoch()["summary"]["train"]["loss"]
+        torch.cuda.synchronize()
+    finally:
+        fa._launch = orig
+    launches = {name: getattr(fa, name).launches for name in FLASH}
+    res = {"label": label, "loss": loss, "launches": launches,
+           "shapes": sorted([list(s), c] for s, c in shapes)}
+    if keep_init:
+        res["init"] = init
+    return wf, res
+
+
+def _gloo_card_check(torch, world, rank):
+    """The two gloo collectives the ring and the pipeline move the card's
+    tensors with, on this rank's card: ``all_gather_into_tensor`` and
+    ``all_to_all_single`` at equal splits, each against the blocks every
+    rank sent (gloo's point-to-point fails on CUDA tensors with ``writev:
+    Bad address``, so nothing here uses it)."""
+    import torch.distributed as dist
+
+    x = torch.arange(8.0, device="cuda") + 100 * rank
+    want = torch.cat([torch.arange(8.0, device="cuda") + 100 * r for r in range(world)])
+    got = torch.empty(8 * world, device="cuda")
+    dist.all_gather_into_tensor(got, x)
+    routed = torch.empty(8 * world, device="cuda")
+    dist.all_to_all_single(routed, x.repeat(world))
+    torch.cuda.synchronize()
+    if not (torch.equal(got, want) and torch.equal(routed, want)):
+        raise RuntimeError(f"gloo on the card: rank {rank} of {world} got {got.tolist()} "
+                           f"(all_gather_into_tensor), {routed.tolist()} (all_to_all_single), "
+                           f"want {want.tolist()}")
+
+
+def _sp_pp_run(torch, kind, out_dir, rank):
+    """Phase 32's run on one gloo rank: ``"sp"`` the ring over (data=2)
+    with DataParallel, ``"pp"`` two stages over (1, 1, 2) with mesh=
+    alone, ``"pptp"`` PP x TP over (1, 2, 2) with a snapshot saved and
+    resumed; then ms a step and the exchanges' share of it."""
+    from znicz_tpu_torch.parallel import DataParallel, make_mesh
+    from znicz_tpu_torch.workflow.snapshotter import Snapshotter
+
+    snap_dir = os.path.join(out_dir, "pp_snaps")
+    if kind == "sp":
+        mesh = make_mesh(2)
+        kw = dict(sequence_parallel=True, mesh=mesh, parallel=DataParallel(mesh))
+    elif kind == "pp":
+        kw = dict(pipeline_parallel=True, mesh=make_mesh(1, 1, 2),
+                  pipeline_microbatches=SP_PP["micro"])
+    else:
+        kw = dict(pipeline_parallel=True, tensor_parallel=True,
+                  parallel=DataParallel(make_mesh(1, 2, 2)), pipeline_microbatches=SP_PP["micro"],
+                  snapshotter=Snapshotter(snap_dir, "pplm", interval=1, compress=False))
+    wf, res = _sp_pp_lm(torch, kind, SP_PP["batch"], SP_PP["steps"], **kw)
+    res["position"] = [int(c) for c in wf.parallel.mesh.get_coordinate()]
+    whole = wf.parallel.gather_state(wf.state.params)  # the run's params, whole
+    if rank == 0:
+        torch.save(_cpu_params(torch, whole), os.path.join(out_dir, f"{kind}_params.pt"))
+    if kind == "pptp":
+        # the coordinator's snapshot resumed on every rank: each stage
+        # leaf, gathered whole, the run's
+        kw.pop("snapshotter")
+        import torch.distributed as dist
+
+        from znicz_tpu_torch.core import prng
+
+        dist.barrier()  # the coordinator has written the snapshot
+        from znicz_tpu_torch.loader.fullbatch import FullBatchLoader
+        from znicz_tpu_torch.workflow import transformer
+
+        prng.seed_all(1234)
+        wf2 = transformer.TransformerLMWorkflow(
+            FullBatchLoader({"train": _sp_pp_tokens(SP_PP["batch"] * SP_PP["steps"])},
+                            minibatch_size=SP_PP["batch"]),
+            **LM_MID, attention="flash", device="cuda", **kw)
+        wf2.initialize(snapshot=os.path.join(snap_dir, "pplm_epoch0.pickle"))
+        a = _leaves(whole)
+        b = _leaves(wf2.parallel.gather_state(wf2.state.params))
+        res["resumed_equal"] = len(a) == len(b) and all(torch.equal(x, y) for x, y in zip(a, b))
+        res["local_wq"] = list(wf.state.params["stages"][0]["wq"].shape)
+        del wf2
+        torch.cuda.empty_cache()
+    res.update(_tp_timed(torch, wf, wf.parallel, SP_PP_TIMED))
+    return res
+
+
+def sp_pp_worker(rank, world, addr, out_dir, kind):
+    """A phase 32 rank: a gloo group of ``world`` ranks on this process's
+    card running ``kind``'s workload."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"tcp://{addr}", world_size=world, rank=rank,
+                            timeout=datetime.timedelta(seconds=SP_PP_WAIT_S))
+    try:
+        _gloo_card_check(torch, world, rank)
+        res = _sp_pp_run(torch, kind, out_dir, rank)
+    finally:
+        dist.destroy_process_group()
+    with open(os.path.join(out_dir, f"{kind}_rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+    return 0
+
+
+def _sp_pp_ranks(kind, out_dir):
+    """Start ``kind``'s ranks (this script with ``--sp-pp-rank``) and wait
+    for them; any rank's failure fails the phase.  Returns their results
+    and the seconds they took."""
+    world = SP_PP_WORLD[kind]
+    t0 = time.perf_counter()
+    addr = f"127.0.0.1:{_free_port()}"
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--sp-pp-rank", str(r),
+                               str(world), addr, out_dir, kind], stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True) for r in range(world)]
+    try:
+        outs = [p.communicate(timeout=SP_PP_WAIT_S)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    failed = [r for r, p in enumerate(procs) if p.returncode != 0]
+    for r in failed:
+        print(f"sp_pp {kind}: rank {r}'s output:\n{outs[r][-4000:]}")
+    if failed:
+        fail(f"sp_pp {kind}: ranks {failed} of {world} exited with "
+             f"{[procs[r].returncode for r in failed]}")
+    ranks = []
+    for r in range(world):
+        with open(os.path.join(out_dir, f"{kind}_rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    return ranks, time.perf_counter() - t0
+
+
+def _ring_of_one(torch, smi):
+    """Phase 32a: one NCCL rank, the mid LM at batch 16 with
+    ``sequence_parallel`` over ``make_mesh(1)`` (a ring of one) against
+    the run without it: the merge's weights are exactly 1 and 0 and the
+    lse cotangent cancels to 0, so the same bits are predicted."""
+    import torch.distributed as dist
+
+    from znicz_tpu_torch.parallel import make_mesh, multihost
+
+    multihost.initialize(f"127.0.0.1:{_free_port()}", 1, 0)
+    try:
+        if dist.get_backend() != "nccl":
+            fail(f"sp_pp ring of one: multihost.initialize made a {dist.get_backend()} group")
+        runs = {}
+        for key, kw in (("plain", {}), ("ring", dict(sequence_parallel=True, mesh=make_mesh(1)))):
+            runs[key] = _sp_pp_lm(torch, key, LM_B, SP_ONE_STEPS, **kw)
+        n_bad, worst = _differ(torch, runs["plain"][0].state.params, runs["ring"][0].state.params)
+        scale = max(float(t.detach().abs().max()) for t in _leaves(runs["plain"][0].state.params))
+        got, want = runs["ring"][1], runs["plain"][1]
+        rel = abs(got["loss"] - want["loss"]) / abs(want["loss"])
+        print(f"sp_pp ring of one (one NCCL rank, batch {LM_B}, {SP_ONE_STEPS} train steps): "
+              f"loss {got['loss']} against {want['loss']} without the ring (relative "
+              f"{rel:.3e}, limit {SP_PP_TOL['ring_of_one']}); {n_bad} param tensors differ, "
+              f"largest |diff| {worst:.3e} of max |param| {scale:.3e}; launches "
+              f"{got['launches']} against {want['launches']}; shapes {got['shapes']}; {smi}")
+        if (rel > SP_PP_TOL["ring_of_one"] or worst > SP_PP_TOL["ring_of_one"] * scale
+                or got["launches"] != want["launches"] or not math.isfinite(got["loss"])):
+            fail("sp_pp: the ring of one is not the run without it")
+        del runs
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    return {"loss_rel": rel, "tensors_differ": n_bad, "largest_diff": worst,
+            "launches": got["launches"]}
+
+
+def phase_sp_pp(torch, smi):
+    """Phase 32: sequence and pipeline parallelism.  32a one NCCL rank (a
+    ring of one); 32b two gloo ranks on the card, the ring over (data=2)
+    with DataParallel; 32c two as (1, 1, 2) with pipeline_parallel; 32d
+    four as (1, 2, 2) with pipeline and tensor parallelism, a snapshot
+    saved and resumed; each against one process on the card."""
+    import numpy as np
+
+    from znicz_tpu_torch.workflow import transformer
+    from znicz_tpu_torch.workflow.snapshotter import load_snapshot
+
+    out_dir = os.path.join(WORK_DIR, "sp_pp")
+    os.makedirs(out_dir, exist_ok=True)
+    res, launches = {"ring_of_one": _ring_of_one(torch, smi)}, {}
+    print(f"sp_pp: cuts: the mid LM's batch 16 -> {SP_PP['batch']} on the gloo ranks "
+          f"({SP_PP['steps']} train steps of {SP_PP['batch']} sequences of {LM_T}, "
+          f"{SP_PP['micro']} microbatches of 1 under the pipeline); depth and widths uncut")
+    one_wf, one = _sp_pp_lm(torch, "one", SP_PP["batch"], SP_PP["steps"], keep_init=True)
+    one_init, one_final = one.pop("init"), [
+        {k: v.detach().to("cpu", copy=True) for k, v in layer.items()}
+        for layer in one_wf.state.params]
+    one.update(_tp_timed(torch, one_wf, None, SP_PP_TIMED))
+    del one_wf
+    torch.cuda.empty_cache()
+    n_layers, b, heads = LM_MID["n_layers"], SP_PP["batch"], LM_MID["n_heads"]
+    steps, micro, hd = SP_PP["steps"], SP_PP["micro"], LM_MID["d_model"] // heads
+    # each kernel's launches a rank, predicted: the ring of two runs the
+    # diagonal block on both ranks and the past block on rank 1 only, a
+    # layer a step; a stage runs its 6 layers on each of the 4 microbatches
+    want = {
+        "sp": [n_layers * steps, 2 * n_layers * steps],
+        "pp": [n_layers // 2 * micro * steps] * 2,
+        "pptp": [n_layers // 2 * micro * steps] * 4,
+    }
+    shapes = {
+        "sp": [[[[b, LM_T // 2, heads, hd], True]],
+               [[[b, LM_T // 2, heads, hd], False], [[b, LM_T // 2, heads, hd], True]]],
+        "pp": [[[[1, LM_T, heads, hd], True]]] * 2,
+        "pptp": [[[[1, LM_T, heads // 2, hd], True]]] * 4,
+    }
+    for kind in ("sp", "pp", "pptp"):
+        ranks, secs = _sp_pp_ranks(kind, out_dir)
+        losses = [r["loss"] for r in ranks]
+        rel = abs(losses[0] - one["loss"]) / abs(one["loss"])
+        per = [r["launches"] for r in ranks]
+        print(f"sp_pp {kind}: {len(ranks)} gloo ranks on the card in {secs:.1f} s (their start "
+              f"included), positions {[r['position'] for r in ranks]}; loss {losses} against "
+              f"one process {one['loss']}: relative {rel:.3e} (limit {SP_PP_TOL['ranks']}); "
+              f"flash launches by rank {per} (predicted {want[kind]} each kernel), one process "
+              f"{one['launches']}; shapes launched by rank {[r['shapes'] for r in ranks]}; ms a "
+              f"train step one process {one['step_ms']:.2f}, a rank "
+              f"{[round(r['step_ms'], 2) for r in ranks]}, the exchanges' wall share "
+              f"{[round(r['collective_share'], 4) for r in ranks]} "
+              f"({[round(r['collectives_a_step']) for r in ranks]} a step); {smi}")
+        if any(x != losses[0] for x in losses) or rel > SP_PP_TOL["ranks"] or not math.isfinite(
+                losses[0]):
+            fail(f"sp_pp {kind}: the ranks are not one process")
+        if any(p != dict.fromkeys(FLASH, w) for p, w in zip(per, want[kind])):
+            fail(f"sp_pp {kind}: flash launches {per}, predicted {want[kind]}")
+        if [r["shapes"] for r in ranks] != shapes[kind]:
+            fail(f"sp_pp {kind}: flash shapes {[r['shapes'] for r in ranks]}, want {shapes[kind]}")
+        # each leaf's change over the epoch against one process's, the
+        # pipelined runs in the stacked layout
+        ref = [one_init, one_final]
+        if kind != "sp":
+            ref = [transformer.stack_lm_blocks(t, 2) for t in ref]
+        init, final = (_cpu_params(torch, t) for t in ref)
+        got = torch.load(os.path.join(out_dir, f"{kind}_params.pt"))
+        if sorted(got) != sorted(final) or any(got[k].shape != final[k].shape for k in final):
+            fail(f"sp_pp {kind}: the gathered params are not one process's tree")
+        change = {k: float((got[k].double() - final[k].double()).norm()
+                           / (final[k].double() - init[k].double()).norm().clamp_min(1e-30))
+                  for k in final}
+        worst = max(change, key=change.get)
+        print(f"sp_pp {kind}: each of {len(change)} param leaves' change over the epoch, "
+              f"rank 0's gathered against one process's: largest relative difference "
+              f"{change[worst]:.3e} at {worst} (limit {SP_PP_TOL['change']}), median "
+              f"{statistics.median(change.values()):.3e}")
+        if not all(math.isfinite(v) and v <= SP_PP_TOL["change"] for v in change.values()):
+            fail(f"sp_pp {kind}: a param leaf's change is not one process's")
+        for name in FLASH:
+            launches.setdefault(name, {})[kind] = [p[name] for p in per]
+        res[kind] = {"seconds": secs, "loss_rel": rel, "change_rel": change[worst],
+                     "one_step_ms": one["step_ms"],
+                     "rank_step_ms": [r["step_ms"] for r in ranks],
+                     "exchange_share": [r["collective_share"] for r in ranks],
+                     "exchanges_a_step": [r["collectives_a_step"] for r in ranks]}
+        if kind == "pptp":
+            state, _ = load_snapshot(os.path.join(out_dir, "pp_snaps", "pplm_epoch0.pickle"))
+            stages = state[0]["stages"]
+            whole = {k: list(np.asarray(stages[0][k]).shape) for k in ("wq", "wo", "w_up")}
+            print(f"sp_pp pptp: a rank's wq block {ranks[0]['local_wq']}; the snapshot's stage "
+                  f"leaves {whole} ({len(stages)} blocks a stage); resumed on every rank "
+                  f"equal to the run: {[r['resumed_equal'] for r in ranks]}")
+            d = LM_MID["d_model"]
+            if (whole != {"wq": [2, d, d], "wo": [2, d, d], "w_up": [2, d, 4 * d]}
+                    or len(stages) != n_layers // 2 or ranks[0]["local_wq"] != [1, d, d // 2]
+                    or not all(r["resumed_equal"] for r in ranks)):
+                fail("sp_pp pptp: the pipelined snapshot is not whole or does not resume")
+    return launches, res
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -6184,6 +6550,9 @@ def main() -> int:
         return dp_worker(int(sys.argv[2]), sys.argv[3], sys.argv[4])
     if sys.argv[1:2] == ["--tp-rank"]:  # a phase 31 rank, started by phase_tp
         return tp_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], sys.argv[5])
+    if sys.argv[1:2] == ["--sp-pp-rank"]:  # a phase 32 rank, started by phase_sp_pp
+        return sp_pp_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], sys.argv[5],
+                            sys.argv[6])
     from znicz_tpu_torch.core import prng
     from znicz_tpu_torch.core.config import root as troot
     from znicz_tpu_torch.loader import datasets
@@ -6295,6 +6664,10 @@ def main() -> int:
     t0 = time.perf_counter()
     tp_launches, tp = phase_tp(torch, smi)
     print(f"tensor-parallel phase: {time.perf_counter() - t0:.1f} s; " + json.dumps(tp))
+    t0 = time.perf_counter()
+    sp_pp_launches, sp_pp = phase_sp_pp(torch, smi)
+    print(f"sequence- and pipeline-parallel phase: {time.perf_counter() - t0:.1f} s; "
+          + json.dumps(sp_pp))
 
     kernels = []
     for kname in ("lrn_fwd", "lrn_bwd"):
@@ -6377,6 +6750,11 @@ def main() -> int:
             # phase 31: each (data=1, model=2) gloo rank's epoch of the mid
             # LM and of the MoE LM in each dispatch, over its local heads
             "tp": {"gloo_ranks": tp_launches[kname]},
+            # phase 32: each gloo rank's epoch of the mid LM through the
+            # ring (sp), two stages (pp) and two stages over two model
+            # ranks (pptp)
+            "sp_pp": {"gloo_ranks": sp_pp_launches[kname],
+                      "ring_of_one": sp_pp["ring_of_one"]["launches"][kname]},
         })
     for kname in UNSUP_SOURCE:
         kernels.append({

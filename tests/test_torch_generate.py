@@ -13,8 +13,9 @@ argument error is raised.  The paged substrate: ``paged_attention`` with
 aliased blocks, the prefill, decode and verify chunks and
 ``copy_paged_block`` (logits and the returned pools), and
 ``PromptLookupDrafter``'s proposals equal JAX's.  The decode step's
-sampling generator is a ``torch.Generator`` where JAX takes a key, and
-tensor parallelism is refused naming ROADMAP.md A6.
+sampling generator is a ``torch.Generator`` where JAX takes a key; a
+tensor-parallel run decodes on its gathered params and pipelined params are
+refused, as the JAX package refuses them.
 """
 
 import jax
@@ -245,16 +246,24 @@ def test_workflow_generate_decodes_moe_with_its_routing():
                                          ({"pipeline_parallel": True}, "A7")],
                          ids=["tensor_parallel", "pipeline_parallel"])
 def test_sharded_and_pipelined_decode_is_refused_by_name(kwargs, item):
-    """The JAX package decodes TP-sharded params and refuses pipelined ones.
-    The port refuses the pipelined layout where it is made (ROADMAP.md
-    A7).  It decodes a tensor-parallel run on the whole params gathered
-    over the model axis (``tests/test_torch_multihost_tp.py``), so its
-    tokens are those of the JAX package's decode on ``lm_tp_rules``-sharded
-    params (a (2, 4) mesh of its virtual devices)."""
+    """The JAX package decodes TP-sharded params and refuses pipelined ones,
+    and so does the port: ``generate()`` on the pipelined layout raises the
+    JAX package's ValueError (a pipe mesh of one stage here).  It decodes a
+    tensor-parallel run on the whole params gathered over the model axis
+    (``tests/test_torch_multihost_tp.py``), so its tokens are those of the
+    JAX package's decode on ``lm_tp_rules``-sharded params (a (2, 4) mesh of
+    its virtual devices)."""
     if item == "A7":
-        loader = FullBatchLoader({"train": np.zeros((2, 8), np.int32)}, minibatch_size=2)
-        with pytest.raises(NotImplementedError, match=f"ROADMAP.md {item}"):
-            TransformerLMWorkflow(loader, vocab=8, device="cpu", **kwargs)
+        from torch.distributed.device_mesh import DeviceMesh
+
+        tokens = np.zeros((2, 8), np.int32)
+        mesh = DeviceMesh("cpu", torch.tensor([0]), mesh_dim_names=("pipe",),
+                          _init_backend=False, _rank=0)
+        wf = TransformerLMWorkflow(FullBatchLoader({"train": tokens}, minibatch_size=2),
+                                   vocab=8, d_model=8, n_heads=2, n_layers=1, device="cpu",
+                                   mesh=mesh, pipeline_microbatches=2, **kwargs)
+        with pytest.raises(ValueError, match="pipelined .stacked-stage. params are train-only"):
+            wf.generate(tokens[:1, :4], max_new_tokens=2)
         return
     import jax.tree_util as jtu
     from jax.sharding import NamedSharding

@@ -3,9 +3,9 @@ on the CPU.
 
 The mesh's spec parser, its errors and the row-ownership check give the JAX
 package's outputs and messages; ``make_mesh`` in a world of one process
-builds a 1x1 mesh and refuses what needs more ranks (one process a device:
-the JAX package's 8-device single-process meshes have no counterpart) or a
-pipe axis (ROADMAP.md A7).  The loader's process shards
+builds a 1x1 mesh and refuses what needs more ranks, a pipe axis above 1
+included (one process a device: the JAX package's 8-device single-process
+meshes have no counterpart).  The loader's process shards
 (R = 2, 4) and pool shards (D = 2, 4) serve the JAX loader's indices,
 masks, orders and local addresses exactly, padded last batch included, and
 the ranks' batches put together are the unsharded loader's.  A
@@ -73,7 +73,7 @@ def test_make_mesh_in_a_world_of_one():
     ((2, 1), ValueError, "mesh 2x1x1 needs 2 devices, have 1"),
     ((0,), ValueError, "mesh 0x1x1 needs 0 devices"),
     ((1, 2), ValueError, "mesh 1x2x1 needs 2 devices, have 1"),
-    ((1, 1, 2), NotImplementedError, "ROADMAP.md A7, parallel/pipeline.py"),
+    ((1, 1, 2), ValueError, "mesh 1x1x2 needs 2 devices, have 1"),
 ])
 def test_make_mesh_errors(args, err, match):
     with pytest.raises(err, match=match):

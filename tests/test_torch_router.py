@@ -117,7 +117,9 @@ class _Fleet:
             conn.close()
 
     def swept(self):
-        return all(d.engine.stats()["pool_blocks_free"] == d.engine.stats()["pool_blocks"]
+        # a door whose watchdog is still rebuilding its engine has none yet
+        return all(d.engine is not None
+                   and d.engine.stats()["pool_blocks_free"] == d.engine.stats()["pool_blocks"]
                    for d in self.doors)
 
     def close(self):

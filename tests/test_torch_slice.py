@@ -15,7 +15,6 @@ on its own.
 
 import json
 import re
-from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -268,27 +267,21 @@ def test_layer_types_of_later_slices_raise(spec):
         model_lib.build([{"type": "bogus"}], (4, 4, 2), device="cpu")
 
 
-_ROADMAP = (Path(__file__).resolve().parents[1] / "ROADMAP.md").read_text()
 _ITEM = re.compile(r"ROADMAP\.md (A\d+), ([\w/]+\.py)")
-
-
-def _names_its_item(message: str) -> None:
-    """The refusal names a queue-A item of ROADMAP.md whose entry mentions
-    the module it names."""
-    found = _ITEM.search(message)
-    assert found, message
-    item, module = found.groups()
-    entry = re.search(rf"^{item}\. \*\*.*?(?=^A\d+\. \*\*|^### )", _ROADMAP, re.M | re.S)
-    assert entry, f"ROADMAP.md has no item {item}"
-    assert module in entry.group(0), f"ROADMAP.md {item} does not mention {module}"
 
 
 @pytest.mark.parametrize("kind", ["moe"])
 def test_later_layer_types_name_their_roadmap_item(kind):
     """The ``moe`` layer's op refuses nothing now: its expert parallelism
-    (``apply_local_shard``, ``expert_sharding``) runs.  What the port
-    still refuses, the pipe axis and sequence and pipeline parallelism,
-    names a queue-A item whose entry mentions the module named."""
+    (``apply_local_shard``, ``expert_sharding``) runs.  Nor do the pipe
+    axis and sequence and pipeline parallelism: in a world of one process
+    they raise the JAX package's errors where the JAX package raises, and
+    are taken where it takes them; no message names a ROADMAP.md item."""
+    import jax
+
+    from znicz_tpu.loader import FullBatchLoader as JLoader
+    from znicz_tpu.parallel import make_mesh as jmake_mesh
+    from znicz_tpu.workflow import TransformerLMWorkflow as JLM
     from znicz_tpu_torch.parallel import make_mesh
     from znicz_tpu_torch.workflow import TransformerLMWorkflow
 
@@ -297,15 +290,34 @@ def test_later_layer_types_name_their_roadmap_item(kind):
     part = moe_op.apply_local_shard(moe_op.expert_sharding(make_mesh())(params), x, top_k=1,
                                     shard_index=0)
     assert torch.allclose(part, moe_op.apply(params, x, top_k=1))
-    loader = FullBatchLoader({"train": np.zeros((4, 8), np.int32)}, minibatch_size=2)
-    refusals = [lambda: make_mesh(1, 1, 2)] + [
-        lambda kw=kw: TransformerLMWorkflow(loader, vocab=8, device="cpu", **kw)
-        for kw in ({"sequence_parallel": True}, {"pipeline_parallel": True},
-                   {"pipeline_microbatches": 2}, {"mesh": object()})]
-    for refuse in refusals:
-        with pytest.raises(NotImplementedError, match="not ported") as err:
-            refuse()
-        _names_its_item(str(err.value))
+    tokens = np.zeros((4, 8), np.int32)
+    with pytest.raises(ValueError) as got:
+        make_mesh(1, 1, 2)
+    with pytest.raises(ValueError) as want:
+        jmake_mesh(1, 1, 2, devices=jax.devices()[:1])
+    assert str(got.value) == str(want.value)
+    assert not _ITEM.search(str(got.value))
+    for kw in ({"pipeline_parallel": True}, {"pipeline_microbatches": 2}, {"mesh": object()}):
+        want = _outcome(lambda: JLM(JLoader({"train": tokens}, minibatch_size=2), vocab=8, **kw))
+        got = _outcome(lambda: TransformerLMWorkflow(
+            FullBatchLoader({"train": tokens}, minibatch_size=2), vocab=8, device="cpu", **kw))
+        assert got == want, kw
+        assert not _ITEM.search(got[1] or "")
+    # the ring over a world of one: a ring of one trains
+    wf = TransformerLMWorkflow(FullBatchLoader({"train": tokens}, minibatch_size=2), vocab=8,
+                               d_model=8, n_heads=2, n_layers=1, max_epochs=1, device="cpu",
+                               sequence_parallel=True, mesh=make_mesh())
+    wf.initialize(seed=1)
+    assert np.isfinite(wf.run_epoch()["summary"]["train"]["loss"])
+
+
+def _outcome(build):
+    """``("ok", None)`` or the error's type and message."""
+    try:
+        build()
+        return ("ok", None)
+    except Exception as exc:  # the type and message are what is compared
+        return (type(exc).__name__, str(exc))
 
 
 # the mnist_ae encoder and decoder, then an asymmetric strided pair

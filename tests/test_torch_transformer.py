@@ -249,12 +249,15 @@ def test_auto_resolves_to_dot_on_the_cpu(t):
     ids=lambda kw: next(iter(kw)),
 )
 def test_paths_not_ported_raise(kwargs):
-    """Sequence and pipeline parallelism raise naming ROADMAP.md A7.
-    Tensor parallelism is ported: ``tensor_parallel=True`` raises the JAX
+    """Every path is ported.  ``tensor_parallel=True`` raises the JAX
     package's checks (a policy with a model axis above 1 is needed; the
     runs are in ``tests/test_torch_multihost_tp.py``), and
     ``parallel="tp"``, a ``DataParallel(tp=True)`` in a world of one (its
-    model axis 1, so ``tp`` is off), is taken and trains."""
+    model axis 1, so ``tp`` is off), is taken and trains.
+    ``sequence_parallel`` over a world of one (a ring of one) trains as
+    the run without it, and ``pipeline_parallel`` without a pipe mesh
+    raises the JAX package's ValueError (the multi-rank runs are in
+    ``tests/test_torch_multihost_sp_pp.py``)."""
     from znicz_tpu_torch.parallel import DataParallel, make_mesh
 
     if "tensor_parallel" in kwargs:
@@ -272,8 +275,24 @@ def test_paths_not_ported_raise(kwargs):
         assert wf.parallel.tp is False and not wf.parallel.sharded
         assert np.isfinite(wf.run_epoch()["summary"]["train"]["loss"])
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A7"):
-        ttf.TransformerLMWorkflow(_loader(8), vocab=8, device="cpu", **kwargs)
+    if "pipeline_parallel" in kwargs:
+        from znicz_tpu.loader import FullBatchLoader as JLoader
+        from znicz_tpu.workflow.transformer import TransformerLMWorkflow as JLM
+
+        with pytest.raises(ValueError) as want:
+            JLM(JLoader({"train": np.zeros((8, 8), np.int32)}, minibatch_size=4), vocab=8,
+                **kwargs)
+        with pytest.raises(ValueError) as got:
+            ttf.TransformerLMWorkflow(_loader(8), vocab=8, device="cpu", **kwargs)
+        assert str(got.value) == str(want.value)
+        return
+    losses = []
+    for sp in ({}, dict(kwargs, mesh=make_mesh())):
+        wf = ttf.TransformerLMWorkflow(_loader(8), vocab=8, d_model=8, n_heads=2, n_layers=1,
+                                       max_epochs=1, device="cpu", **sp)
+        wf.initialize(seed=1)
+        losses.append(wf.run_epoch()["summary"]["train"]["loss"])
+    assert np.isfinite(losses[0]) and losses[0] == losses[1]
 
 
 @pytest.mark.parametrize("how", ["snapshotter", "snapshot_dir"])
@@ -296,8 +315,10 @@ def test_lm_snapshots_are_honoured(small_config, tmp_path, how):
 def test_entry_points_not_ported_raise(small_config):
     # generate() and MoE blocks run since their slice
     # (tests/test_torch_generate.py, tests/test_torch_moe.py)
+    # two stages in a world of one process: make_mesh's shortfall, as the
+    # JAX package's mesh raises on a host with fewer devices
     troot.transformer_lm.update({"pipeline_stages": 2})
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A7"):
+    with pytest.raises(ValueError, match="mesh 1x1x2 needs 2 devices, have 1"):
         tlm.build_workflow(device="cpu")
     with pytest.raises(ValueError, match="attention="):
         ttf.TransformerLMWorkflow(_loader(8), vocab=8, attention="ring", device="cpu")

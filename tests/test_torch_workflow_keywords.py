@@ -93,16 +93,20 @@ def test_jax_keywords_at_their_defaults_are_taken(make, jax_cls):
     ids=lambda v: v.__name__.strip("_") if callable(v) else (next(iter(v)) if isinstance(v, dict) else v),
 )
 def test_jax_keywords_off_their_defaults_are_refused_by_name(make, kwargs, item):
-    """The pipeline's keywords are refused naming ROADMAP.md A7.
+    """Every keyword off its default is taken now that A6 and A7 are done.
     ``parallel="tp"`` stands for a tensor-parallel placement policy
-    (``DataParallel(tp=True)``), taken now that A6 is done: the workflow
-    keeps it as given (in a world of one its model axis is 1)."""
+    (``DataParallel(tp=True)``): the workflow keeps it as given (in a world
+    of one its model axis is 1).  The pipeline's ``pipeline_microbatches``
+    and ``mesh=`` are taken and kept, as the JAX package keeps them, and
+    read only under pipeline or sequence parallelism."""
     if kwargs.get("parallel") == "tp":
         dp = DataParallel(tp=True, tp_min_features=4)
         assert make(parallel=dp).parallel is dp
         return
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md {item}"):
-        make(**kwargs)
+    wf = make(**kwargs)
+    if "mesh" in kwargs:
+        assert wf.mesh is kwargs["mesh"]
+    assert wf.state is None and not wf.pipeline_parallel
 
 
 @pytest.mark.parametrize("make", [_standard, _lm, _base], ids=["standard", "lm", "base"])

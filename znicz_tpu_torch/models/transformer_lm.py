@@ -6,8 +6,10 @@ loss floor is the bigram entropy (convergence is measurable without any
 dataset on disk).  The chain and the sequences are drawn from the named
 "datasets" numpy stream exactly as the JAX package draws them, so both
 frameworks train on the same tokens.  ``moe_experts > 1`` makes each block's
-FFN a gated mixture of experts.  Pipeline stages > 1 are not ported yet and
-raise.
+FFN a gated mixture of experts.  ``pipeline_stages > 1`` pipelines the block
+tower over a ``make_mesh(1, 1, pipeline_stages)`` mesh (one process a stage:
+a world of fewer ranks raises, as the JAX package's mesh raises on a host
+with fewer devices).
 """
 
 import numpy as np
@@ -34,7 +36,7 @@ DEFAULTS = {
     "n_layers": 2,
     "n_heads": 4,
     "max_epochs": 15,
-    # >1: pipeline the block tower (not ported yet: raises)
+    # >1: pipeline the block tower over that many ranks
     "pipeline_stages": 0,
     "pipeline_microbatches": 0,
     # >1: each block's FFN becomes a gated mixture of experts (top_k and
@@ -75,11 +77,6 @@ def build_workflow(**overrides) -> TransformerLMWorkflow:
     # pick the device first: without a card this raises before any data is made
     overrides["device"] = device_lib.resolve(overrides.get("device"))
     cfg = effective_config(root.transformer_lm, DEFAULTS)
-    if int(cfg.get("pipeline_stages", 0) or 0) > 1:
-        raise NotImplementedError(
-            "pipeline_stages > 1 is not ported to znicz_tpu_torch yet "
-            "(ROADMAP.md A7, parallel/pipeline.py)"
-        )
     lcfg = cfg.loader
     vocab = cfg.get("vocab", 32)
     t = lcfg.get("seq_len", 64)
@@ -103,6 +100,17 @@ def build_workflow(**overrides) -> TransformerLMWorkflow:
         "moe_dispatch": cfg.get("moe_dispatch", "dense"),
         "name": "TransformerLMWorkflow",
     }
+    pp_stages = int(cfg.get("pipeline_stages", 0) or 0)
+    if pp_stages > 1:
+        from znicz_tpu_torch.parallel import make_mesh
+
+        defaults.update({
+            "pipeline_parallel": True,
+            # make_mesh checks the rank count: a world with fewer ranks
+            # raises instead of running fewer stages than configured
+            "mesh": make_mesh(1, 1, pp_stages),
+            "pipeline_microbatches": int(cfg.get("pipeline_microbatches", 0) or 0) or None,
+        })
     kwargs = merge_workflow_kwargs(defaults, overrides)
     kwargs = translate_unsupervised_overrides(kwargs, "max_epochs")
     return TransformerLMWorkflow(loader, **kwargs)

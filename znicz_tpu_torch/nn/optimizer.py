@@ -77,15 +77,47 @@ def update_param(w: torch.Tensor, grad: torch.Tensor, v: torch.Tensor, name: str
 def update(params, grads, velocity, hyper) -> None:
     """Update a whole model in place.
 
-    ``params``/``grads``/``velocity`` are matching lists of per-layer dicts;
-    ``hyper`` is one HyperParams for all layers or a list aligned with them.
+    ``params``/``grads``/``velocity`` are matching trees whose top-level
+    entries are the layers: a list of per-layer dicts, or the pipelined
+    transformer's ``{"embed", "stages", "head"}``.  ``hyper`` is one
+    HyperParams for all of them or a list aligned with them; each entry
+    goes through :func:`update_pytree`.
     """
+    keys = list(params) if isinstance(params, dict) else range(len(params))
     if isinstance(hyper, HyperParams):
-        hyper = [hyper] * len(params)
-    if len(hyper) != len(params):
+        hyper = [hyper] * len(keys)
+    if len(hyper) != len(keys):
         raise ValueError(
-            f"hyper has {len(hyper)} entries for {len(params)} layers"
+            f"hyper has {len(hyper)} entries for {len(keys)} layers"
         )
-    for layer_p, layer_g, layer_v, h in zip(params, grads, velocity, hyper):
-        for name in layer_p:
-            update_param(layer_p[name], layer_g[name], layer_v[name], name, h)
+    for k, h in zip(keys, hyper):
+        update_pytree(params[k], grads[k], velocity[k], h)
+
+
+def _leaf_name(path) -> str:
+    """The innermost dict key of a leaf's path (a tuple of dict keys and
+    list indices), as the JAX package's ``_leaf_name`` reads a keypath;
+    "" when the path holds no dict key."""
+    for entry in reversed(path):
+        if isinstance(entry, str):
+            return entry
+    return ""
+
+
+def _walk(params, grads, velocity, path=()):
+    if isinstance(params, dict):
+        for k in params:
+            yield from _walk(params[k], grads[k], velocity[k], path + (k,))
+    elif isinstance(params, (list, tuple)):
+        for i, p in enumerate(params):
+            yield from _walk(p, grads[i], velocity[i], path + (i,))
+    else:
+        yield path, params, grads, velocity
+
+
+def update_pytree(params, grads, velocity, hyper: HyperParams) -> None:
+    """Name-aware update over a tree of dicts and lists, in place, with one
+    ``hyper``: the bias rules key on each leaf's innermost dict key (a
+    layer dict's own names, or a stacked stage group's)."""
+    for path, w, g, v in _walk(params, grads, velocity):
+        update_param(w, g, v, _leaf_name(path), hyper)

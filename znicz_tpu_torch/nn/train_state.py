@@ -23,8 +23,14 @@ class TrainState:
 
     @classmethod
     def create(cls, params, generator: torch.Generator) -> "TrainState":
-        velocity = [
-            {k: torch.zeros_like(w) for k, w in layer.items()}
-            for layer in params
-        ]
-        return cls(params=params, velocity=velocity, step=0, generator=generator)
+        return cls(params=params, velocity=_zeros_like(params), step=0, generator=generator)
+
+
+def _zeros_like(tree):
+    """Zero momentum buffers in the params' lists and dicts (a list of
+    layer dicts, or the pipelined LM's ``{"embed", "stages", "head"}``)."""
+    if isinstance(tree, dict):
+        return {k: _zeros_like(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_zeros_like(v) for v in tree]
+    return torch.zeros_like(tree)

@@ -51,12 +51,13 @@ from znicz_tpu_torch.parallel import multihost
 from znicz_tpu_torch.parallel.mesh import (
     DATA_AXIS,
     MODEL_AXIS,
+    PIPE_AXIS,
     axis_size,
     make_mesh,
     verify_process_contiguous_data_axis,
     world,
 )
-from znicz_tpu_torch.parallel.tensor_parallel import P, all_gather, local_slice, sharded_dim
+from znicz_tpu_torch.parallel.tensor_parallel import P, all_gather, local_slice, spec_dims
 
 # (this rank's position, ranks) on the data axis while a train step runs
 _BATCH_SHARD = (0, 1)
@@ -112,44 +113,72 @@ def cnn_tp_rules(model, n_model: int, *, tp_min_features: int = 1024):
     return rules
 
 
-def data_group(mesh):
-    """The process group this rank's data column reduces over: the
-    default group when the model axis is 1 (the data axis must then span
-    every process), else the mesh's data group; None without a group, or
-    for a data axis of 1 under a model axis (every collective over it is
-    the identity)."""
+def _check_world(mesh) -> bool:
+    """Whether a process group exists; the mesh must then span every
+    process (one process a device)."""
     _, size = world()
-    n = axis_size(mesh, DATA_AXIS) * axis_size(mesh, MODEL_AXIS)
+    n = int(mesh.mesh.numel())
     if not dist.is_initialized():
         if n != 1:
             raise ValueError(f"a mesh of {n} ranks needs a process group of {n} ranks; "
                              "call multihost.initialize first")
-        return None
+        return False
     if n != size:
         raise ValueError(
             f"the mesh holds {n} ranks but the process group {size}: the mesh "
             "must span every process (one process a device)"
         )
-    if axis_size(mesh, MODEL_AXIS) == 1:
+    return True
+
+
+def axis_group(mesh, name: str):
+    """The process group of this rank's peers on the mesh's axis ``name``:
+    None without a process group; the default group where the axis spans
+    every rank in rank order (a mesh that makes no sub-groups; a group of
+    one rank still runs its collectives, so a one-rank NCCL group
+    exercises the production path); None for another axis of 1 (every
+    collective over it is the identity); else the mesh's group of that
+    axis."""
+    if not _check_world(mesh):
+        return None
+    ranks = mesh.mesh.flatten().tolist()
+    if axis_size(mesh, name) == len(ranks) and ranks == sorted(ranks):
         return dist.group.WORLD
-    return mesh.get_group(DATA_AXIS) if axis_size(mesh, DATA_AXIS) > 1 else None
+    return None if axis_size(mesh, name) == 1 else mesh.get_group(name)
+
+
+def data_group(mesh):
+    """The process group this rank's data column reduces over (its data
+    peers: the ranks that hold the same model block and pipeline stage)."""
+    return axis_group(mesh, DATA_AXIS)
 
 
 def model_group(mesh):
     """The process group of this rank's model row (its model peers, which
     hold the other blocks of every sharded leaf); None for a model axis of
     1."""
-    if axis_size(mesh, MODEL_AXIS) == 1 or not dist.is_initialized():
-        return None
-    return mesh.get_group(MODEL_AXIS)
+    return None if axis_size(mesh, MODEL_AXIS) == 1 else axis_group(mesh, MODEL_AXIS)
+
+
+def pipe_group(mesh):
+    """The process group of this rank's pipeline (its pipe peers, which
+    hold the other stages); None for a pipe axis of 1."""
+    return None if axis_size(mesh, PIPE_AXIS) == 1 else axis_group(mesh, PIPE_AXIS)
+
+
+def axis_index(mesh, name: str) -> int:
+    """This process's position on the mesh's axis ``name`` (0 where the
+    mesh has no such axis)."""
+    coord = mesh.get_coordinate()
+    if coord is None:
+        raise ValueError("this process is not on the mesh")
+    names = list(mesh.mesh_dim_names)
+    return int(coord[names.index(name)]) if name in names else 0
 
 
 def data_index(mesh) -> int:
     """This process's position on the mesh's data axis."""
-    coord = mesh.get_coordinate()
-    if coord is None:
-        raise ValueError("this process is not on the mesh")
-    return int(coord[list(mesh.mesh_dim_names).index(DATA_AXIS)])
+    return axis_index(mesh, DATA_AXIS)
 
 
 def all_reduce(tensors: Sequence[torch.Tensor], mesh, op: str = "sum") -> List[torch.Tensor]:
@@ -210,7 +239,7 @@ def batch_rand(shape, *, generator, device, dtype=None) -> torch.Tensor:
 
 class DataParallel:
     """Placement policy: how batches and params land on the rank's device,
-    and the collectives over the data and model axes.
+    and the collectives over the data, model and pipe axes.
 
     ``mesh``: a :func:`make_mesh` mesh (default: every rank of the default
     group on the data axis).  ``tp``: shard weights over the ``model``
@@ -234,11 +263,15 @@ class DataParallel:
             verify_process_contiguous_data_axis(self.mesh)
         self.group = data_group(self.mesh)
         self.model_group = model_group(self.mesh)
+        self.pipe_group = pipe_group(self.mesh)
         self.tp = tp and self.n_model > 1
         self.tp_min_features = tp_min_features
         self.param_rules = param_rules
-        # path -> sharded dim of every model-sharded leaf (shard_state)
+        # path -> sharded dim of every model-sharded leaf, and of every
+        # leaf sharded over the pipe axis (a stacked stage leaf), as
+        # shard_state placed them
         self.sharded: Dict[str, int] = {}
+        self.staged: Dict[str, int] = {}
 
     @property
     def n_data(self) -> int:
@@ -254,11 +287,19 @@ class DataParallel:
         return data_index(self.mesh)
 
     @property
+    def n_pipe(self) -> int:
+        return axis_size(self.mesh, PIPE_AXIS)
+
+    @property
     def model_index(self) -> int:
         """This rank's position on the model axis: the block of every
         sharded leaf it holds."""
-        coord = self.mesh.get_coordinate()
-        return int(coord[list(self.mesh.mesh_dim_names).index(MODEL_AXIS)])
+        return axis_index(self.mesh, MODEL_AXIS)
+
+    @property
+    def pipe_index(self) -> int:
+        """This rank's position on the pipe axis: its pipeline stage."""
+        return axis_index(self.mesh, PIPE_AXIS)
 
     @property
     def device(self) -> torch.device:
@@ -313,56 +354,74 @@ class DataParallel:
             return P(*([None] * (leaf.ndim - 1)), MODEL_AXIS)
         return P()
 
-    def specs(self, tree) -> Dict[str, Optional[int]]:
-        """``{path: sharded dim or None}`` of a tree of whole leaves, the
-        paths the JAX package's ``keystr`` (``"[1]['wq']"``)."""
-        out: Dict[str, Optional[int]] = {}
+    def placements(self, tree) -> Dict[str, Dict[str, int]]:
+        """``{path: {axis: dim}}`` of a tree of whole leaves: the dims
+        each leaf shards over the ``model`` and ``pipe`` axes (an axis of 1
+        shards nothing), the paths the JAX package's ``keystr``
+        (``"[1]['wq']"``, ``"['stages'][0]['wq']"``)."""
+        sizes = {MODEL_AXIS: self.n_model, PIPE_AXIS: self.n_pipe}
+        out: Dict[str, Dict[str, int]] = {}
         for path, leaf in _leaves(tree):
-            dim = sharded_dim(self._param_spec(path, leaf))
-            if self.n_model == 1:
-                dim = None  # a model axis of 1: every block is the whole leaf
-            if dim is not None and leaf.shape[dim] % self.n_model:
-                raise ValueError(
-                    f"{path}: dim {dim} of shape {tuple(leaf.shape)} does not divide by the "
-                    f"model axis {self.n_model}"
-                )
-            out[path] = dim
+            dims = {a: d for a, d in spec_dims(self._param_spec(path, leaf)).items()
+                    if sizes[a] > 1}
+            for axis, dim in dims.items():
+                if leaf.shape[dim] % sizes[axis]:
+                    raise ValueError(
+                        f"{path}: dim {dim} of shape {tuple(leaf.shape)} does not divide by "
+                        f"the {axis} axis {sizes[axis]}"
+                    )
+            out[path] = dims
         return out
+
+    def specs(self, tree) -> Dict[str, Optional[int]]:
+        """``{path: dim sharded over the model axis, or None}`` of a tree
+        of whole leaves (:meth:`placements`)."""
+        return {p: d.get(MODEL_AXIS) for p, d in self.placements(tree).items()}
+
+    def _groups(self):
+        return {MODEL_AXIS: self.model_group, PIPE_AXIS: self.pipe_group}
 
     def shard_state(self, state):
         """The train state's params and velocity on this rank's device, a
-        model-sharded leaf as this rank's block, from a state of whole
-        leaves (identical seeds give every rank identical values).  The
-        placement is decided from the params and kept (:attr:`sharded`);
-        a velocity leaf shards as the param at its path."""
-        specs = self.specs(state.params)
-        self.sharded = {p: d for p, d in specs.items() if d is not None}
+        sharded leaf as this rank's block (its pipeline stage, then its
+        model block), from a state of whole leaves (identical seeds give
+        every rank identical values).  The placement is decided from the
+        params and kept (:attr:`sharded`, :attr:`staged`); a velocity leaf
+        shards as the param at its path."""
+        places = self.placements(state.params)
+        self.sharded = {p: d[MODEL_AXIS] for p, d in places.items() if MODEL_AXIS in d}
+        self.staged = {p: d[PIPE_AXIS] for p, d in places.items() if PIPE_AXIS in d}
+        groups = self._groups()
 
         def put(path, leaf):
             grad = leaf.requires_grad
-            dim = self.sharded.get(path)
-            if dim is not None:
-                leaf = local_slice(leaf.detach(), dim, self.model_group).clone()
-            elif leaf.device == self.device:
+            dims = places.get(path, {})
+            if not dims and leaf.device == self.device:
                 return leaf
-            return leaf.detach().to(self.device).requires_grad_(grad)
+            leaf = leaf.detach()
+            for axis in (PIPE_AXIS, MODEL_AXIS):
+                if axis in dims:
+                    leaf = local_slice(leaf, dims[axis], groups[axis])
+            return leaf.to(self.device).clone().requires_grad_(grad)
 
         state.params = _map(put, state.params)
         state.velocity = _map(put, state.velocity)
         return state
 
     def gather_state(self, tree):
-        """A tree of this rank's leaves with every model-sharded leaf made
-        whole (an all-gather over the model group; every rank of the mesh
-        takes part); whole leaves are returned as they are."""
-        if not self.sharded:
+        """A tree of this rank's leaves with every sharded leaf made whole
+        (all-gathers over the model group, then over the pipe group; every
+        rank of the mesh takes part); whole leaves are returned as they
+        are."""
+        if not (self.sharded or self.staged):
             return tree
 
         def whole(path, leaf):
-            dim = self.sharded.get(path)
-            if dim is None:
-                return leaf
-            return all_gather(leaf.detach(), dim, self.model_group)
+            if path in self.sharded:
+                leaf = all_gather(leaf.detach(), self.sharded[path], self.model_group)
+            if path in self.staged:
+                leaf = all_gather(leaf.detach(), self.staged[path], self.pipe_group)
+            return leaf
 
         return _map(whole, tree)
 

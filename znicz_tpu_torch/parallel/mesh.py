@@ -2,19 +2,20 @@
 ``znicz_tpu/parallel/mesh.py``).
 
 One process runs one device, so a rank is both a process and one point
-``(d, m)`` of the ``(data, model)`` mesh: rank ``d * n_model + m``, the
-JAX package's ``reshape(n_data, n_model)`` order, so a data row's model
-peers are adjacent ranks.  Every rank of data row ``d`` serves that row's
-contiguous ``1/n_data`` of each global minibatch; the model axis shards
-weights (``parallel/tensor_parallel.py``).  The mesh is a
+``(d, m, p)`` of the ``(data, model, pipe)`` mesh: rank ``(d * n_model +
+m) * n_pipe + p``, the JAX package's ``reshape(n_data, n_model, n_pipe)``
+order, so a data row's model and pipe peers are adjacent ranks.  Every
+rank of data row ``d`` serves that row's contiguous ``1/n_data`` of each
+global minibatch; the model axis shards weights
+(``parallel/tensor_parallel.py``) and the pipe axis holds pipeline stages
+(``parallel/pipeline.py``).  The mesh is a
 ``torch.distributed.device_mesh.DeviceMesh`` over the ranks of the default
-process group, with the JAX package's axis names.  With a model axis
-above 1 the mesh makes its per-axis process groups (a data column's and a
-model row's: ``mesh.get_group(name)``; every rank makes them alike); with
-a model axis of 1 it makes none and the data axis reduces over the
-default group.  With no process group it is a mesh of this one process.
-
-The ``pipe`` axis (pipeline stages) is refused by name.
+process group, with the JAX package's axis names: ``(data, model)``, and
+``(data, model, pipe)`` only with a pipe axis above 1, as the JAX
+package's.  With a model or pipe axis above 1 the mesh makes its per-axis
+process groups (``mesh.get_group(name)``; every rank makes them alike);
+otherwise it makes none and the data axis reduces over the default group.
+With no process group it is a mesh of this one process.
 """
 
 from __future__ import annotations
@@ -51,21 +52,17 @@ def make_mesh(
     devices: Optional[Sequence[int]] = None,
 ):
     """A ``(data, model)`` ``DeviceMesh`` over the given ranks (default:
-    every rank of the default process group, in rank order).
+    every rank of the default process group, in rank order), ``(data,
+    model, pipe)`` with ``n_pipe > 1``.
 
     ``n_data=None`` puts every remaining rank on the data axis.  More
     ranks than the world holds raise the JAX package's "needs N devices,
     have M": the JAX package's single-process many-device meshes have no
     counterpart here, where one process runs one device.  With
-    ``n_model > 1`` every rank of the default group must call this alike:
-    the mesh makes its per-axis process groups."""
+    ``n_model > 1`` or ``n_pipe > 1`` every rank of the default group must
+    call this alike: the mesh makes its per-axis process groups."""
     from torch.distributed.device_mesh import DeviceMesh
 
-    from znicz_tpu_torch.workflow.workflow import refuse_unported
-
-    refuse_unported((
-        (n_pipe > 1, "pipeline parallelism (a pipe axis > 1)", "A7, parallel/pipeline.py"),
-    ))
     rank, size = world()
     ranks = list(devices) if devices is not None else list(range(size))
     if n_data is None:
@@ -76,10 +73,14 @@ def make_mesh(
             f"mesh {n_data}x{n_model}x{n_pipe} needs {need} devices, "
             f"have {len(ranks)}"
         )
-    grid = torch.tensor(ranks[:need], dtype=torch.int).reshape(n_data, n_model)
-    # a model axis of 1 reduces over the default group: no sub-group
-    return DeviceMesh(device_type(), grid, mesh_dim_names=(DATA_AXIS, MODEL_AXIS),
-                      _init_backend=n_model > 1, _rank=rank)
+    grid = torch.tensor(ranks[:need], dtype=torch.int)
+    if n_pipe > 1:
+        grid, names = grid.reshape(n_data, n_model, n_pipe), (DATA_AXIS, MODEL_AXIS, PIPE_AXIS)
+    else:
+        grid, names = grid.reshape(n_data, n_model), (DATA_AXIS, MODEL_AXIS)
+    # a data-only mesh reduces over the default group: no sub-group
+    return DeviceMesh(device_type(), grid, mesh_dim_names=names,
+                      _init_backend=n_model * n_pipe > 1, _rank=rank)
 
 
 def parse_mesh_spec(spec: str) -> dict:

@@ -44,14 +44,32 @@ decodes on the gathered whole params.  Without ``tensor_parallel`` the
 params stay whole on every rank, whatever the policy's ``tp`` (the JAX
 package lets GSPMD gather leaves its size heuristic shards).
 
-Not ported here, and refused with ``NotImplementedError`` naming their
-``ROADMAP.md`` item: sequence and pipeline parallelism
-(``sequence_parallel``, ``pipeline_parallel``, ``pipeline_microbatches``,
-``mesh``); each such JAX keyword is taken at its JAX default.
+``sequence_parallel=True`` runs attention as ring attention
+(``parallel/ring_attention.py``) over the data axis of ``mesh=`` (or of
+the policy's mesh): each rank's q, k and v are re-laid out to its
+sequence block (a slice where every rank holds the whole batch, an
+all-to-all from its rows under ``parallel=DataParallel``), the ring runs
+over the data group (on the rank's local heads under
+``tensor_parallel``) and the output goes back; everything else runs as
+without it.  Its inner blocks are the flash kernels where the attention
+would be (``attention="flash"``, or ``"auto"`` on the card at a head dim
+the kernels take and ``max_seq >= 512``), else plain PyTorch.
+
+``pipeline_parallel=True`` pipelines the block tower over the mesh's
+``pipe`` axis (``parallel/pipeline.py``, GPipe with
+``pipeline_microbatches``): the params become ``{"embed", "stages",
+"head"}`` (:func:`stack_lm_blocks`), each rank holding its stage's block
+of every stacked leaf (:func:`lm_pp_rules`; under ``tensor_parallel`` also
+its model block, :func:`lm_pp_tp_rules`), with embed and head whole on
+every rank.  With ``mesh=`` alone the workflow places them by a policy of
+its own over that mesh.  ``generate()`` refuses the pipelined layout, as
+the JAX package's does.
 """
 
 from __future__ import annotations
 
+import logging
+import re
 from functools import partial
 from typing import NamedTuple, Optional
 
@@ -69,9 +87,13 @@ from znicz_tpu_torch.ops.filling import fill
 from znicz_tpu_torch.ops.kernels.attention import flash_attention, kernel_head_dim
 from znicz_tpu_torch.ops.normalization import layer_norm
 from znicz_tpu_torch.parallel import tensor_parallel as tp_ops
-from znicz_tpu_torch.parallel.mesh import MODEL_AXIS
+from znicz_tpu_torch.parallel.data_parallel import axis_group, axis_index
+from znicz_tpu_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS, PIPE_AXIS, axis_size
+from znicz_tpu_torch.parallel.ring_attention import ring_blocks
 from znicz_tpu_torch.parallel.tensor_parallel import P
-from znicz_tpu_torch.workflow.workflow import Workflow, refuse_unported
+from znicz_tpu_torch.workflow.workflow import Workflow, param_paths
+
+logger = logging.getLogger(__name__)
 
 ATTENTIONS = ("dot", "flash", "auto")
 METRICS = ["loss", "n_samples", "n_err", "token_accuracy"]
@@ -253,6 +275,133 @@ def lm_apply(params, tokens, *, n_heads, attention_fn=None, remat=False,
     return x @ params[-1]["head"]
 
 
+def stack_lm_blocks(params, n_stages: int):
+    """``[embed, block_0..L-1, head]`` -> ``{"embed", "stages", "head"}``,
+    the blocks grouped into ``n_stages`` equal stage groups and stacked on a
+    leading stage dim (the :mod:`~znicz_tpu_torch.parallel.pipeline`
+    layout); the draw order of :func:`init_lm_params` is untouched."""
+    from znicz_tpu_torch.parallel.pipeline import stack_stage_params
+
+    blocks = params[1:-1]
+    if len(blocks) % n_stages:
+        raise ValueError(
+            f"n_layers={len(blocks)} not divisible by pipeline stages {n_stages}"
+        )
+    g = len(blocks) // n_stages
+    groups = [blocks[s * g:(s + 1) * g] for s in range(n_stages)]
+    return {"embed": params[0], "stages": stack_stage_params(groups), "head": params[-1]}
+
+
+def lm_apply_pipelined(
+    params_pp, tokens, *, n_heads, mesh, n_microbatches,
+    data_axis=None, tp_axis=None, attention_fn=None, remat=False,
+    moe_top_k=1, moe_dispatch="dense",
+):
+    """tokens [B, T] (this data rank's rows under ``data_axis``) -> logits,
+    the block tower pipelined over the mesh's ``pipe`` axis (embed and
+    head on every rank of it).  ``tp_axis`` runs each stage over this
+    rank's model blocks (:func:`_block_forward_tp`, the sums over that
+    axis); a stage's MoE takes its capacity from the microbatch rows it
+    holds, as the JAX package's ``shard_map`` body sees them."""
+    from znicz_tpu_torch.parallel.pipeline import pipelined_model_apply
+
+    param_spec_fn = None
+    if tp_axis is not None:
+        n_model = axis_size(mesh, tp_axis)
+        if n_heads % n_model:
+            raise ValueError(f"n_heads={n_heads} not divisible by model axis {n_model}")
+        shards = Shards(axis_group(mesh, tp_axis), axis_index(mesh, tp_axis), n_model)
+        blk = partial(_block_forward_tp, n_heads_local=n_heads // n_model, shards=shards,
+                      attention_fn=attention_fn, moe_top_k=moe_top_k)
+        param_spec_fn = _pp_stage_tp_specs(tp_axis)
+    else:
+        blk = partial(_block_forward, n_heads=n_heads, attention_fn=attention_fn,
+                      moe_top_k=moe_top_k, moe_dispatch=moe_dispatch)
+
+    def stage_fn(blocks, x):
+        for block in blocks:  # this stage's group of blocks
+            x = checkpoint(blk, block, x, use_reentrant=False) if remat else blk(block, x)
+        return x
+
+    return pipelined_model_apply(
+        params_pp, tokens,
+        embed_fn=_embed_tokens, stage_fn=stage_fn, head_fn=lambda p, x: x @ p["head"],
+        mesh=mesh, n_microbatches=n_microbatches, data_axis=data_axis,
+        param_spec_fn=param_spec_fn,
+    )
+
+
+def lm_pp_rules(path: str, leaf):
+    """``DataParallel`` param_rules for the pipelined LM: the stacked stage
+    leaves split over ``pipe`` (a stage a rank), embed and head whole."""
+    if "'stages'" in path:
+        return P(PIPE_AXIS, *([None] * (leaf.ndim - 1)))
+    return P()
+
+
+def _stage_tp_spec(key: str, ndim: int, tp_axis: str = MODEL_AXIS):
+    """The spec of one stacked stage leaf [S, ...] under PPxTP: the stage
+    dim over ``pipe``, the weight dims by their Megatron role (column:
+    wq/wk/wv/w_up and up_bias; row: wo/w_down; the MoE's expert leaves
+    their expert dim; the router whole), the rest whole over the model
+    axis."""
+    if key in _MOE_EXPERT_SHARDED:
+        return P(PIPE_AXIS, tp_axis, *([None] * (ndim - 2)))
+    if key in ("wq", "wk", "wv", "w_up"):
+        return P(PIPE_AXIS, None, tp_axis)
+    if key in ("wo", "w_down"):
+        return P(PIPE_AXIS, tp_axis, None)
+    if key == "up_bias":
+        return P(PIPE_AXIS, tp_axis)
+    return P(PIPE_AXIS, *([None] * (ndim - 1)))
+
+
+_KEY_PAT = re.compile(r"\['(\w+)'\]")
+
+
+def _last_key(path: str) -> str:
+    """The last ``['name']`` of a keystr path."""
+    keys = _KEY_PAT.findall(path)
+    return keys[-1] if keys else ""
+
+
+def _pp_stage_tp_specs(tp_axis):
+    """The pipeline's ``param_spec_fn`` for the LM's stage tower under TP
+    (the placement and :func:`_block_forward_tp`'s sums over the same
+    axis)."""
+
+    def spec_fn(path: str, leaf):
+        return _stage_tp_spec(_last_key(path), leaf.ndim, tp_axis)
+
+    return spec_fn
+
+
+def lm_pp_tp_rules(path: str, leaf):
+    """``DataParallel`` param_rules for the PPxTP LM: the stacked stage
+    weights split over (pipe, model) by their Megatron role; embed and
+    head whole."""
+    if "'stages'" in path:
+        return _stage_tp_spec(_last_key(path), leaf.ndim)
+    return P()
+
+
+def auto_microbatches(batch: int, n_stages: int, n_data: int = 1) -> int:
+    """The pipelined LM's default microbatch count: 6 a stage bound the
+    GPipe bubble (S-1)/(S-1+M) under 1/7 for every stage count; clamped to
+    the largest count that divides ``batch`` into microbatches whose rows
+    divide by the data axis."""
+    m = min(6 * n_stages, batch)
+    while m > 1 and (batch % m or (batch // m) % n_data):
+        m -= 1
+    if batch % m or (batch // m) % n_data:
+        raise ValueError(
+            f"no pipeline microbatch count divides batch {batch} into "
+            f"data-axis-{n_data}-divisible microbatches; choose "
+            "minibatch_size as a multiple of n_data"
+        )
+    return m
+
+
 def lm_tp_rules(path: str, leaf):
     """Head/row-column-aware tensor-parallel placement for the LM params
     (plugs into ``DataParallel(param_rules=...)``).
@@ -351,15 +500,6 @@ class TransformerLMWorkflow(Workflow):
         device=None,
         name: str = "TransformerLMWorkflow",
     ):
-        refuse_unported((
-            (sequence_parallel, "sequence_parallel (ring attention)",
-             "A7, parallel/ring_attention.py"),
-            (pipeline_parallel, "pipeline_parallel", "A7, parallel/pipeline.py"),
-            (pipeline_microbatches is not None, "pipeline_microbatches (GPipe)",
-             "A7, parallel/pipeline.py"),
-            (mesh is not None, "a mesh= device mesh (sequence and pipeline parallelism)",
-             "A7, parallel/ring_attention.py"),
-        ))
         if attention not in ATTENTIONS:
             raise ValueError(f"attention={attention!r}: want one of {ATTENTIONS}")
         if attention_dtype not in ("f32", "bf16"):
@@ -395,10 +535,24 @@ class TransformerLMWorkflow(Workflow):
         self.moe_dispatch = moe_dispatch
         self.rand_name = rand_name
         self.max_seq = int(loader.sample_shape[0])
+        self.sequence_parallel = sequence_parallel
         self.tensor_parallel = tensor_parallel
-        if tensor_parallel:
-            from znicz_tpu_torch.parallel import DataParallel
+        self.pipeline_parallel = pipeline_parallel
+        self.mesh = mesh
+        from znicz_tpu_torch.parallel import DataParallel
 
+        if moe_experts > 1 and pipeline_parallel and tensor_parallel and moe_dispatch != "dense":
+            # the experts shard over the model axis inside the stage, whose
+            # combine is the stage's sum; only dense dispatch has that form
+            raise ValueError(
+                "pipeline+tensor parallel MoE supports only moe_dispatch='dense' (experts "
+                "shard over the model axis with a manual combine sum; capacity dispatch "
+                "has no manual-EP formulation here)"
+            )
+        if pipeline_parallel:
+            self._init_pipeline(loader, parallel, mesh, n_layers, n_heads, moe_experts,
+                                pipeline_microbatches)
+        elif tensor_parallel:
             if not isinstance(self.parallel, DataParallel):
                 raise ValueError(
                     "tensor_parallel=True needs parallel=DataParallel(mesh) "
@@ -423,6 +577,80 @@ class TransformerLMWorkflow(Workflow):
                     tp_min_features=self.parallel.tp_min_features,
                     param_rules=lm_tp_rules,
                 )
+        if sequence_parallel:
+            if self.mesh is None and self.parallel is None:
+                raise ValueError(
+                    "sequence_parallel=True needs mesh= (every rank holds the whole batch) "
+                    "or parallel=DataParallel(mesh) (every rank its rows)"
+                )
+            self.mesh = self.mesh if self.mesh is not None else self.parallel.mesh
+
+    def _init_pipeline(self, loader, parallel, mesh, n_layers, n_heads, moe_experts,
+                       pipeline_microbatches) -> None:
+        """The JAX package's checks of a pipelined LM, its mesh, its
+        placement policy and its microbatch count."""
+        from znicz_tpu_torch.parallel import DataParallel
+
+        if self.sequence_parallel:
+            raise ValueError(
+                "pipeline_parallel is mutually exclusive with "
+                "sequence parallel (both want to own the batch layout)"
+            )
+        if parallel is not None:
+            # DPxPP(xTP): batch over data, stages over pipe (weights also
+            # over model under TP), on one mesh: the policy's
+            if mesh is not None and mesh != parallel.mesh:
+                raise ValueError(
+                    "pipeline_parallel with parallel=DataParallel: "
+                    "pass the (data, pipe) mesh via the DataParallel "
+                    "(mesh= must be omitted or identical)"
+                )
+            mesh = self.mesh = parallel.mesh
+        if mesh is None or PIPE_AXIS not in (mesh.mesh_dim_names or ()):
+            raise ValueError("pipeline_parallel=True needs a mesh with a 'pipe' axis")
+        if self.tensor_parallel:
+            n_model = axis_size(mesh, MODEL_AXIS)
+            if n_model <= 1:
+                raise ValueError("pipeline+tensor parallel needs a mesh with a 'model' axis > 1")
+            if n_heads % n_model:
+                raise ValueError(f"n_heads={n_heads} not divisible by model axis {n_model}")
+            if moe_experts > 1 and moe_experts % n_model:
+                raise ValueError(
+                    f"moe_experts={moe_experts} not divisible by model axis {n_model} "
+                    "(experts shard over it under pipeline+tensor parallel)"
+                )
+            if parallel is None:
+                raise ValueError(
+                    "pipeline+tensor parallel needs parallel=DataParallel over the "
+                    "(data, pipe, model) mesh (stage weight placement rides its param_rules)"
+                )
+        rules = lm_pp_tp_rules if self.tensor_parallel else lm_pp_rules
+        if parallel is None or parallel.param_rules is None:
+            # the stage leaves live a stage a rank; with mesh= alone the
+            # workflow's own policy over it places them (and gathers them
+            # for snapshots); the caller's policy is never changed
+            self.parallel = DataParallel(mesh, param_rules=rules)
+        self._n_stages = axis_size(mesh, PIPE_AXIS)
+        if n_layers % self._n_stages:
+            raise ValueError(
+                f"n_layers={n_layers} not divisible by pipe axis {self._n_stages}"
+            )
+        if pipeline_microbatches:
+            self.pipeline_microbatches = pipeline_microbatches
+            return
+        bs = loader.max_minibatch_size
+        n_data = axis_size(mesh, DATA_AXIS) if parallel is not None else 1
+        m = auto_microbatches(bs, self._n_stages, n_data)
+        self.pipeline_microbatches = m
+        from znicz_tpu_torch.parallel.pipeline import bubble_fraction
+
+        bubble = bubble_fraction(self._n_stages, m)
+        if bubble > 0.16:  # the documented default bound
+            logger.warning(
+                "auto-selected %d pipeline microbatches (batch %d, data axis %d) leaves a "
+                "GPipe bubble of %.0f%%; raise minibatch_size toward %d*n_data to recover "
+                "pipeline efficiency", m, bs, n_data, 100 * bubble, 6 * self._n_stages,
+            )
 
     def _batch_target(self, mb):
         return np.zeros(len(mb.mask), np.int32)  # unused host-side dummy
@@ -430,7 +658,7 @@ class TransformerLMWorkflow(Workflow):
     def _shards(self) -> Optional[Shards]:
         """The step's placement: None in one process without a policy."""
         dp = self.parallel
-        if dp is None:
+        if dp is None or self.pipeline_parallel:
             return None
         data_group = dp.group if dp.n_data > 1 else None
         if not (dp.sharded and self.tensor_parallel):
@@ -443,10 +671,23 @@ class TransformerLMWorkflow(Workflow):
         that does not (the caller's is never changed)."""
         super()._setup_parallel()
         dp = self.parallel
-        if not self.tensor_parallel and (dp.tp or dp.param_rules is not None):
+        if (not (self.tensor_parallel or self.pipeline_parallel)
+                and (dp.tp or dp.param_rules is not None)):
             from znicz_tpu_torch.parallel import DataParallel
 
             self.parallel = DataParallel(dp.mesh, tp_min_features=dp.tp_min_features)
+
+    def _whole_batch_ranks(self) -> bool:
+        """The sequence-parallel ring over ``mesh=`` alone: every rank
+        takes the whole batch."""
+        return self.parallel is None and self.mesh is not None
+
+    def _trainable(self, params) -> bool:
+        return True  # a list of layers, or the pipelined layout's dict
+
+    def _hyper(self):
+        # one for each layer, or for each of the pipelined layout's entries
+        return [self.hyper] * len(self.state.params)
 
     def generate(
         self,
@@ -466,7 +707,14 @@ class TransformerLMWorkflow(Workflow):
         ``torch.Generator`` on that device) draws the sampling noise.  The
         decode attention is f32 whatever ``attention_dtype`` is.  Under
         tensor parallelism every rank calls this alike: it decodes on the
-        whole params, gathered over the model axis."""
+        whole params, gathered over the model axis.  The pipelined layout
+        trains only, as in the JAX package."""
+        if self.pipeline_parallel:
+            raise ValueError(
+                "generate() wants the flat [embed, blocks..., head] param "
+                "layout; pipelined (stacked-stage) params are train-only — "
+                "decode from a non-pipelined workflow"
+            )
         if self.state is None:
             self.initialize()
         from znicz_tpu_torch.workflow.generate import generate as _generate
@@ -491,14 +739,38 @@ class TransformerLMWorkflow(Workflow):
     def _attention_fn_base(self):
         """The flash kernels where the JAX package picks its kernel on the
         TPU (here: on the card, at a head dim the kernels take) or where
-        asked; else None (dense)."""
+        asked; else None (dense).  Under ``sequence_parallel`` the ring,
+        whose inner blocks are the flash kernels by the same rule."""
         on_card = self.device.type == "cuda"
         has_kernel = kernel_head_dim(self.d_model // self.n_heads) is not None
-        if self.attention == "flash" or (
+        flash = self.attention == "flash" or (
             self.attention == "auto" and on_card and self.max_seq >= 512 and has_kernel
-        ):
-            return flash_attention
-        return None
+        )
+        if self.sequence_parallel:
+            return partial(self._ring_attention, inner="flash" if flash else "dense")
+        return flash_attention if flash else None
+
+    def _ring_attention(self, q, k, v, *, causal=False, inner="dense"):
+        """Ring attention over the data group of :attr:`mesh` on this rank's
+        q, k and v [B, T, H, D], re-laid out to its sequence block and back
+        in one exchange each way (all three together, so the backward
+        cannot pair one rank's dq with another's dk): a slice and a gather
+        where every rank holds the whole batch, all-to-alls from and to its
+        rows under a data-parallel policy."""
+        group = axis_group(self.mesh, DATA_AXIS)
+        chain = tp_ops.Chain()
+        qkv = torch.stack([q, k, v])  # [3, B, T, H, D]
+        rows = self.parallel is not None and self.parallel.n_data > 1
+        if rows:
+            qkv = tp_ops.all_to_all(qkv, 2, 1, group, chain=chain)
+        else:
+            qkv = tp_ops.scatter_to_model(qkv, 2, group, chain=chain)
+        out = ring_blocks(*qkv.unbind(0), group=group, chain=chain, causal=causal, inner=inner)
+        if rows:
+            out = tp_ops.all_to_all(out, 0, 1, group, chain=chain)
+        else:
+            out = tp_ops.gather_from_model(out, 1, group, chain=chain)
+        return chain.join(out)
 
     def _attention_fn(self):
         fn = self._attention_fn_base()
@@ -522,11 +794,21 @@ class TransformerLMWorkflow(Workflow):
         metrics)`` with ``token_accuracy`` from the argmax."""
         tokens = tokens.long()
         shards = self._shards()
-        logits = lm_apply(
-            params, tokens, n_heads=self.n_heads,
-            attention_fn=self._attention_fn(), remat=self.remat,
-            moe_top_k=self.moe_top_k, moe_dispatch=self.moe_dispatch, shards=shards,
-        )
+        if self.pipeline_parallel:
+            logits = lm_apply_pipelined(
+                params, tokens, n_heads=self.n_heads, mesh=self.mesh,
+                n_microbatches=self.pipeline_microbatches,
+                data_axis=DATA_AXIS if self.parallel.n_data > 1 else None,
+                tp_axis=MODEL_AXIS if self.tensor_parallel else None,
+                attention_fn=self._attention_fn(), remat=self.remat,
+                moe_top_k=self.moe_top_k, moe_dispatch=self.moe_dispatch,
+            )
+        else:
+            logits = lm_apply(
+                params, tokens, n_heads=self.n_heads,
+                attention_fn=self._attention_fn(), remat=self.remat,
+                moe_top_k=self.moe_top_k, moe_dispatch=self.moe_dispatch, shards=shards,
+            )
         lg = logits[:, :-1]
         tgt = tokens[:, 1:]
         if shards is not None and shards.group is not None:
@@ -550,9 +832,6 @@ class TransformerLMWorkflow(Workflow):
     def _forward_metrics(self, params, x, y, mask, *, train: bool):
         return self.loss_metrics(params, x, mask)[1]
 
-    def _hyper(self):
-        return [self.hyper] * len(self.state.params)
-
     def _create_initial_state(self) -> TrainState:
         params = init_lm_params(
             self.vocab, self.d_model, self.n_layers, self.n_heads, self.max_seq,
@@ -561,5 +840,11 @@ class TransformerLMWorkflow(Workflow):
         )
         for layer in params:
             for w in layer.values():
+                w.requires_grad_(True)
+        if self.pipeline_parallel:
+            # the policy's lm_pp_rules then keep this rank's stage block
+            with torch.no_grad():
+                params = stack_lm_blocks(params, self._n_stages)
+            for _, w in param_paths(params):
                 w.requires_grad_(True)
         return TrainState.create(params, prng.get("workflow").generator(self.device))

@@ -146,17 +146,6 @@ class _PreemptSignal(Exception):
     """A requested stop reached a step boundary mid-epoch."""
 
 
-def refuse_unported(cases) -> None:
-    """Raise ``NotImplementedError`` for the first ``(on, what, item)`` of
-    ``cases`` that is on, naming its ``ROADMAP.md`` item: a JAX keyword the
-    port takes at its default and refuses by name otherwise."""
-    for on, what, item in cases:
-        if on:
-            raise NotImplementedError(
-                f"{what} is not ported to znicz_tpu_torch yet (ROADMAP.md {item})"
-            )
-
-
 def _is_additive(name: str) -> bool:
     return not name.startswith("max_")
 
@@ -187,6 +176,30 @@ def _on_device(tree, device, grad: bool):
     else:
         t = torch.tensor(np.asarray(tree), device=device)
     return t.requires_grad_(True) if grad and t.is_floating_point() else t
+
+
+def param_paths(tree, prefix: str = ""):
+    """``(keystr path, leaf)`` of a train state's params in their own order
+    (a list of layer dicts: layer by layer, each in insertion order; the
+    pipelined LM's ``{"embed", "stages", "head"}`` likewise)."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from param_paths(v, f"{prefix}[{k!r}]")
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from param_paths(v, f"{prefix}[{i}]")
+    else:
+        yield prefix, tree
+
+
+def _refill(tree, leaves):
+    """``tree``'s lists and dicts holding the next of ``leaves`` (an
+    iterator) at each leaf, in :func:`param_paths` order."""
+    if isinstance(tree, dict):
+        return {k: _refill(v, leaves) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_refill(v, leaves) for v in tree]
+    return next(leaves)
 
 
 def _clone(tree):
@@ -432,7 +445,7 @@ class Workflow:
         from znicz_tpu_torch.parallel import multihost
 
         self._coordinator = multihost.is_coordinator()
-        if multihost.process_count() > 1:
+        if multihost.process_count() > 1 and not self._whole_batch_ranks():
             if self.parallel is None:
                 raise ValueError(
                     "multi-host training needs a DataParallel placement "
@@ -454,6 +467,12 @@ class Workflow:
         # one copy of the loader's device context (the device-resident pool)
         self._ctx = self.loader.place_device_context(self.parallel, self.device)
         self._splits.clear()
+
+    def _whole_batch_ranks(self) -> bool:
+        """Whether the ranks of a multi-process job each take the whole
+        batch without a placement policy (a mesh of the workflow's own, as
+        the LM's sequence-parallel ring over ``mesh=``)."""
+        return False
 
     def _default_param_rules(self):
         """Template hook: model-aware tensor-parallel placement rules used
@@ -526,7 +545,7 @@ class Workflow:
         gen = prng.get("workflow").generator(self.device)
         if isinstance(key, np.ndarray) and key.dtype == np.uint8:
             gen.set_state(torch.from_numpy(key.copy()))
-        trainable = isinstance(params, list)  # the autograd workflows' layers
+        trainable = self._trainable(params)
         # the captured graphs hold the pointers of the state replaced here
         self._splits.clear()
         self.state = TrainState(
@@ -537,6 +556,11 @@ class Workflow:
         )
         if self.parallel is not None:
             self.state = self.parallel.shard_state(self.state)
+
+    def _trainable(self, params) -> bool:
+        """Whether a restored state's params are autograd leaves (the
+        autograd workflows' list of layers)."""
+        return isinstance(params, list)
 
     def _create_initial_state(self) -> TrainState:
         """A fresh train state on the workflow's device (subclasses that
@@ -613,7 +637,8 @@ class Workflow:
                                 for i, layer in enumerate(params)]
 
     def _hyper(self):
-        """The update rule's knobs, one HyperParams per layer of params."""
+        """The update rule's knobs, one HyperParams per top-level entry of
+        the params (here a layer)."""
         return self.model.hyper
 
     def _lr_scale(self, step: int) -> float:
@@ -641,8 +666,7 @@ class Workflow:
         off)."""
         if self.anomaly is None:
             return 0
-        p = self.state.params
-        return 1 + (len(p) if isinstance(p, dict) else sum(len(layer) for layer in p))
+        return 1 + sum(1 for _ in param_paths(self.state.params))
 
     # ------------------------------------------------------------------
     def train_step(self, x, y, mask, lr_scale: float = 1.0, acc=None) -> torch.Tensor:
@@ -726,7 +750,7 @@ class Workflow:
         global loss for the watch under :data:`WATCH_LOSS`."""
         st = self.state
         dp = self.parallel
-        leaves = [w for layer in st.params for w in layer.values()]
+        leaves = [w for _, w in param_paths(st.params)]
         with torch.enable_grad(), self._draws():
             m = self._forward_metrics(st.params, x, y, mask, train=True)
             objective = m["loss"]
@@ -742,8 +766,7 @@ class Workflow:
             *flat, total = dp.all_reduce([*flat, weighted])
             m = dict(m, **{WATCH_LOSS: total[0] / n_all[0].clamp_min(1.0)})
         norms = self._norms(flat) if self.anomaly is not None else None
-        it = iter(flat)
-        grads = [{k: next(it) for k in layer} for layer in st.params]
+        grads = _refill(st.params, iter(flat))
         # each distinct lr times the scale in float32 on the device, once,
         # as the JAX package's step multiplies them
         scale = scal[0]
@@ -766,21 +789,25 @@ class Workflow:
         return m, norms
 
     def _norms(self, grads) -> list:
-        """The gradients' per-tensor norms, a model-sharded leaf's over all
-        its blocks (its squared norm summed over the model group, in one
-        all-reduce); in the order of the params' leaves."""
+        """The gradients' per-tensor norms, a sharded leaf's over all its
+        blocks (its squared norm summed over the model group, then over the
+        pipe group for a stacked stage leaf, one all-reduce each); in the
+        order of the params' leaves."""
         norms = tensor_norms(grads)
         dp = self.parallel
-        if dp is None or not dp.sharded:
+        if dp is None or not (dp.sharded or dp.staged):
             return norms
         from znicz_tpu_torch.parallel.tensor_parallel import all_reduce
 
-        paths = [f"[{i}][{k!r}]" for i, layer in enumerate(self.state.params) for k in layer]
-        idx = [i for i, path in enumerate(paths) if path in dp.sharded]
-        sq = all_reduce(torch.stack([norms[i] for i in idx]) ** 2, dp.model_group)
+        paths = [path for path, _ in param_paths(self.state.params)]
         norms = list(norms)
-        for j, i in enumerate(idx):
-            norms[i] = sq[j].sqrt()
+        for placed, group in ((dp.sharded, dp.model_group), (dp.staged, dp.pipe_group)):
+            idx = [i for i, path in enumerate(paths) if path in placed]
+            if not idx or group is None:
+                continue
+            sq = all_reduce(torch.stack([norms[i] for i in idx]) ** 2, group)
+            for j, i in enumerate(idx):
+                norms[i] = sq[j].sqrt()
         return norms
 
     @staticmethod
