@@ -373,7 +373,37 @@ exit, no result line) when any phase fails:
     every rank; each rank's flash launches exactly as predicted and the
     (shape, causal) of every launch logged; ms a train step of a rank
     beside one process's, and the exchanges' wall share of it;
-33. the whole script's seconds, the ``kernels`` JSON line (each flash row
+33. the launcher, ``python -m znicz_tpu_torch`` (``launcher.py``), on the
+    card: 33a. ``launcher.run_args`` in this process on
+    ``models/alexnet.py`` (full width, the synthetic stand-in) with
+    ``--random-seed``, ``--stop-after 1``, ``--snapshot-dir`` and
+    ``--export``, the LRN counters set to 0 just before and read just
+    after (10 forward and 8 backward launches predicted from 4 train and 1
+    eval step), its epoch's history and params bitwise those of the same
+    workflow built directly (fresh streams, ``initialize(seed=)``, as the
+    CLI does; cuDNN deterministic); the build, ``initialize``, the epoch,
+    the best snapshot's save and the export timed apart;
+    33b. the artifact's blobs bitwise the trained f32 masters, a second
+    export timed and byte-equal, ``native/znicz_infer.cc`` built with g++
+    into ``build/native/`` and run on 4 validation images against the
+    port's f32 forward of the same params on the card (TF32 off; rtol 1e-4,
+    atol 1e-6, tighter than ``tests/test_native.py``'s for conv stacks: the
+    one-epoch output is near-uniform, p ~ 1e-3; the engine's seconds are
+    host CPU time); 33c. ``--evaluate valid`` of 33a's best
+    snapshot in a process of its own against ``Workflow.evaluate`` on the
+    same params (rtol 1e-4); 33d. ``--supervise`` over the MNIST MLP of
+    ``tests/test_torch_launcher.py`` with a crash entering epoch 2
+    (``ZNICZ_FAULTS``), ``supervisor.json`` one restart, the result's
+    history and params equal to an uninterrupted CLI run's, the restarted
+    child's start, CUDA init, build and run on its own clocks; 33e. SIGTERM
+    mid epoch 1: exit 75 with an emergency snapshot, then ``--resume auto``
+    to the uninterrupted run's result (33d-e's processes run beside
+    33a-c); 33f. ``MetricsCSVWriter``, ``StatusWriter``,
+    ``MarkdownReporter`` and ``AccumulatingPlotter`` attached by a config
+    module to the MNIST MLP on the card: the files each epoch, and the
+    plotter's PNG with matplotlib or its logged failure without it while
+    training goes on; each part's seconds;
+34. the whole script's seconds, the ``kernels`` JSON line (each flash row
     with its bf16 times, bound, launches and error beside the f32 ones under
     ``"bf16"``; the f32 flash, Kohonen and RBM rows also with their f32-FMA
     bound and their float64 errors beside the plain version's; the LRN rows
@@ -6539,6 +6569,525 @@ def phase_sp_pp(torch, smi):
     return launches, res
 
 
+LAUNCHER_SEED = 1234  # --random-seed: phase 20's seed
+LAUNCHER_WAIT_S = 300  # a CLI subprocess's wait
+NATIVE_SAMPLES = 4  # validation images through the native engine
+# (rtol, atol): tighter than tests/test_native.py's 1e-3 / 1e-4 for conv stacks, whose
+# atol is a tenth of a near-uniform 1000-class output after one epoch (p ~ 1e-3)
+NATIVE_TOL = (1e-4, 1e-6)
+EVAL_RTOL = 1e-4
+SERVICE_EPOCHS = 2
+# the supervised and preempted runs' workflow module: tests/test_torch_launcher.py's
+# (tests/test_self_healing.py's for the JAX package), MNIST's MLP at 3 steps an epoch
+LAUNCHER_CHILD = '''
+import json
+import os
+import signal
+import time
+
+import torch
+
+from znicz_tpu_torch.loader import datasets
+from znicz_tpu_torch.workflow import StandardWorkflow
+
+
+def _age():
+    """This process's age in seconds (its start from /proc, 10 ms ticks)."""
+    with open("/proc/self/stat") as f:
+        start = int(f.read().rsplit(")", 1)[1].split()[19])
+    with open("/proc/uptime") as f:
+        return float(f.read().split()[0]) - start / os.sysconf("SC_CLK_TCK")
+
+
+# the interpreter's start, torch's import and the port's, to this module's load
+LOADED_S = _age()
+
+LAYERS = [
+    {"type": "all2all_tanh", "->": {"output_sample_shape": 16}},
+    {"type": "softmax", "->": {"output_sample_shape": 10}},
+]
+
+
+def run(load, main):
+    t0 = time.perf_counter()
+    torch.zeros(1, device="cuda")
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    loader = datasets.mnist(n_train=192, n_test=32, minibatch_size=64)
+    wf = load(
+        StandardWorkflow, loader, LAYERS,
+        decision_config={"max_epochs": 4},
+        default_hyper={"learning_rate": 0.1, "gradient_moment": 0.9},
+    )
+    t2 = time.perf_counter()
+    sigterm_step = int(os.environ.get("ZNICZ_TEST_SIGTERM_STEP", "0"))
+    if sigterm_step:
+        def pol(base, step):
+            if step == sigterm_step:
+                os.kill(os.getpid(), signal.SIGTERM)
+            return base
+        wf.lr_policy = pol
+    main()
+    torch.cuda.synchronize()
+    print("PHASES " + json.dumps({"start_to_module_s": LOADED_S, "cuda_init_s": t1 - t0,
+                                  "build_s": t2 - t1, "main_s": time.perf_counter() - t2}))
+    dec = wf.decision
+    print("RESULT " + json.dumps({
+        "epochs": dec.epoch,
+        "history": [[h["train"]["n_err"], h["train"]["loss"]] for h in dec.history],
+        "params": [{k: v.tolist() for k, v in layer.items()} for layer in wf.state.params],
+    }))
+'''
+# phase 33f's config module: the MNIST model's builder wrapped so that the
+# workflow it builds carries the epoch services, all writing under OUT
+LAUNCHER_SERVICES = '''
+import os
+import sys
+
+from znicz_tpu_torch.core.config import root
+from znicz_tpu_torch.services import (
+    AccumulatingPlotter, MarkdownReporter, MetricsCSVWriter, StatusWriter)
+
+OUT = {out!r}
+root.mnist.decision.update({{"max_epochs": {epochs}}})
+_module = sys.modules["__znicz_workflow__"]
+_build = _module.build_workflow
+
+
+class _Seen:
+    """Which files the services before it have written, each epoch."""
+
+    def __init__(self):
+        self.files = []
+
+    def on_epoch(self, workflow, verdict):
+        self.files.append(sorted(os.listdir(OUT)))
+
+
+SEEN = _Seen()
+
+
+def build_workflow(**overrides):
+    wf = _build(**overrides)
+    wf.services += [MetricsCSVWriter(OUT), StatusWriter(OUT), MarkdownReporter(OUT),
+                    AccumulatingPlotter(OUT), SEEN]
+    return wf
+
+
+_module.build_workflow = build_workflow
+'''
+
+
+def _repo_root():
+    return os.path.dirname(os.path.abspath(__file__))
+
+
+def _cli(args, env_extra=None):
+    """``python -m znicz_tpu_torch ARGS`` from the checkout's root: (the
+    finished process, its wall seconds).  A run past its wait is killed,
+    with whatever it started (a supervisor's child has its own session)."""
+    env = {k: v for k, v in os.environ.items() if k != "ZNICZ_FAULTS"}
+    env["PYTHONPATH"] = _repo_root()
+    env.update(env_extra or {})
+    t0 = time.perf_counter()
+    proc = subprocess.Popen([sys.executable, "-m", "znicz_tpu_torch", *args], cwd=_repo_root(),
+                            env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        out, err = proc.communicate(timeout=LAUNCHER_WAIT_S)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        out, err = proc.communicate()
+        _kill_matching(args[0])
+        err += f"\n(killed after {LAUNCHER_WAIT_S} s)"
+    proc.seconds = time.perf_counter() - t0
+    proc.out, proc.err = out, err
+    return proc
+
+
+def _timed(torch, fn, split, key):
+    """``fn`` wrapped to add each call's seconds, to a card sync after it,
+    to ``split[key]``."""
+    def timed(*args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            torch.cuda.synchronize()
+            split[key] = split.get(key, 0.0) + time.perf_counter() - t0
+    return timed
+
+
+def _kill_matching(needle):
+    """SIGKILL every process of this user whose command line holds
+    ``needle`` (a supervisor's orphaned child)."""
+    import signal
+
+    for pid in os.listdir("/proc"):
+        if not pid.isdigit() or int(pid) == os.getpid():
+            continue
+        try:
+            with open(f"/proc/{pid}/cmdline", "rb") as f:
+                if needle.encode() in f.read():
+                    os.kill(int(pid), signal.SIGKILL)
+        except OSError:
+            continue
+
+
+def _cli_result(label, proc, rc=0):
+    if proc.returncode != rc:
+        print(proc.out[-4000:])
+        print(proc.err[-6000:])
+        fail(f"launcher {label}: exit {proc.returncode}, want {rc}")
+    for line in reversed(proc.out.splitlines()):
+        if line.startswith("RESULT "):
+            return json.loads(line[len("RESULT "):])
+    fail(f"launcher {label}: no RESULT line")
+
+
+def _artifact(path):
+    """A ZNICZT01 file: (header, {(layer, name): float32 array})."""
+    import numpy as np
+
+    with open(path, "rb") as f:
+        blob = f.read()
+    if blob[:8] != b"ZNICZT01":
+        fail(f"launcher export: {path} is not a ZNICZT01 artifact")
+    n = int.from_bytes(blob[8:12], "little")
+    header = json.loads(blob[12:12 + n])
+    arrays = {}
+    for i, layer in enumerate(header["layers"]):
+        for name, meta in layer["params"].items():
+            arrays[i, name] = np.frombuffer(blob, np.float32, count=meta["size"],
+                                            offset=12 + n + meta["offset"]).reshape(meta["shape"])
+    return header, arrays
+
+
+def _supervised_and_preempted(out_dir):
+    """Phase 33d-e in threads: an uninterrupted CLI run of the child module,
+    the same under ``--supervise`` with a crash entering epoch 2, and a
+    SIGTERM mid epoch 1 then ``--resume auto``; each a process (or a
+    supervisor and its children) on the card."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    child = os.path.join(out_dir, "wf_child.py")
+    with open(child, "w") as f:
+        f.write(LAUNCHER_CHILD)
+    dirs = {k: os.path.join(out_dir, k) for k in ("base", "supervised", "preempted")}
+    seed = [child, "--random-seed", "7"]
+
+    def preempted():
+        from znicz_tpu_torch.workflow.snapshotter import find_latest_valid
+
+        first = _cli(seed + ["--snapshot-dir", dirs["preempted"]],
+                     {"ZNICZ_TEST_SIGTERM_STEP": "4"})
+        if first.returncode != 75:
+            return first, None, None
+        # the newest snapshot before the resumed run writes its own
+        emergency = find_latest_valid(dirs["preempted"])
+        return first, emergency, _cli(seed + ["--snapshot-dir", dirs["preempted"],
+                                              "--resume", "auto"])
+
+    pool = ThreadPoolExecutor(3)
+    jobs = {
+        "base": pool.submit(_cli, seed + ["--snapshot-dir", dirs["base"],
+                                          "--snapshot-interval", "1"]),
+        "supervised": pool.submit(
+            _cli, seed + ["--snapshot-dir", dirs["supervised"], "--snapshot-interval", "1",
+                          "--resume", "auto", "--supervise", "--max-restarts", "2",
+                          "--restart-backoff", "0.1"],
+            {"ZNICZ_FAULTS": "train.crash:after=2:times=1"}),
+        "preempted": pool.submit(preempted),
+    }
+    pool.shutdown(wait=False)
+    return jobs, dirs
+
+
+def phase_launcher(torch, lrn_kernel, alexnet, model_lib, prng, smi):
+    """Phase 33: the launcher, ``python -m znicz_tpu_torch``, on the card."""
+    import signal
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+
+    from znicz_tpu_torch import export as export_lib, launcher
+    from znicz_tpu_torch.core.config import root as troot
+
+    t_phase = time.perf_counter()
+    out_dir = os.path.abspath(os.path.join(WORK_DIR, "launcher"))
+    os.makedirs(out_dir, exist_ok=True)
+    root = _repo_root()
+    # the native engine's build and 33d-e's processes run beside 33a-c
+    engine = os.path.join(root, "build", "native", "znicz_infer")
+    os.makedirs(os.path.dirname(engine), exist_ok=True)
+    gxx = ThreadPoolExecutor(1).submit(
+        subprocess.run, ["g++", "-O2", "-std=c++17", os.path.join(root, "native", "znicz_infer.cc"),
+                         "-o", engine], capture_output=True, text=True, timeout=300)
+    jobs, dirs = _supervised_and_preempted(out_dir)
+    parts = {}
+
+    # 33a: AlexNet through the CLI, in this process
+    alexnet_py = os.path.join(root, "znicz_tpu_torch", "models", "alexnet.py")
+    snaps, artifact = os.path.join(out_dir, "snaps"), os.path.join(out_dir, "alexnet.znicz")
+    handlers = {s: signal.getsignal(s) for s in (signal.SIGTERM, signal.SIGINT)}
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    t0 = time.perf_counter()
+    # a fresh process's streams: as in 33c's process, --random-seed reseeds
+    # them at initialize, after the build has drawn the data and weights
+    prng.reset()
+    lrn_kernel.lrn_forward.launches = 0
+    lrn_kernel.lrn_backward.launches = 0
+    split = {}
+    load, export = launcher.Launcher.load, launcher.Launcher._maybe_export
+
+    def timed_load(self, *args, **kwargs):
+        # the build; the workflow it returns gets its parts timed
+        wf = _timed(torch, load, split, "build")(self, *args, **kwargs)
+        wf.initialize = _timed(torch, wf.initialize, split, "initialize")
+        wf.run = _timed(torch, wf.run, split, "run")
+        wf.snapshotter.maybe_save = _timed(torch, wf.snapshotter.maybe_save, split, "snapshot")
+        return wf
+
+    launcher.Launcher.load = timed_load
+    launcher.Launcher._maybe_export = _timed(torch, export, split, "export")
+    try:
+        cli = launcher.run_args([alexnet_py, "--random-seed", str(LAUNCHER_SEED), "--stop-after",
+                                 "1", "--snapshot-dir", snaps, "--export", artifact])
+        torch.cuda.synchronize()
+    finally:
+        launcher.Launcher.load, launcher.Launcher._maybe_export = load, export
+        for s, h in handlers.items():
+            signal.signal(s, h)
+    launches = {"lrn_fwd": lrn_kernel.lrn_forward.launches,
+                "lrn_bwd": lrn_kernel.lrn_backward.launches}
+    parts["a_cli_s"] = time.perf_counter() - t0
+    wf = cli.workflow
+    # the epoch: run() less the snapshotter's saves at its end
+    split["epoch"] = split["run"] - split["snapshot"]
+    parts.update({f"a_{k}_s": split[k] for k in
+                  ("build", "initialize", "epoch", "snapshot", "export")})
+    n_train, n_eval = wf.loader.n_minibatches("train"), wf.loader.n_minibatches("valid")
+    want = {"lrn_fwd": 2 * (n_train + n_eval), "lrn_bwd": 2 * n_train}
+    print(f"launcher: AlexNet through `python -m znicz_tpu_torch` in {parts['a_cli_s']:.2f} s: "
+          f"the build {split['build']:.2f} s, initialize {split['initialize']:.2f} s, one epoch "
+          f"of {n_train} train and {n_eval} eval steps {split['epoch']:.2f} s, the best "
+          f"snapshot's save {split['snapshot']:.2f} s, the export {split['export']:.2f} s (each "
+          f"part ends in a card sync); {json.dumps(cli.result.history)}; LRN launches "
+          f"{launches}, want {want}; {smi}")
+    if (n_train, n_eval) != (4, 1) or launches != want or want != {"lrn_fwd": 10, "lrn_bwd": 8}:
+        fail(f"launcher: LRN launches {launches} over ({n_train}, {n_eval}) steps, want 10 / 8")
+    if (wf.device.type != "cuda" or wf.model.compute_dtype != torch.bfloat16
+            or wf.model.output_shape != (1000,) or tuple(wf.loader.sample_shape) != (227, 227, 3)
+            or wf.loader.max_minibatch_size != 128):
+        fail("launcher: the CLI's AlexNet is not the published one on the card")
+
+    # 33c, started now: --evaluate of the best snapshot in a process of its own
+    best = os.path.join(snaps, "AlexNetWorkflow_best.pickle.gz")
+    evaluate = ThreadPoolExecutor(1).submit(_cli, [alexnet_py, "--snapshot", best,
+                                                   "--evaluate", "valid"])
+
+    # 33b: the artifact holds the trained f32 masters, bitwise
+    t0 = time.perf_counter()
+    header, arrays = _artifact(artifact)
+    params = wf.state.params
+    n_diff = sum(not np.array_equal(arrays[i, k], params[i][k].detach().cpu().numpy())
+                 for i, k in arrays)
+    n_params = sum(a.size for a in arrays.values())
+    if n_diff or len(arrays) != sum(len(p) for p in params):
+        fail(f"launcher export: {n_diff} of {len(arrays)} blobs differ from the trained params")
+    t1 = time.perf_counter()
+    again = os.path.join(out_dir, "again.znicz")
+    export_lib.export_model(wf.model._replace(params=params), again)
+    parts["b_export_s"] = time.perf_counter() - t1
+    with open(artifact, "rb") as f, open(again, "rb") as g:
+        if f.read() != g.read():
+            fail("launcher export: a second export of the same params differs")
+    os.remove(again)
+    mb = next(iter(wf.loader.batches("valid", shuffle=False)))
+    x = (torch.as_tensor(mb.data[:NATIVE_SAMPLES]).float() * (1.0 / 255.0) - 0.5).contiguous()
+    x_path, y_path = os.path.join(out_dir, "x.f32"), os.path.join(out_dir, "y.f32")
+    x.numpy().tofile(x_path)
+    built = gxx.result()
+    if built.returncode != 0:
+        fail(f"launcher: g++ failed on native/znicz_infer.cc: {built.stderr[-3000:]}")
+    t_eng = time.perf_counter()
+    native = subprocess.Popen([engine, artifact, x_path, y_path, str(NATIVE_SAMPLES)],
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    # the port's own f32 forward of the same params on the card, TF32 off
+    tf32 = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    m32 = model_lib.build(alexnet.DEFAULTS["layers"], wf.loader.sample_shape, device="cuda")
+    with torch.no_grad():
+        want_p = m32.predict(params, x.cuda()).cpu().numpy()
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    del m32
+
+    # 33a's check: the same workflow built directly (phase 20's construction)
+    t0 = time.perf_counter()
+    prng.reset()
+    direct = alexnet.build_workflow(device="cuda", decision_config={"max_epochs": 1})
+    direct.initialize(seed=LAUNCHER_SEED)
+    dec = direct.run()
+    n_bad, worst = _differ(torch, direct.state.params, params)
+    parts["a_direct_s"] = time.perf_counter() - t0
+    print(f"launcher: the same workflow built directly (fresh streams, initialize(seed="
+          f"{LAUNCHER_SEED}), one epoch) in "
+          f"{parts['a_direct_s']:.2f} s: history {json.dumps(dec.history)}; "
+          f"{n_bad} param tensors differ from the CLI run's (largest |diff| {worst:.3e})")
+    if dec.history != cli.result.history or n_bad:
+        fail("launcher: the CLI's epoch is not the directly built workflow's, bitwise")
+    del direct
+    torch.backends.cudnn.deterministic = False
+
+    e_out, e_err = native.communicate(timeout=LAUNCHER_WAIT_S)
+    parts["b_engine_host_s"] = time.perf_counter() - t_eng
+    if native.returncode != 0:
+        fail(f"launcher: native/znicz_infer exited {native.returncode}: {e_err[-3000:]}")
+    got_p = np.fromfile(y_path, np.float32).reshape(want_p.shape)
+    rtol, atol = NATIVE_TOL
+    excess = float(np.max(np.abs(got_p - want_p) - rtol * np.abs(want_p)))
+    err = float(np.max(np.abs(got_p - want_p)))
+    print(f"launcher: export of {n_params:,} params ({os.path.getsize(artifact) / 1e6:.1f} MB, "
+          f"{len(header['layers'])} layers) in {parts['b_export_s']:.2f} s, bitwise the trained "
+          f"masters; native/znicz_infer on {NATIVE_SAMPLES} validation images (host CPU, "
+          f"{parts['b_engine_host_s']:.2f} s wall, the g++ build beside it) against the port's "
+          f"f32 forward on the card (TF32 off): max |diff| {err:.3e} of max prob "
+          f"{float(want_p.max()):.3e}, worst |diff| - rtol |p| {excess:.3e} (atol {atol}, "
+          f"rtol {rtol}); argmax equal {bool((got_p.argmax(1) == want_p.argmax(1)).all())}")
+    if not excess <= atol or got_p.shape != (NATIVE_SAMPLES, 1000):
+        fail("launcher: the native engine disagrees with the port's forward")
+
+    # 33c: --evaluate's JSON against Workflow.evaluate on the same params
+    t0 = time.perf_counter()
+    ev = evaluate.result()
+    if ev.returncode != 0:
+        print(ev.err[-6000:])
+        fail(f"launcher --evaluate: exit {ev.returncode}")
+    got = json.loads(ev.out.strip().splitlines()[-1])
+    with torch.no_grad():
+        ref = wf.evaluate("valid", confusion=True)
+    ref["confusion"] = ref["confusion"].tolist()
+    keys = ("loss", "n_err", "err_pct", "n_samples")
+    worst_rel = max(abs(got[k] - ref[k]) / max(abs(ref[k]), 1e-30) for k in keys)
+    conf_ok = np.allclose(got["confusion"], ref["confusion"], rtol=EVAL_RTOL, atol=0)
+    parts["c_evaluate_s"] = ev.seconds
+    print(f"launcher: --evaluate valid of the best snapshot (a process of its own, "
+          f"{ev.seconds:.2f} s with its start): {json.dumps({k: got[k] for k in keys})}; "
+          f"Workflow.evaluate on the same params {json.dumps({k: ref[k] for k in keys})}; "
+          f"worst relative {worst_rel:.3e} (limit {EVAL_RTOL}); the confusion matrices equal "
+          f"within it: {conf_ok}")
+    if got.get("split") != "valid" or worst_rel > EVAL_RTOL or not conf_ok:
+        fail("launcher --evaluate disagrees with Workflow.evaluate")
+    del wf, cli, params
+    torch.cuda.empty_cache()
+
+    # 33f: the services, attached by a config module, on the card
+    import importlib.util
+    import logging
+
+    t0 = time.perf_counter()
+    svc_dir = os.path.join(out_dir, "services")
+    os.makedirs(svc_dir, exist_ok=True)
+    config = os.path.join(out_dir, "services_config.py")
+    with open(config, "w") as f:
+        f.write(LAUNCHER_SERVICES.format(out=svc_dir, epochs=SERVICE_EPOCHS))
+    failed = []
+
+    class _Failed(logging.Handler):
+        def emit(self, record):
+            failed.append((record.getMessage(), record.exc_info and record.exc_info[0].__name__))
+
+    # the workflow's class logger: run_args replaces the root logger's handlers
+    wf_log, keep = logging.getLogger("StandardWorkflow"), _Failed(logging.ERROR)
+    wf_log.addHandler(keep)
+    handlers = {s: signal.getsignal(s) for s in (signal.SIGTERM, signal.SIGINT)}
+    saved, tree = prng.state_dict(), troot.to_dict()
+    try:
+        svc = launcher.run_args([os.path.join(root, "znicz_tpu_torch", "models", "mnist.py"),
+                                 config, "--random-seed", "5"])
+        torch.cuda.synchronize()
+    finally:
+        wf_log.removeHandler(keep)
+        for s, h in handlers.items():
+            signal.signal(s, h)
+        troot.clear()
+        troot.update(tree)
+    seen = sys.modules["__znicz_config__"].SEEN.files
+    for name in ("__znicz_workflow__", "__znicz_config__"):
+        sys.modules.pop(name, None)
+    prng.load_state_dict(saved)
+    parts["f_services_s"] = time.perf_counter() - t0
+    with open(os.path.join(svc_dir, "status.json")) as f:
+        status = json.load(f)
+    with open(os.path.join(svc_dir, "metrics.csv")) as f:
+        rows = f.read().splitlines()[1:]
+    each = {"metrics.csv", "status.json", "status.html", "metrics.prom"}
+    matplotlib = importlib.util.find_spec("matplotlib") is not None
+    plot_failed = [f for f in failed if f[0] == "service AccumulatingPlotter failed"]
+    plotted = os.path.exists(os.path.join(svc_dir, "loss.png"))
+    outcome = ("matplotlib present: the plotter wrote loss.png" if matplotlib else
+               f"matplotlib absent: the plotter failed and was logged each epoch "
+               f"({plot_failed[:1]}) while training went on")
+    print(f"launcher: services on the card through a config module, MNIST {SERVICE_EPOCHS} "
+          f"epochs in {parts['f_services_s']:.2f} s: files each epoch {seen}; metrics.csv "
+          f"{len(rows)} rows; status.json devices {status['devices']}; {outcome}; other "
+          f"failures {[f for f in failed if f not in plot_failed]}")
+    if (not svc.result.epoch == len(seen) == len(rows) == SERVICE_EPOCHS
+            or not all(each <= set(s) for s in seen) or "report.md" not in seen[-1]
+            or "report.md" in seen[0] or not status["devices"][0].startswith("cuda:0 ")
+            or len(plot_failed) != (0 if matplotlib else SERVICE_EPOCHS)
+            or plotted != matplotlib or len(failed) != len(plot_failed)):
+        fail("launcher: the epoch services did not write as they should")
+    del svc
+
+    # 33d-e: the supervised crash and the preemption, against the uninterrupted run
+    base_proc = jobs["base"].result()
+    base = _cli_result("uninterrupted", base_proc)
+    sup = jobs["supervised"].result()
+    with open(os.path.join(dirs["supervised"], "supervisor.json")) as f:
+        history = json.load(f)
+    got = _cli_result("--supervise", sup)
+    runs = history["history"]
+    child_s = runs[1]["unix"] - runs[0]["unix"] - 0.1 if len(runs) == 2 else float("nan")
+    # the restarted child's own clocks (the crashed one printed none)
+    phases = [json.loads(ln[len("PHASES "):]) for ln in sup.out.splitlines()
+              if ln.startswith("PHASES ")]
+    if len(phases) != 1:
+        fail(f"launcher --supervise: {len(phases)} PHASES lines, want the restarted child's")
+    restart = phases[0]
+    print(f"launcher: --supervise with a crash entering epoch 2: exit {sup.returncode} in "
+          f"{sup.seconds:.2f} s; supervisor.json restarts {history['restarts']}, child exits "
+          f"{[h['exit_code'] for h in runs]}; the restarted child {child_s:.2f} s from the "
+          f"first one's exit to its own (less the 0.1 s backoff), by its own clocks: process "
+          f"start to the module's load (the interpreter, torch's and the port's imports) "
+          f"{restart['start_to_module_s']:.2f} s, CUDA's init {restart['cuda_init_s']:.2f} s, "
+          f"the build {restart['build_s']:.2f} s, initialize with the resume and 2 epochs "
+          f"{restart['main_s']:.2f} s; the uninterrupted run {base_proc.seconds:.2f} s "
+          f"(4 epochs); history and params equal to it: {got == base}")
+    if (history["restarts"] != 1 or runs[0]["exit_code"] in (0, 75) or runs[-1]["exit_code"] != 0
+            or got != base or base["epochs"] != 4):
+        fail("launcher: the supervised run did not resume to the uninterrupted one")
+    first, emergency, second = jobs["preempted"].result()
+    if first.returncode != 75:
+        print(first.err[-6000:])
+        fail(f"launcher: SIGTERM mid-epoch gave exit {first.returncode}, want 75")
+    got = _cli_result("--resume auto", second)
+    print(f"launcher: SIGTERM at train step 4 (mid epoch 1): exit 75 in {first.seconds:.2f} s, "
+          f"emergency snapshot {os.path.basename(emergency or '')}; --resume auto exit "
+          f"{second.returncode} in {second.seconds:.2f} s; history and params equal to the "
+          f"uninterrupted run: {got == base}")
+    if not emergency or "emergency" not in emergency or got != base:
+        fail("launcher: the preempted run did not resume to the uninterrupted one")
+    parts.update({f"d_restart_{k}": v for k, v in restart.items()})
+    parts.update(d_supervised_s=sup.seconds, d_restarted_child_s=child_s,
+                 e_sigterm_s=first.seconds, e_resume_s=second.seconds,
+                 uninterrupted_s=base_proc.seconds)
+    parts["phase_s"] = time.perf_counter() - t_phase
+    for k, v in parts.items():
+        print(f"launcher: {k} {v:.2f}")
+    print(f"launcher: {smi}")
+    return launches, {k: round(v, 3) for k, v in parts.items()}
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -6668,6 +7217,10 @@ def main() -> int:
     sp_pp_launches, sp_pp = phase_sp_pp(torch, smi)
     print(f"sequence- and pipeline-parallel phase: {time.perf_counter() - t0:.1f} s; "
           + json.dumps(sp_pp))
+    t0 = time.perf_counter()
+    launcher_launches, launcher_parts = phase_launcher(torch, lrn_kernel, alexnet, model_lib,
+                                                       prng, smi)
+    print(f"launcher phase: {time.perf_counter() - t0:.1f} s; " + json.dumps(launcher_parts))
 
     kernels = []
     for kname in ("lrn_fwd", "lrn_bwd"):
@@ -6718,6 +7271,8 @@ def main() -> int:
         entry["dp"] = {"launches": dp_launches[kname]}
         # phase 31: each (data=1, model=2) gloo rank's AlexNet epochs
         entry["tp"] = {"gloo_ranks": tp_launches[kname]}
+        # phase 33: AlexNet's epoch through `python -m znicz_tpu_torch`
+        entry["launcher"] = {"launches": launcher_launches[kname]}
         kernels.append(entry)
     for kname in FLASH:
         row = flash_rows[(kname, "float32")]  # the counted epoch's dtype

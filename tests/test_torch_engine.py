@@ -17,6 +17,8 @@ retirement at admission, typed errors with JAX's messages, the
 own ``generate()`` trimmed at EOS.
 """
 
+import contextlib
+
 import jax
 import numpy as np
 import pytest
@@ -46,17 +48,39 @@ T_MAX = 64
 GREEDY = (True, 0, False)
 
 
-@pytest.fixture(autouse=True)
-def _fresh_program_ledgers():
-    """Each test starts with empty first-make ledgers on both sides, so the
+@contextlib.contextmanager
+def jax_program_ledgers_restored():
+    """Empty first-make ledgers on both sides inside the block, so the
     compile counters count the same makes whatever ran earlier in the
-    process; the JAX package's set is restored to what it holds plus what
-    the test compiled."""
-    saved = set(JE._COMPILED_KEYS)
+    process.  Afterwards the JAX package's first-make set, its device
+    ledger and its ``znicz_serve_compiles_total`` series hold exactly what
+    they held before: a JAX test later in the process sees none of the
+    block's makes (its ledger identity, one entry per counted compile,
+    holds whatever the block compiled again)."""
+    keys, programs = set(JE._COMPILED_KEYS), dict(jdevice._PROGRAMS)
+    compiles = jobs.counter("znicz_serve_compiles_total",
+                            "distinct compiled engine programs by kind and bucket",
+                            ("kind", "bucket"))
+    counts = {labels: child.value for labels, child in compiles.children().items()}
     JE._COMPILED_KEYS.clear()
     TE._COMPILED_KEYS.clear()
-    yield
-    JE._COMPILED_KEYS.update(saved)
+    try:
+        yield
+    finally:
+        JE._COMPILED_KEYS.clear()
+        JE._COMPILED_KEYS.update(keys)
+        with jdevice._LOCK:
+            jdevice._PROGRAMS.clear()
+            jdevice._PROGRAMS.update(programs)
+        compiles.reset()
+        for labels, value in counts.items():
+            compiles.labels(*labels).inc(value)
+
+
+@pytest.fixture(autouse=True)
+def _fresh_program_ledgers():
+    with jax_program_ledgers_restored():
+        yield
     jfaults.clear()
     tfaults.clear()
 

@@ -34,6 +34,8 @@ from znicz_tpu_torch.services import engine as TE
 from znicz_tpu_torch.utils import faults as tfaults
 from znicz_tpu_torch.workflow import generate as G, model as model_lib
 
+from test_torch_engine import jax_program_ledgers_restored
+
 torch.set_float32_matmul_precision("highest")
 
 EOS = 14
@@ -45,21 +47,17 @@ GREEDY = (True, 0, False)
 
 @pytest.fixture(autouse=True)
 def _fresh_program_ledgers():
-    """Empty first-make ledgers on both sides for each test (the JAX
-    package's set is restored to what it holds plus what the test
-    compiled)."""
-    saved = set(JE._COMPILED_KEYS)
-    JE._COMPILED_KEYS.clear()
-    TE._COMPILED_KEYS.clear()
-    yield
-    JE._COMPILED_KEYS.update(saved)
+    """Empty first-make ledgers on both sides for each test; the JAX
+    package's ledgers are restored to exactly what they held before it."""
+    with jax_program_ledgers_restored():
+        yield
     jfaults.clear()
     tfaults.clear()
 
 
-def _setup(moe_experts=0, seed=27):
+def _setup(moe_experts=0, seed=27, max_seq=T_MAX):
     jprng.seed_all(seed)
-    jp = jinit(17, 32, 2, HEADS, max_seq=T_MAX, moe_experts=moe_experts)
+    jp = jinit(17, 32, 2, HEADS, max_seq=max_seq, moe_experts=moe_experts)
     return jp, model_lib.params_from_jax(jax.device_get(jp), "cpu")
 
 
@@ -183,11 +181,14 @@ def _tokens(rng, n, lo=0):
 def test_growth_stream_equals_jax_and_generate(prefix):
     """Block 4, budgets past several blocks: one prefill program and one
     decode chunk a x2 window rung on both sides; a second engine of the
-    geometry makes no ledger entry."""
-    jp, tp = _setup()
+    geometry makes no ledger entry.  A position table of 48 gives a
+    params geometry of its own: no JAX test's engine shares these
+    programs."""
+    jp, tp = _setup(max_seq=48)
     gen = np.random.default_rng(31)
     reqs = [(_tokens(gen, n), b) for n, b in ((3, 9), (6, 11), (10, 7), (5, 12), (13, 20))]
-    kw = dict(block_size=4, admit_every=5, batch_size=3, eos_id=15, prefix_cache=prefix)
+    kw = dict(block_size=4, admit_every=5, batch_size=3, eos_id=15, prefix_cache=prefix,
+              max_seq=48)
     watch = _Watch()
     je, te = _engines(jp, tp, **kw)
     ids = _submit_run((je, te), reqs)

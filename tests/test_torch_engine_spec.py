@@ -30,6 +30,8 @@ from znicz_tpu_torch import observability as tobs
 from znicz_tpu_torch.services import engine as TE
 from znicz_tpu_torch.workflow import generate as G, model as model_lib
 
+from test_torch_engine import jax_program_ledgers_restored
+
 torch.set_float32_matmul_precision("highest")
 
 EOS = 15  # never greedily emitted by this seed's LM at small budgets
@@ -40,14 +42,10 @@ BS = 8
 
 @pytest.fixture(autouse=True)
 def _fresh_program_ledgers():
-    """Empty first-make ledgers on both sides for each test (the JAX
-    package's set is restored to what it holds plus what the test
-    compiled)."""
-    saved = set(JE._COMPILED_KEYS)
-    JE._COMPILED_KEYS.clear()
-    TE._COMPILED_KEYS.clear()
-    yield
-    JE._COMPILED_KEYS.update(saved)
+    """Empty first-make ledgers on both sides for each test; the JAX
+    package's ledgers are restored to exactly what they held before it."""
+    with jax_program_ledgers_restored():
+        yield
 
 
 def _setup(moe_experts=0, seed=27):

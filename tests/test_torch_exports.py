@@ -25,18 +25,7 @@ ROADMAP = open(os.path.join(REPO, "ROADMAP.md")).read()
 
 # (package, name) -> the ROADMAP.md item that ports it
 WAITING = {
-    ("", "Logger"): "A11",
     ("", "Ensemble"): "A11",
-    ("", "export_model"): "A11",
-    ("core", "Logger"): "A11",
-    ("workflow", "model_summary"): "A11",
-    ("workflow", "to_dot"): "A11",
-    ("services", "StatusWriter"): "A11",
-    ("services", "ImageSaver"): "A11",
-    ("services", "MarkdownReporter"): "A11",
-    ("services", "AccumulatingPlotter"): "A11",
-    ("services", "MetricsCSVWriter"): "A11",
-    ("services", "Weights2D"): "A11",
 }
 # JAX packages with no port package yet -> their ROADMAP.md item.  The
 # static analyzer (``analysis``) is not ported: it is jax-free and checks

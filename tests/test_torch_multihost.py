@@ -16,7 +16,10 @@ one-process run's exactly; a NaN read on every rank at one step, under
 sync and deferred epoch sync: both ranks roll back once together and end
 as the one-process run with the same fault; a kill of one rank and the
 resume of both from the coordinator's snapshot, continuing as the
-uninterrupted run; the resident pool's scan dispatch.  The models' runs (the pool-sharded pool, the SOM,
+uninterrupted run; the resident pool's scan dispatch; ``python -m
+znicz_tpu_torch --mesh`` over two ranks at ``--device cpu`` (the JAX
+package's ``test_cli_mesh_flag_builds_tp_dataparallel``), against JAX's
+launcher on the same command line.  The models' runs (the pool-sharded pool, the SOM,
 the RBM's psum rule, the small LM) are in
 ``tests/test_torch_multihost_models.py``.
 """
@@ -60,6 +63,20 @@ def history(dec, *splits):
             for e in dec.history]
 '''
 
+# every worker's last lines: its process group torn down before the
+# interpreter exits (what held the group dropped first), since a group
+# still alive while the interpreter clears its modules can abort the rank
+# at exit ("terminate called without an active exception")
+WORKER_TAIL = r'''
+import gc
+for _name in [n for n, v in globals().items()
+              if not n.startswith("__") and not isinstance(v, type(gc))]:
+    del globals()[_name]
+gc.collect()
+if dist.is_initialized():
+    dist.destroy_process_group()
+'''
+
 MLP = [
     {"type": "all2all_tanh", "->": {"output_sample_shape": 32}},
     {"type": "softmax", "->": {"output_sample_shape": 10}},
@@ -80,8 +97,8 @@ def start_ranks(body, *args, world=2):
     addr = f"127.0.0.1:{free_port()}"
     return [
         subprocess.Popen(
-            [sys.executable, "-c", WORKER_HEAD + body, REPO, addr, str(world), str(r),
-             *map(str, args)],
+            [sys.executable, "-c", WORKER_HEAD + body + WORKER_TAIL, REPO, addr,
+             str(world), str(r), *map(str, args)],
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
         )
         for r in range(world)
@@ -450,3 +467,101 @@ def test_two_process_configuration_errors(body, match):
         "except ValueError as exc:\n    report(error=str(exc))\n"))
     for r in reports:
         assert r["error"] is not None and match in r["error"], r
+
+
+CLI_MODULE = r"""
+import json
+
+import numpy as np
+
+from znicz_tpu_torch.models.wine import build_workflow
+from znicz_tpu_torch.parallel import multihost
+
+
+def run(load, main):
+    wf = load(build_workflow)
+    main()
+    dp = wf.parallel
+    params = wf.snapshot_state()[0]
+    print("OUT=" + json.dumps({
+        "rank": multihost.process_index(), "backend": __import__("torch").distributed.get_backend(),
+        "mesh": [dp.n_data, dp.n_model], "tp": dp.tp, "device": str(dp.device),
+        "history": [{s: [float(e[s]["n_err"]), float(e[s]["loss"])] for s in e
+                     if isinstance(e[s], dict) and "loss" in e[s]} for e in wf.decision.history],
+        "params": [{k: v.detach().numpy().tolist() for k, v in layer.items()} for layer in params],
+    }), flush=True)
+"""
+CLI_CONFIG = ("root.wine.decision.update({'max_epochs': 1})\n"
+              # 178 samples at batch 10 do not split over two data ranks
+              "root.wine.loader.update({'minibatch_size': 16})\n")
+
+
+@pytest.mark.parametrize("spec", ["data=1,model=2", "data=2"])
+def test_cli_mesh_flag_over_two_ranks_matches_jax(spec, tmp_path):
+    """Two ``python -m znicz_tpu_torch ... --mesh SPEC --device cpu
+    --coordinator ...`` processes build a gloo job and a CPU mesh of that
+    shape (``tp`` on with a model axis) and train Wine as JAX's launcher
+    does on the same flags in this process: n_err equal, losses rtol 1e-4,
+    the gathered params rtol 1e-4 (atol 1e-5), both ranks alike."""
+    from znicz_tpu import launcher as jlauncher
+    from znicz_tpu.core import prng as jprng
+    from znicz_tpu.core.config import root as jroot
+
+    wf, cfg = tmp_path / "wf.py", tmp_path / "cfg.py"
+    wf.write_text(CLI_MODULE)
+    cfg.write_text("from znicz_tpu_torch.core.config import root\n" + CLI_CONFIG)
+    addr = f"127.0.0.1:{free_port()}"
+    env = {**os.environ, "PYTHONPATH": REPO, "OMP_NUM_THREADS": "1"}
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "znicz_tpu_torch", str(wf), str(cfg), "--mesh", spec,
+         "--device", "cpu", "--random-seed", "3", "--coordinator", addr,
+         "--num-processes", "2", "--process-id", str(r)],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=REPO, env=env)
+        for r in range(2)]
+    outs = []
+    try:
+        for p in procs:
+            out, err = p.communicate(timeout=WAIT_S)
+            assert p.returncode == 0, f"rank failed:\n{out}\n{err[-4000:]}"
+            outs.append(json.loads([ln for ln in out.splitlines() if ln.startswith("OUT=")][-1][4:]))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+
+    jwf, jcfg = tmp_path / "jwf.py", tmp_path / "jcfg.py"
+    jwf.write_text("from znicz_tpu.models.wine import run  # noqa: F401\n")
+    jcfg.write_text("from znicz_tpu.core.config import root\n" + CLI_CONFIG)
+    saved = jroot.to_dict()
+    jprng.reset()  # the ranks' registries are a fresh process's
+    try:
+        want = jlauncher.run_args([str(jwf), str(jcfg), "--mesh", spec, "--random-seed", "3"])
+    finally:
+        for name in ("__znicz_workflow__", "__znicz_config__"):
+            sys.modules.pop(name, None)
+        jroot.clear()
+        jroot.update(saved)
+    jdp = want.workflow.parallel
+    n_data, n_model = (int(dict(s.split("=") for s in spec.split(",")).get(a, 1))
+                       for a in ("data", "model"))
+    assert [o["rank"] for o in outs] == [0, 1]
+    for o in outs:
+        assert o["backend"] == "gloo" and o["device"] == "cpu"
+        assert o["mesh"] == [n_data, n_model] and o["tp"] == (n_model > 1) == jdp.tp
+        assert o["history"] == outs[0]["history"] and o["params"] == outs[0]["params"]
+    import jax
+
+    jhist = want.workflow.decision.history
+    assert len(outs[0]["history"]) == len(jhist)
+    for got, ref in zip(outs[0]["history"], jhist):
+        assert sorted(got) == sorted(s for s in ref if isinstance(ref[s], dict) and "loss" in ref[s])
+        for s, (n_err, loss) in got.items():
+            assert n_err == ref[s]["n_err"], (s, got, ref[s])
+            np.testing.assert_allclose(loss, ref[s]["loss"], rtol=RTOL)
+    jparams = jax.device_get(want.workflow.state.params)
+    for g, w in zip(outs[0]["params"], jparams):
+        assert sorted(g) == sorted(w)
+        for k in w:
+            np.testing.assert_allclose(np.asarray(g[k]), np.asarray(w[k]), rtol=RTOL_W,
+                                       atol=ATOL_W, err_msg=k)

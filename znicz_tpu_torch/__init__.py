@@ -15,13 +15,14 @@ TPU kernels on the ported paths are hand-written for Hopper: wrappers under
 first use), each beside its plain PyTorch version.
 
 The top level exports the JAX package's names, the heavy ones lazily
-(PEP 562), except those of modules still to port: ``Logger`` (ROADMAP.md
-A11), ``Ensemble`` and ``export_model`` (A11).
+(PEP 562), except ``Ensemble``, whose module is still to port (ROADMAP.md
+A11).
 """
 
 __version__ = "0.1.0"
 
 from znicz_tpu_torch.core.config import Config, root  # noqa: F401
+from znicz_tpu_torch.core.logger import Logger  # noqa: F401
 
 # Lazy top-level API (PEP 562): keeps torch and the subsystems out of a
 # bare `import znicz_tpu_torch`.
@@ -37,6 +38,7 @@ _LAZY = {
     "ImageDirectoryLoader": ("znicz_tpu_torch.loader", "ImageDirectoryLoader"),
     "DataParallel": ("znicz_tpu_torch.parallel", "DataParallel"),
     "make_mesh": ("znicz_tpu_torch.parallel", "make_mesh"),
+    "export_model": ("znicz_tpu_torch.export", "export_model"),
 }
 
 

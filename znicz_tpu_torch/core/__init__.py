@@ -1,8 +1,8 @@
-"""Host-side core: config tree, named PRNG registry, device selection.
-
-``Logger`` (``core/logger.py``) is ROADMAP.md A11."""
+"""Host-side core: config tree, class-scoped logging, named PRNG registry,
+device selection."""
 
 from znicz_tpu_torch.core.config import Config, root  # noqa: F401
+from znicz_tpu_torch.core.logger import Logger  # noqa: F401
 
 
 def __getattr__(name):

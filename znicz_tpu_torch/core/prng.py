@@ -136,6 +136,11 @@ def get(name: str = "default") -> RandomGenerator:
     return gen
 
 
+def names() -> list:
+    """Names of every currently registered generator."""
+    return list(_registry)
+
+
 def seed_all(seed: int) -> None:
     """Reseed every generator (current and future) from one master seed:
     generator ``name`` gets ``seed ^ hash(name)``."""

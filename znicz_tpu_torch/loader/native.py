@@ -95,6 +95,16 @@ def load() -> ctypes.CDLL:
     return lib
 
 
+def available() -> bool:
+    """True when the library builds and loads here (a failed build is
+    False; the wrappers themselves raise it)."""
+    try:
+        load()
+    except (RuntimeError, OSError):
+        return False
+    return True
+
+
 def _check_indices(indices: np.ndarray, n: int) -> np.ndarray:
     """The C side does raw pointer arithmetic: refuse what numpy would refuse
     (and the negatives numpy would wrap) before crossing into it."""

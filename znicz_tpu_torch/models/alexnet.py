@@ -130,3 +130,8 @@ def build_workflow(**overrides) -> StandardWorkflow:
         overrides,
     )
     return StandardWorkflow(loader, layers, **kwargs)
+
+
+def run(load, main):
+    load(build_workflow)
+    main()

@@ -61,3 +61,8 @@ def build_workflow(device=None, **overrides) -> KohonenWorkflow:
     )
     kwargs = translate_unsupervised_overrides(kwargs, "total_epochs")
     return KohonenWorkflow(loader, device=device, **kwargs)
+
+
+def run(load, main):
+    load(build_workflow)
+    main()

@@ -52,3 +52,8 @@ def build_workflow(**overrides) -> StandardWorkflow:
         overrides,
     )
     return StandardWorkflow(loader, cfg.get("layers"), **kwargs)
+
+
+def run(load, main):
+    load(build_workflow)
+    main()

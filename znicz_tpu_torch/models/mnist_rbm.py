@@ -60,3 +60,8 @@ def build_workflow(device=None, **overrides) -> RBMWorkflow:
     )
     kwargs = translate_unsupervised_overrides(kwargs, "max_epochs")
     return RBMWorkflow(loader, device=device, **kwargs)
+
+
+def run(load, main):
+    load(build_workflow)
+    main()

@@ -114,3 +114,8 @@ def build_workflow(**overrides) -> TransformerLMWorkflow:
     kwargs = merge_workflow_kwargs(defaults, overrides)
     kwargs = translate_unsupervised_overrides(kwargs, "max_epochs")
     return TransformerLMWorkflow(loader, **kwargs)
+
+
+def run(load, main):
+    load(build_workflow)
+    main()

@@ -63,3 +63,8 @@ def build_workflow(**overrides) -> StandardWorkflow:
         {"decision_config": cfg.decision.to_dict(), "name": "YaleFacesWorkflow"}, overrides
     )
     return StandardWorkflow(loader, layers, **kwargs)
+
+
+def run(load, main):
+    load(build_workflow)
+    main()

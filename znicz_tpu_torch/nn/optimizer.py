@@ -18,7 +18,7 @@ of each on the card (and their pointers, which a captured step holds).
 
 from __future__ import annotations
 
-from typing import Any, NamedTuple
+from typing import Any, NamedTuple, Optional
 
 import torch
 
@@ -121,3 +121,24 @@ def update_pytree(params, grads, velocity, hyper: HyperParams) -> None:
     layer dict's own names, or a stacked stage group's)."""
     for path, w, g, v in _walk(params, grads, velocity):
         update_param(w, g, v, _leaf_name(path), hyper)
+
+
+def _map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map(fn, v) for v in tree)
+    return fn(tree)
+
+
+def clip_gradients(grads, max_norm: Optional[float]):
+    """Global-norm gradient clipping over a tree of dicts and lists of
+    tensors (a list of per-layer dicts): new tensors scaled by
+    ``min(1, max_norm / (norm + 1e-12))``, ``grads`` itself when
+    ``max_norm`` is falsy."""
+    if not max_norm:
+        return grads
+    leaves = [g for _, g, _, _ in _walk(grads, grads, grads)]
+    total = torch.sqrt(sum(torch.sum(torch.square(g)) for g in leaves))
+    scale = torch.clamp(max_norm / (total + 1e-12), max=1.0)
+    return _map(lambda g: g * scale, grads)

@@ -58,3 +58,15 @@ def apply(
     if include_bias:
         y = y + params["bias"]
     return act.get(activation)(y).to(x.dtype)
+
+
+def softmax_apply(
+    params: Dict[str, torch.Tensor], x: torch.Tensor, *, include_bias: bool = True
+) -> torch.Tensor:
+    """All2AllSoftmax: FC followed by a numerically-stable softmax."""
+    logits = apply(params, x, activation="linear", include_bias=include_bias)
+    return torch.exp(log_softmax(logits))
+
+
+def log_softmax(logits: torch.Tensor) -> torch.Tensor:
+    return torch.log_softmax(logits, dim=-1)

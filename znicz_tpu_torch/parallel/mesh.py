@@ -50,10 +50,13 @@ def make_mesh(
     n_pipe: int = 1,
     *,
     devices: Optional[Sequence[int]] = None,
+    device: Optional[str] = None,
 ):
     """A ``(data, model)`` ``DeviceMesh`` over the given ranks (default:
     every rank of the default process group, in rank order), ``(data,
-    model, pipe)`` with ``n_pipe > 1``.
+    model, pipe)`` with ``n_pipe > 1``, placing on ``device`` (``"cuda"``
+    or ``"cpu"``; default :func:`device_type`): build it on the device
+    the workflow runs on.
 
     ``n_data=None`` puts every remaining rank on the data axis.  More
     ranks than the world holds raise the JAX package's "needs N devices,
@@ -79,7 +82,7 @@ def make_mesh(
     else:
         grid, names = grid.reshape(n_data, n_model), (DATA_AXIS, MODEL_AXIS)
     # a data-only mesh reduces over the default group: no sub-group
-    return DeviceMesh(device_type(), grid, mesh_dim_names=names,
+    return DeviceMesh(device or device_type(), grid, mesh_dim_names=names,
                       _init_backend=n_model * n_pipe > 1, _rank=rank)
 
 
@@ -107,15 +110,18 @@ def parse_mesh_spec(spec: str) -> dict:
     return sizes
 
 
-def mesh_from_spec(spec: str, *, devices: Optional[Sequence[int]] = None):
+def mesh_from_spec(spec: str, *, devices: Optional[Sequence[int]] = None,
+                   device: Optional[str] = None):
     """``"data=4,model=2"`` -> mesh (unlisted axes default to 1; ``data``
-    with no explicit size takes the remaining ranks)."""
+    with no explicit size takes the remaining ranks), placing on
+    ``device`` as :func:`make_mesh` does."""
     sizes = parse_mesh_spec(spec)
     return make_mesh(
         sizes.get(DATA_AXIS),
         sizes.get(MODEL_AXIS, 1),
         sizes.get(PIPE_AXIS, 1),
         devices=devices,
+        device=device,
     )
 
 

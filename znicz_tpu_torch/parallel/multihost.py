@@ -14,10 +14,14 @@ is NCCL where a card is present (the process's card is ``LOCAL_RANK``'s,
 default ``process_id`` modulo the cards) and gloo where there is none; a
 caller who wants another backend makes the group itself, and everything
 here takes whatever default group exists.  Every group has a timeout, so a
-lost peer fails a collective instead of hanging it.
+lost peer fails a collective instead of hanging it.  As in the JAX package,
+``initialize`` then sets up logging.
 
-Unlike the JAX package, ``initialize`` sets up no logging: its
-``core/logger.py::setup_logging`` is not ported yet (ROADMAP.md A11).
+A process should destroy its group (``torch.distributed.
+destroy_process_group()``) before the interpreter exits, after dropping
+what holds it (a workflow, its ``DataParallel``, a mesh): a gloo group
+still alive while the interpreter clears its modules can abort the
+process at exit ("terminate called without an active exception").
 """
 
 from __future__ import annotations
@@ -29,6 +33,8 @@ from typing import Optional
 import torch
 import torch.distributed as dist
 
+from znicz_tpu_torch.core.logger import setup_logging
+
 # seconds a rendezvous or a collective may wait for its peers
 TIMEOUT_S = 600.0
 
@@ -37,10 +43,13 @@ def initialize(
     coordinator_address: Optional[str] = None,
     num_processes: Optional[int] = None,
     process_id: Optional[int] = None,
+    backend: Optional[str] = None,
 ) -> dict:
     """Join (or create) the multi-process job; returns its topology in the
     JAX package's keys.  Call before building a mesh: afterwards
-    ``parallel.make_mesh()`` spans every process."""
+    ``parallel.make_mesh()`` spans every process.  ``backend``: None for
+    NCCL where a card is present and gloo where there is none; "gloo"
+    keeps a process on the CPU (the launcher's ``--device cpu``)."""
     env = os.environ
     if coordinator_address is None:
         missing = [k for k in ("MASTER_ADDR", "MASTER_PORT") if k not in env]
@@ -55,12 +64,11 @@ def initialize(
         num_processes = int(env.get("WORLD_SIZE", 1))
     if process_id is None:
         process_id = int(env.get("RANK", 0))
-    if torch.cuda.is_available():
-        backend = "nccl"
+    if backend is None:
+        backend = "nccl" if torch.cuda.is_available() else "gloo"
+    if backend == "nccl":
         local = int(env.get("LOCAL_RANK", process_id % torch.cuda.device_count()))
         torch.cuda.set_device(local)
-    else:
-        backend = "gloo"
     dist.init_process_group(
         backend,
         init_method=f"tcp://{coordinator_address}",
@@ -68,6 +76,7 @@ def initialize(
         rank=int(process_id),
         timeout=datetime.timedelta(seconds=TIMEOUT_S),
     )
+    setup_logging()
     return {
         "process_index": process_index(),
         "process_count": process_count(),

@@ -1,8 +1,6 @@
 """Workflow engine (port of ``znicz_tpu/workflow``): the layer-spec model
-compiler and the host training loop around eager train/eval steps.
-
-``model_summary`` and ``to_dot`` (``workflow/introspect.py``) are ROADMAP.md
-A11.
+compiler, the host training loop around eager train/eval steps, and the
+topology introspection (``model_summary``, ``to_dot``).
 """
 
 from znicz_tpu_torch.workflow.model import Model, build  # noqa: F401
@@ -28,3 +26,4 @@ from znicz_tpu_torch.workflow.unsupervised import (  # noqa: F401
 from znicz_tpu_torch.workflow.transformer import (  # noqa: F401
     TransformerLMWorkflow,
 )
+from znicz_tpu_torch.workflow.introspect import model_summary, to_dot  # noqa: F401

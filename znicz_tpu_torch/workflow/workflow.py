@@ -103,6 +103,7 @@ import numpy as np
 import torch
 
 from znicz_tpu_torch.core import device as device_lib, prng
+from znicz_tpu_torch.core.logger import Logger
 from znicz_tpu_torch.loader.base import TRAIN, Loader
 from znicz_tpu_torch.nn import evaluator, optimizer
 from znicz_tpu_torch.nn.decision import Decision
@@ -296,7 +297,7 @@ class _SplitRun:
         return self.rows[name].index_select(0, self.counter)[0]
 
 
-class Workflow:
+class Workflow(Logger):
     """Owns loader + model + decision + snapshotter; runs training on
     ``device``.
 
@@ -317,7 +318,10 @@ class Workflow:
     the split function; needs an ``epoch_scan_friendly`` loader) or "auto"
     (scan for such a loader with a device context).  ``parallel``: a
     :class:`~znicz_tpu_torch.parallel.DataParallel` placement policy, or
-    None (it may also be assigned before ``initialize``).
+    None (it may also be assigned before ``initialize``).  ``services``:
+    per-epoch observers (plotters, status, image saver), each called as
+    ``on_epoch(workflow, verdict)`` on the coordinator after the
+    snapshotter; one that raises is logged and training goes on.
     """
 
     def __init__(
@@ -369,6 +373,7 @@ class Workflow:
         # and, with a save_best snapshotter, a clone of its end state
         self._pending_accs = None
         self._retained = None
+        self.services = []  # per-epoch observers: plotters, status, image saver
         # request_stop() sets the flag; the loop acts at the next step
         self._preempt_requested = False
         # sync mode with recovery or emergency snapshots: the epoch-start
@@ -1160,6 +1165,13 @@ class Workflow:
                 epoch=self.decision.epoch - 1,
                 improved=verdict["improved"],
             )
+        if not getattr(self, "_coordinator", True):
+            return verdict  # services are host-side: coordinator-only
+        for service in self.services:
+            try:
+                service.on_epoch(self, verdict)
+            except Exception:  # services must never kill training
+                self.logger.exception("service %s failed", type(service).__name__)
         return verdict
 
     def run_epoch(self) -> Optional[Dict[str, Any]]:
