@@ -6,7 +6,10 @@ It needs one CUDA card, builds every Hopper kernel of the ported paths from
 the sources here (the LRN forward in Triton, compiled at first launch; the
 LRN backward, flash-attention, Kohonen and RBM kernels in CUDA C++, built
 with nvcc up front, one process a source, in parallel), and fails (non-zero
-exit, no result line) when any phase fails:
+exit, no result line) when any phase fails.  A synthetic stand-in drawn
+again from the same stream state is served the first draw's arrays (the
+same bits, the stream moved on alike), so the phases' many AlexNet builds
+draw their ~250M normals once a state.  The phases:
 
 1. the card's ``nvidia-smi`` name and power limit, and the versions; the
    LRN backward's build: nvcc's seconds, ptxas' registers, spills and
@@ -241,12 +244,14 @@ exit, no result line) when any phase fails:
     the replays and the eager loop and their tokens equal; every decode
     step's logits within 1e-4 of the largest of ``lm_apply``'s at the same
     position on the card, the tokens their argmax; then the MoE LM at 2
-    layers, dense and capacity, graph against eager;
+    layers, dense and capacity, graph against eager (the served program's
+    first request includes its flop count: 34d times what it adds);
 26. a ``generate_serve`` stream of ``bench.py``'s prompt lengths (16, 40,
     64, 120; 64 new tokens, batch 16 a request), twice over: exactly one
     program (a captured graph) a prompt bucket (16, 64, 128), the rest hits,
     each length's tokens equal to ``generate``'s; requests, hits, compiles,
-    capture seconds (the program ledger) and tokens/sec;
+    capture seconds (the program ledger; each with the program's flop
+    count) and tokens/sec;
 27. the serving engines (``services/engine.py``) at the mid LM with
     ``bench.py``'s settings (max_seq 256, 16 slots, ``admit_every`` 8, EOS 0,
     greedy, weights from seed 95), each program a captured CUDA graph: the
@@ -256,7 +261,8 @@ exit, no result line) when any phase fails:
     off (a 160-token system prompt, 16/24/32-token tails, max_seq 384) and
     speculation (``spec_k`` 7 against 0, batch 8, ``bench.py``'s repeat-heavy
     stream): each warmed by one stream, then a fresh engine's first pass
-    (its captures) and its second pass over the same prompts (timed: it must
+    (its captures, which count no flops: the warming engine's first makes
+    did) and its second pass over the same prompts (timed: it must
     capture nothing and give the same tokens); each request's tokens against
     ``generate``'s on the card (equal, or first differing at a near-tie: the
     top-2 logits within 1e-5 of the largest magnitude); exactly the expected
@@ -403,7 +409,33 @@ exit, no result line) when any phase fails:
     module to the MNIST MLP on the card: the files each epoch, and the
     plotter's PNG with matplotlib or its logged failure without it while
     training goes on; each part's seconds;
-34. the whole script's seconds, the ``kernels`` JSON line (each flash row
+34. genetic search and ensembles over CIFAR-10 at configs[1]'s widths
+    (``genetics/``, ``ensemble/``, ``core/subproc.py``), one epoch a run,
+    cuDNN deterministic: 34a. an in-process ``Ensemble`` of 3 members, the
+    LRN counters set to 0 before the training and read after (25 forward
+    and 20 backward a member), and again around ``evaluate("test")`` (5
+    forward a member); the test split's mean probabilities with the
+    kernels against those through the plain LRN twin on the card (rtol
+    1e-4, equal n_err); 34b. ``--optimize 2`` through ``launcher.run_args``
+    with ``--export`` and a config module putting one ``Tune`` on the
+    layers' learning rate (a decade each side of 0.01), population 4,
+    ``--stop-after 1``, its own seed: 2 generations, every evaluation
+    finite, the best genome (at this seed neither the Tune's default nor
+    the last evaluation's, so that neither can pass for it) applied to
+    ``root`` and trained by the retrain, the artifact written once, from
+    that retrain; 34c. ``ensemble.train_from_module`` with 2 members
+    in 2 spawned processes sharing the card: each member's ``best_value``
+    and params against an in-process run of the same seed (rtol 1e-5);
+    34d. the device ledger that phases 25-29 filled: every ``serve_cache``
+    and engine program made on the card with ``flops > 0`` and its graph
+    pool's bytes, those made on the CPU with no memory figure, and the mid
+    LM's dense chunk program's ``flops`` equal to the analytic count of its
+    matmuls (phase 27's token checks passed with counting on); then what
+    the count adds to the spans it runs in (``generate_serve``'s first
+    request, a fresh dense engine's captures), on and off in turns (the
+    process's first ``FlopCounterMode`` is paid and timed before phase
+    25); each part's seconds;
+35. the whole script's seconds, the ``kernels`` JSON line (each flash row
     with its bf16 times, bound, launches and error beside the f32 ones under
     ``"bf16"``; the f32 flash, Kohonen and RBM rows also with their f32-FMA
     bound and their float64 errors beside the plain version's; the LRN rows
@@ -417,7 +449,8 @@ exit, no result line) when any phase fails:
     launches under ``"dp"``, the Kohonen and RBM rows with each gloo
     rank's; every row with phase 31's gloo ranks' launches under
     ``"tp"``; each flash row with phase 32's gloo ranks' launches and the
-    ring of one's under ``"sp_pp"``), then the result line.
+    ring of one's under ``"sp_pp"``; the LRN rows with phase 34's
+    in-process launches under ``"search"``), then the result line.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``.
 """
@@ -493,6 +526,39 @@ REPLACES.update({
 })
 FLASH = tuple(FLASH_PRODUCTS)
 F64_OUTPUTS = {"flash_fwd": ("out", "lse"), "flash_dq": ("dq",), "flash_dkv": ("dk", "dv")}
+
+
+def _memoize_stand_ins(prng, datasets):
+    """Reuse the synthetic stand-ins' draws within this process.  A draw
+    from the same "datasets" stream state gives the same arrays and leaves
+    the stream in the same state, so a repeat is served copies of the
+    first's arrays and its stream is moved on as the draw would move it:
+    every build gets the bits it would have drawn.  (AlexNet's stand-in is
+    ~250M normals a build, and the phases build it many times.)  Returns
+    the tally, which fills in as the phases build."""
+    draw = datasets._synthetic_classes
+    memo = {}
+    tally = {"draws": 0, "reuses": 0, "draw_s": 0.0, "reuse_s": 0.0}
+
+    def synthetic_classes(n, shape, n_classes, *, rand_name="datasets", sep=2.5):
+        bits = prng.get(rand_name)._numpy.bit_generator
+        key = (n, tuple(shape), n_classes, rand_name, sep, json.dumps(bits.state, sort_keys=True))
+        t0 = time.perf_counter()
+        hit = memo.get(key)
+        if hit is None:
+            x, labels = draw(n, shape, n_classes, rand_name=rand_name, sep=sep)
+            memo[key] = (x, labels, bits.state)
+            tally["draws"] += 1
+            tally["draw_s"] += time.perf_counter() - t0
+            return x.copy(), labels.copy()
+        bits.state = hit[2]
+        out = hit[0].copy(), hit[1].copy()
+        tally["reuses"] += 1
+        tally["reuse_s"] += time.perf_counter() - t0
+        return out
+
+    datasets._synthetic_classes = synthetic_classes
+    return tally
 
 
 def fail(msg: str) -> None:
@@ -3806,6 +3872,24 @@ def _wall(torch, fn, reps):
     return best, out
 
 
+def _flop_counter_first_use(torch):
+    """Seconds of the process's first ``FlopCounterMode`` (what the first
+    program the device ledger counts would otherwise pay inside its
+    compile span), over one small product on the card."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    x = torch.ones((64, 64), device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with FlopCounterMode(display=False) as counter:
+        x @ x
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    print(f"flop counter: the process's first FlopCounterMode {seconds:.3f} s (counted "
+          f"{counter.get_total_flops()} flops of a 64x64 product), paid before the decode phases")
+    return seconds
+
+
 def phase_decode(torch, transformer, prng, loader, smi):
     """Phase 25: greedy KV-cache decoding at the mid LM's width and depth
     (prompt 64, 256 new tokens, batch 16): ``generate`` (its decode step
@@ -7088,6 +7172,450 @@ def phase_launcher(torch, lrn_kernel, alexnet, model_lib, prng, smi):
     return launches, {k: round(v, 3) for k, v in parts.items()}
 
 
+SEARCH_SEED = 1234
+SEARCH_MEMBERS = 3  # 34a's in-process members
+SEARCH_POPULATION = 4  # 34b
+# 34b's seed: one where the best genome is neither the Tune's default nor the
+# last evaluation's (one epoch is near chance, so the seed decides the winner)
+SEARCH_OPTIMIZE_SEED = 9
+SEARCH_LR_DEFAULT = 0.01  # SEARCH_CONFIG's Tune default: cifar's learning rate
+SEARCH_GENERATIONS = 2
+SEARCH_WORKERS = 2  # 34c: members, and processes sharing the card
+SEARCH_PROBS_RTOL = 1e-4  # 34a: the kernels' mean probabilities against the plain twin's
+SEARCH_MEMBER_RTOL = 1e-5  # 34c: a spawned member against the same seed in this process
+CIFAR_STEPS = {"train": 20, "test": 5}  # batch 100 over 2000 / 500
+# 34b's config module: one Tune on the layers' learning rate, copied into
+# every layer's "<-" when the module's build_workflow runs
+SEARCH_CONFIG = """
+import sys
+
+from znicz_tpu_torch.core.config import root
+from znicz_tpu_torch.genetics import Tune
+
+root.cifar.lr = Tune(0.01, 0.001, 0.1)
+_module = sys.modules["__znicz_workflow__"]
+_build = _module.build_workflow
+
+
+def build_workflow(**overrides):
+    lr = root.cifar.lr
+    lr = lr.default if isinstance(lr, Tune) else lr  # the export probe's dry run
+    root.cifar.layers = [
+        {**layer, "<-": {**layer["<-"], "learning_rate": lr}} if "<-" in layer else layer
+        for layer in _module.DEFAULTS["layers"]]
+    return _build(**overrides)
+
+
+_module.build_workflow = build_workflow
+"""
+# 34c's workflow module: CIFAR-10 with this process's cuDNN and TF32 settings; a
+# worker leaves its start-to-module seconds (interpreter, torch's and the port's
+# imports) in OUT
+SEARCH_MEMBER = """
+import json
+import os
+
+import torch
+
+
+def _age():
+    with open("/proc/self/stat") as f:
+        start = int(f.read().rsplit(")", 1)[1].split()[19])
+    with open("/proc/uptime") as f:
+        return float(f.read().split()[0]) - start / os.sysconf("SC_CLK_TCK")
+
+
+with open(os.path.join({out!r}, f"start_{{os.getpid()}}.json"), "w") as f:
+    json.dump(_age(), f)
+
+torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+
+from znicz_tpu_torch.models.cifar import run  # noqa: E402,F401
+"""
+
+
+def _lrn_counts(lrn_kernel):
+    return lrn_kernel.lrn_forward.launches, lrn_kernel.lrn_backward.launches
+
+
+def _zero_lrn(lrn_kernel):
+    lrn_kernel.lrn_forward.launches = 0
+    lrn_kernel.lrn_backward.launches = 0
+
+
+def _test_probs(torch, ens):
+    """The ensemble's mean probabilities of the test split's valid rows,
+    and their labels."""
+    probs, labels = [], []
+    for mb in ens.workflows[0].loader.batches("test", shuffle=False):
+        valid = mb.mask > 0
+        probs.append(ens.predict_proba(mb.data)[torch.as_tensor(valid, device="cuda")])
+        labels.append(torch.as_tensor(mb.labels[valid], device="cuda"))
+    return torch.cat(probs), torch.cat(labels)
+
+
+def _search_ensemble(torch, lrn_kernel, cifar, parts):
+    """34a: an in-process Ensemble of CIFAR-10 members on the card."""
+    from znicz_tpu_torch.ensemble import Ensemble
+
+    t0 = time.perf_counter()
+    marks = []
+
+    def build():
+        marks.append(_lrn_counts(lrn_kernel))
+        return cifar.build_workflow(device="cuda", decision_config={"max_epochs": 1})
+
+    ens = Ensemble(build, n_models=SEARCH_MEMBERS, base_seed=SEARCH_SEED)
+    _zero_lrn(lrn_kernel)
+    decisions = ens.train()
+    torch.cuda.synchronize()
+    marks.append(_lrn_counts(lrn_kernel))
+    members = [[b[0] - a[0], b[1] - a[1]] for a, b in zip(marks, marks[1:])]
+    _zero_lrn(lrn_kernel)
+    result = ens.evaluate("test")
+    torch.cuda.synchronize()
+    evaluated = list(_lrn_counts(lrn_kernel))
+    parts["a_train_and_evaluate_s"] = time.perf_counter() - t0
+    steps = [{s: wf.loader.n_minibatches(s) for s in CIFAR_STEPS} for wf in ens.workflows]
+    want = [CIFAR_STEPS["train"] + CIFAR_STEPS["test"], CIFAR_STEPS["train"]]
+    print(f"search 34a: Ensemble of {SEARCH_MEMBERS} CIFAR-10 members (base seed {SEARCH_SEED}, "
+          f"one epoch each): best values {[d.best_value for d in decisions]}; evaluate('test') "
+          f"{json.dumps(result)}; LRN launches a member's training {members}, want {want} "
+          f"each; evaluate's {evaluated}, want [{CIFAR_STEPS['test'] * SEARCH_MEMBERS}, 0]")
+    if steps != [CIFAR_STEPS] * SEARCH_MEMBERS or members != [want] * SEARCH_MEMBERS or (
+            evaluated != [CIFAR_STEPS["test"] * SEARCH_MEMBERS, 0]):
+        fail(f"search 34a: LRN launches {members} / {evaluated} over {steps} steps")
+    if result["n_samples"] != 500 or not all(
+            math.isfinite(float(d.best_value)) for d in decisions):
+        fail(f"search 34a: evaluate saw {result}, best values {decisions}")
+    w0, w1 = (wf.state.params[0]["weights"] for wf in ens.workflows[:2])
+    if torch.equal(w0, w1):
+        fail("search 34a: two members trained to the same weights")
+
+    # the kernels' probabilities against the plain twin's, on the card
+    t0 = time.perf_counter()
+    probs, labels = _test_probs(torch, ens)
+    kernel_fwd = lrn_kernel.lrn_forward
+    lrn_kernel.lrn_forward = lrn_kernel.lrn_reference
+    try:
+        plain, _ = _test_probs(torch, ens)
+    finally:
+        lrn_kernel.lrn_forward = kernel_fwd
+    rel = float(((probs - plain).abs() / plain.abs().clamp_min(1e-30)).max())
+    n_err = [int((p.argmax(1) != labels).sum()) for p in (probs, plain)]
+    parts["a_plain_check_s"] = time.perf_counter() - t0
+    print(f"search 34a: test split's mean probabilities {list(probs.shape)}, kernels against "
+          f"the plain LRN twin on the card: max relative difference {rel:.3e} (limit "
+          f"{SEARCH_PROBS_RTOL}); ensemble n_err {n_err[0]} and {n_err[1]} of {labels.numel()}")
+    if not rel <= SEARCH_PROBS_RTOL or n_err[0] != n_err[1] or probs.shape != (500, 10):
+        fail("search 34a: the kernels' probabilities differ from the plain twin's")
+    return members, evaluated
+
+
+def _search_optimize(torch, lrn_kernel, out_dir, parts):
+    """34b: ``--optimize`` through the launcher, with ``--export``."""
+    import functools
+    import signal
+
+    import numpy as np
+
+    from znicz_tpu_torch import genetics, launcher
+    from znicz_tpu_torch.core import prng
+    from znicz_tpu_torch.core.config import root as troot
+
+    config = os.path.join(out_dir, "search_config.py")
+    with open(config, "w") as f:
+        f.write(SEARCH_CONFIG)
+    cifar_py = os.path.join(_repo_root(), "znicz_tpu_torch", "models", "cifar.py")
+    artifact = os.path.join(out_dir, "best.znicz")
+    runs, exports = [], []
+    main, export, optimize = (launcher.Launcher.main, launcher.Launcher._maybe_export,
+                              genetics.optimize_workflow)
+
+    def recorded_main(self, **kw):
+        dec = main(self, **kw)
+        lrs = sorted({layer["<-"]["learning_rate"] for layer in troot.cifar.layers
+                      if "<-" in layer}, key=str)
+        runs.append((bool(self.args.dry_run), bool(self.args.export),
+                     None if dec is None else dec.best_value, lrs))
+        return dec
+
+    def counted_export(self):
+        if self.args.export:
+            exports.append(self.args.export)
+        return export(self)
+
+    handlers = {sig: signal.getsignal(sig) for sig in (signal.SIGTERM, signal.SIGINT)}
+    launcher.Launcher.main, launcher.Launcher._maybe_export = recorded_main, counted_export
+    genetics.optimize_workflow = functools.partial(optimize, population_size=SEARCH_POPULATION)
+    t0 = time.perf_counter()
+    prng.reset()
+    _zero_lrn(lrn_kernel)
+    try:
+        cli = launcher.run_args([cifar_py, config, "--random-seed", str(SEARCH_OPTIMIZE_SEED),
+                                 "--stop-after", "1", "--optimize", str(SEARCH_GENERATIONS),
+                                 "--export", artifact])
+        torch.cuda.synchronize()
+    finally:
+        launcher.Launcher.main, launcher.Launcher._maybe_export = main, export
+        genetics.optimize_workflow = optimize
+        for sig, h in handlers.items():
+            signal.signal(sig, h)
+    launches = list(_lrn_counts(lrn_kernel))
+    parts["b_optimize_s"] = time.perf_counter() - t0
+    res = cli.result
+    evals = [v for dry, exp, v, _ in runs if not dry and not exp]
+    eval_lrs = [lrs for dry, exp, _, lrs in runs if not dry and not exp]
+    retrains = [v for dry, exp, v, _ in runs if exp and not dry]
+    retrain_lrs = [lrs for dry, exp, _, lrs in runs if exp and not dry]
+    best = res["best_genome"]
+    applied = troot.cifar.lr
+    n_runs = len(evals) + len(retrains)
+    want = [n_runs * (CIFAR_STEPS["train"] + CIFAR_STEPS["test"]), n_runs * CIFAR_STEPS["train"]]
+    print(f"search 34b: --optimize {SEARCH_GENERATIONS} (population {SEARCH_POPULATION}, "
+          f"--stop-after 1, --export) in {parts['b_optimize_s']:.2f} s: history "
+          f"{json.dumps(res['history'])}, best {res['best_fitness']} at lr {best}; "
+          f"{len(evals)} evaluations {evals}; {len(retrains)} retrain, export written "
+          f"{len(exports)} time(s); each evaluation's layers' lr {eval_lrs}; root.cifar.lr "
+          f"{applied}, the retrain's layers' lr {retrain_lrs}; "
+          f"LRN launches {launches}, want {want}")
+    if len(res["history"]) != SEARCH_GENERATIONS or not all(
+            math.isfinite(float(v)) for v in evals + [res["best_fitness"]]):
+        fail(f"search 34b: history {res['history']}, evaluations {evals}")
+    if not SEARCH_POPULATION <= len(evals) <= SEARCH_POPULATION * SEARCH_GENERATIONS:
+        fail(f"search 34b: {len(evals)} evaluations for a population of {SEARCH_POPULATION}")
+    if best[0] == SEARCH_LR_DEFAULT or not eval_lrs or eval_lrs[-1] == [best[0]]:
+        fail(f"search 34b: at seed {SEARCH_OPTIMIZE_SEED} the best genome {best} is the Tune's "
+             f"default or the last evaluation's {eval_lrs[-1:]}: the apply check below could "
+             "not tell a genome left unapplied")
+    if applied != best[0] or retrain_lrs != [[best[0]]] or not (
+            SEARCH_LR_DEFAULT / 10 <= best[0] <= SEARCH_LR_DEFAULT * 10):
+        fail(f"search 34b: the best genome {best} is not what root and the retrain hold")
+    if len(retrains) != 1 or exports != [artifact] or launches != want:
+        fail(f"search 34b: {len(retrains)} retrains, exports {exports}, LRN launches {launches}")
+    header, arrays = _artifact(artifact)
+    params = cli.workflow.state.params
+    n_diff = sum(not np.array_equal(arrays[i, k], params[i][k].detach().cpu().numpy())
+                 for i, k in arrays)
+    if n_diff or len(arrays) != sum(len(p) for p in params):
+        fail(f"search 34b: {n_diff} of {len(arrays)} exported blobs differ from the retrain's")
+    return launches
+
+
+def _search_workers(torch, lrn_kernel, out_dir, parts):
+    """34c: ``train_from_module`` in spawned processes on the card, each
+    member against the same seed in this process."""
+    from znicz_tpu_torch.core import prng, subproc
+    from znicz_tpu_torch.ensemble import train_from_module
+
+    member_py = os.path.join(out_dir, "search_member.py")
+    with open(member_py, "w") as f:
+        f.write(SEARCH_MEMBER.format(out=out_dir))
+    for name in os.listdir(out_dir):
+        if name.startswith("start_"):
+            os.remove(os.path.join(out_dir, name))
+    t0 = time.perf_counter()
+    ens = train_from_module(member_py, n_models=SEARCH_WORKERS, n_workers=SEARCH_WORKERS,
+                            base_seed=SEARCH_SEED, stop_after=1, device="cuda")
+    torch.cuda.synchronize()
+    parts["c_workers_s"] = time.perf_counter() - t0
+    starts = []
+    for name in sorted(os.listdir(out_dir)):
+        # the workers' files; this process's is the scaffold's load
+        if name.startswith("start_") and name != f"start_{os.getpid()}.json":
+            with open(os.path.join(out_dir, name)) as f:
+                starts.append(json.load(f))
+    parts["c_worker_start_s"] = starts
+    t0 = time.perf_counter()
+    _zero_lrn(lrn_kernel)
+    worst, bitwise = 0.0, True
+    for i, member in enumerate(ens.workflows):
+        prng.reset()  # a worker's fresh registry
+        here, dec = subproc._run_workflow_module(member_py, None, seed=SEARCH_SEED + 1000 * i,
+                                                 stop_after=1, device="cuda")
+        got, want = ens.decisions[i].best_value, dec.best_value
+        worst = max(worst, abs(got - want) / max(abs(want), 1e-30))
+        for lg, lw in zip(member.state.params, here.workflow.state.params):
+            for k in lw:
+                if lg[k].device.type != "cuda":
+                    fail(f"search 34c: member {i}'s {k} is on {lg[k].device}")
+                # each leaf's largest difference over its largest magnitude
+                diff = (lg[k] - lw[k].detach()).abs().max() / lw[k].detach().abs().max()
+                worst = max(worst, float(diff))
+                bitwise = bitwise and bool(torch.equal(lg[k], lw[k]))
+    torch.cuda.synchronize()
+    launches = list(_lrn_counts(lrn_kernel))
+    parts["c_in_process_s"] = time.perf_counter() - t0
+    x = ens.workflows[0].loader.data["test"][:8]
+    votes = ens.predict(x)
+    print(f"search 34c: train_from_module, {SEARCH_WORKERS} members in {SEARCH_WORKERS} spawned "
+          f"processes sharing the card, in {parts['c_workers_s']:.2f} s (each process's start, "
+          f"CUDA init, build, one epoch and pickle; a process's start to its module's load "
+          f"{[round(v, 2) for v in starts]} s); best values "
+          f"{[d.best_value for d in ens.decisions]}; against the same seeds in this process "
+          f"({parts['c_in_process_s']:.2f} s, LRN launches {launches}): worst relative "
+          f"difference {worst:.3e} (limit {SEARCH_MEMBER_RTOL}), bitwise {bitwise}; soft votes "
+          f"of 8 test images "
+          f"{votes.tolist()}")
+    if not worst <= SEARCH_MEMBER_RTOL or votes.shape != (8,):
+        fail("search 34c: a spawned member differs from the same seed in this process")
+    return launches
+
+
+def _chunk_flops(b, steps, t_max, vocab, d, layers, d_ff):
+    """The dense engine chunk's matmuls: ``steps`` decode steps of ``b``
+    rows, each block's q, k, v and output projections, the scores and the
+    weighted values over the ``t_max`` cached positions and the two FFN
+    layers, then the head."""
+    block = 4 * 2 * d * d + 2 * 2 * t_max * d + 2 * 2 * d * d_ff
+    return steps * b * (layers * block + 2 * d * vocab)
+
+
+def _search_ledger(parts):
+    """34d: the cost figures of the programs phases 25-29 made."""
+    from znicz_tpu_torch.observability import device as ledger
+
+    t0 = time.perf_counter()
+    with ledger._LOCK:
+        entries = list(ledger._PROGRAMS.items())  # (source:dedup key, entry)
+    on_card = [(k, e) for k, e in entries if "'cuda" in k]
+    on_cpu = [(k, e) for k, e in entries if "'cuda" not in k]
+    bad = [(e["key"], e["flops"], e["memory"]) for _, e in on_card
+           if not (e["flops"] or 0) > 0 or not (e["memory"] or {}).get("temp_size_in_bytes", 0) > 0]
+    bad += [(e["key"], e["flops"], e["memory"]) for _, e in on_cpu
+            if not (e["flops"] or 0) > 0 or e["memory"] is not None]
+    greedy = (True, 0, False)
+    chunk_key = str(("chunk", ENGINE["admit_every"], ENGINE_B, greedy))
+    want = _chunk_flops(ENGINE_B, ENGINE["admit_every"], ENGINE["max_seq"], LM_MID["vocab"],
+                        LM_MID["d_model"], LM_MID["n_layers"], 4 * LM_MID["d_model"])
+    chunks = [e for _, e in on_card if e["key"] == chunk_key]
+    by_kind = {}
+    for _, e in on_card:
+        by_kind.setdefault(f"{e['source']}:{e['kind']}", []).append(e["flops"])
+    pools = [e["memory"]["temp_size_in_bytes"] for _, e in on_card if e["memory"]]
+    parts["d_ledger_s"] = time.perf_counter() - t0
+    print(f"search 34d: the device ledger holds {len(on_card)} programs made on the card and "
+          f"{len(on_cpu)} on the CPU; flops by source and kind on the card "
+          f"{json.dumps({k: sorted(v) for k, v in by_kind.items()})}; graph pools "
+          f"{min(pools or [0])}-{max(pools or [0])} bytes; the mid LM's dense chunk {chunk_key} "
+          f"entries' flops {[e['flops'] for e in chunks]}, analytic {want}; bytes_accessed "
+          f"{sorted({str(e['bytes_accessed']) for _, e in entries})}; wrong figures {bad}")
+    if not on_card or bad or float(want) not in [e["flops"] for e in chunks]:
+        fail("search 34d: the ledger's cost figures are wrong")
+    return {"programs_on_card": len(on_card), "programs_on_cpu": len(on_cpu),
+            "chunk_flops": want}
+
+
+COUNT_TURNS = (True, False, False, True)  # 34d: the flop count on and off, in turns
+
+
+def _counting_cost(torch, parts):
+    """34d: what the flop count adds to the spans it runs in, the served
+    program's first request (``generate_serve``'s compile and first run:
+    phase 25's ``serve_first_s``, phase 26's capture seconds) and a fresh
+    dense engine's first pass over one prompt of each length (its
+    captures: the ledgered ``compile_s``; each turn new weights, so each
+    engine's programs are first makes), each timed with the count on and
+    with ``lowered_cost`` run uncounted, in turns.  The ledger is put back
+    after."""
+    import numpy as np
+
+    from znicz_tpu_torch.core import prng
+    from znicz_tpu_torch.observability import device as ledger
+    from znicz_tpu_torch.services import engine as TE
+    from znicz_tpu_torch.workflow import generate as G, transformer
+
+    t0 = time.perf_counter()
+    counted = ledger.lowered_cost
+
+    def uncounted(fn, args=(), kwargs=None):
+        return fn(*args, **(kwargs or {})), None
+
+    def lm(seed, max_seq):
+        prng.seed_all(seed)
+        return transformer.init_lm_params(LM_MID["vocab"], LM_MID["d_model"],
+                                          LM_MID["n_layers"], LM_MID["n_heads"], max_seq,
+                                          device="cuda")
+
+    reqs = np.random.default_rng(13)
+    dec_params = lm(97, DECODE_PROMPT + DECODE_NEW)
+    prompt = torch.as_tensor(reqs.integers(1, LM_MID["vocab"], (LM_B, DECODE_PROMPT)),
+                             device="cuda")
+    prompts = [reqs.integers(1, LM_MID["vocab"], (n,)).astype(np.int32) for n in SERVE_LENS]
+    with ledger._LOCK:
+        saved = dict(ledger._PROGRAMS)
+    serve, engine = {True: [], False: []}, {True: [], False: []}
+    try:
+        for turn, on in enumerate(COUNT_TURNS):
+            ledger.lowered_cost = counted if on else uncounted
+            G.reset_serve_cache()
+            serve[on].append(_wall(torch, lambda: G.generate_serve(
+                dec_params, prompt, n_heads=LM_MID["n_heads"], max_new_tokens=DECODE_NEW), 1)[0])
+            eng = TE.DecodeEngine(lm(300 + turn, ENGINE["max_seq"]), batch_size=ENGINE_B,
+                                  **ENGINE)
+            _served(eng, prompts, SERVE_NEW)
+            torch.cuda.synchronize()
+            engine[on].append(sum(eng.capture_s.values()))
+            del eng
+    finally:
+        ledger.lowered_cost = counted
+        G.reset_serve_cache()
+        with ledger._LOCK:
+            ledger._PROGRAMS.clear()
+            ledger._PROGRAMS.update(saved)
+    res = {name: {"on_s": d[True], "off_s": d[False],
+                  "added_s": statistics.fmean(d[True]) - statistics.fmean(d[False])}
+           for name, d in (("serve_first_request", serve), ("engine_first_pass", engine))}
+    parts["d_counting_s"] = time.perf_counter() - t0
+    print(f"search 34d: the flop count's cost in the spans it runs in (on / off in turns "
+          f"{list(COUNT_TURNS)}): generate_serve's first request (compile and run, the mid LM, "
+          f"batch {LM_B}, prompt {DECODE_PROMPT}, {DECODE_NEW} new tokens) on "
+          f"{[round(v, 4) for v in serve[True]]} s, off {[round(v, 4) for v in serve[False]]} s, "
+          f"added {res['serve_first_request']['added_s']:.4f} s; a fresh dense engine's captures "
+          f"over {len(prompts)} prompts on {[round(v, 4) for v in engine[True]]} s, off "
+          f"{[round(v, 4) for v in engine[False]]} s, added "
+          f"{res['engine_first_pass']['added_s']:.4f} s")
+    return res
+
+
+def phase_search(torch, lrn_kernel, cifar, smi):
+    """Phase 34: genetic search and ensembles over CIFAR-10 on the card, and
+    the device ledger's cost figures."""
+    from znicz_tpu_torch.core.config import root as troot
+
+    t_phase = time.perf_counter()
+    out_dir = os.path.abspath(os.path.join(WORK_DIR, "search"))
+    os.makedirs(out_dir, exist_ok=True)
+    saved = troot.to_dict()
+    _f32_exact(torch)
+    cudnn = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    parts = {}
+    try:
+        members, evaluated = _search_ensemble(torch, lrn_kernel, cifar, parts)
+        optimize = _search_optimize(torch, lrn_kernel, out_dir, parts)
+        troot.clear()
+        troot.update(saved)
+        workers = _search_workers(torch, lrn_kernel, out_dir, parts)
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = cudnn
+        troot.clear()
+        troot.update(saved)
+    parts["ledger"] = _search_ledger(parts)
+    parts["counting"] = _counting_cost(torch, parts)
+    parts["phase_s"] = time.perf_counter() - t_phase
+    print(f"search: phase 34 in {parts['phase_s']:.2f} s (limit 60 s) on {smi}")
+    if parts["phase_s"] > 60.0:
+        fail(f"search: phase 34 took {parts['phase_s']:.1f} s, over its 60 s")
+    launches = {
+        kname: {"ensemble_members": [m[j] for m in members], "ensemble_evaluate": evaluated[j],
+                "optimize": optimize[j], "in_process_members": workers[j]}
+        for j, kname in enumerate(("lrn_fwd", "lrn_bwd"))}
+    return launches, parts
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -7114,6 +7642,7 @@ def main() -> int:
     from znicz_tpu_torch.ops.kernels import kohonen as khk, rbm as rbk
     from znicz_tpu_torch.workflow import model as model_lib, transformer
 
+    stand_ins = _memoize_stand_ins(prng, datasets)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
@@ -7189,7 +7718,13 @@ def main() -> int:
     moe_graph = phase_moe_graph(torch, prng)
     print(f"moe phases: {time.perf_counter() - t0:.1f} s; " + json.dumps(moe))
     t0 = time.perf_counter()
+    # the process's first flop count pays FlopCounterMode's one-time set-up
+    # (it imports torch's distributed-tensor and dynamo modules): paid and
+    # timed here, outside the decode and serving spans; 34d times what each
+    # count then adds to them
+    flop_counter_first_s = _flop_counter_first_use(torch)
     decode, lm_params = phase_decode(torch, transformer, prng, lm_loader, smi)
+    decode["flop_counter_first_use_s"] = flop_counter_first_s
     decode["serve"] = phase_serve(torch, lm_params, smi)
     del lm_params
     print(f"decode phases: {time.perf_counter() - t0:.1f} s; " + json.dumps(decode))
@@ -7221,6 +7756,9 @@ def main() -> int:
     launcher_launches, launcher_parts = phase_launcher(torch, lrn_kernel, alexnet, model_lib,
                                                        prng, smi)
     print(f"launcher phase: {time.perf_counter() - t0:.1f} s; " + json.dumps(launcher_parts))
+    t0 = time.perf_counter()
+    search_launches, search_parts = phase_search(torch, lrn_kernel, cifar, smi)
+    print(f"search phase: {time.perf_counter() - t0:.1f} s; " + json.dumps(search_parts))
 
     kernels = []
     for kname in ("lrn_fwd", "lrn_bwd"):
@@ -7273,6 +7811,9 @@ def main() -> int:
         entry["tp"] = {"gloo_ranks": tp_launches[kname]}
         # phase 33: AlexNet's epoch through `python -m znicz_tpu_torch`
         entry["launcher"] = {"launches": launcher_launches[kname]}
+        # phase 34: each ensemble member's epoch, its evaluate, the search's
+        # runs and the in-process members of 34c
+        entry["search"] = {"launches": search_launches[kname]}
         kernels.append(entry)
     for kname in FLASH:
         row = flash_rows[(kname, "float32")]  # the counted epoch's dtype
@@ -7336,6 +7877,8 @@ def main() -> int:
             # phase 31: each rank's of the (data=2, model=2) mesh
             "tp": {"gloo_ranks": tp_launches[kname]},
         })
+    print(f"stand-ins: {stand_ins['draws']} drawn in {stand_ins['draw_s']:.1f} s, "
+          f"{stand_ins['reuses']} reused ({stand_ins['reuse_s']:.1f} s for their copies)")
     print(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({

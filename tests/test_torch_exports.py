@@ -24,17 +24,13 @@ JAX_PKG = os.path.join(REPO, "znicz_tpu")
 ROADMAP = open(os.path.join(REPO, "ROADMAP.md")).read()
 
 # (package, name) -> the ROADMAP.md item that ports it
-WAITING = {
-    ("", "Ensemble"): "A11",
-}
+WAITING = {}
 # JAX packages with no port package yet -> their ROADMAP.md item.  The
 # static analyzer (``analysis``) is not ported: it is jax-free and checks
-# the port's sources as they are (ROADMAP.md A11); ``ops/pallas`` holds the
-# TPU kernels, whose Hopper kernels live under ``ops/kernels``.
-WAITING_PACKAGES = {
-    "ensemble": "A11",
-    "genetics": "A11",
-}
+# the port's sources as they are (tests/test_torch_static_analysis.py);
+# ``ops/pallas`` holds the TPU kernels, whose Hopper kernels live under
+# ``ops/kernels``.
+WAITING_PACKAGES = {}
 NOT_PORTED_AS_PACKAGES = {"analysis", "analysis.rules", "ops.pallas"}
 
 

@@ -56,7 +56,8 @@ def test_package_has_the_slice_modules():
         "services.frontdoor", "services.serve", "cluster", "cluster.affinity",
         "cluster.registry", "cluster.router", "cluster.proxy", "observability.doctor",
         "parallel", "parallel.mesh", "parallel.multihost", "parallel.data_parallel",
-        "loader.pool_sharded",
+        "loader.pool_sharded", "launcher", "core.subproc", "genetics", "ensemble",
+        "utils.bench_diff",
     ):
         assert f"znicz_tpu_torch.{name}" in mods
 

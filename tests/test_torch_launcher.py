@@ -12,9 +12,11 @@ JAX snapshot; each pair's decision histories (n_err exactly, losses rtol
 ``--export``, a module without ``run``, and ``--device cpu
 --data-parallel`` where a card is visible.  The parser takes exactly JAX's
 option strings with its defaults; ``--device tpu`` means the card; without
-a card and without ``--device`` the run raises; ``--optimize`` refuses
-naming ROADMAP.md A11; every model module builds under ``--dry-run
---device cpu`` (AlexNet at full width on a cut loader).  As
+a card and without ``--device`` the run raises; ``--optimize-workers``
+without ``--optimize`` trains as JAX's launcher does, and ``--optimize 1``
+runs its search (the search itself is held against JAX's in
+``tests/test_torch_genetics.py``); every model module builds under
+``--dry-run --device cpu`` (AlexNet at full width on a cut loader).  As
 ``tests/test_self_healing.py`` does for the JAX package, a crash under
 ``--supervise`` resumes to the uninterrupted run's history and params, and
 a SIGTERM mid-epoch exits 75 with an emergency snapshot from which
@@ -161,10 +163,34 @@ def test_no_card_and_no_device_raises(tmp_path, monkeypatch):
         launcher.run_args([_wine(tmp_path), "--stop-after", "1"])
 
 
-def test_optimize_refuses_naming_the_roadmap(tmp_path):
-    for flags in (["--optimize", "2"], ["--optimize-workers", "2"]):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md A11"):
-            launcher.run_args([_wine(tmp_path)] + CPU + flags)
+def test_optimize_workers_without_optimize_trains_as_jax(tmp_path):
+    """JAX's launcher reads ``--optimize-workers`` only under ``--optimize``:
+    without it the run trains, as JAX's does."""
+    got, want = _both(tmp_path, ["--random-seed", "1", "--stop-after", "1",
+                                 "--optimize-workers", "2"])
+    assert got.result.epoch == want.result.epoch == 1
+
+
+def test_optimize_one_generation_runs(tmp_path):
+    wf_py = tmp_path / "wf_tuned.py"
+    wf_py.write_text(
+        "from znicz_tpu_torch.core.config import root\n"
+        "from znicz_tpu_torch.genetics import Tune\n"
+        "from znicz_tpu_torch.models import wine\n"
+        "root.wine.update({'lr': Tune(0.3, 0.05, 0.5)})\n"
+        "def run(load, main):\n"
+        "    lr = root.wine.get('lr')\n"
+        "    root.wine.layers = [{**l, '<-': {**l['<-'], 'learning_rate': lr}}\n"
+        "                        for l in wine.DEFAULTS['layers']]\n"
+        "    load(wine.build_workflow)\n"
+        "    main()\n"
+    )
+    tprng.reset()
+    got = launcher.run_args([str(wf_py), "--random-seed", "3", "--stop-after", "1",
+                             "--optimize", "1"] + CPU)
+    assert [h["generation"] for h in got.result["history"]] == [0]
+    assert np.isfinite(got.result["best_fitness"])
+    assert troot.wine.lr == got.result["best_genome"][0]
 
 
 def test_run_workflow_with_config_override(tmp_path):

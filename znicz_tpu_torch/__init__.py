@@ -15,8 +15,7 @@ TPU kernels on the ported paths are hand-written for Hopper: wrappers under
 first use), each beside its plain PyTorch version.
 
 The top level exports the JAX package's names, the heavy ones lazily
-(PEP 562), except ``Ensemble``, whose module is still to port (ROADMAP.md
-A11).
+(PEP 562).
 """
 
 __version__ = "0.1.0"
@@ -39,6 +38,7 @@ _LAZY = {
     "DataParallel": ("znicz_tpu_torch.parallel", "DataParallel"),
     "make_mesh": ("znicz_tpu_torch.parallel", "make_mesh"),
     "export_model": ("znicz_tpu_torch.export", "export_model"),
+    "Ensemble": ("znicz_tpu_torch.ensemble", "Ensemble"),
 }
 
 

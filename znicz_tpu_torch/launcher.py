@@ -17,8 +17,11 @@ two-file UX, with its flags and their defaults.
   --snapshot      resume from a snapshot file
   --snapshot-dir  where snapshots are written
   --data-parallel shard the batch over the job's processes (one device each)
-  --optimize      genetic hyperparameter search: not ported yet (ROADMAP.md
-                  A11); it and ``--optimize-workers`` raise
+  --optimize      genetic hyperparameter search over the config tree's
+                  ``Tune`` leaves for N generations; ``--optimize-workers``
+                  evaluates each generation in spawned worker processes
+                  (on the workers' ``--device``), and is ignored without
+                  ``--optimize``
 
 Self-healing: ``--resume auto`` resumes from the newest VALID snapshot in
 ``--snapshot-dir`` (corrupt files skipped) or starts fresh;
@@ -144,15 +147,13 @@ def make_parser() -> argparse.ArgumentParser:
     p.add_argument("--stop-after", type=int, default=None, metavar="EPOCHS",
                    help="override the workflow's max_epochs")
     p.add_argument("--optimize", type=int, default=None, metavar="GENS",
-                   help="genetic hyperparameter search for N generations "
-                        "(not ported yet: ROADMAP.md A11)")
+                   help="genetic hyperparameter search for N generations")
     p.add_argument("--optimize-workers", type=int, default=0, metavar="N",
                    help="evaluate each generation in N spawned worker "
                         "processes (reference: concurrent workflow "
                         "instances); deterministic given --random-seed and "
                         "independent of N. Combine with --device cpu on a "
-                        "single shared accelerator (not ported yet: "
-                        "ROADMAP.md A11)")
+                        "single shared accelerator")
     p.add_argument("--export", default=None, metavar="MODEL.znicz",
                    help="after training, export the model for the native "
                         "inference engine (native/znicz_infer)")
@@ -243,7 +244,7 @@ class Launcher(Logger):
                         self.workflow = workflow_cls(*wf_args, **wf_kwargs)
                         return self.workflow
                 # bind failure: let the real constructor report it
-                except TypeError:
+                except TypeError:  # znicz-check: disable=ZNC008
                     pass
             except (TypeError, ValueError):  # C callables, odd metaclasses
                 accepts = True
@@ -451,7 +452,7 @@ def supervise(args: argparse.Namespace, argv) -> int:
             try:
                 proc.send_signal(signum)
             # child already reaped: nothing to forward to
-            except OSError:
+            except OSError:  # znicz-check: disable=ZNC008
                 pass
 
     prev = {}
@@ -459,7 +460,7 @@ def supervise(args: argparse.Namespace, argv) -> int:
         try:
             prev[signum] = signal.signal(signum, _forward)
         # non-main thread (tests): forwarding off
-        except ValueError:
+        except ValueError:  # znicz-check: disable=ZNC008
             pass
     restarts = 0
     try:
@@ -485,7 +486,7 @@ def supervise(args: argparse.Namespace, argv) -> int:
                     "exit_code": rc,
                     "signalled": state["signalled"],
                     # timestamp, not a duration
-                    "unix": time.time(),
+                    "unix": time.time(),  # znicz-check: disable=ZNC007
                 }
             )
             try:
@@ -537,7 +538,7 @@ def supervise(args: argparse.Namespace, argv) -> int:
             try:
                 signal.signal(signum, handler)
             # non-main thread: nothing was installed to restore
-            except ValueError:
+            except ValueError:  # znicz-check: disable=ZNC008
                 pass
 
 
@@ -633,16 +634,48 @@ def run_args(argv=None) -> Launcher:
             f"{args.workflow} does not define run(load, main) "
             "(reference workflow convention)"
         )
-    if args.optimize and args.evaluate:
-        raise SystemExit(
-            "--optimize and --evaluate conflict: the genetic search "
-            "needs training runs, evaluation mode skips them"
+    if args.optimize:
+        if args.evaluate:
+            raise SystemExit(
+                "--optimize and --evaluate conflict: the genetic search "
+                "needs training runs, evaluation mode skips them"
+            )
+        from znicz_tpu_torch.genetics import find_tunables, optimize_workflow
+
+        # collect the search space BEFORE any probe: workflow modules may
+        # materialize Tune copies into root during run(), and those must not
+        # widen the genome
+        tunables = find_tunables(root)
+        # export must capture the BEST genome's weights, not whichever
+        # candidate trained last: defer it past the search, then retrain
+        # once with the winning config applied
+        export_path, args.export = args.export, None
+        if export_path:
+            # exportability must fail BEFORE a long search, not after it:
+            # probe with a dry run (builds the workflow, trains nothing);
+            # restore the PRNG registry afterwards so the search trajectory
+            # is identical with and without --export
+            from znicz_tpu_torch.core import prng as _prng
+
+            prng_state = _prng.state_dict()
+            args.export, args.dry_run, saved_dry = export_path, True, args.dry_run
+            module.run(launcher.load, launcher.main)
+            args.export, args.dry_run = None, saved_dry
+            _prng.reset()
+            _prng.load_state_dict(prng_state)
+        launcher.result = optimize_workflow(
+            module,
+            launcher,
+            generations=args.optimize,
+            tunables=tunables,
+            n_workers=args.optimize_workers,
         )
-    if args.optimize or args.optimize_workers:
-        raise NotImplementedError(
-            "--optimize and --optimize-workers: the genetic search "
-            "(genetics/) is not ported yet (ROADMAP.md A11)"
-        )
+        if export_path:
+            args.export = export_path
+            opt_result = launcher.result
+            module.run(launcher.load, launcher.main)
+            launcher.result = opt_result  # keep the search summary
+        return launcher
     from znicz_tpu_torch.workflow.recovery import TrainingPreempted
 
     _install_stop_handlers(launcher)

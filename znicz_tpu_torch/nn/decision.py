@@ -33,7 +33,7 @@ class EpochMetrics:
             try:
                 v = float(v)
             # type filter: non-scalar extras are not reduced here
-            except (TypeError, ValueError):
+            except (TypeError, ValueError):  # znicz-check: disable=ZNC008
                 continue
             if k.startswith("max_"):  # peak-style metrics keep the max
                 self.extras[k] = max(self.extras.get(k, float("-inf")), v)

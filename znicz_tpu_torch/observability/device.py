@@ -28,9 +28,30 @@ byte for byte: ``znicz_compile_seconds{kind}`` (histogram),
   keeps CUPTI subscribed after the capture (it cannot tear it down safely
   there): every later graph launch issues slower.
 
-The cost figures (``stage_cost``, ``lowered_cost``, ``compiled_memory``)
-are ROADMAP.md A11.  Pure stdlib at import; torch is imported by the two
-functions above when they run.
+The cost figures come from the program's own first run, never from an
+extra one (a decode or engine step updates its caches and row state in
+place, so a second run would change the tokens):
+
+* :func:`lowered_cost` runs a program's first eager call (the run before
+  a capture; on the CPU, its first call) under
+  ``torch.utils.flop_counter.FlopCounterMode`` and returns its result
+  and :func:`stage_cost` of the counter.  ``flops`` counts what the
+  counter sees: matmuls, convolutions and attention, where XLA's cost
+  analysis also counts elementwise and transcendental work.  A hand
+  kernel launched through ctypes is invisible to it.  ``bytes_accessed``
+  is None: torch has no counterpart to XLA's post-fusion byte estimate.
+  The counted run is the program's own, so its seconds (the counter's
+  dispatch cost included) stay in the span that times the first make:
+  an engine program's ``compile_s``, ``generate_serve``'s compile and
+  first request.  A process's first count also pays the counter's
+  one-time set-up (it imports torch's distributed-tensor modules).
+* :func:`compiled_memory` of a captured CUDA graph is the bytes its
+  private memory pool holds, under the JAX package's field
+  ``temp_size_in_bytes``; None on the CPU (no graph).  There is no
+  executable, so no ``generated_code_size_in_bytes``.
+
+Pure stdlib at import; torch is imported by the functions that need it
+when they run.
 """
 
 from __future__ import annotations
@@ -90,6 +111,60 @@ def _m_device_memory():
         "programs) and live memory_stats where the backend reports them",
         ("kind", "device"),
     )
+
+
+# -- cost / memory figures (never raise) -------------------------------------
+
+
+def stage_cost(counter) -> Optional[dict]:
+    """Normalized cost of a stage a ``FlopCounterMode`` watched:
+    ``{"flops": float, "bytes_accessed": None}``; None without a counter
+    (or when it cannot answer)."""
+    if counter is None:
+        return None
+    try:
+        flops = float(counter.get_total_flops())
+    except Exception:
+        logger.debug("flop count unavailable", exc_info=True)
+        return None
+    return {"flops": flops, "bytes_accessed": None}
+
+
+def lowered_cost(fn, args=(), kwargs=None):
+    """Run ``fn(*args, **kwargs)`` ONCE, as the program's own call, under
+    a ``FlopCounterMode``; returns ``(result, cost)``, ``cost`` None where
+    the counter is unavailable (the call then runs uncounted).  The
+    counter passes every op through unchanged."""
+    try:
+        from torch.utils.flop_counter import FlopCounterMode
+
+        counter = FlopCounterMode(display=False)
+    except Exception:
+        logger.debug("FlopCounterMode unavailable", exc_info=True)
+        return fn(*args, **(kwargs or {})), None
+    with counter:
+        out = fn(*args, **(kwargs or {}))
+    return out, stage_cost(counter)
+
+
+def compiled_memory(graph) -> Optional[dict]:
+    """``{"temp_size_in_bytes": n}``: the bytes the captured CUDA graph's
+    private memory pool holds (the caching allocator's segments of that
+    pool).  None without a graph, or when the allocator cannot say."""
+    if graph is None:
+        return None
+    try:
+        import torch
+
+        pool = tuple(graph.pool())
+        held = sum(
+            int(seg["total_size"]) for seg in torch.cuda.memory_snapshot()
+            if tuple(seg.get("segment_pool_id", ())) == pool
+        )
+    except Exception:
+        logger.debug("graph pool size unavailable", exc_info=True)
+        return None
+    return {"temp_size_in_bytes": held}
 
 
 def record_program(

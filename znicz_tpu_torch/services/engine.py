@@ -266,7 +266,10 @@ class _Program:
     the card the first call runs it eagerly on a side stream (this call's
     work; it also loads cuBLAS's algorithms and fills the allocator, which
     a capture may not do) and then captures it into :attr:`graph`; later
-    calls replay the graph.  A failed capture raises."""
+    calls replay the graph.  A failed capture raises.
+
+    ``count=True`` counts the flops of the call's eager run (never of the
+    capture) into :attr:`cost`: one call of the program, all its steps."""
 
     def __init__(self, run: Callable[[], None], io: Dict[str, torch.Tensor], device,
                  capture: bool = True):
@@ -275,22 +278,29 @@ class _Program:
         self.device = device
         self.capture = capture and device.type == "cuda"
         self.graph = None
+        self.cost = None
 
-    def __call__(self) -> None:
+    def __call__(self, count: bool = False) -> None:
         with torch.no_grad():
             if self.graph is not None:
                 self.graph.replay()
             elif self.capture:
-                self._first_call()
+                self._first_call(count)
             else:
-                self.run()
+                self._eager(count)
 
-    def _first_call(self) -> None:
+    def _eager(self, count: bool) -> None:
+        if count:
+            _, self.cost = device_telemetry.lowered_cost(self.run)
+        else:
+            self.run()
+
+    def _first_call(self, count: bool) -> None:
         current = torch.cuda.current_stream(self.device)
         side = torch.cuda.Stream(self.device)
         side.wait_stream(current)
         with torch.cuda.stream(side):
-            self.run()
+            self._eager(count)
         current.wait_stream(side)
         graph = torch.cuda.CUDAGraph()
         # an engine and its programs form a reference cycle: collect dead
@@ -720,13 +730,17 @@ class DecodeEngine:
             prog()
             return prog
         t0 = time.perf_counter()
-        prog()
+        prog(count=first)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         seconds = time.perf_counter() - t0
         self.capture_s[key] = seconds
         if first:
-            device_telemetry.record_program(key, seconds, dedup=(self._params_fp, key))
+            device_telemetry.record_program(
+                key, seconds, cost=prog.cost,
+                memory=device_telemetry.compiled_memory(prog.graph),
+                dedup=(self._params_fp, key),
+            )
         return prog
 
     def _zeros(self, shape, dtype=torch.int64) -> torch.Tensor:

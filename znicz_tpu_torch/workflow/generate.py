@@ -487,10 +487,16 @@ class _DecodeProgram:
     and the noise buffer.  :meth:`_step` reads and writes only these, with
     no host read, so on the card it is captured once (``graph=True``:
     after one eager warm-up step on a side stream) and replayed a
-    position."""
+    position.
+
+    ``count=True`` counts the program's flops as it runs, never running
+    anything extra: the first step run eagerly (the warm-up before the
+    capture; on the CPU, the first request's first step) and the first
+    request's prefill; :meth:`cost` scales the step by the program's
+    ``max_new_tokens - 1`` steps, one call of the program."""
 
     def __init__(self, params, batch, tp, max_new_tokens, *, n_heads, greedy, top_k, nucleus,
-                 eos_id, moe_top_k, moe_dispatch, padded, graph):
+                 eos_id, moe_top_k, moe_dispatch, padded, graph, count=False):
         with torch.no_grad():
             self.params = [{k: w.detach().clone() for k, w in layer.items()} for layer in params]
         dev = params[0]["embed"].device
@@ -511,6 +517,8 @@ class _DecodeProgram:
         self.top_p = torch.ones((), device=dev)
         self.noise = None if greedy else torch.zeros((batch, vocab), device=dev)
         self.graph = None
+        self.count = count
+        self.step_cost = self.prefill_cost = None
         if graph:
             self._capture()
 
@@ -543,7 +551,7 @@ class _DecodeProgram:
         side.wait_stream(torch.cuda.current_stream(self.device))
         with torch.no_grad():
             with torch.cuda.stream(side):
-                self._step()
+                self._counted_step()
             torch.cuda.current_stream(self.device).wait_stream(side)
             graph = torch.cuda.CUDAGraph()
             try:
@@ -576,10 +584,13 @@ class _DecodeProgram:
             self.top_p.fill_(float(top_p))
             self.out.fill_(self.fill)
             self.i.fill_(1)
-            _, logits = prefill(
-                self.params, self.prompt, self.caches, n_heads=self.n_heads, start=self.start,
-                moe_top_k=self.moe_top_k, moe_dispatch=self.moe_dispatch,
-            )
+            prefill_kw = dict(n_heads=self.n_heads, start=self.start,
+                              moe_top_k=self.moe_top_k, moe_dispatch=self.moe_dispatch)
+            if self.count and self.prefill_cost is None:
+                (_, logits), self.prefill_cost = device_telemetry.lowered_cost(
+                    prefill, (self.params, self.prompt, self.caches), prefill_kw)
+            else:
+                _, logits = prefill(self.params, self.prompt, self.caches, **prefill_kw)
             if not self.greedy:
                 self.noise.copy_(_gumbel(rng, 0, self.noise.shape, self.device))
             first = self._sample(logits)
@@ -598,8 +609,27 @@ class _DecodeProgram:
                 if self.graph is not None:
                     self.graph.replay()
                 else:
-                    self._step()
+                    self._counted_step()
             return torch.cat([self.prompt, self.out], dim=1)
+
+    def _counted_step(self) -> None:
+        """:meth:`_step`, counted where it is the program's first eager
+        step and ``count`` asks for it."""
+        if self.count and self.step_cost is None:
+            _, self.step_cost = device_telemetry.lowered_cost(self._step)
+        else:
+            self._step()
+
+    def cost(self) -> Optional[dict]:
+        """One call's cost: the prefill plus ``max_new_tokens - 1`` steps
+        (what the bucketed program covers); None until both were seen."""
+        step = self.step_cost if self.max_new_tokens > 1 else {"flops": 0.0}
+        if not self.prefill_cost or not step:
+            return None
+        return {
+            "flops": self.prefill_cost["flops"] + (self.max_new_tokens - 1) * step["flops"],
+            "bytes_accessed": None,
+        }
 
     def _all_done(self, flags: deque) -> bool:
         """Whether every row had emitted EOS: on the CPU now; on the card
@@ -840,23 +870,28 @@ def generate_serve(
     )
     _serve_cache.record_request()
     program = _serve_cache.programs.get(key)
-    if program is None:
+    made = program is None
+    if made:
         t0 = time.perf_counter()
         program = _DecodeProgram(
             params, b, bucket_tp, bucket_new, n_heads=n_heads, greedy=greedy, top_k=top_k,
             nucleus=nucleus, eos_id=eos_id, moe_top_k=moe_top_k, moe_dispatch=moe_dispatch,
-            padded=True, graph=device.type == "cuda",
+            padded=True, graph=device.type == "cuda", count=True,
         )
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         compile_s = time.perf_counter() - t0
         _serve_cache.programs[key] = program
         _serve_cache.record_compile()
-        device_telemetry.record_program(
-            ("serve", bucket_tp, bucket_new, b, greedy, top_k, nucleus),
-            compile_s, source="serve_cache", dedup=key,
-        )
     else:
         _serve_cache.record_hit()
     out = program.run(params, padded, start, max_new_tokens, temperature, top_p, rng)
+    if made:
+        # the first request counted the program's flops as it ran: ledger it
+        program.count = False
+        device_telemetry.record_program(
+            ("serve", bucket_tp, bucket_new, b, greedy, top_k, nucleus),
+            compile_s, source="serve_cache", cost=program.cost(),
+            memory=device_telemetry.compiled_memory(program.graph), dedup=key,
+        )
     return out[:, pad: pad + tp + max_new_tokens].to(torch.int32)
