@@ -36,30 +36,33 @@ draw their ~250M normals once a state.  The phases:
    spills with the dynamic shared memory of each kernel; then the tensor-core
    instructions (SASS ``HMMA``, and ``HGMMA`` for ``wgmma``) of each kernel,
    counted in ``cuobjdump -sass`` of the built library: it fails if one of
-   the 24 kernels (the bf16 forward, dQ and dK/dV; the f32 ones in 3xTF32)
-   has none;
+   the 30 kernels (the bf16 forward, dQ and dK/dV; the f32 ones in 3xTF32;
+   head dims 16 to 256) has none, or if a D-256 kernel spills;
 6. each flash kernel (forward, dQ, dK/dV) against its plain version on the
    same CUDA tensors, with O(1) ``dout`` and ``dlse``: the LM slice's shape
    (B 16, T 2048, H 8, D 64, causal), D 32 and 128, a non-causal and a
    ragged (T 2000) case, phase 31's tensor-parallel shape on each rank
    (B 2, T 2048, 4 local heads, D 64, causal), and phase 32's: the ring's
    blocks (B 4, T 1024, causal and full), a pipeline stage's microbatch
-   (B 1, T 2048, causal) and the same over 4 local heads, each in f32 and
-   bf16; at
-   the slice shape a second launch of the forward, dQ and dK/dV must be
-   bitwise equal to the first, in both dtypes; the f32 forward's ``out`` and ``lse`` (at the slice
-   shape, D 128 and without the mask) and dQ and dK/dV (at the slice shape)
+   (B 1, T 2048, causal) and the same over 4 local heads, and head dim 256
+   (phase 35's shape B 16, T 2048, H 2, causal; full attention; T 2000 and
+   T 40), each in f32 and bf16; at the slice shape and at D 256's a second
+   launch of the forward, dQ and dK/dV must be bitwise equal to the first,
+   in both dtypes; the f32 forward's ``out`` and ``lse`` (at those two
+   shapes, D 128 and without the mask) and dQ and dK/dV (at those two)
    against a float64 plain version, within 10 times the f32 plain
-   version's error;
-   6b. ``flash_attention_lse`` at a head dim the kernels take zero-padded
-   (96, on non-contiguous views), forward and gradients against autograd
-   through the plain forward, in f32 and bf16; and the three wrappers at a
-   B*H of 65600, launched as two batch slices, against their plain versions;
-7. the flash kernels' times at the slice shape beside their bound (the f32
-   kernels at the 3xTF32 rate, their f32-FMA bound beside it), the
-   plain versions' and ``F.scaled_dot_product_attention``'s forward and
-   autograd backward (timed here only; the port never calls it), in f32 and
-   bf16;
+   version's error; the forwards at D 256 with a negative scale;
+   6b. ``flash_attention_lse`` at head dims the kernels take zero-padded
+   (96 and 192, on non-contiguous views), forward and gradients against
+   autograd through the plain forward, in f32 and bf16; and the three
+   wrappers at a B*H of 65600, launched as two batch slices, against their
+   plain versions;
+7. the flash kernels' times at the slice shape and at phase 35's
+   ``[16, 2048, 2, 256]`` (the same B*H*D, so the same bound) beside their
+   bound (the f32 kernels at the 3xTF32 rate, their f32-FMA bound beside
+   it), the plain versions' and ``F.scaled_dot_product_attention``'s
+   forward and autograd backward (timed here only; the port never calls
+   it), in f32 and bf16;
 8. the LM slice: ``transformer_lm.build_workflow(device="cuda",
    attention="flash")`` at the repo's mid LM's width and depth (vocab 8192,
    d_model 512, 12 layers, 8 heads, T 2048, batch 16) runs one epoch (4
@@ -435,9 +438,21 @@ draw their ~250M normals once a state.  The phases:
     request, a fresh dense engine's captures), on and off in turns (the
     process's first ``FlopCounterMode`` is paid and timed before phase
     25); each part's seconds;
-35. the whole script's seconds, the ``kernels`` JSON line (each flash row
+35. the mid LM at 2 heads of 256 (``transformer_lm.build_workflow(device=
+    "cuda", attention="flash")``: vocab 8192, d_model 512, 12 layers, head
+    dim 256, T 2048, batch 16; phase 8's seed and lengths, so its bigram
+    data is served from memory): one epoch with the flash counters set to 0
+    just before and read just after (12 of each kernel a train step, 12
+    forwards an eval step, the last launch of each at ``[16, 2048, 2,
+    256]``), timed train steps with f32 and bf16 attention (tokens/sec, the
+    counters read around them), a 512-token f32 forward on the card against
+    the CPU from identical weights (within 1e-4 of the largest logit),
+    ``attention="auto"`` resolved to flash at head dim 256 and to the dense
+    path at 512, where flash raises naming ROADMAP.md B7;
+36. the whole script's seconds, the ``kernels`` JSON line (each flash row
     with its bf16 times, bound, launches and error beside the f32 ones under
-    ``"bf16"``; the f32 flash, Kohonen and RBM rows also with their f32-FMA
+    ``"bf16"``, and phase 35's launches with phase 6-7's D-256 times, bound
+    and errors in both dtypes under ``"d256"``; the f32 flash, Kohonen and RBM rows also with their f32-FMA
     bound and their float64 errors beside the plain version's; the LRN rows
     with the CIFAR path's launches and f32 times under ``"cifar"``, the
     disk path's launches under ``"alexnet_disk"``, the host loop's under
@@ -507,7 +522,18 @@ FLASH_CASES = [  # (tag, B, T, H, D, causal)
     ("ring_full", 4, LM_T // 2, 8, 64, False),
     ("stage", 1, LM_T, 8, 64, True),
     ("stage_tp", 1, LM_T, LM_MID["n_heads"] // 2, 64, True),
+    # head dim 256, phase 35's LM at 2 heads: its shape, full attention, a
+    # ragged T and one below a tile
+    ("d256", LM_B, LM_T, 2, 256, True),
+    ("d256_full", 2, 1024, 2, 256, False),
+    ("d256_ragged", 2, 2000, 2, 256, True),
+    ("d256_short", 2, 40, 2, 256, True),
 ]
+# the shapes whose launches repeat bitwise and whose f32 kernels are held
+# against float64 (the forward also at these): the two LM slices'
+FLASH_TIMED = ("slice", "d256")
+F64_FORWARD = ("slice", "d128", "full", "d256")
+FLASH_BUILT = 30  # ptxas entries: 3 kernels x 2 dtypes x head dims 16, 32, 64, 128, 256
 # of the reference's largest magnitude: f32 sums run in another order; bf16
 # rounds p and ds before their products at other places (running maxima)
 FLASH_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
@@ -558,6 +584,46 @@ def _memoize_stand_ins(prng, datasets):
         return out
 
     datasets._synthetic_classes = synthetic_classes
+    return tally
+
+
+def _memoize_bigrams(prng, lm_module):
+    """Reuse the LM entry point's bigram draws within this process, as
+    ``_memoize_stand_ins`` reuses the stand-ins': the chain and each split's
+    sequences drawn from the same "datasets" stream state with the same
+    arguments are the same arrays, and the stream moves on alike, so phase
+    35's ``build_workflow`` at phase 8's seed and lengths gets phase 8's
+    data (~10 s of host draws at T 2048) without drawing it.  Returns the
+    tally."""
+    draw_chain, draw_seqs = lm_module._bigram_chain, lm_module._bigram_sequences
+    memo, chains = {}, {}  # chains: id of a served chain -> its key (held alive by memo)
+    tally = {"draws": 0, "reuses": 0, "draw_s": 0.0}
+
+    def served(key, draw):
+        bits = prng.get("datasets")._numpy.bit_generator
+        key = (*key, json.dumps(bits.state, sort_keys=True))
+        hit = memo.get(key)
+        if hit is None:
+            t0 = time.perf_counter()
+            hit = memo[key] = (draw(), bits.state)
+            tally["draws"] += 1
+            tally["draw_s"] += time.perf_counter() - t0
+        else:
+            bits.state = hit[1]
+            tally["reuses"] += 1
+        return key, hit[0]
+
+    def bigram_chain(vocab):
+        key, probs = served(("chain", vocab), lambda: draw_chain(vocab))
+        chains[id(probs)] = key
+        return probs  # read only, never kept by the workflow
+
+    def bigram_sequences(probs, n, t):
+        key = ("seqs", chains.get(id(probs), id(probs)), n, t)
+        return served(key, lambda: draw_seqs(probs, n, t))[1].copy()
+
+    lm_module._bigram_chain = bigram_chain
+    lm_module._bigram_sequences = bigram_sequences
     return tally
 
 
@@ -897,8 +963,9 @@ def phase_flash_build(built, fa, cuda_build, torch):
                 cur["regs"] = int(regs.group(1))
             if spill:
                 cur["spill"] = (int(spill.group(1)), int(spill.group(2)))
-    if len(rows) != 24:
-        fail(f"ptxas reported {len(rows)} flash kernels, want 24 (3 kernels x 2 dtypes x 4 D)")
+    if len(rows) != FLASH_BUILT:
+        fail(f"ptxas reported {len(rows)} flash kernels, want {FLASH_BUILT} (3 kernels x 2 "
+             f"dtypes x 5 D)")
     sass = _sass_mma_counts(cuda_build, built.path)
     dtypes = {"f32": torch.float32, "bf16": torch.bfloat16}
     for r in sorted(rows, key=lambda r: (r["kernel"], r["dtype"], r["d"])):
@@ -911,6 +978,10 @@ def phase_flash_build(built, fa, cuda_build, torch):
         # all on the tensor cores (the f32 ones in 3xTF32)
         if hmma + hgmma == 0:
             fail(f"flash_{r['kernel']} {r['dtype']} D={r['d']} has no tensor-core instructions")
+        # the D-256 designs (re-read fragments, column halves, 32-row f32
+        # tiles) exist to fit the registers: a spill there is a fault
+        if r["d"] == 256 and r["spill"] != (0, 0):
+            fail(f"flash_{r['kernel']} {r['dtype']} D=256 spills {r['spill']} bytes")
 
 
 def _flash_inputs(torch, b, t, h, d, dtype, seed):
@@ -984,12 +1055,13 @@ def _float64_check(torch, label, names, got, plain, exact):
 
 
 def phase_flash_checks(torch, fa):
-    """Phase 6: each flash kernel against its plain version; at the slice
-    shape every kernel launched twice; the f32 forward (slice, D 128, no
-    mask) and the f32 dQ and dK/dV (slice) against float64.  Returns the
-    slice shape's max errors in f32 and bf16, and the f32 kernels' float64
-    errors there."""
-    err, bf16_err, f64_err = {}, {}, {}
+    """Phase 6: each flash kernel against its plain version; at the two LM
+    slices' shapes (D 64 and 256) every kernel launched twice; the f32
+    forward (those, D 128, no mask) and the f32 dQ and dK/dV (those) against
+    float64; the forwards at D 256 with a negative scale.  Returns, for each
+    of FLASH_TIMED, the max errors in f32 and bf16, and the f32 kernels'
+    float64 errors there."""
+    err, bf16_err, f64_err = ({tag: {} for tag in FLASH_TIMED} for _ in range(3))
     for seed, (tag, b, t, h, d, causal) in enumerate(FLASH_CASES):
         for dtype in (torch.float32, torch.bfloat16):
             dname = str(dtype).split(".")[-1]
@@ -1013,24 +1085,24 @@ def phase_flash_checks(torch, fa):
             dk_r, dv_r = fa.flash_dkv_reference(q, k, v, dout, lse_r, delta, **kw)
             e["flash_dkv"] = max(_near(f"flash_dkv dk {label}", dk, dk_r, tol),
                                  _near(f"flash_dkv dv {label}", dv, dv_r, tol))
-            if dtype is torch.float32 and tag in ("slice", "d128", "full"):
+            if dtype is torch.float32 and tag in F64_FORWARD:
                 out_r, _ = fa.flash_fwd_reference(q, k, v, **kw)
                 exact = _flash_fwd_float64(torch, q, k, v, causal, kw["scale"])
                 f64 = _float64_check(torch, f"flash_fwd {label}", ("out", "lse"), (out, lse),
                                      (out_r, lse_r), exact)
                 del out_r, exact
-                if tag == "slice":
-                    f64_err.update(f64)
-            if tag == "slice":
+                if tag in FLASH_TIMED:
+                    f64_err[tag].update(f64)
+            if tag in FLASH_TIMED:
                 if dtype is torch.float32:  # the counted epoch's
-                    err = e
+                    err[tag] = e
                     exact = _flash_bwd_float64(torch, q, k, v, dout, lse_r, delta, causal,
                                                kw["scale"])
-                    f64_err.update(_float64_check(torch, f"{label}", ("dq", "dk", "dv"),
-                                                  (dq, dk, dv), (dq_r, dk_r, dv_r), exact))
+                    f64_err[tag].update(_float64_check(torch, f"{label}", ("dq", "dk", "dv"),
+                                                       (dq, dk, dv), (dq_r, dk_r, dv_r), exact))
                     del exact
                 else:
-                    bf16_err = e
+                    bf16_err[tag] = e
                 # one owner per output tile, no atomics: the same bits again
                 out2, lse2 = fa.flash_fwd(q, k, v, **kw)
                 dq2 = fa.flash_dq(q, k, v, dout, lse_r, delta, **kw)
@@ -1045,19 +1117,34 @@ def phase_flash_checks(torch, fa):
                 del out2, lse2, dq2, dk2, dv2
             del q, k, v, dout, dlse, out, lse, lse_r, delta, dq, dk, dv, dq_r, dk_r, dv_r
             torch.cuda.empty_cache()
+    # a negative scale: the bf16 forward flips Q's signs in shared memory at
+    # D 256 (in registers below), the f32 one scales its row maxima
+    for seed, causal in enumerate((True, False)):
+        for dtype in (torch.float32, torch.bfloat16):
+            dname = str(dtype).split(".")[-1]
+            q, k, v, _, _ = _flash_inputs(torch, 2, 1024, 2, 256, dtype, 50 + seed)
+            kw = dict(causal=causal, scale=-1.0 / 16)
+            label = f"[2,1024,2,256] {'causal' if causal else 'full'} scale -1/16 {dname}"
+            out, lse = fa.flash_fwd(q, k, v, **kw)
+            out_r, lse_r = fa.flash_fwd_reference(q, k, v, **kw)
+            torch.cuda.synchronize()
+            _near(f"flash_fwd out {label}", out, out_r, FLASH_TOL[dname])
+            _near(f"flash_fwd lse {label}", lse, lse_r, FLASH_TOL["float32"])
+            del q, k, v, out, lse, out_r, lse_r
     return err, bf16_err, f64_err
 
 
 def phase_flash_inputs(torch, fa):
     """Phase 6b: what JAX's kernel takes and the kernels' grid does not hold
-    as it is.  A head dim between the kernels' (96: zero-padded to 128 in
-    the autograd layer) and non-contiguous views through
+    as it is.  Head dims between the kernels' (96 and 192: zero-padded to
+    128 and 256 in the autograd layer) and non-contiguous views through
     ``flash_attention_lse``, forward and gradients against autograd through
     the plain forward on the same tensors, each kernel launched once; and a
     B*H above the grid's 65535, launched a batch slice at a time."""
-    for dtype in (torch.float32, torch.bfloat16):
+    for (h, d), dtype in ((hd, dt) for hd in ((8, 96), (2, 192))
+                          for dt in (torch.float32, torch.bfloat16)):
         dname = str(dtype).split(".")[-1]
-        b, t, h, d = 2, 1024, 8, 96
+        b, t = 2, 1024
         q, k, v, dout, dlse = _flash_inputs(torch, b, t, h, d, dtype, 7)
         label = f"padded head dim [{b},{t},{h},{d}] causal {dname}"
 
@@ -1134,9 +1221,10 @@ def _flash_bounds(b, t, h, d, causal, esize, dname, rate=_flash_rate):
     return out
 
 
-def phase_flash_times(torch, fa):
-    """Phase 7: times at the LM slice's shape, f32 and bf16."""
-    _, b, t, h, d, causal = FLASH_CASES[0]
+def phase_flash_times(torch, fa, case):
+    """Phase 7: times at one FLASH_CASES shape (the LM slices'), f32 and
+    bf16."""
+    _, b, t, h, d, causal = case
     rows = {}
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).split(".")[-1]
@@ -1223,6 +1311,62 @@ def _timed_steps(torch, fa, wf, label, steps=12, layers=LM_MID["n_layers"]):
     return med * 1e3, tokens / med, launches
 
 
+def _lm_epoch(torch, fa, wf, label, cfg):
+    """One epoch of an LM workflow at ``cfg``'s width, the main path: the
+    flash counters set to 0 just before and read just after.  Every split
+    sees its samples with finite metrics; each kernel launches once a layer
+    and train step (the forward also an eval step), its last launch at
+    ``[LM_B, LM_T, heads, head dim]``.  Returns the launches."""
+    for name in FLASH:
+        getattr(fa, name).launches = 0
+        getattr(fa, name).last_shape = None
+    n_train = wf.loader.n_minibatches("train")
+    n_eval = wf.loader.n_minibatches("test")
+    t0 = time.perf_counter()
+    summary = wf.run_epoch()["summary"]
+    torch.cuda.synchronize()
+    epoch_s = time.perf_counter() - t0
+    launches = {name: getattr(fa, name).launches for name in FLASH}
+    shapes = {name: getattr(fa, name).last_shape for name in FLASH}
+    print(f"{label}: epoch 1 {epoch_s:.2f} s: " + json.dumps(summary))
+    for split, n in (("train", LM_N_TRAIN), ("test", LM_N_TEST)):
+        m = summary.get(split)
+        if m is None or m["n_samples"] != n:
+            fail(f"{label}: {split} split saw {m and m['n_samples']} samples, want {n}")
+        if not all(math.isfinite(float(v)) for v in m.values()):
+            fail(f"{label}: non-finite {split} metrics: {m}")
+    layers = cfg["n_layers"]
+    want = {"flash_fwd": layers * (n_train + n_eval), "flash_dq": layers * n_train,
+            "flash_dkv": layers * n_train}
+    shape = (LM_B, LM_T, cfg["n_heads"], cfg["d_model"] // cfg["n_heads"])
+    print(f"{label}: launches {launches}, want {want} ({n_train} train steps, {n_eval} eval "
+          f"steps, {layers} layers); last shapes {shapes}, want {list(shape)}")
+    if launches != want or any(v != shape for v in shapes.values()):
+        fail(f"{label}: flash launches {launches} (last shapes {shapes}) != {want} at {shape}")
+    return launches
+
+
+def _lm_against_cpu(torch, fa, transformer, model_lib, label, wf, host, cfg):
+    """Card vs CPU: one 512-token sequence of the test split through
+    ``lm_apply`` from the weights ``host``, f32 and TF32 off, within 1e-4 of
+    the largest logit."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    tokens = torch.as_tensor(wf.loader.data["test"][:1, :512]).long()
+    kw = dict(n_heads=cfg["n_heads"], attention_fn=fa.flash_attention)
+    with torch.no_grad():
+        lg_card = transformer.lm_apply(
+            model_lib.params_from_jax(host, "cuda"), tokens.cuda(), **kw).cpu()
+        lg_cpu = transformer.lm_apply(model_lib.params_from_jax(host, "cpu"), tokens, **kw)
+    if not bool(torch.isfinite(lg_cpu).all()):
+        fail(f"{label}: non-finite CPU logits")
+    rel = float((lg_card - lg_cpu).abs().max() / lg_cpu.abs().max())
+    print(f"{label}: 512-token f32 forward, card (kernels) vs CPU (plain): max |diff| / "
+          f"max |logit| = {rel:.3e} (limit 1e-4); logits shape {list(lg_card.shape)}")
+    if not rel < 1e-4 or tuple(lg_card.shape) != (1, 512, cfg["vocab"]):
+        fail(f"{label}: card and CPU LM forwards disagree")
+
+
 def phase_lm(torch, fa, transformer_lm, transformer, model_lib, troot, prng):
     """Phase 8: the LM slice at the mid LM's width and depth."""
     troot.transformer_lm.update({
@@ -1238,57 +1382,15 @@ def phase_lm(torch, fa, transformer_lm, transformer, model_lib, troot, prng):
     n_params = sum(w.numel() for layer in wf.state.params for w in layer.values())
     print(f"lm: built the workflow (bigram data on the host, {n_params} parameters on the "
           f"card) in {time.perf_counter() - t0:.1f} s")
-    n_train = wf.loader.n_minibatches("train")
-    n_eval = wf.loader.n_minibatches("test")
     # the initial weights, for the card-vs-CPU check below: SGD at the
     # LM's default lr 0.1 diverges at this depth within a few steps (so does
     # the JAX package's), which the timed steps do not mind
     host = model_lib.params_to_numpy(wf.state.params)
-
-    # the main path: counts set to 0 just before, read just after
-    for name in FLASH:
-        getattr(fa, name).launches = 0
-    t0 = time.perf_counter()
-    verdict = wf.run_epoch()
-    torch.cuda.synchronize()
-    epoch_s = time.perf_counter() - t0
-    launches = {name: getattr(fa, name).launches for name in FLASH}
-    summary = verdict["summary"]
-    print(f"lm: epoch 1 {epoch_s:.2f} s: " + json.dumps(summary))
-    for split, n in (("train", LM_N_TRAIN), ("test", LM_N_TEST)):
-        m = summary.get(split)
-        if m is None or m["n_samples"] != n:
-            fail(f"{split} split saw {m and m['n_samples']} samples, want {n}")
-        if not all(math.isfinite(float(v)) for v in m.values()):
-            fail(f"non-finite {split} metrics: {m}")
-    layers = LM_MID["n_layers"]
-    want = {"flash_fwd": layers * (n_train + n_eval), "flash_dq": layers * n_train,
-            "flash_dkv": layers * n_train}
-    print(f"lm: launches {launches}, want {want} "
-          f"({n_train} train steps, {n_eval} eval steps, {layers} layers)")
-    if launches != want:
-        fail(f"flash launch counts {launches} != {want}")
-
+    launches = _lm_epoch(torch, fa, wf, "lm", LM_MID)
     steps = {"f32": _timed_steps(torch, fa, wf, "f32 attention")}
-
-    # card vs CPU: one 512-token sequence, f32, TF32 off, identical weights
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.set_float32_matmul_precision("highest")
-    tokens = torch.as_tensor(wf.loader.data["test"][:1, :512]).long()
-    kw = dict(n_heads=LM_MID["n_heads"], attention_fn=fa.flash_attention)
-    with torch.no_grad():
-        lg_card = transformer.lm_apply(
-            model_lib.params_from_jax(host, "cuda"), tokens.cuda(), **kw).cpu()
-        lg_cpu = transformer.lm_apply(model_lib.params_from_jax(host, "cpu"), tokens, **kw)
-    if not bool(torch.isfinite(lg_cpu).all()):
-        fail("non-finite CPU logits")
-    rel = float((lg_card - lg_cpu).abs().max() / lg_cpu.abs().max())
-    print(f"lm: 512-token f32 forward, card (kernels) vs CPU (plain): max |diff| / "
-          f"max |logit| = {rel:.3e} (limit 1e-4); logits shape {list(lg_card.shape)}")
-    if not rel < 1e-4 or tuple(lg_card.shape) != (1, 512, LM_MID["vocab"]):
-        fail("card and CPU LM forwards disagree")
+    _lm_against_cpu(torch, fa, transformer, model_lib, "lm", wf, host, LM_MID)
     loader = wf.loader
-    del wf, host, lg_card
+    del wf, host
     torch.cuda.empty_cache()
 
     wf16 = transformer.TransformerLMWorkflow(
@@ -1299,6 +1401,70 @@ def phase_lm(torch, fa, transformer_lm, transformer, model_lib, troot, prng):
     del wf16
     torch.cuda.empty_cache()
     return launches, steps, loader
+
+
+# the mid LM's width at 2 heads of 256 (bench.py's LM_HD128 varies the head
+# dim at this width the same way), the flash kernels' widest head dim
+LM_HD256 = dict(LM_MID, n_heads=2)
+
+
+def phase_lm_d256(torch, fa, transformer_lm, transformer, model_lib, troot, prng, bigrams, smi):
+    """Phase 35: the mid LM at 2 heads of 256 through its entry point, on
+    phase 8's data (the same seed and lengths: ``_memoize_bigrams`` serves
+    it).  Returns the epoch's launches, the timed steps and the phase's
+    seconds."""
+    t_phase = time.perf_counter()
+    troot.transformer_lm.update({
+        **LM_HD256,
+        "loader": {"seq_len": LM_T, "n_train": LM_N_TRAIN, "n_test": LM_N_TEST,
+                   "minibatch_size": LM_B},
+    })
+    reuses = bigrams["reuses"]
+    prng.seed_all(1234)  # phase 8's
+    t0 = time.perf_counter()
+    wf = transformer_lm.build_workflow(device="cuda", attention="flash")
+    wf.initialize()
+    torch.cuda.synchronize()
+    print(f"lm d256: built the workflow (2 heads of 256; phase 8's bigram data: "
+          f"{bigrams['reuses'] - reuses} draws reused) in {time.perf_counter() - t0:.1f} s")
+    host = model_lib.params_to_numpy(wf.state.params)
+    launches = _lm_epoch(torch, fa, wf, "lm d256", LM_HD256)
+    steps = {"f32": _timed_steps(torch, fa, wf, "f32 attention, head dim 256")}
+    _lm_against_cpu(torch, fa, transformer, model_lib, "lm d256", wf, host, LM_HD256)
+    loader = wf.loader
+    del wf, host
+    torch.cuda.empty_cache()
+
+    # "auto" takes the kernels at every head dim they take, the dense path above
+    for n_heads, want_fn in ((2, fa.flash_attention), (1, None)):  # head dim 256, 512
+        auto = transformer.TransformerLMWorkflow(
+            loader, **dict(LM_HD256, n_layers=1, n_heads=n_heads), attention="auto",
+            device="cuda")
+        got_fn = auto._attention_fn_base()
+        print(f"lm d256: attention='auto' at head dim {LM_HD256['d_model'] // n_heads}, "
+              f"max_seq {auto.max_seq}: {getattr(got_fn, '__name__', 'dense')}")
+        if got_fn is not want_fn:
+            fail(f"attention='auto' at {n_heads} heads resolved to {got_fn}, want {want_fn}")
+        del auto
+    x = torch.zeros((1, 64, 1, 512), device="cuda")
+    try:
+        fa.flash_attention(x, x, x, causal=True)
+        fail("flash attention at head dim 512 launched: it has no kernel")
+    except NotImplementedError as e:
+        print(f"lm d256: flash at head dim 512 refused: {e}")
+        if "ROADMAP.md B7" not in str(e):
+            fail("the refusal above head dim 256 does not name ROADMAP.md B7")
+
+    wf16 = transformer.TransformerLMWorkflow(
+        loader, **LM_HD256, attention="flash", attention_dtype="bf16", device="cuda"
+    )
+    wf16.initialize()
+    steps["bf16"] = _timed_steps(torch, fa, wf16, "bf16 attention, head dim 256")
+    del wf16
+    torch.cuda.empty_cache()
+    secs = time.perf_counter() - t_phase
+    print(f"lm d256: phase 35 in {secs:.1f} s on {smi}")
+    return launches, steps, secs
 
 
 # -- the unsupervised slice: Kohonen SOM and RBM -------------------------------
@@ -7643,6 +7809,7 @@ def main() -> int:
     from znicz_tpu_torch.workflow import model as model_lib, transformer
 
     stand_ins = _memoize_stand_ins(prng, datasets)
+    bigrams = _memoize_bigrams(prng, transformer_lm)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
@@ -7663,7 +7830,8 @@ def main() -> int:
     phase_flash_build(built["flash_attention"], fa, cuda_build, torch)
     flash_err, flash_bf16_err, flash_f64_err = phase_flash_checks(torch, fa)
     phase_flash_inputs(torch, fa)
-    flash_rows = phase_flash_times(torch, fa)
+    cases = {case[0]: case for case in FLASH_CASES}
+    flash_rows = {tag: phase_flash_times(torch, fa, cases[tag]) for tag in FLASH_TIMED}
     flash_launches, lm_steps, lm_loader = phase_lm(
         torch, fa, transformer_lm, transformer, model_lib, troot, prng
     )
@@ -7759,6 +7927,8 @@ def main() -> int:
     t0 = time.perf_counter()
     search_launches, search_parts = phase_search(torch, lrn_kernel, cifar, smi)
     print(f"search phase: {time.perf_counter() - t0:.1f} s; " + json.dumps(search_parts))
+    d256_launches, d256_steps, d256_s = phase_lm_d256(
+        torch, fa, transformer_lm, transformer, model_lib, troot, prng, bigrams, smi)
 
     kernels = []
     for kname in ("lrn_fwd", "lrn_bwd"):
@@ -7815,24 +7985,43 @@ def main() -> int:
         # runs and the in-process members of 34c
         entry["search"] = {"launches": search_launches[kname]}
         kernels.append(entry)
+
+    def f64_of(tag, kname):  # the f32 kernel against float64, beside the f32 plain version
+        return {g: dict(zip(("kernel", "plain"), e))
+                for g, e in flash_f64_err[tag].items() if g in F64_OUTPUTS[kname]}
+
     for kname in FLASH:
-        row = flash_rows[(kname, "float32")]  # the counted epoch's dtype
+        row = flash_rows["slice"][(kname, "float32")]  # the counted epoch's dtype
         kernels.append({
             "name": kname,
             "route": "cuda",
             "source": FLASH_SOURCE,
             "replaces": REPLACES[kname],
             "launches": flash_launches[kname],
-            "max_abs_err": flash_err[kname],
+            "max_abs_err": flash_err["slice"][kname],
             **row,
-            # the f32 kernel against float64, beside the f32 plain version
-            "float64_err": {g: dict(zip(("kernel", "plain"), e))
-                            for g, e in flash_f64_err.items() if g in F64_OUTPUTS[kname]},
+            "float64_err": f64_of("slice", kname),
             # bf16 attention: its timed steps' launches, the slice shape's check
             "bf16": {
                 "launches": lm_steps["bf16"][2][kname],
-                "max_abs_err": flash_bf16_err[kname],
-                **flash_rows[(kname, "bfloat16")],
+                "max_abs_err": flash_bf16_err["slice"][kname],
+                **flash_rows["slice"][(kname, "bfloat16")],
+            },
+            # head dim 256 (phases 6-7 at [16, 2048, 2, 256] causal; phase
+            # 35's LM at 2 heads of 256): its epoch's launches, its f32
+            # times, bound and errors, and bf16's beside them with the bf16
+            # timed steps' launches
+            "d256": {
+                "shape": list(cases["d256"][1:5]),
+                "launches": d256_launches[kname],
+                "max_abs_err": flash_err["d256"][kname],
+                **flash_rows["d256"][(kname, "float32")],
+                "float64_err": f64_of("d256", kname),
+                "bf16": {
+                    "launches": d256_steps["bf16"][2][kname],
+                    "max_abs_err": flash_bf16_err["d256"][kname],
+                    **flash_rows["d256"][(kname, "bfloat16")],
+                },
             },
             # the graph dispatch's LM run (phase 22): its replayed epoch's
             # launches, read from the trace
@@ -7878,7 +8067,12 @@ def main() -> int:
             "tp": {"gloo_ranks": tp_launches[kname]},
         })
     print(f"stand-ins: {stand_ins['draws']} drawn in {stand_ins['draw_s']:.1f} s, "
-          f"{stand_ins['reuses']} reused ({stand_ins['reuse_s']:.1f} s for their copies)")
+          f"{stand_ins['reuses']} reused ({stand_ins['reuse_s']:.1f} s for their copies); "
+          f"the LM's bigram draws: {bigrams['draws']} drawn in {bigrams['draw_s']:.1f} s, "
+          f"{bigrams['reuses']} reused")
+    print(f"lm d256: train tokens/sec f32 {d256_steps['f32'][1]:.1f}, bf16 "
+          f"{d256_steps['bf16'][1]:.1f} (step ms {d256_steps['f32'][0]:.2f} / "
+          f"{d256_steps['bf16'][0]:.2f}); phase 35 {d256_s:.1f} s; on {smi}")
     print(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({

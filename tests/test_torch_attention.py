@@ -9,7 +9,8 @@ the CUDA kernels' 64-row tiles and 9 of JAX's blocks; and head dims 48 and
 96 at T = 130 in both dtypes, which the port zero-pads to the kernels' 64
 and 128 in its autograd layer while JAX's blocks span the true head dim,
 so the padding's output and gradient slicing and its scale are checked
-too): in f32, ``out`` and
+too; and head dims 256, the kernels' widest, and 192, zero-padded to it, at
+T = 130 in both dtypes): in f32, ``out`` and
 ``lse`` within rtol/atol 1e-5, and the gradients of ``sum(sin(out)) +
 sum(w * lse)`` (the lse cotangent included) within 1e-4; in bf16 (the same
 numpy inputs cast to bf16 on both sides), ``out`` and the gradients within
@@ -58,6 +59,10 @@ FLASH_CASES = [
     pytest.param(130, causal, dtype, d, id=f"130-{'causal' if causal else 'full'}"
                  + ("" if dtype == "float32" else "-bf16") + f"-d{d}")
     for d in (48, 96) for dtype in ("float32", "bfloat16") for causal in (False, True)
+] + [  # the widest head dim the kernels take, and one zero-padded up to it
+    pytest.param(130, causal, dtype, d, id=f"130-{'causal' if causal else 'full'}"
+                 + ("" if dtype == "float32" else "-bf16") + f"-d{d}")
+    for d in (192, 256) for dtype in ("float32", "bfloat16") for causal in (False, True)
 ]
 
 

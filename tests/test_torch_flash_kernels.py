@@ -16,19 +16,21 @@ magnitude (the sums run in another order), bf16 within 2e-2 of it (about
 one bf16 rounding of ``p`` and ``ds`` before their products).  They also
 hold the bf16 kernels and the f32 ones (3xTF32), forward, dQ and dK/dV, all
 on the tensor cores, to bitwise-equal repeat launches, ragged lengths at the
-narrowest and the register-heavy head dims (16, 128), the forwards to a
+narrowest and the register-heavy head dims (16, 128, 256), the forwards to a
 negative scale, and the refusal of a view whose data is not 16-byte aligned.
 The f32 forward, dQ and dK/dV are also held against float64: their error
 within 10 times the f32 plain version's.  The autograd layer's
 zero-padding of a head dim between the kernels' is checked on the CPU and
-on the card, as are the batch slices of a B*H above the grid's 65535 and
-the dense path that ``attention="auto"`` takes above head dim 128.
+on the card, as are the batch slices of a B*H above the grid's 65535, the
+flash path that ``attention="auto"`` takes at head dim 256 and the dense
+one above it.
 """
 
 import importlib.util
 import math
 import pathlib
 
+import numpy as np
 import pytest
 import torch
 import torch.nn.functional as F
@@ -156,7 +158,8 @@ def test_autograd_layer_pads_the_head_dim_and_slices_back(monkeypatch):
         torch.testing.assert_close(g, r.float(), rtol=1e-4, atol=1e-5)
 
 
-@pytest.mark.parametrize("d,want", [(8, 16), (16, 16), (48, 64), (96, 128), (128, 128), (256, None)])
+@pytest.mark.parametrize("d,want", [(8, 16), (16, 16), (48, 64), (96, 128), (128, 128), (192, 256),
+                                    (256, 256), (257, None)])
 def test_kernel_head_dim(d, want):
     assert fa.kernel_head_dim(d) == want
 
@@ -213,6 +216,54 @@ def test_flash_bounds_at_the_lm_slice(chip_smoke, name, dname, fma, want):
     rate = (lambda kernel, dtype: chip_smoke.PEAK_FLOPS[dtype]) if fma else chip_smoke._flash_rate
     ms, by = chip_smoke._flash_bounds(16, 2048, 8, 64, True, esize, dname, rate=rate)[name]
     assert round(ms, 4) == want and by == "operations"
+
+
+@pytest.mark.parametrize("name,dname,want", [
+    ("flash_fwd", "float32", 0.4167),
+    ("flash_dq", "float32", 0.6250),
+    ("flash_dkv", "float32", 0.8334),
+    ("flash_fwd", "bfloat16", 0.0695),
+    ("flash_dq", "bfloat16", 0.1043),
+    ("flash_dkv", "bfloat16", 0.1390),
+], ids=lambda x: str(x))
+def test_flash_bounds_at_head_dim_256(chip_smoke, name, dname, want):
+    """[16, 2048, 2, 256] causal has the LM slice's B*H*D (and so its live
+    pairs times D and its bytes): the same bounds, by operations."""
+    esize = 4 if dname == "float32" else 2
+    ms, by = chip_smoke._flash_bounds(16, 2048, 2, 256, True, esize, dname)[name]
+    assert round(ms, 4) == want and by == "operations"
+    assert chip_smoke.FLASH_TIMED == ("slice", "d256")
+    cases = {case[0]: case[1:] for case in chip_smoke.FLASH_CASES}
+    assert cases["d256"] == (16, 2048, 2, 256, True)
+
+
+def test_lm_bigram_memo_serves_the_same_draws(chip_smoke, monkeypatch):
+    """Phase 35 builds the LM at phase 8's seed and lengths: the memo serves
+    the same chain and sequences as drawing them, and leaves the "datasets"
+    stream where drawing would."""
+    from znicz_tpu_torch.core import prng
+    from znicz_tpu_torch.models import transformer_lm as lm
+
+    monkeypatch.setattr(lm, "_bigram_chain", lm._bigram_chain)  # restored after the test
+    monkeypatch.setattr(lm, "_bigram_sequences", lm._bigram_sequences)
+
+    def draw():
+        prng.seed_all(7)
+        chain = lm._bigram_chain(16)
+        out = (chain, lm._bigram_sequences(chain, 5, 12), lm._bigram_sequences(chain, 3, 12))
+        return out, prng.get("datasets").integers(0, 1 << 30, (4,))
+
+    try:
+        want = draw()
+        tally = chip_smoke._memoize_bigrams(prng, lm)
+        got = [draw(), draw()]
+    finally:
+        prng.reset()
+    assert (tally["draws"], tally["reuses"]) == (3, 3)
+    for arrays, after in got:
+        for a, b in zip(arrays, want[0]):
+            np.testing.assert_array_equal(a, b)
+        np.testing.assert_array_equal(after, want[1])
 
 
 # -- the kernels, on the card -------------------------------------------------
@@ -295,11 +346,13 @@ def test_bf16_forward_masks_a_ragged_length(card, d, t, causal):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
-def test_bf16_forward_takes_a_negative_scale(card, causal):
+@pytest.mark.parametrize("d", [64, 256])
+def test_bf16_forward_takes_a_negative_scale(card, causal, d):
     """The kernel's row max is taken on q.k with q's signs flipped when the
-    scale is negative: the softmax must still be the reference's."""
-    q, k, v = _qkv(1, 130, 2, 64, seed=8, device=card, dtype=torch.bfloat16)
-    kw = dict(causal=causal, scale=-0.125)
+    scale is negative (in Q's held fragments at D 64, in its shared-memory
+    rows at D 256): the softmax must still be the reference's."""
+    q, k, v = _qkv(1, 130, 2, d, seed=8, device=card, dtype=torch.bfloat16)
+    kw = dict(causal=causal, scale=-1.0 / math.sqrt(d))
     out, lse = fa.flash_fwd(q, k, v, **kw)
     out_r, lse_r = fa.flash_fwd_reference(q, k, v, **kw)
     torch.cuda.synchronize()
@@ -486,12 +539,13 @@ def test_f32_forward_keeps_f32_accuracy(card, d, causal, t):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
-def test_f32_forward_takes_a_negative_scale(card, causal):
+@pytest.mark.parametrize("d", [64, 256])
+def test_f32_forward_takes_a_negative_scale(card, causal, d):
     """The row max is taken over s.scale: with a negative scale it is the
     scaled minimum of the products, and the softmax must still be the
-    reference's."""
-    q, k, v = _qkv(1, 130, 2, 64, seed=18, device=card)
-    kw = dict(causal=causal, scale=-0.125)
+    reference's (on 64-row tiles at D 64, 32-row ones at D 256)."""
+    q, k, v = _qkv(1, 130, 2, d, seed=18, device=card)
+    kw = dict(causal=causal, scale=-1.0 / math.sqrt(d))
     out, lse = fa.flash_fwd(q, k, v, **kw)
     out_r, lse_r = fa.flash_fwd_reference(q, k, v, **kw)
     torch.cuda.synchronize()
@@ -568,17 +622,43 @@ def test_b_h_above_the_grid_is_split_over_the_batch(card, dtype):
 
 @pytest.mark.cuda
 def test_head_dims_above_128_take_the_dense_path_under_auto(card):
-    """On the card, attention="auto" at head dim 256 resolves to the dense
-    path; flash attention there raises, naming its ROADMAP item."""
+    """On the card, attention="auto" resolves to flash at head dims 256 and
+    64 and to the dense path at 512, above the kernels; flash attention at
+    512 raises, naming its ROADMAP item."""
     from znicz_tpu_torch.loader.fullbatch import FullBatchLoader
     from znicz_tpu_torch.workflow.transformer import TransformerLMWorkflow
 
     loader = FullBatchLoader({"train": torch.zeros((2, 512), dtype=torch.int32).numpy()},
                              minibatch_size=2)
-    for n_heads, resolved in ((2, None), (8, fa.flash_attention)):  # head dim 256, 64
+    for n_heads, resolved in ((1, None), (2, fa.flash_attention), (8, fa.flash_attention)):
         wf = TransformerLMWorkflow(loader, vocab=8, d_model=512, n_heads=n_heads,
-                                   attention="auto", device=card)
+                                   attention="auto", device=card)  # head dim 512, 256, 64
         assert wf._attention_fn_base() is resolved
-    x = torch.zeros((1, 64, 2, 256), device=card)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md B6"):
+    x = torch.zeros((1, 64, 1, 512), device=card)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md B7"):
         fa.flash_attention(x, x, x, causal=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("t", [1, 33, 77, 200], ids=["T1", "T33", "T77", "T200"])
+def test_head_dim_256_masks_a_ragged_length_and_repeats_bitwise(card, t, dtype):
+    """The D-256 kernels (the bf16 ones on 64-row tiles, the f32 ones on
+    32-row tiles, dK/dV over two column halves) at ragged lengths, causal:
+    within the tolerances of their plain versions, and a second launch of
+    each bitwise equal to the first."""
+    _check_all(card, 2, t, 2, 256, True, dtype, seed=t + 256)
+    q, k, v = _qkv(2, t, 2, 256, seed=t, device=card, dtype=dtype)
+    dout = torch.randn((2, t, 2, 256), device=card).to(dtype)
+    lse = torch.randn((2, t, 2), device=card) + 5.0
+    delta = torch.randn((2, t, 2), device=card)
+    kw = dict(causal=True, scale=0.0625)
+    fwd = [fa.flash_fwd(q, k, v, **kw) for _ in range(2)]
+    dq = [fa.flash_dq(q, k, v, dout, lse, delta, **kw) for _ in range(2)]
+    dkv = [fa.flash_dkv(q, k, v, dout, lse, delta, **kw) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert torch.equal(fwd[0][0], fwd[1][0]) and torch.equal(fwd[0][1], fwd[1][1])
+    assert torch.equal(dq[0], dq[1])
+    assert torch.equal(dkv[0][0], dkv[1][0]) and torch.equal(dkv[0][1], dkv[1][1])
+    assert float(dkv[0][1].float().abs().max()) > 0
+

@@ -3,7 +3,8 @@
 ``init_lm_params`` and the bigram data of ``transformer_lm.build_workflow``
 are equal exactly (shared numpy streams); ``lm_apply`` logits agree within
 rtol/atol 1e-5 for dense attention, flash attention (JAX's Pallas kernels in
-interpret mode, the port's plain version) and remat.  The slice:
+interpret mode, the port's plain version) and remat, and within rtol 1e-4
+at d_model 512 over 2 heads (head dim 256) with flash.  The slice:
 ``TransformerLMWorkflow`` at vocab 16, d_model 32, 2 layers, 2 heads, T 24,
 ``attention="flash"``, trains 2 epochs from one seed in both frameworks;
 per-epoch loss and token accuracy and the final weights agree within rtol
@@ -110,6 +111,23 @@ def test_lm_apply_matches_jax(mode):
                        remat=mode == "remat")
     assert got.shape == (3, 20, 16)
     np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
+
+
+def test_lm_apply_matches_jax_at_head_dim_256():
+    """The mid LM's width at 2 heads (head dim 256, the widest the port's
+    kernels take; they run it through the same wrapper on the card) through
+    one layer with flash attention, against JAX's lm_apply with its flash
+    function (interpret mode)."""
+    _seed_both()
+    jp = jtf.init_lm_params(16, 512, 1, 2, 24)
+    tp = model_lib.params_from_jax(jax.device_get(jp), "cpu")
+    tprng.reset()
+    tokens = np.random.default_rng(5).integers(0, 16, (2, 20)).astype(np.int32)
+    want = jtf.lm_apply(jp, jnp.asarray(tokens), n_heads=2, attention_fn=_jax_flash)
+    got = ttf.lm_apply(tp, torch.from_numpy(tokens).long(), n_heads=2,
+                       attention_fn=tflash.flash_attention)
+    assert got.shape == (2, 20, 16)
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), rtol=1e-4, atol=1e-5)
 
 
 def test_remat_gives_the_same_gradients():

@@ -7,7 +7,7 @@
 //
 // Layout: q, k, v, out, dout and the gradients are [B, T, H, D] contiguous,
 // read in place through their strides (no [B*H, T, D] transposes); lse and
-// delta are [B, T, H] float32.  D is 16, 32, 64 or 128 (a template
+// delta are [B, T, H] float32.  D is 16, 32, 64, 128 or 256 (a template
 // argument); T is any length: the ragged last tile is masked by index.
 //
 // What bounds these on an H100: operations.  At the LM slice (B*H = 128,
@@ -15,7 +15,8 @@
 // live (q, k) pairs a head, ~69 GFLOP, dQ 3 and dK/dV 4, against ~0.13 GB
 // of q, k, v, out: far above the card's ops-per-byte line in either type.
 // In every kernel one block owns a 64-row tile and loops over the other
-// side's 64-row tiles (the TPU grid's sequential axis becomes this loop).
+// side's 64-row tiles (the TPU grid's sequential axis becomes this loop);
+// the f32 kernels' tiles take 32 rows at D 256 (below).
 //
 // The bf16 kernels (fwd_mma_kernel, dq_mma_kernel, dkv_mma_kernel) run on
 // the tensor cores, the contract of the TPU kernels (each input's dtype on
@@ -23,10 +24,18 @@
 // bf16 -> f32:
 // - 4 warps (128 threads) a 64-row tile, each warp owning 16 rows.  The
 //   forward and dQ hold their Q (and dO) A-fragments in registers for the
-//   whole k loop: S = Q.K^T (and dP = dO.V^T); dK/dV works key-major,
-//   S^T = K.Q^T and dP^T = V.dO^T, with the K and V A-fragments in
-//   registers at D <= 64 and re-read from shared memory at D 128 (two
+//   whole k loop at D <= 128: S = Q.K^T (and dP = dO.V^T); dK/dV works
+//   key-major, S^T = K.Q^T and dP^T = V.dO^T, with the K and V A-fragments
+//   in registers at D <= 64 and re-read from shared memory at D 128 (two
 //   16 x 128 f32 accumulators already take 128 registers a thread there).
+// - D 256: a warp's 16 x 256 f32 output accumulator alone takes 128
+//   registers a thread (of 255).  The forward and dQ re-read Q's (and dO's)
+//   A fragments from shared memory at each k16 step instead of holding them
+//   (64 and 128 registers more), and dK/dV, whose dK and dV accumulators
+//   would take 256, splits D's output columns between two blocks (gridDim.z
+//   2): each recomputes the full-D score products S^T and dP^T from shared
+//   memory and accumulates 128 columns of dK and dV, about 1.5 times the
+//   kernel's products.  Every D-256 kernel compiles without spills.
 // - p and ds never touch shared memory: two neighbouring m16n8 f32
 //   accumulators packed to bf16x2 (cvt.rn, round to nearest even, the
 //   TPU kernels' casts) are the A fragment of the next m16n8k16 product,
@@ -54,7 +63,9 @@
 //   so the tensors' data must start on a 16-byte boundary (the wrapper
 //   checks).
 // - ~46 KB (forward) to ~55 KB of shared memory a block at D 64 (~87 to
-//   ~105 KB at D 128), so several blocks share an SM.
+//   ~105 KB at D 128), so several blocks share an SM; at D 256 a 64-row
+//   tile is 33,792 bytes, and the forward's 5 (168,960 bytes) and dQ's and
+//   dK/dV's 6 (202,752 and 203,776) leave one block an SM.
 // The f32 kernels (fwd_tf32_kernel, dq_tf32_kernel, dkv_tf32_kernel) take
 // the same skeleton on the tensor cores in 3xTF32: mma.sync m16n8k8 tf32 x
 // tf32 -> f32, each f32 operand split into a big and a small TF32 part and
@@ -63,8 +74,12 @@
 // bf16 forward's online softmax on the score accumulators, with the running
 // max in natural units and p in f32, exp2f of one FMA times log2 e as the
 // backward computes it (not the bf16 forward's ex2.approx.ftz, which
-// flushes a subnormal p to 0).  wgmma, TMA and warp specialisation are left
-// for later work.
+// flushes a subnormal p to 0).  At D 256 an f32 tile of 64 rows (padded to
+// D + 4) is 66,560 bytes, and the 5 or 6 that a kernel streams would take
+// 332,800 to 400,384 of a block's 232,448: there the f32 tiles take 32 rows
+// on both sides and a block two warps (166,400 to 200,192 bytes), with the
+// bf16 kernels' re-read A fragments and dK/dV's column split.  wgmma, TMA
+// and warp specialisation are left for later work.
 //
 // Causal: the k loop of a q tile stops at the diagonal tile, and the q loop
 // of a k tile (dK/dV) starts there (the TPU kernels' _live skip); the
@@ -178,6 +193,28 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
+// fn(ks) for ks in [0, N): G steps unrolled at a time, the groups rolled
+// (all N unrolled when G >= N)
+template <int N, int G, typename Fn>
+__device__ __forceinline__ void steps(Fn&& fn) {
+  if constexpr (G >= N) {
+#pragma unroll
+    for (int ks = 0; ks < N; ++ks) fn(ks);
+  } else {
+#pragma unroll 1
+    for (int k0 = 0; k0 < N; k0 += G)
+#pragma unroll
+      for (int kk = 0; kk < G; ++kk) fn(k0 + kk);
+  }
+}
+
+// the copies of a tile that a thread unrolls together: all of them up to D
+// 128; at D 256 four, the groups rolled.  Unrolled whole there, the compiler
+// keeps the offsets of each of the thread's 16 or 32 rows live through the
+// kernel (64-bit each), and every D-256 kernel spilled.
+template <int D>
+__host__ __device__ constexpr int copy_group() { return D <= 128 ? D : 4; }
+
 // rows [r0, r0 + 64) of one head into dst[r * ldb + c], one 16-byte copy
 // each; rows at or past the end of the sequence are zero-filled
 template <int D>
@@ -185,14 +222,13 @@ __device__ __forceinline__ void load_tile_async(bf16* dst, const bf16* src, int 
                                                 const Geom& g) {
   constexpr int CH = D / 8;  // 16-byte chunks a row
   static_assert(TILE * CH % MMA_NT == 0, "a tile is a whole number of copies a thread");
-#pragma unroll
-  for (int it = 0; it < TILE * CH / MMA_NT; ++it) {
+  steps<TILE * CH / MMA_NT, copy_group<D>()>([&](int it) {
     const int i = threadIdx.x + it * MMA_NT;
     const int r = i / CH, c = i % CH;
     const bool in = r0 + r < g.t;
     cp_async16(dst + r * ldb<D>() + c * 8, in ? src + (long long)(r0 + r) * g.st + c * 8 : src,
                in);
-  }
+  });
 }
 
 // the x4 loads' per-lane row and column offsets: A fragments and the
@@ -208,20 +244,42 @@ struct Lanes {
         b_col(((lane >> 3) & 1) * 8) {}
 };
 
-// s[j] += X[16 rows] . Y[y0 + 8j .. + 8)^T over D, for j 0, 1: X's A
-// fragments from registers, Y's rows (the other side's tile, [64][ldb]) from
-// shared memory
+// the k steps of a score product unrolled together where both operands are
+// read from shared memory: all of them up to D 128; at D 256 eight, the
+// groups rolled (a third less code to compile, and about as fast)
 template <int D>
-__device__ __forceinline__ void scores16(float s[2][4], uint32_t (*xf)[4], const bf16* Y,
-                                         int y0, const Lanes& ln) {
-#pragma unroll
-  for (int ks = 0; ks < D / 16; ++ks) {
-    uint32_t yf[4];
+__host__ __device__ constexpr int score_group() { return D <= 128 ? D : 8; }
+
+// s[j] += X[16 rows] . Y[y0 + 8j .. + 8)^T over D, for j 0, 1: X's A
+// fragments from registers (xf, when HELD) or read at each k16 step from
+// X's rows [x0, x0 + 16) in shared memory, Y's rows (the other side's tile,
+// [64][ldb]) from shared memory
+template <int D, bool HELD>
+__device__ __forceinline__ void scores16(float s[2][4], uint32_t (*xf)[4], const bf16* X, int x0,
+                                         const bf16* Y, int y0, const Lanes& ln) {
+  steps<D / 16, HELD ? D : score_group<D>()>([&](int ks) {
+    uint32_t xr[4], yf[4];
+    const uint32_t* x = xr;
+    if constexpr (HELD)
+      x = xf[ks];
+    else
+      ldsm_x4(xr, X + (x0 + ln.a_row) * ldb<D>() + ks * 16 + ln.a_col);
     ldsm_x4(yf, Y + (y0 + ln.b_row) * ldb<D>() + ks * 16 + ln.b_col);
-    mma_bf16(s[0], xf[ks], yf[0], yf[1]);
-    mma_bf16(s[1], xf[ks], yf[2], yf[3]);
-  }
+    mma_bf16(s[0], x, yf[0], yf[1]);
+    mma_bf16(s[1], x, yf[2], yf[3]);
+  });
 }
+
+// the forward's and dQ's Q (and dO) A fragments held in registers for the
+// whole k loop, or re-read from shared memory (D 256, see above)
+template <int D>
+__host__ __device__ constexpr bool hold_afrags() { return D <= 128; }
+
+// dK/dV's output columns split between this many blocks (gridDim.z), in
+// both dtypes: above D 128 the dK and dV accumulators of all D would take
+// 256 registers a thread
+template <int D>
+__host__ __device__ constexpr int dkv_splits() { return D > 128 ? 2 : 1; }
 
 // the A fragments of rows [x0, x0 + 16) of a [64][ldb] tile, over D
 template <int D>
@@ -232,13 +290,14 @@ __device__ __forceinline__ void load_afrags(uint32_t (*xf)[4], const bf16* X, in
     ldsm_x4(xf[ks], X + (x0 + ln.a_row) * ldb<D>() + ks * 16 + ln.a_col);
 }
 
-// acc[n] += a . Z[z0 .. z0 + 16)[8n .. 8n + 8) for every n8 tile of D: a is
-// the packed A fragment of one k16 step, Z's rows its k axis
-template <int D>
+// acc[n] += a . Z[z0 .. z0 + 16)[8n .. 8n + 8) for every n8 tile of the NC
+// columns from Z (rows of D): a is the packed A fragment of one k16 step,
+// Z's rows its k axis
+template <int D, int NC = D>
 __device__ __forceinline__ void accumulate16(float (*acc)[4], const uint32_t a[4], const bf16* Z,
                                              int z0, const Lanes& ln) {
 #pragma unroll
-  for (int n2 = 0; n2 < D / 16; ++n2) {
+  for (int n2 = 0; n2 < NC / 16; ++n2) {
     uint32_t zf[4];
     ldsm_x4_t(zf, Z + (z0 + ln.a_row) * ldb<D>() + n2 * 16 + ln.a_col);
     mma_bf16(acc[2 * n2], a, zf[0], zf[1]);
@@ -282,6 +341,7 @@ __global__ void __launch_bounds__(MMA_NT)
                   const float* __restrict__ lse, const float* __restrict__ delta,
                   bf16* __restrict__ dq, Geom g, float scale, int causal) {
   constexpr int LT = TILE * ldb<D>();  // elements of one tile
+  constexpr bool HOLD = hold_afrags<D>();
   extern __shared__ float4 smem4[];
   bf16* Qs = reinterpret_cast<bf16*>(smem4);  // [64][ldb]
   bf16* dOs = Qs + LT;                        // [64][ldb]
@@ -321,9 +381,11 @@ __global__ void __launch_bounds__(MMA_NT)
 
   cp_async_wait_all();
   __syncthreads();
-  uint32_t qf[D / 16][4], dof[D / 16][4];
-  load_afrags<D>(qf, Qs, warp * 16, ln);
-  load_afrags<D>(dof, dOs, warp * 16, ln);
+  uint32_t qf[HOLD ? D / 16 : 1][4], dof[HOLD ? D / 16 : 1][4];
+  if constexpr (HOLD) {
+    load_afrags<D>(qf, Qs, warp * 16, ln);
+    load_afrags<D>(dof, dOs, warp * 16, ln);
+  }
 
   for (int kb = 0; kb < k_end; ++kb) {
     if (kb + 1 < k_end) {  // the next tile's copies, in flight during this one
@@ -341,8 +403,8 @@ __global__ void __launch_bounds__(MMA_NT)
       // wholly masked for this warp: past the diagonal, past T
       if ((causal && kc > w0 + 15) || kc >= g.t || w0 >= g.t) continue;
       float s[2][4] = {}, dp[2][4] = {};
-      scores16<D>(s, qf, Kc, 16 * c, ln);
-      scores16<D>(dp, dof, Vc, 16 * c, ln);
+      scores16<D, HOLD>(s, qf, Qs, warp * 16, Kc, 16 * c, ln);
+      scores16<D, HOLD>(dp, dof, dOs, warp * 16, Vc, 16 * c, ln);
       // s -> ds = p (dp - delta); the index mask only where the piece
       // crosses the diagonal or the end of the sequence
       auto to_ds = [&](auto masked) {
@@ -373,9 +435,10 @@ __global__ void __launch_bounds__(MMA_NT)
   store_rows<D>(dq + base, acc, scale, scale, w0, g, lane);
 }
 
-// dK/dV: one block per (k tile, batch-head), looping over the live q tiles,
-// key-major: s^T = K.Q^T, dp^T = V.dO^T; dv = sum_q p^T.dout,
-// dk = scale sum_q ds^T.q
+// dK/dV: one block per (k tile, batch-head, column part), looping over the
+// live q tiles, key-major: s^T = K.Q^T, dp^T = V.dO^T; dv = sum_q p^T.dout,
+// dk = scale sum_q ds^T.q, on the block's NC columns of dk and dv (all D but
+// above 128: dkv_splits)
 template <int D>
 __global__ void __launch_bounds__(MMA_NT)
     dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
@@ -385,6 +448,7 @@ __global__ void __launch_bounds__(MMA_NT)
                    int causal) {
   constexpr int LT = TILE * ldb<D>();
   constexpr bool HOLD = D <= 64;  // K, V A-fragments in registers, else re-read
+  constexpr int NC = D / dkv_splits<D>();  // this block's output columns
   extern __shared__ float4 smem4[];
   bf16* Ks = reinterpret_cast<bf16*>(smem4);  // [64][ldb] (this block's keys)
   bf16* Vs = Ks + LT;                         // [64][ldb]
@@ -400,6 +464,7 @@ __global__ void __launch_bounds__(MMA_NT)
   const long long base = b * g.sb + (long long)h * D;
   const int k0 = kb * TILE;
   const int q_begin = causal ? kb : 0;
+  const int c0 = blockIdx.z * NC;  // the first of them
 
   // one q tile's Q, dO, lse and delta into stage st
   auto load_q_tile = [&](int qb, int st) {
@@ -419,9 +484,9 @@ __global__ void __launch_bounds__(MMA_NT)
 
   const int w0 = k0 + warp * 16;  // this warp's first key
   const float scale2 = scale * LOG2E;
-  float dk_acc[D / 8][4], dv_acc[D / 8][4];
+  float dk_acc[NC / 8][4], dv_acc[NC / 8][4];
 #pragma unroll
-  for (int n = 0; n < D / 8; ++n)
+  for (int n = 0; n < NC / 8; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) dk_acc[n][e] = dv_acc[n][e] = 0.f;
 
@@ -451,11 +516,10 @@ __global__ void __launch_bounds__(MMA_NT)
       if ((causal && qc + 15 < w0) || qc >= g.t || w0 >= g.t) continue;
       float st[2][4] = {}, dpt[2][4] = {};  // [key][query]
       if constexpr (HOLD) {
-        scores16<D>(st, kf, Qc, 16 * c, ln);
-        scores16<D>(dpt, vf, dOc, 16 * c, ln);
+        scores16<D, true>(st, kf, Ks, warp * 16, Qc, 16 * c, ln);
+        scores16<D, true>(dpt, vf, Vs, warp * 16, dOc, 16 * c, ln);
       } else {
-#pragma unroll
-        for (int ks = 0; ks < D / 16; ++ks) {
+        steps<D / 16, score_group<D>()>([&](int ks) {
           uint32_t xf[4], yf[4];
           ldsm_x4(xf, Ks + (warp * 16 + ln.a_row) * ldb<D>() + ks * 16 + ln.a_col);
           ldsm_x4(yf, Qc + (16 * c + ln.b_row) * ldb<D>() + ks * 16 + ln.b_col);
@@ -465,7 +529,7 @@ __global__ void __launch_bounds__(MMA_NT)
           ldsm_x4(yf, dOc + (16 * c + ln.b_row) * ldb<D>() + ks * 16 + ln.b_col);
           mma_bf16(dpt[0], xf, yf[0], yf[1]);
           mma_bf16(dpt[1], xf, yf[2], yf[3]);
-        }
+        });
       }
       // s^T -> p^T, dp^T -> ds^T; the index mask only where the piece
       // crosses the diagonal or the end of the sequence
@@ -496,14 +560,14 @@ __global__ void __launch_bounds__(MMA_NT)
       uint32_t pa[4], da[4];
       pack_afrag(pa, st);   // p^T cast to dout's type before p^T.dout
       pack_afrag(da, dpt);  // ds^T cast to q's type before ds^T.q
-      accumulate16<D>(dv_acc, pa, dOc, 16 * c, ln);
-      accumulate16<D>(dk_acc, da, Qc, 16 * c, ln);
+      accumulate16<D, NC>(dv_acc, pa, dOc + c0, 16 * c, ln);
+      accumulate16<D, NC>(dk_acc, da, Qc + c0, 16 * c, ln);
     }
     cp_async_wait_all();
     __syncthreads();  // the next tile has landed; this one is consumed
   }
-  store_rows<D>(dk + base, dk_acc, scale, scale, w0, g, lane);
-  store_rows<D>(dv + base, dv_acc, 1.f, 1.f, w0, g, lane);
+  store_rows<NC>(dk + base + c0, dk_acc, scale, scale, w0, g, lane);
+  store_rows<NC>(dv + base + c0, dv_acc, 1.f, 1.f, w0, g, lane);
 }
 
 // exp2(x) in one special-function instruction, subnormal results flushed to 0
@@ -514,12 +578,13 @@ __device__ __forceinline__ float exp2_ftz(float x) {
   return y;
 }
 
-// The four 16-key pieces of a k tile (keys from k0) for one warp's 16 query
-// rows (from w0), in the forwards, which score all of a tile before its row
-// max.  A piece wholly masked (past the causal diagonal, past T) is dead and
-// skipped: no score product, no P.V product.  The index mask is applied only
-// to the pieces that cross the diagonal or the end of the sequence (`masked`
-// a compile-time true there, false elsewhere).
+// The 16-key pieces of an R-row k tile (keys from k0) for one warp's 16
+// query rows (from w0), in the forwards, which score all of a tile before its
+// row max.  A piece wholly masked (past the causal diagonal, past T) is dead
+// and skipped: no score product, no P.V product.  The index mask is applied
+// only to the pieces that cross the diagonal or the end of the sequence
+// (`masked` a compile-time true there, false elsewhere).
+template <int R>
 struct KeyPieces {
   int k0, w0, t, causal, lane;
   __device__ __forceinline__ bool dead(int c) const {
@@ -530,7 +595,7 @@ struct KeyPieces {
   template <typename Fn>
   __device__ __forceinline__ void each_live(Fn&& fn) const {
 #pragma unroll
-    for (int c = 0; c < TILE / 16; ++c) {
+    for (int c = 0; c < R / 16; ++c) {
       if (dead(c)) continue;
       const int kc = k0 + 16 * c;
       if ((causal && kc + 15 > w0) || kc + 16 > t || w0 + 16 > t)
@@ -564,6 +629,7 @@ __global__ void __launch_bounds__(MMA_NT)
                    Geom g, float scale, int causal) {
   constexpr int LT = TILE * ldb<D>();
   constexpr float LN2 = 0.6931471805599453f;
+  constexpr bool HOLD = hold_afrags<D>();
   extern __shared__ float4 smem4[];
   bf16* Qs = reinterpret_cast<bf16*>(smem4);  // [64][ldb]
   bf16* Ks = Qs + LT;                         // [2 stages][64][ldb]
@@ -597,13 +663,20 @@ __global__ void __launch_bounds__(MMA_NT)
 
   cp_async_wait_all();
   __syncthreads();
-  uint32_t qf[D / 16][4];
-  load_afrags<D>(qf, Qs, warp * 16, ln);
-  if (scale < 0.f) {
+  uint32_t qf[HOLD ? D / 16 : 1][4];
+  if constexpr (HOLD) {
+    load_afrags<D>(qf, Qs, warp * 16, ln);
+    if (scale < 0.f) {
 #pragma unroll
-    for (int ks = 0; ks < D / 16; ++ks)
+      for (int ks = 0; ks < D / 16; ++ks)
 #pragma unroll
-      for (int r = 0; r < 4; ++r) qf[ks][r] ^= 0x80008000u;  // both bf16 sign bits
+        for (int r = 0; r < 4; ++r) qf[ks][r] ^= 0x80008000u;  // both bf16 sign bits
+    }
+  } else if (scale < 0.f) {  // the warp's own 16 rows of Q, flipped where they lie
+    for (int i = lane; i < 16 * D / 2; i += 32)
+      reinterpret_cast<uint32_t*>(Qs + (warp * 16 + i / (D / 2)) * ldb<D>())[i % (D / 2)] ^=
+          0x80008000u;
+    __syncwarp();
   }
 
   for (int kb = 0; kb < k_end; ++kb) {
@@ -615,12 +688,12 @@ __global__ void __launch_bounds__(MMA_NT)
     }
     const bf16* Kc = Ks + (kb & 1) * LT;
     const bf16* Vc = Vs + (kb & 1) * LT;
-    const KeyPieces pc{kb * TILE, w0, g.t, causal, lane};
+    const KeyPieces<TILE> pc{kb * TILE, w0, g.t, causal, lane};
 
     float s[TILE / 8][4] = {};  // 16 rows x 64 keys: n8 tile 2c + j is keys 16c + 8j ..
 #pragma unroll
     for (int c = 0; c < TILE / 16; ++c)
-      if (!pc.dead(c)) scores16<D>(&s[2 * c], qf, Kc, 16 * c, ln);
+      if (!pc.dead(c)) scores16<D, HOLD>(&s[2 * c], qf, Qs, warp * 16, Kc, 16 * c, ln);
 
     // the rows' maxima over this tile: the thread's 16 values a row, then
     // the 4 lanes that share the row (lane/4)
@@ -739,6 +812,15 @@ __host__ __device__ constexpr int ldf() { return D + 4; }
 template <int D>
 __host__ __device__ constexpr bool presplit() { return D <= 64; }
 
+// rows of an f32 tile, on the q and the k side alike, and the threads of a
+// block (a warp a 16 rows): 64, and 32 above D 128, where a 64-row tile
+// (66,560 bytes at D 256) would leave room for three of a kernel's 5 or 6
+template <int D>
+struct F32Tile {
+  static constexpr int R = D <= 128 ? TILE : TILE / 2;
+  static constexpr int NT = 2 * R;
+};
+
 // x = big + small: big is x rounded to tf32 (10 stored mantissa bits), to
 // nearest with ties away from zero, as cvt.rna.tf32.f32 rounds a finite x
 // but in two integer instructions where the cvt compiles to five (its checks
@@ -775,30 +857,31 @@ __device__ __forceinline__ void mma_3xtf32(float c[4], const uint32_t ab[4], con
   mma_tf32(c, ab, bb0, bb1);
 }
 
-// rows [r0, r0 + 64) of one head into dst[r * ldf + c], one 16-byte copy
+// rows [r0, r0 + R) of one head into dst[r * ldf + c], one 16-byte copy
 // each; rows at or past the end of the sequence are zero-filled
 template <int D>
 __device__ __forceinline__ void load_tile_f32(float* dst, const float* src, int r0,
                                               const Geom& g) {
   constexpr int CH = D / 4;  // 16-byte chunks a row
-  static_assert(TILE * CH % MMA_NT == 0, "a tile is a whole number of copies a thread");
-#pragma unroll
-  for (int it = 0; it < TILE * CH / MMA_NT; ++it) {
-    const int i = threadIdx.x + it * MMA_NT;
+  constexpr int R = F32Tile<D>::R, NT = F32Tile<D>::NT;
+  static_assert(R * CH % NT == 0, "a tile is a whole number of copies a thread");
+  steps<R * CH / NT, copy_group<D>()>([&](int it) {
+    const int i = threadIdx.x + it * NT;
     const int r = i / CH, c = i % CH;
     const bool in = r0 + r < g.t;
     cp_async16(dst + r * ldf<D>() + c * 4, in ? src + (long long)(r0 + r) * g.st + c * 4 : src,
                in);
-  }
+  });
 }
 
 // a raw f32 tile split into its big and small copies, by the whole block
 template <int D>
 __device__ __forceinline__ void split_tile(float* big, float* small, const float* raw) {
   constexpr int CH = D / 4;
+  constexpr int R = F32Tile<D>::R, NT = F32Tile<D>::NT;
 #pragma unroll
-  for (int it = 0; it < TILE * CH / MMA_NT; ++it) {
-    const int i = threadIdx.x + it * MMA_NT;
+  for (int it = 0; it < R * CH / NT; ++it) {
+    const int i = threadIdx.x + it * NT;
     const int o = (i / CH) * ldf<D>() + (i % CH) * 4;
     const float4 x = *reinterpret_cast<const float4*>(raw + o);
     uint4 b, s;
@@ -869,8 +952,7 @@ __device__ __forceinline__ void scores16_tf32(float s[2][4], const uint32_t (*xb
                                               const float* Yb, const float* Ys, int y0,
                                               const LanesF32& ln) {
   float sm[2][4] = {};
-#pragma unroll
-  for (int ks = 0; ks < D / 8; ++ks) {
+  steps<D / 8, FROM == SMEM ? score_group<D>() : D>([&](int ks) {
     uint32_t ab[4], as[4], yb[4], ys[4];
     afrag_tf32<D, FROM>(ab, as, xb, xs, X, x0, ks, ln);
     const int off = (y0 + ln.b_row) * ldf<D>() + 8 * ks + ln.b_col;
@@ -889,21 +971,21 @@ __device__ __forceinline__ void scores16_tf32(float s[2][4], const uint32_t (*xb
       mma_tf32(sm[j], ab, ys[2 * j], ys[2 * j + 1]);
       mma_tf32(s[j], ab, yb[2 * j], yb[2 * j + 1]);
     }
-  }
+  });
 #pragma unroll
   for (int j = 0; j < 2; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) s[j][e] += sm[j][e];
 }
 
-// acc[n] += x . Z[z0 .. z0 + 16)[8n .. 8n + 8) for every n8 tile of D, in
-// 3xTF32: x is 16 rows x 16 of the k axis held as two n8 accumulators, each
-// the A fragment of one k8 step with k permuted (its columns 2t and 2t + 1
-// at k positions t and t + 4), and Z's rows are read in the same order, from
-// its split copies Zb and Zs when PRE, else from the raw tile Zb.  The
-// piece's 6 products go into a fresh accumulator, added to acc by one f32
-// add.
-template <int D, bool PRE>
+// acc[n] += x . Z[z0 .. z0 + 16)[8n .. 8n + 8) for every n8 tile of the NC
+// columns from Z (rows of D), in 3xTF32: x is 16 rows x 16 of the k axis
+// held as two n8 accumulators, each the A fragment of one k8 step with k
+// permuted (its columns 2t and 2t + 1 at k positions t and t + 4), and Z's
+// rows are read in the same order, from its split copies Zb and Zs when PRE,
+// else from the raw tile Zb.  The piece's 6 products go into a fresh
+// accumulator, added to acc by one f32 add.
+template <int D, bool PRE, int NC = D>
 __device__ __forceinline__ void accumulate16_tf32(float (*acc)[4], const float x[2][4],
                                                   const float* Zb, const float* Zs, int z0,
                                                   const LanesF32& ln) {
@@ -917,7 +999,7 @@ __device__ __forceinline__ void accumulate16_tf32(float (*acc)[4], const float x
   }
   const int off = (z0 + 2 * ln.t) * ldf<D>() + ln.g;
 #pragma unroll
-  for (int n = 0; n < D / 8; ++n) {
+  for (int n = 0; n < NC / 8; ++n) {
     float c[4] = {};
 #pragma unroll
     for (int j = 0; j < 2; ++j) {
@@ -963,10 +1045,11 @@ __device__ __forceinline__ float prob_f32(float s, float scale, float x) {
 
 // The streamed side of a tf32 kernel: two tiles (K and V, or Q and dO) a
 // step, from raw copies double-buffered (!presplit) or from split copies
-// refilled from one raw copy each (presplit).  Its shared memory: 6 tiles.
+// refilled from one raw copy each (presplit).  Its shared memory: 6 tiles
+// of F32Tile<D>::R rows.
 template <int D>
 struct Stream {
-  static constexpr int LT = TILE * ldf<D>();
+  static constexpr int LT = F32Tile<D>::R * ldf<D>();
   float* base;
   // the raw tile j (0, 1) that step `it`'s copies go to
   __device__ __forceinline__ float* raw(int j, int it) const {
@@ -998,12 +1081,13 @@ struct Stream {
 // registers; their tiles' room then takes the split K and V); at D 128
 // they are re-read from shared memory and split there.
 template <int D>
-__global__ void __launch_bounds__(MMA_NT)
+__global__ void __launch_bounds__(F32Tile<D>::NT)
     dq_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                    const float* __restrict__ v, const float* __restrict__ dout,
                    const float* __restrict__ lse, const float* __restrict__ delta,
                    float* __restrict__ dq, Geom g, float scale, int causal) {
-  constexpr int LT = TILE * ldf<D>();  // floats of one tile
+  constexpr int R = F32Tile<D>::R;  // rows of a tile
+  constexpr int LT = R * ldf<D>();   // floats of one tile
   constexpr bool PRE = presplit<D>();
   constexpr AFrom FROM = PRE ? SPLIT : SMEM;
   constexpr int NF = PRE ? D / 8 : 1;
@@ -1017,11 +1101,11 @@ __global__ void __launch_bounds__(MMA_NT)
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const LanesF32 ln(lane);
-  const int nt = (g.t + TILE - 1) / TILE;
+  const int nt = (g.t + R - 1) / R;
   const int qb = nt - 1 - blockIdx.x;  // the longest causal rows start first
   const int b = blockIdx.y / g.h, h = blockIdx.y % g.h;
   const long long base = b * g.sb + (long long)h * D;
-  const int q0 = qb * TILE;
+  const int q0 = qb * R;
   const int k_end = causal ? qb + 1 : nt;
 
   load_tile_f32<D>(Qs, q + base, q0, g);
@@ -1061,13 +1145,13 @@ __global__ void __launch_bounds__(MMA_NT)
 
   for (int kb = 0; kb < k_end; ++kb) {
     if (kb + 1 < k_end) {  // the next tile's copies, in flight during this one
-      load_tile_f32<D>(kv.raw(0, kb + 1), k + base, (kb + 1) * TILE, g);
-      load_tile_f32<D>(kv.raw(1, kb + 1), v + base, (kb + 1) * TILE, g);
+      load_tile_f32<D>(kv.raw(0, kb + 1), k + base, (kb + 1) * R, g);
+      load_tile_f32<D>(kv.raw(1, kb + 1), v + base, (kb + 1) * R, g);
       cp_async_commit();
     }
-    const int k0 = kb * TILE;
+    const int k0 = kb * R;
 #pragma unroll
-    for (int c = 0; c < TILE / 16; ++c) {
+    for (int c = 0; c < R / 16; ++c) {
       const int kc = k0 + 16 * c;  // this piece's first key
       // wholly masked for this warp: past the diagonal, past T
       if ((causal && kc > w0 + 15) || kc >= g.t || w0 >= g.t) continue;
@@ -1108,24 +1192,28 @@ __global__ void __launch_bounds__(MMA_NT)
   store_rows_f32<D>(dq + base, acc, scale, w0, g, lane);
 }
 
-// f32 dK/dV: one block per (k tile, batch-head), each warp 16 keys, looping
-// over the live q tiles, key-major: s^T = K.Q^T, dp^T = V.dO^T;
-// dv = sum_q p^T.dout, dk = scale sum_q ds^T.q.  K's and V's raw A
+// f32 dK/dV: one block per (k tile, batch-head, column part), each warp 16
+// keys, looping over the live q tiles, key-major: s^T = K.Q^T, dp^T =
+// V.dO^T; dv = sum_q p^T.dout, dk = scale sum_q ds^T.q, on the block's NC
+// columns of dk and dv (all D but above 128: dkv_splits).  K's and V's raw A
 // fragments are held in registers at D <= 64 (D registers; their tiles'
 // room then takes the split Q and dO) and split as they are used; at D 128,
 // with the dk and dv accumulators taking 128 registers, they are re-read
-// from shared memory.
+// from shared memory, and so at D 256 (32-row tiles; a block's 128 columns
+// of dk and dv take those 128 registers there).
 template <int D>
-__global__ void __launch_bounds__(MMA_NT)
+__global__ void __launch_bounds__(F32Tile<D>::NT)
     dkv_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                     const float* __restrict__ v, const float* __restrict__ dout,
                     const float* __restrict__ lse, const float* __restrict__ delta,
                     float* __restrict__ dk, float* __restrict__ dv, Geom g, float scale,
                     int causal) {
-  constexpr int LT = TILE * ldf<D>();
+  constexpr int R = F32Tile<D>::R;          // rows of a tile
+  constexpr int LT = R * ldf<D>();
   constexpr bool PRE = presplit<D>();
   constexpr AFrom FROM = PRE ? RAW : SMEM;
   constexpr int NF = PRE ? D / 8 : 1;
+  constexpr int NC = D / dkv_splits<D>();  // this block's output columns
   extern __shared__ float4 smem4[];
   float* sm = reinterpret_cast<float*>(smem4);
   // !PRE: [K, V, Q 2 stages, dO 2 stages]; PRE: [Q, dO raw, Q big, small,
@@ -1138,22 +1226,23 @@ __global__ void __launch_bounds__(MMA_NT)
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const LanesF32 ln(lane);
-  const int nt = (g.t + TILE - 1) / TILE;
+  const int nt = (g.t + R - 1) / R;
   const int kb = blockIdx.x;  // the longest causal columns start first
   const int b = blockIdx.y / g.h, h = blockIdx.y % g.h;
   const long long base = b * g.sb + (long long)h * D;
-  const int k0 = kb * TILE;
+  const int k0 = kb * R;
   const int q_begin = causal ? kb : 0;
+  const int c0 = blockIdx.z * NC;  // the first of them
 
   // step it's (q tile qb's) Q, dO, lse and delta
   auto load_q_tile = [&](int qb, int it) {
-    const int q0 = qb * TILE;
+    const int q0 = qb * R;
     load_tile_f32<D>(qdo.raw(0, it), q + base, q0, g);
     load_tile_f32<D>(qdo.raw(1, it), dout + base, q0, g);
-    const int r = threadIdx.x % TILE, qi = q0 + r;
-    const float* src = threadIdx.x < TILE ? lse : delta;
+    const int r = threadIdx.x % R, qi = q0 + r;
+    const float* src = threadIdx.x < R ? lse : delta;
     const long long si = ((long long)b * g.t + qi) * g.h + h;
-    cp_async4(stat + (it & 1) * 2 * TILE + threadIdx.x, qi < g.t ? src + si : src, qi < g.t);
+    cp_async4(stat + (it & 1) * 2 * R + threadIdx.x, qi < g.t ? src + si : src, qi < g.t);
   };
 
   load_tile_f32<D>(Ks, k + base, k0, g);
@@ -1162,9 +1251,9 @@ __global__ void __launch_bounds__(MMA_NT)
   cp_async_commit();
 
   const int w0 = k0 + warp * 16;  // this warp's first key
-  float dk_acc[D / 8][4], dv_acc[D / 8][4];
+  float dk_acc[NC / 8][4], dv_acc[NC / 8][4];
 #pragma unroll
-  for (int n = 0; n < D / 8; ++n)
+  for (int n = 0; n < NC / 8; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) dk_acc[n][e] = dv_acc[n][e] = 0.f;
 
@@ -1185,11 +1274,11 @@ __global__ void __launch_bounds__(MMA_NT)
       load_q_tile(qb + 1, it + 1);
       cp_async_commit();
     }
-    const float* lse_c = stat + (it & 1) * 2 * TILE;
-    const float* delta_c = lse_c + TILE;
-    const int q0 = qb * TILE;
+    const float* lse_c = stat + (it & 1) * 2 * R;
+    const float* delta_c = lse_c + R;
+    const int q0 = qb * R;
 #pragma unroll
-    for (int c = 0; c < TILE / 16; ++c) {
+    for (int c = 0; c < R / 16; ++c) {
       const int qc = q0 + 16 * c;  // this piece's first query
       // wholly masked for this warp: before the diagonal, past T
       if ((causal && qc + 15 < w0) || qc >= g.t || w0 >= g.t) continue;
@@ -1224,8 +1313,9 @@ __global__ void __launch_bounds__(MMA_NT)
         to_p_ds(std::true_type{});
       else
         to_p_ds(std::false_type{});
-      accumulate16_tf32<D, PRE>(dv_acc, st, qdo.big(1, it), qdo.small(1), 16 * c, ln);
-      accumulate16_tf32<D, PRE>(dk_acc, dpt, qdo.big(0, it), qdo.small(0), 16 * c, ln);
+      // this block's columns of dO and Q (c0 is 0 where split copies are read)
+      accumulate16_tf32<D, PRE, NC>(dv_acc, st, qdo.big(1, it) + c0, qdo.small(1), 16 * c, ln);
+      accumulate16_tf32<D, PRE, NC>(dk_acc, dpt, qdo.big(0, it) + c0, qdo.small(0), 16 * c, ln);
     }
     cp_async_wait_all();
     __syncthreads();  // the next tile has landed; this one is consumed
@@ -1234,8 +1324,8 @@ __global__ void __launch_bounds__(MMA_NT)
       __syncthreads();
     }
   }
-  store_rows_f32<D>(dk + base, dk_acc, scale, w0, g, lane);
-  store_rows_f32<D>(dv + base, dv_acc, 1.f, w0, g, lane);
+  store_rows_f32<NC>(dk + base + c0, dk_acc, scale, w0, g, lane);
+  store_rows_f32<NC>(dv + base + c0, dv_acc, 1.f, w0, g, lane);
 }
 
 // f32 forward: one block per (q tile, batch-head), each warp 16 query rows, in
@@ -1250,15 +1340,16 @@ __global__ void __launch_bounds__(MMA_NT)
 // accumulators; p enters P.V from the accumulators with k permuted, each
 // piece's products in a fresh accumulator added in f32.  Q's split A
 // fragments are held in registers at D <= 64 (D registers; its tile's room
-// then takes the split K and V); at D 128 they are re-read from shared
-// memory and split there, and K and V are double-buffered raw.  Rows at or
-// past T (m NEG_INF, l 0) are not written.
+// then takes the split K and V); at D 128 and 256 (32-row tiles there) they
+// are re-read from shared memory and split there, and K and V are
+// double-buffered raw.  Rows at or past T (m NEG_INF, l 0) are not written.
 template <int D>
-__global__ void __launch_bounds__(MMA_NT)
+__global__ void __launch_bounds__(F32Tile<D>::NT)
     fwd_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                     const float* __restrict__ v, float* __restrict__ o, float* __restrict__ lse,
                     Geom g, float scale, int causal) {
-  constexpr int LT = TILE * ldf<D>();
+  constexpr int R = F32Tile<D>::R;  // rows of a tile
+  constexpr int LT = R * ldf<D>();
   constexpr bool PRE = presplit<D>();
   constexpr AFrom FROM = PRE ? SPLIT : SMEM;
   constexpr int NF = PRE ? D / 8 : 1;
@@ -1271,11 +1362,11 @@ __global__ void __launch_bounds__(MMA_NT)
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const LanesF32 ln(lane);
-  const int nt = (g.t + TILE - 1) / TILE;
+  const int nt = (g.t + R - 1) / R;
   const int qb = nt - 1 - blockIdx.x;  // the longest causal rows start first
   const int b = blockIdx.y / g.h, h = blockIdx.y % g.h;
   const long long base = b * g.sb + (long long)h * D;
-  const int q0 = qb * TILE;
+  const int q0 = qb * R;
   const int k_end = causal ? qb + 1 : nt;
 
   load_tile_f32<D>(Qs, q + base, q0, g);
@@ -1306,15 +1397,15 @@ __global__ void __launch_bounds__(MMA_NT)
 
   for (int kb = 0; kb < k_end; ++kb) {
     if (kb + 1 < k_end) {  // the next tile's copies, in flight during this one
-      load_tile_f32<D>(kv.raw(0, kb + 1), k + base, (kb + 1) * TILE, g);
-      load_tile_f32<D>(kv.raw(1, kb + 1), v + base, (kb + 1) * TILE, g);
+      load_tile_f32<D>(kv.raw(0, kb + 1), k + base, (kb + 1) * R, g);
+      load_tile_f32<D>(kv.raw(1, kb + 1), v + base, (kb + 1) * R, g);
       cp_async_commit();
     }
-    const KeyPieces pc{kb * TILE, w0, g.t, causal, lane};
+    const KeyPieces<R> pc{kb * R, w0, g.t, causal, lane};
 
-    float s[TILE / 8][4] = {};  // 16 rows x 64 keys: n8 tile 2c + j is keys 16c + 8j ..
+    float s[R / 8][4] = {};  // 16 rows x R keys: n8 tile 2c + j is keys 16c + 8j ..
 #pragma unroll
-    for (int c = 0; c < TILE / 16; ++c)
+    for (int c = 0; c < R / 16; ++c)
       if (!pc.dead(c))
         scores16_tf32<D, FROM, PRE>(&s[2 * c], qfb, qfs, Qs, warp * 16, kv.big(0, kb),
                                     kv.small(0), 16 * c, ln);
@@ -1386,26 +1477,37 @@ __global__ void __launch_bounds__(MMA_NT)
 // ---------------------------------------------------------------------------
 // launchers
 
+constexpr size_t SMEM_MAX = 232448;  // a block's dynamic shared memory on Hopper
 template <int D>
 constexpr size_t fwd_mma_smem() { return 5 * TILE * ldb<D>() * sizeof(bf16); }
-static_assert(fwd_mma_smem<128>() <= 232448, "forward tile exceeds a block's shared memory");
+static_assert(fwd_mma_smem<128>() <= SMEM_MAX && fwd_mma_smem<256>() <= SMEM_MAX,
+              "forward tile exceeds a block's shared memory");
 template <int D>
 constexpr size_t dq_mma_smem() { return 6 * TILE * ldb<D>() * sizeof(bf16); }
+static_assert(dq_mma_smem<128>() <= SMEM_MAX && dq_mma_smem<256>() <= SMEM_MAX,
+              "dQ tile exceeds a block's shared memory");
 template <int D>
 constexpr size_t dkv_mma_smem() { return 6 * TILE * ldb<D>() * sizeof(bf16) + 4 * TILE * sizeof(float); }
-static_assert(dkv_mma_smem<128>() <= 232448, "dK/dV tile exceeds a block's shared memory");
+static_assert(dkv_mma_smem<128>() <= SMEM_MAX && dkv_mma_smem<256>() <= SMEM_MAX,
+              "dK/dV tile exceeds a block's shared memory");
+template <int D>
+constexpr size_t tile_f32_bytes() { return F32Tile<D>::R * ldf<D>() * sizeof(float); }
 template <int D>
 constexpr size_t fwd_tf32_smem() {  // the split K and V and two raw tiles, or Q and two stages
-  return (presplit<D>() ? 6 : 5) * TILE * ldf<D>() * sizeof(float);
+  return (presplit<D>() ? 6 : 5) * tile_f32_bytes<D>();
 }
-static_assert(fwd_tf32_smem<128>() <= 232448, "f32 forward tile exceeds a block's shared memory");
+static_assert(fwd_tf32_smem<128>() <= SMEM_MAX && fwd_tf32_smem<256>() <= SMEM_MAX,
+              "f32 forward tile exceeds a block's shared memory");
 template <int D>
-constexpr size_t dq_tf32_smem() { return 6 * TILE * ldf<D>() * sizeof(float); }
+constexpr size_t dq_tf32_smem() { return 6 * tile_f32_bytes<D>(); }
+static_assert(dq_tf32_smem<128>() <= SMEM_MAX && dq_tf32_smem<256>() <= SMEM_MAX,
+              "f32 dQ tile exceeds a block's shared memory");
 template <int D>
 constexpr size_t dkv_tf32_smem() {
-  return 6 * TILE * ldf<D>() * sizeof(float) + 4 * TILE * sizeof(float);
+  return 6 * tile_f32_bytes<D>() + 4 * F32Tile<D>::R * sizeof(float);
 }
-static_assert(dkv_tf32_smem<128>() <= 232448, "f32 dK/dV tile exceeds a block's shared memory");
+static_assert(dkv_tf32_smem<128>() <= SMEM_MAX && dkv_tf32_smem<256>() <= SMEM_MAX,
+              "f32 dK/dV tile exceeds a block's shared memory");
 
 Geom make_geom(int t, int h, int d) {
   Geom g;
@@ -1421,11 +1523,17 @@ cudaError_t prepare(K kernel, size_t smem) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
+// a kernel's grid: its q (or k) tiles of `rows` rows, the (batch, head)
+// pairs, and the column parts
+dim3 grid_of(int t, int b, int h, int rows, int parts = 1) {
+  return dim3((t + rows - 1) / rows, b * h, parts);
+}
+
 template <typename T, int D>
 cudaError_t run_fwd(const void* q, const void* k, const void* v, void* o, void* lse, int b, int t,
                     int h, int causal, float scale, cudaStream_t stream) {
-  const dim3 grid((t + TILE - 1) / TILE, b * h);
   if constexpr (std::is_same_v<T, bf16>) {
+    const dim3 grid = grid_of(t, b, h, TILE);
     const size_t smem = fwd_mma_smem<D>();
     cudaError_t e = prepare(fwd_mma_kernel<D>, smem);
     if (e != cudaSuccess) return e;
@@ -1434,10 +1542,11 @@ cudaError_t run_fwd(const void* q, const void* k, const void* v, void* o, void* 
         static_cast<bf16*>(o), static_cast<float*>(lse), make_geom(t, h, D), scale, causal);
     return cudaGetLastError();
   } else {
+    const dim3 grid = grid_of(t, b, h, F32Tile<D>::R);
     const size_t smem = fwd_tf32_smem<D>();
     cudaError_t e = prepare(fwd_tf32_kernel<D>, smem);
     if (e != cudaSuccess) return e;
-    fwd_tf32_kernel<D><<<grid, MMA_NT, smem, stream>>>(
+    fwd_tf32_kernel<D><<<grid, F32Tile<D>::NT, smem, stream>>>(
         static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
         static_cast<float*>(o), static_cast<float*>(lse), make_geom(t, h, D), scale, causal);
     return cudaGetLastError();
@@ -1448,8 +1557,8 @@ template <typename T, int D>
 cudaError_t run_dq(const void* q, const void* k, const void* v, const void* dout, const void* lse,
                    const void* delta, void* dq, int b, int t, int h, int causal, float scale,
                    cudaStream_t stream) {
-  const dim3 grid((t + TILE - 1) / TILE, b * h);
   if constexpr (std::is_same_v<T, bf16>) {
+    const dim3 grid = grid_of(t, b, h, TILE);
     const size_t smem = dq_mma_smem<D>();
     cudaError_t e = prepare(dq_mma_kernel<D>, smem);
     if (e != cudaSuccess) return e;
@@ -1460,10 +1569,11 @@ cudaError_t run_dq(const void* q, const void* k, const void* v, const void* dout
         causal);
     return cudaGetLastError();
   } else {
+    const dim3 grid = grid_of(t, b, h, F32Tile<D>::R);
     const size_t smem = dq_tf32_smem<D>();
     cudaError_t e = prepare(dq_tf32_kernel<D>, smem);
     if (e != cudaSuccess) return e;
-    dq_tf32_kernel<D><<<grid, MMA_NT, smem, stream>>>(
+    dq_tf32_kernel<D><<<grid, F32Tile<D>::NT, smem, stream>>>(
         static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
         static_cast<const float*>(dout), static_cast<const float*>(lse),
         static_cast<const float*>(delta), static_cast<float*>(dq), make_geom(t, h, D), scale,
@@ -1476,8 +1586,8 @@ template <typename T, int D>
 cudaError_t run_dkv(const void* q, const void* k, const void* v, const void* dout,
                     const void* lse, const void* delta, void* dk, void* dv, int b, int t, int h,
                     int causal, float scale, cudaStream_t stream) {
-  const dim3 grid((t + TILE - 1) / TILE, b * h);
   if constexpr (std::is_same_v<T, bf16>) {
+    const dim3 grid = grid_of(t, b, h, TILE, dkv_splits<D>());
     const size_t smem = dkv_mma_smem<D>();
     cudaError_t e = prepare(dkv_mma_kernel<D>, smem);
     if (e != cudaSuccess) return e;
@@ -1488,10 +1598,11 @@ cudaError_t run_dkv(const void* q, const void* k, const void* v, const void* dou
         make_geom(t, h, D), scale, causal);
     return cudaGetLastError();
   } else {
+    const dim3 grid = grid_of(t, b, h, F32Tile<D>::R, dkv_splits<D>());
     const size_t smem = dkv_tf32_smem<D>();
     cudaError_t e = prepare(dkv_tf32_kernel<D>, smem);
     if (e != cudaSuccess) return e;
-    dkv_tf32_kernel<D><<<grid, MMA_NT, smem, stream>>>(
+    dkv_tf32_kernel<D><<<grid, F32Tile<D>::NT, smem, stream>>>(
         static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
         static_cast<const float*>(dout), static_cast<const float*>(lse),
         static_cast<const float*>(delta), static_cast<float*>(dk), static_cast<float*>(dv),
@@ -1500,7 +1611,7 @@ cudaError_t run_dkv(const void* q, const void* k, const void* v, const void* dou
   }
 }
 
-// dtype: 0 float32, 1 bfloat16; d: 16, 32, 64 or 128
+// dtype: 0 float32, 1 bfloat16; d: 16, 32, 64, 128 or 256
 #define ZNICZ_DISPATCH(dtype, d, CALL)                                  \
   do {                                                                  \
     if ((dtype) == 0) {                                                 \
@@ -1510,6 +1621,7 @@ cudaError_t run_dkv(const void* q, const void* k, const void* v, const void* dou
         case 32: { constexpr int D = 32; return (int)(CALL); }          \
         case 64: { constexpr int D = 64; return (int)(CALL); }          \
         case 128: { constexpr int D = 128; return (int)(CALL); }        \
+        case 256: { constexpr int D = 256; return (int)(CALL); }        \
       }                                                                 \
     } else if ((dtype) == 1) {                                          \
       using T = __nv_bfloat16;                                          \
@@ -1518,6 +1630,7 @@ cudaError_t run_dkv(const void* q, const void* k, const void* v, const void* dou
         case 32: { constexpr int D = 32; return (int)(CALL); }          \
         case 64: { constexpr int D = 64; return (int)(CALL); }          \
         case 128: { constexpr int D = 128; return (int)(CALL); }        \
+        case 256: { constexpr int D = 256; return (int)(CALL); }        \
       }                                                                 \
     }                                                                   \
     return (int)cudaErrorInvalidValue;                                  \
@@ -1563,6 +1676,7 @@ int znicz_flash_smem_bytes(int which, int d, int dtype) {
     case 32: ZNICZ_SMEM(32);
     case 64: ZNICZ_SMEM(64);
     case 128: ZNICZ_SMEM(128);
+    case 256: ZNICZ_SMEM(256);
   }
 #undef ZNICZ_SMEM
   return -1;

@@ -53,13 +53,19 @@ call sites load unchanged, and are ignored (the TPU's 512 x 512 blocks were
 a VMEM choice).
 
 :func:`flash_attention_lse` takes what JAX's kernel takes up to head dim
-128: its autograd layer makes the inputs contiguous and 16-byte aligned,
-and zero-pads a head dim between the kernels' 16, 32, 64 and 128 up to the
-next (exact: zero columns change no score, and give zero output and
-gradient columns), with the scale of the true head dim.  Above 128 it
-raises ``NotImplementedError`` on the card (``attention="auto"`` takes the
-dense path there).  The counted wrappers launch a B*H above the grid's 65535
-a batch slice at a time.
+256: its autograd layer makes the inputs contiguous and 16-byte aligned,
+and zero-pads a head dim between the kernels' 16, 32, 64, 128 and 256 up to
+the next (exact: zero columns change no score, and give zero output and
+gradient columns), with the scale of the true head dim.  Head dim 256 costs
+registers and shared memory: a warp's 16 x 256 f32 output accumulator takes
+128 registers a thread, so the forward and dQ re-read Q's (and dO's)
+operand fragments from shared memory instead of holding them, and dK/dV
+splits D's output columns between two blocks (each recomputes the full-D
+scores, about 1.5 times the products); a 64-row f32 tile is 66,560 bytes
+there, so the f32 kernels take 32-row tiles (two warps a block).  Above
+256 it raises ``NotImplementedError`` on the card (``attention="auto"``
+takes the dense path there).  The counted wrappers launch a B*H above the
+grid's 65535 a batch slice at a time.
 
 The layout stays BTHD ``[B, T, H, D]`` (``lse``: ``[B, T, H]``); the
 kernels read it through strides, so the JAX package's ``[B*H, T, D]``
@@ -91,7 +97,7 @@ from znicz_tpu_torch.ops.kernels import cuda_build
 BLOCK_Q = 512  # the JAX package's defaults, accepted and ignored
 BLOCK_K = 512
 NEG_INF = -1e30
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 128, 256)
 MAX_GRID_Y = 65535  # (batch, head) pairs of one launch
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}  # the C interface's dtype codes
 
@@ -289,7 +295,7 @@ flash_fwd.last_shape = flash_dq.last_shape = flash_dkv.last_shape = None
 
 def kernel_head_dim(d: int) -> Optional[int]:
     """The head dim the kernels run a head dim ``d`` at: the next of
-    :data:`HEAD_DIMS`, the columns past ``d`` zero; None above 128."""
+    :data:`HEAD_DIMS`, the columns past ``d`` zero; None above 256."""
     return next((k for k in HEAD_DIMS if k >= d), None)
 
 
@@ -353,8 +359,8 @@ def flash_attention_lse(
     del block_q, block_k
     if q.device.type == "cuda" and kernel_head_dim(q.shape[-1]) is None:
         raise NotImplementedError(
-            f"flash attention at head dim {q.shape[-1]} (above 128) has no kernel yet "
-            f"(ROADMAP.md B6, a D-256 instantiation); use attention='dot'"
+            f"flash attention at head dim {q.shape[-1]} (above {HEAD_DIMS[-1]}) has no kernel "
+            f"yet (ROADMAP.md B7); use attention='dot'"
         )
     if scale is None:  # the true head dim's, before any padding
         scale = 1.0 / math.sqrt(q.shape[-1])

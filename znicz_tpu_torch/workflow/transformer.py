@@ -738,9 +738,9 @@ class TransformerLMWorkflow(Workflow):
 
     def _attention_fn_base(self):
         """The flash kernels where the JAX package picks its kernel on the
-        TPU (here: on the card, at a head dim the kernels take) or where
-        asked; else None (dense).  Under ``sequence_parallel`` the ring,
-        whose inner blocks are the flash kernels by the same rule."""
+        TPU (here: on the card, at a head dim the kernels take, up to 256)
+        or where asked; else None (dense).  Under ``sequence_parallel`` the
+        ring, whose inner blocks are the flash kernels by the same rule."""
         on_card = self.device.type == "cuda"
         has_kernel = kernel_head_dim(self.d_model // self.n_heads) is not None
         flash = self.attention == "flash" or (
